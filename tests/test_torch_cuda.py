@@ -1,0 +1,101 @@
+"""The port's CUDA kernels on the card: each against its plain version.
+
+Every test here needs an NVIDIA GPU and nvcc and skips without them (a CUDA
+kernel has no CPU mode). The file imports neither JAX nor the JAX package,
+so it runs on a machine with only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from yolo_ad_refine_tpu_torch.ops.deform import deform_conv2d_plain, modulated_deform_conv2d
+from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _dcn(dev, dtype, b=2, h=40, w=40, c=64, cout=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+    off = (torch.randn(b, h, w, 18, generator=g) * 5.0).to(dev)
+    mask = torch.rand(b, h, w, 9, generator=g).to(dev)
+    wt = (torch.randn(3, 3, c, cout, generator=g) / math.sqrt(9 * c)).to(dev, dtype)
+    return x, off, mask, wt
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("radius", [None, 3])
+@pytest.mark.parametrize("shape", [(2, 40, 40, 64, 64), (3, 13, 29, 48, 80)])
+def test_dcn_kernel_matches_plain(dev, dtype, tol, radius, shape):
+    """fp32 to 1e-4 (sums in another order); bf16 to 5e-2 (the plain
+    version rounds the samples to bf16 before the contraction, the kernel
+    keeps them in fp32). The second shape has channel counts that are not
+    multiples of the kernel's 64-wide tiles and a ragged pixel tile."""
+    dt = getattr(torch, dtype)
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout)
+    launches = modulated_deform_conv2d.launches
+    got = modulated_deform_conv2d(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), radius)
+    torch.cuda.synchronize()
+    assert modulated_deform_conv2d.launches == launches + 1
+    assert got.dtype == dt and got.shape == (b, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = deform_conv2d_plain(x, off, mask, wt, radius).float()
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(), want, atol=tol, rtol=tol)
+
+
+def test_dcn_wrapper_rejects_bad_inputs(dev):
+    x, off, mask, wt = _dcn(dev, torch.float32, 1, 8, 8, 16, 16)
+    args = [x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+            wt.permute(3, 2, 0, 1)]
+    with pytest.raises(ValueError, match="channels_last"):
+        modulated_deform_conv2d(x.permute(0, 3, 1, 2).contiguous(), *args[1:])
+    with pytest.raises(TypeError):
+        modulated_deform_conv2d(args[0], args[1].half(), *args[2:])
+    with pytest.raises(ValueError):
+        modulated_deform_conv2d(*args[:3], args[3][:, :8])
+
+
+@pytest.mark.parametrize("b,k", [(32, 2048), (2, 1000), (1, 64), (4, 65)])
+def test_nms_kernel_keep_mask_equals_plain(dev, b, k):
+    g = torch.Generator().manual_seed(k)
+    cxy = torch.rand(b, k, 2, generator=g) * 300
+    wh = torch.rand(b, k, 2, generator=g) * 80 + 4
+    boxes = torch.cat([cxy - wh / 2, cxy + wh / 2], -1).to(dev)
+    scores = ((torch.rand(b, k, generator=g) * 16).round() / 16).sort(
+        dim=1, descending=True, stable=True).values.to(dev)
+    launches = suppress.launches
+    got = suppress(boxes, scores, 0.5, 0.1)
+    torch.cuda.synchronize()
+    assert suppress.launches == launches + 1
+    want = suppress_plain(boxes, scores, 0.5, 0.1)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < b * k
+
+
+def test_flagship_predict_launches_both_kernels(dev):
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    model = YOLO("yolo11-701-YOLO-AD-Refine.yaml", device=dev, imgsz=128)
+    r = np.random.default_rng(0)
+    imgs = [r.integers(0, 256, (100, 140, 3), dtype=np.uint8),
+            r.integers(0, 256, (150, 90, 3), dtype=np.uint8)]
+    modulated_deform_conv2d.launches = suppress.launches = 0
+    results = model.predict(imgs, imgsz=128, conf=0.001, batch=2)
+    assert modulated_deform_conv2d.launches == 3 and suppress.launches == 1
+    assert all(len(res) > 0 and np.isfinite(res.boxes.data).all() for res in results)

@@ -1,0 +1,98 @@
+"""The PyTorch port stands alone: no JAX, no flax, nothing of the JAX package;
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yolo_ad_refine_tpu")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        # exact package names: yolo_ad_refine_tpu_torch is not yolo_ad_refine_tpu
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import yolo_ad_refine_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke  # its own imports; the port's are inside its phases
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+
+
+def test_yolo_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        YOLO("yolo11-701-YOLO-AD-Refine.yaml")
+
+
+def test_build_detection_model_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_detection_model("yolo11-701-YOLO-AD-Refine.yaml")
+
+
+def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
+    from yolo_ad_refine_tpu_torch.engine import profile_predict
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_predict.main([])
+
+
+@pytest.mark.parametrize("name,family", [
+    ("dcn_fwd_kernel<float>", "K1 dcn_forward"),
+    ("nms_reduce_kernel", "K4 nms_suppress"),
+    ("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float>", "normalisation"),
+    ("sm90_xmma_fprop_implicit_gemm_f32f32", "convolution"),
+    ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),
+    ("Memcpy HtoD (Pageable -> Device)", "copy"),
+    ("some_unknown_kernel", "other"),
+])
+def test_profile_predict_kernel_family(name, family):
+    from yolo_ad_refine_tpu_torch.engine.profile_predict import kernel_family
+
+    assert kernel_family(name) == family
+
+
+def test_chip_smoke_fails_without_cuda():
+    """No card: the script exits non-zero and prints no result."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo."""
+    (tmp_path / "chip_smoke.py").write_bytes((REPO / "chip_smoke.py").read_bytes())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
