@@ -6,16 +6,29 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``yolo_ad_refine_tpu_torch/csrc``
-(one nvcc per source, all started together), holds each kernel against its
-plain PyTorch version at the shapes of the flagship's predict path, times
-both, then serves 64 synthetic images through ``YOLO(...).predict`` with the
-flagship YOLO-AD-Refine at imgsz 640 and checks that the path launched every
-kernel and agrees with the same model on the CPU. Any failed phase raises
-and the script exits non-zero. The last line is the device record
-``{"ok": true, "device": {...}}``; the line before the card's name and power
-limit, and the one before that the kernels' measurements. Without CUDA, or
-without the package beside it, it fails before printing any result. Where
-one predict batch's time goes is the job of
+(one nvcc per source, all started together), holds each kernel (K1 DCN
+forward, K1 DCN backward, K4 NMS) against its plain PyTorch version at the
+shapes of the flagship's paths and times both. Then it drives the two paths
+through the user's entry points, each with the launch counts set to 0 just
+before it and read just after:
+
+- serving: 64 synthetic images through ``YOLO(...).predict`` with the
+  flagship YOLO-AD-Refine at imgsz 640, checked against the same model on
+  the CPU;
+- training: ``YOLO(...).train`` on a synthetic shapes set written to a
+  temporary directory (64 train, 16 val images), 1 epoch at batch 16,
+  imgsz 640, bf16 autocast: 4 steps, the EMA validation through K1 fwd and
+  K4, the checkpoints, and a reload of ``best``;
+
+and holds one fp32 train step on the card against the same step on the
+CPU. Any failed phase raises and the script exits non-zero. The last line is
+the device record ``{"ok": true, "device": {...}}``; the line before the
+card's name and power limit, and the one before that the kernels'
+measurements: ``launches`` from the training run with each path's own count
+under ``launches_by_path``; K1 bwd in fp32 with its bf16 numbers under
+``bfloat16``, each against the bound of its own precision. Without CUDA,
+or without the package beside it, it fails before printing any result.
+Where one predict batch's time goes is the job of
 ``python -m yolo_ad_refine_tpu_torch.engine.profile_predict``.
 """
 
@@ -24,17 +37,23 @@ from __future__ import annotations
 import copy
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 FLAGSHIP = "yolo11-701-YOLO-AD-Refine.yaml"
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores, H100 SXM data sheet
+BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores (fp32 accumulate), dense, data sheet
 LEVELS = (80, 40, 20)        # AYHead DCN maps at imgsz 640, C = Cout = 64
 C = 64
 K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}  # (atol, rtol)
+K1_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # max |kernel - plain| / max |plain|
+GRADS = ("dx", "doffset", "dmask", "dweight")
+LEAF_TOL = 1e-3  # card vs CPU train step, relative norm of each gradient leaf
 
 
 def log(msg: str) -> None:
@@ -115,6 +134,98 @@ def phase_k1(dev, gen):
         f"bound {bound_ms:.4f} ms")
     return {"max_abs_err": max_err["float32"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if by_ops else "bytes"}
+
+
+def k1_bwd_work(b: int, s: int, itemsize: int) -> tuple[float, float, float]:
+    """(bytes, product flops, other flops) K1 bwd must move and do at one
+    level: x, offset, mask, weight and g read once, dx, doffset, dmask and
+    dweight written once; per pixel and tap the two C x Cout products
+    (g . W_t^T and the dW_t update, GEMM-shaped), and besides them the
+    4-corner sampling recompute, the corner dot products and the dx scatter
+    (~24 flops a channel) and ~30 flops of coordinates."""
+    px = b * s * s
+    nbytes = (itemsize * px * (C + C + C) + 4 * px * (18 + 9) * 2
+              + itemsize * 9 * C * C * 2)
+    return nbytes, px * 9 * 4 * C * C, px * 9 * (24 * C + 30)
+
+
+def phase_k1_bwd(dev, gen):
+    """DCNv2 backward kernel vs plain (autograd of the plain forward) at the
+    three level shapes; timing at B=16, the train batch."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.ops.deform import (
+        dcn_backward, deform_conv2d_grads_plain, modulated_deform_conv2d)
+
+    # the DCN on a CUDA tensor keeps the autograd graph (slice 1 lost it)
+    x, off, mask, w = dcn_inputs(2, 20, torch.float32, gen, dev)
+    ins = [t.requires_grad_() for t in (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))]
+    y = modulated_deform_conv2d(*ins)
+    if y.grad_fn is None:
+        raise AssertionError("modulated_deform_conv2d on the card returned no grad_fn")
+    y.square().sum().backward()
+    if not all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in ins):
+        raise AssertionError("the DCN on the card gave no gradient to an input")
+    log(f"K1 on the card: output has grad_fn {type(y.grad_fn).__name__}; all four inputs "
+        "got gradients")
+
+    def run(x, off, mask, w, g, radius):
+        return dcn_backward(nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1), nchw(g), radius)
+
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for radius in (None, 3):
+            for s in LEVELS:
+                x, off, mask, w = dcn_inputs(8, s, dtype, gen, dev)
+                g = torch.randn(8, s, s, C, generator=gen).to(dev, dtype)
+                got = run(x, off, mask, w, g, radius)
+                want = deform_conv2d_grads_plain(x, off, mask, w, g, radius)
+                torch.cuda.synchronize()
+                got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
+                       got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)]
+                errs = []
+                for gname, a, e in zip(GRADS, got, want):
+                    a, e = a.float(), e.float()
+                    if a.shape != e.shape or not torch.isfinite(a).all():
+                        raise AssertionError(f"K1 bwd {name} {gname}: bad output {tuple(a.shape)}")
+                    rel = ((a - e).abs().max() / e.abs().max()).item()
+                    errs.append(rel)
+                    if rel > K1_BWD_TOL[name]:
+                        raise AssertionError(f"K1 bwd {name} radius={radius} {s}x{s} {gname}: "
+                                             f"max |kernel - plain| / max |plain| = {rel:.3e} "
+                                             f"> {K1_BWD_TOL[name]}")
+                    max_err[name] = max(max_err.get(name, 0.0), (a - e).abs().max().item())
+                log(f"K1 bwd {name:8s} radius={str(radius):4s} B=8 {s}x{s}x{C}->{C}: "
+                    f"max |kernel - plain| / max |plain| = "
+                    + ", ".join(f"{n} {e:.2e}" for n, e in zip(GRADS, errs))
+                    + f" (tol {K1_BWD_TOL[name]})")
+
+    # time the train step's work: one launch per level, B = 16
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        ms = plain_ms = bound_ms = 0.0
+        by_ops = True
+        for s in LEVELS:
+            x, off, mask, w = dcn_inputs(16, s, dtype, gen, dev)
+            g = torch.randn(16, s, s, C, generator=gen).to(dev, dtype)
+            ms += cuda_time(lambda: run(x, off, mask, w, g, None), iters=10)
+            plain_ms += cuda_time(lambda: deform_conv2d_grads_plain(x, off, mask, w, g), iters=3,
+                                  warmup=1)
+            nbytes, products, other = k1_bwd_work(16, s, x.element_size())
+            # fp32: all of it on the fp32 cores; bf16: the products could run
+            # on the tensor cores, the rest on the fp32 cores
+            t_ops = ((products / (BF16_TC_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                      + other / FP32_FLOPS) * 1e3)
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            by_ops = by_ops and t_ops >= t_bytes
+            bound_ms += max(t_bytes, t_ops)
+        times[name] = {"max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": "operations" if by_ops else "bytes"}
+        log(f"K1 bwd {name} B=16 three levels: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({times[name]['bound_by']})")
+    return times
 
 
 def nms_candidates(b: int, k: int, gen, dev):
@@ -232,6 +343,190 @@ def phase_serving(dev):
     return launches
 
 
+def phase_training(dev):
+    """YOLO(...).train on the card: 1 epoch of 4 steps at batch 16, imgsz
+    640, bf16, then the EMA validation, checkpoints and a reload of best."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+    from yolo_ad_refine_tpu_torch.ops.deform import dcn_backward, modulated_deform_conv2d
+    from yolo_ad_refine_tpu_torch.ops.nms import suppress
+
+    counters = {"dcn_forward": modulated_deform_conv2d, "dcn_backward": dcn_backward,
+                "nms_suppress": suppress}
+
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        data = make_shapes_dataset(Path(tmp) / "shapes", n_train=64, n_val=16, imgsz=640, seed=0)
+        log(f"training: synthetic shapes set (64 train, 16 val, 640 px) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+        steps, grad_checks = [], []
+        mark = {}
+
+        def on_batch_start(trainer):
+            torch.cuda.synchronize()
+            mark["counts"], mark["t"] = counts(), time.perf_counter()
+            if "end" in mark:
+                steps[-1]["data_s"] = mark["t"] - mark["end"]
+
+        def on_batch_end(trainer):
+            torch.cuda.synchronize()
+            mark["end"] = time.perf_counter()
+            now = counts()
+            steps.append({"s": mark["end"] - mark["t"],
+                          **{k: now[k] - mark["counts"][k] for k in now}})
+            mark["after_steps"] = now
+            head = trainer.model.model[trainer.model.head_idx]
+            if len(steps) == 1:  # accumulating: the grads are there until the 4th batch steps
+                for name, p in (("DyDCNV2.conv.weight", head.DyDCNV2.conv.weight),
+                                ("spatial_conv_offset.weight", head.spatial_conv_offset.weight)):
+                    g = p.grad
+                    ok = g is not None and bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
+                    grad_checks.append((name, ok, 0.0 if g is None else g.norm().item()))
+
+        model.add_callback("on_train_batch_start", on_batch_start)
+        model.add_callback("on_train_batch_end", on_batch_end)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.train(data=data, epochs=1, batch=16, imgsz=640, amp=True, plots=False,
+                              project=str(Path(tmp) / "runs"), workers=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        trainer = model.trainer
+        log(f"training: {len(steps)} steps + validation in {wall:.1f} s; "
+            f"bf16 autocast: {trainer.amp_dtype is not None}; launches in the run: {launches}")
+        if len(steps) != 4:
+            raise AssertionError(f"expected 4 train steps, got {len(steps)}")
+        for i, st in enumerate(steps):
+            log(f"training: step {i + 1}: {st['s'] * 1e3:.1f} ms, launches "
+                f"dcn_forward {st['dcn_forward']}, dcn_backward {st['dcn_backward']}"
+                + (f", data wait after it {st['data_s'] * 1e3:.1f} ms" if "data_s" in st else ""))
+            if st["dcn_forward"] != 3 or st["dcn_backward"] != 3:
+                raise AssertionError(f"step {i + 1}: K1 fwd / bwd launched {st['dcn_forward']} / "
+                                     f"{st['dcn_backward']} times, expected 3 / 3")
+        if trainer.amp_dtype is None:
+            raise AssertionError("training did not run in bf16 (the AMP canary failed)")
+        for name, ok, norm in grad_checks:
+            log(f"training: after step 1, |grad {name}| = {norm:.4e}")
+            if not ok:
+                raise AssertionError(f"gradient of {name} is missing, not finite or all zero")
+        val = {k: launches[k] - mark["after_steps"][k] for k in launches}
+        log(f"training: launches in the validations after the steps: {val}")
+        if val["dcn_forward"] == 0 or val["nms_suppress"] == 0:
+            raise AssertionError("the validation did not launch K1 fwd and K4")
+        csv = (Path(results["save_dir"]) / "results.csv").read_text().splitlines()
+        row = dict(zip(csv[0].split(","), csv[1].split(",")))
+        losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite train losses {losses}")
+        per_step = {k: steps[-1][k] for k in launches}
+        ms = statistics.median(st["s"] for st in steps[1:]) * 1e3
+        log(f"training: {ms:.1f} ms per train step (median of steps 2-4, host clock with a "
+            f"synchronise), {16 / ms * 1e3:.1f} images/s at batch 16, imgsz 640, bf16")
+        log(f"training: results.csv losses box {losses[0]:.4f} cls {losses[1]:.4f} "
+            f"dfl {losses[2]:.4f}; mAP50 {results.get('metrics/mAP50(B)', 0.0):.4f}, "
+            f"dcn_offset_max {row['train/dcn_offset_max']}")
+
+        best = Path(results["save_dir"]) / "weights" / "best"
+        reloaded = YOLO(str(best), device=dev)
+        img = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        res = reloaded.predict([img], imgsz=640, conf=0.001)
+        if not (len(res) == 1 and np.isfinite(res[0].boxes.data).all()):
+            raise AssertionError("the reloaded best checkpoint did not predict")
+        log(f"training: {best.name} reloaded ({reloaded.model.num_params():,} parameters) and "
+            f"predicted {len(res[0])} boxes")
+    return launches, per_step
+
+
+def phase_step_card_vs_cpu(dev):
+    """One fp32 SGD train step (TF32 off) at imgsz 256, batch 2, on the card
+    and on the CPU from the same weights and batch: the loss within 1e-4
+    relative and each gradient leaf within LEAF_TOL relative norm. Which
+    leaves the limit binds is a property of the leaf: where the CPU's fp32
+    gradient lies more than LEAF_TOL / 4 relative from the same step in
+    fp64, its sum cancels (a conv bias ahead of a train-mode BatchNorm, a
+    scalar gate) and fp32 rounding alone nears the limit. Such a leaf is
+    held against the fp64 step instead: the card within 4 times the CPU
+    fp32's own distance from it. The same card step with TF32 on is the
+    lower-precision control: its readings are printed, not held."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
+    from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
+    from yolo_ad_refine_tpu_torch.train.step import TrainStep, images_to_tensor
+
+    r = np.random.default_rng(2)
+    xy = r.uniform(0, 180, (2, 8, 2))
+    boxes = np.concatenate([xy, xy + r.uniform(16, 70, (2, 8, 2))], -1).astype(np.float32)
+    mask = (np.arange(8)[None, :, None] < np.array([[[6]], [[4]]])).astype(np.float32)
+    batch = {"img": r.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
+             "cls": r.integers(0, 3, (2, 8, 1)).astype(np.float32),
+             "bboxes": boxes * mask, "mask": mask}
+    base = build_detection_model(FLAGSHIP, nc=3, device="cpu", seed=3, imgsz=256)
+    opt_kw = dict(optimizer="SGD", epochs=1, nb=1, batch=2, nbs=2, warmup_epochs=0.0, nc=3)
+
+    def step(model):
+        grads = {}
+        for name, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(
+                lambda t, name=name: grads.__setitem__(name, t.grad.detach().double().cpu()))
+        opt, _, _ = build_optimizer(model.named_parameters(), **opt_kw)
+        m = TrainStep(model, DetectionLoss(nc=3, strides=(8, 16, 32)), opt, ModelEMA(model))(batch)
+        return m["loss"].item(), grads
+
+    loss_cpu, g_cpu = step(copy.deepcopy(base))
+    m64 = copy.deepcopy(base).double().train()
+    out = DetectionLoss(nc=3, strides=(8, 16, 32))(
+        m64(images_to_tensor(batch["img"], "cpu").double()),
+        *(torch.from_numpy(batch[k]).double() for k in ("cls", "bboxes", "mask")))
+    out.total.backward()
+    g64 = {n: p.grad.detach() for n, p in m64.named_parameters() if p.grad is not None}
+    cpu_off = {n: (g - g64[n]).norm().item() for n, g in g_cpu.items()}
+    cancels = {n for n, off in cpu_off.items() if off > LEAF_TOL / 4 * g64[n].norm().item()}
+
+    def compare(label, loss, grads):
+        """(loss rel, leaves over the limit, worst card / CPU distance from
+        fp64 among the cancelling leaves), with the readings logged."""
+        if set(grads) != set(g_cpu):
+            raise AssertionError(f"{label}: card and CPU steps gave gradients to different "
+                                 "parameters")
+        rel = abs(loss - loss_cpu) / abs(loss_cpu)
+        errs = sorted((((grads[n] - g).norm() / g.norm().clamp(min=1e-30)).item(), n)
+                      for n, g in g_cpu.items() if n not in cancels)
+        ratio = max(((grads[n] - g64[n]).norm().item() / max(cpu_off[n], 1e-30), n)
+                    for n in cancels)
+        over = [f"{n}: {e:.2e}" for e, n in errs if e > LEAF_TOL]
+        margin = LEAF_TOL / max(errs[-1][0], 1e-30)
+        log(f"{label}: loss {loss:.6f} vs CPU {loss_cpu:.6f} (rel {rel:.2e}, tol 1e-4); "
+            f"{len(errs)} leaves held at {LEAF_TOL} relative norm: {len(over)} over, worst "
+            + ", ".join(f"{n} {e:.2e}" for e, n in errs[:-4:-1])
+            + f" (margin {margin:.2f}x); {len(cancels)} cancelling leaves "
+            f"against fp64: worst |card - fp64| / |cpu - fp64| {ratio[0]:.2f} ({ratio[1]}, "
+            "tol 4)")
+        return rel, over, ratio[0]
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rel, over, ratio = compare("card vs CPU step, fp32", *step(copy.deepcopy(base).to(dev)))
+    if rel > 1e-4:
+        raise AssertionError("card and CPU train-step losses disagree")
+    if over or ratio > 4:
+        raise AssertionError(f"card and CPU gradients disagree: {over[:8]}, cancelling-leaf "
+                             f"ratio {ratio:.2f}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    compare("control, card step with TF32 on", *step(copy.deepcopy(base).to(dev)))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def main() -> int:
     import torch
 
@@ -260,22 +555,28 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     k1 = phase_k1(dev, gen)
+    k1b = phase_k1_bwd(dev, gen)
     k4 = phase_k4(dev, gen)
-    launches = phase_serving(dev)
+    serving = phase_serving(dev)
+    training, per_step = phase_training(dev)
+    phase_step_card_vs_cpu(dev)
+
+    def entry(name, source, replaces, measured, **extra):
+        # launches: the training run's count, and each path's own beside it
+        return {"name": name, "route": "cuda", "source": f"yolo_ad_refine_tpu_torch/csrc/{source}",
+                "replaces": f"yolo_ad_refine_tpu/{replaces}", "launches": training[name],
+                "launches_by_path": {"serving_run": serving.get(name, 0),
+                                     "training_run": training[name],
+                                     "training_step": per_step[name]},
+                **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+                "library_ms": None, **extra}
 
     kernels_line = {"kernels": [
-        {"name": "dcn_forward", "route": "cuda",
-         "source": "yolo_ad_refine_tpu_torch/csrc/deform_conv.cu",
-         "replaces": "yolo_ad_refine_tpu/ops/deform_mxu2.py:92",
-         "launches": launches["dcn_forward"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None},
-        {"name": "nms_suppress", "route": "cuda",
-         "source": "yolo_ad_refine_tpu_torch/csrc/nms.cu",
-         "replaces": "yolo_ad_refine_tpu/ops/nms_pallas.py:32",
-         "launches": launches["nms_suppress"], "max_abs_err": k4["max_abs_err"],
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-         "bound_by": k4["bound_by"], "library_ms": None},
+        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1, dtype="float32"),
+        entry("dcn_backward", "deform_conv.cu", "ops/deform_mxu2.py:169", k1b["float32"],
+              dtype="float32", bfloat16=k1b["bfloat16"]),
+        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

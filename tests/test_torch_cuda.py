@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_ad_refine_tpu_torch.ops.deform import deform_conv2d_plain, modulated_deform_conv2d
+from yolo_ad_refine_tpu_torch.ops.deform import (
+    dcn_backward, deform_conv2d_grads_plain, deform_conv2d_plain, modulated_deform_conv2d)
 from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_plain
 
 pytestmark = pytest.mark.cuda
@@ -57,6 +58,48 @@ def test_dcn_kernel_matches_plain(dev, dtype, tol, radius, shape):
     assert got.is_contiguous(memory_format=torch.channels_last)
     want = deform_conv2d_plain(x, off, mask, wt, radius).float()
     torch.testing.assert_close(got.permute(0, 2, 3, 1).float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("radius", [None, 3])
+@pytest.mark.parametrize("shape,sigma", [((2, 40, 40, 64, 64), 4.0), ((3, 13, 29, 48, 80), 5.0),
+                                         ((2, 20, 20, 64, 64), 0.0)])
+def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma):
+    """Each of the four gradients within ``tol`` of max |plain|: fp32 sums
+    in another order (and with atomics, in an order that changes from run
+    to run); bf16 as the forward. sigma 0 puts every sample on an integer
+    coordinate, where the one-sided derivative is taken."""
+    dt = getattr(torch, dtype)
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout)
+    off = off / 5.0 * sigma
+    g = torch.randn(b, h, w, cout, generator=torch.Generator().manual_seed(1)).to(dev, dt)
+    launches = dcn_backward.launches
+    got = dcn_backward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+                       wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), radius)
+    torch.cuda.synchronize()
+    assert dcn_backward.launches == launches + 1
+    want = deform_conv2d_grads_plain(x, off, mask, wt, g, radius)
+    got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
+           got[3].permute(2, 3, 1, 0)]
+    for name, a, e in zip(("dx", "doffset", "dmask", "dweight"), got, want):
+        assert a.shape == e.shape, name
+        err = (a.float() - e.float()).abs().max().item() / e.float().abs().max().item()
+        assert err <= tol, f"{name}: max |kernel - plain| / max |plain| = {err:.2e}"
+
+
+def test_dcn_on_cuda_has_grad_fn_and_launches_backward(dev):
+    x, off, mask, wt = _dcn(dev, torch.float32, 2, 16, 16, 64, 64)
+    args = [t.permute(0, 3, 1, 2).requires_grad_() for t in (x, off, mask)]
+    weight = wt.permute(3, 2, 0, 1).detach().requires_grad_()
+    y = modulated_deform_conv2d(*args, weight)
+    assert y.grad_fn is not None
+    launches = dcn_backward.launches
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert dcn_backward.launches == launches + 1
+    for t in (*args, weight):
+        assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
 
 
 def test_dcn_wrapper_rejects_bad_inputs(dev):

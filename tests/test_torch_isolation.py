@@ -31,15 +31,31 @@ for n in names:
 import chip_smoke  # its own imports; the port's are inside its phases
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the train slice's modules, each imported under the blocker above
+TRAIN_SLICE_MODULES = (
+    "cfg.config", "data.augment", "data.build", "data.dataset", "data.synthetic",
+    "engine.checkpoint", "engine.validator", "ops.anchors", "ops.deform", "ops.iou",
+    "train.loss", "train.optim", "train.step", "train.tal", "train.trainer",
+    "utils.callbacks", "utils.checks", "utils.metrics",
+)
 
 
 def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 38  # every module was imported
+    missing = [m for m in TRAIN_SLICE_MODULES if f"yolo_ad_refine_tpu_torch.{m}" not in names]
+    assert not missing, missing
+
+
+def test_default_cfg_is_a_byte_identical_copy():
+    ours = REPO / "yolo_ad_refine_tpu_torch" / "cfg" / "default.yaml"
+    assert ours.read_bytes() == (REPO / "yolo_ad_refine_tpu" / "cfg" / "default.yaml").read_bytes()
 
 
 def test_yolo_without_device_raises_when_cuda_is_absent(monkeypatch):
@@ -58,6 +74,37 @@ def test_build_detection_model_without_device_raises_when_cuda_is_absent(monkeyp
         build_detection_model("yolo11-701-YOLO-AD-Refine.yaml")
 
 
+def test_trainer_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_path):
+    from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DetectionTrainer({"data": "x.yaml", "plots": False, "project": str(tmp_path)})
+
+
+@pytest.mark.parametrize("override,item", [
+    ({"plots": True}, "plotting"), ({"multi_scale": True}, "multi_scale"),
+    ({"batch": -1}, "autobatch"), ({"fsdp": True}, "DDP/FSDP"), ({"task": "segment"}, "tasks"),
+])
+def test_trainer_raises_on_options_not_ported(override, item, tmp_path):
+    from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
+
+    args = {"data": "x.yaml", "plots": False, "project": str(tmp_path), "device": "cpu"}
+    with pytest.raises(NotImplementedError, match=item):
+        DetectionTrainer({**args, **override})
+
+
+@pytest.mark.parametrize("args,call", [
+    ({"plots": True}, {}), ({"save_json": True}, {}), ({"rect": True}, {}),
+    ({"task": "pose"}, {}), ({}, {"backend": object()}),
+])
+def test_validator_raises_on_options_not_ported(args, call):
+    from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        DetectionValidator(args)(model=None, **call)
+
+
 def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
     from yolo_ad_refine_tpu_torch.engine import profile_predict
 
@@ -68,6 +115,7 @@ def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
 
 @pytest.mark.parametrize("name,family", [
     ("dcn_fwd_kernel<float>", "K1 dcn_forward"),
+    ("void (anonymous namespace)::dcn_bwd_kernel<__nv_bfloat16>", "K1 dcn_backward"),
     ("nms_reduce_kernel", "K4 nms_suppress"),
     ("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float>", "normalisation"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32", "convolution"),
@@ -79,6 +127,14 @@ def test_profile_predict_kernel_family(name, family):
     from yolo_ad_refine_tpu_torch.engine.profile_predict import kernel_family
 
     assert kernel_family(name) == family
+
+
+def test_profile_train_raises_when_cuda_is_absent(monkeypatch):
+    from yolo_ad_refine_tpu_torch.engine import profile_train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_train.main([])
 
 
 def test_chip_smoke_fails_without_cuda():

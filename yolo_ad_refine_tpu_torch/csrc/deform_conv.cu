@@ -1,4 +1,5 @@
-// Modulated deformable convolution (DCNv2) forward for NVIDIA Hopper (sm_90a).
+// Modulated deformable convolution (DCNv2) forward and backward for NVIDIA
+// Hopper (sm_90a). The backward kernel follows the forward below.
 //
 // Replaces the TPU kernel yolo_ad_refine_tpu/ops/deform_mxu2.py::_fwd_kernel
 // (and computes the function of ops/deform.py::modulated_deform_conv2d):
@@ -181,9 +182,225 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (K1 bwd). Replaces yolo_ad_refine_tpu/ops/deform_mxu2.py::_bwd_kernel
+// and computes the gradient of the function above: dx, doffset, dmask and
+// dweight for an incoming gradient g (B, H, W, Cout) in the working type.
+//
+// Per tap t, with sampled_t[p, c] = sum_k w_k x[corner_k, c] (bilinear weights
+// w_k from floor-based corners, before the mask) and gs_t = g . W_t^T:
+//   dmask[p, t]   = sum_c sampled_t[p, c] gs_t[p, c]
+//   doffset[p, t] = m sum_c gs_t[p, c] sum_k (dw_k / d coord) x[corner_k, c]
+//   dx[corner_k]  += m w_k gs_t[p, :]                       (fp32 atomics)
+//   dW_t          += (m sampled_t)^T g                      (fp32 atomics)
+// The floor-based weights give, at an integer sample coordinate, the
+// one-sided derivative that autodiff of ops/deform.py (and mmcv) gives; the
+// TPU kernel's hat form gives 0 there. A corner outside the map is zero, so
+// its terms drop. With radius >= 0 the offsets are clipped first and
+// doffset is zeroed where |offset| >= radius, as deform_mxu2.py:483 does.
+//
+// Design: block (tile group, tap). The block stages its tap's weight slice
+// W_t (C x Cout) in shared memory once and keeps its dW_t partial there; it
+// walks 64-pixel tiles, and per tile loads g, forms gs = g . W_t^T, then each
+// warp takes 8 pixels with its lanes over channels: it gathers the four
+// corner rows, writes m * sampled to shared memory, scatters dx with atomics
+// and reduces the four corner dot products over the warp into dmask and
+// doffset. Last, dW_t += (m sampled)^T g from shared memory. At the end the
+// block adds its dW_t partial into the global fp32 dW with atomics, so dx and
+// dW are summed in an order that changes from run to run (last bits only).
+//
+// What bounds it: the per-tap products g . W_t^T and (m sampled)^T g are
+// 4 C Cout flops per pixel and tap (~1.3 GFLOP per 640 image over the three
+// levels at C = Cout = 64), run here on fp32 CUDA cores out of shared
+// memory; the bytes (x, offset, mask, g read, dx, doffset, dmask written)
+// are ~8.3 MB per image in fp32. Moving both products onto wgmma is later
+// work.
+
+constexpr int BWD_TILE_GROUPS = 64;  // tile groups per tap (grid.x upper bound)
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dcn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
+               const float* __restrict__ mask, const T* __restrict__ weight,
+               const T* __restrict__ g, float* __restrict__ dx,
+               float* __restrict__ doffset, float* __restrict__ dmask,
+               float* __restrict__ dweight, int npix, int H, int W, int C, int Cout,
+               float radius) {
+  extern __shared__ float smem[];
+  float* s_w = smem;                      // C x (Cout + 1), padded rows
+  float* s_dw = s_w + C * (Cout + 1);     // C x Cout, this block's dW_t partial
+  float* s_g = s_dw + C * Cout;           // TP x Cout
+  float* s_gs = s_g + TP * Cout;          // TP x C
+  float* s_ms = s_gs + TP * C;            // TP x C, mask * sampled
+
+  const int t = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ntiles = (npix + TP - 1) / TP;
+
+  for (int i = tid; i < C * Cout; i += NT) {
+    s_w[(i / Cout) * (Cout + 1) + i % Cout] = to_f(weight[(size_t)t * C * Cout + i]);
+    s_dw[i] = 0.f;
+  }
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int p0 = tile * TP;
+    __syncthreads();  // the previous tile's readers of s_g / s_ms are done
+    for (int i = tid; i < TP * Cout; i += NT)
+      s_g[i] = (p0 + i / Cout < npix) ? to_f(g[(size_t)p0 * Cout + i]) : 0.f;
+    __syncthreads();
+
+    // gs = g . W_t^T: thread -> (pixel, channel), consecutive channels per warp
+    for (int i = tid; i < TP * C; i += NT) {
+      const float* gr = s_g + (i / C) * Cout;
+      const float* wr = s_w + (i % C) * (Cout + 1);
+      float acc = 0.f;
+      for (int o = 0; o < Cout; ++o) acc = fmaf(gr[o], wr[o], acc);
+      s_gs[i] = acc;
+    }
+    __syncthreads();
+
+    // a warp per pixel, lanes over channels
+    for (int pi = warp; pi < TP; pi += NT / 32) {
+      const int p = p0 + pi;
+      if (p >= npix) {
+        for (int c = lane; c < C; c += 32) s_ms[pi * C + c] = 0.f;
+        continue;
+      }
+      const int xw = p % W;
+      const int r = p / W;
+      const int yh = r % H;
+      const int b = r / H;
+      float dy = offset[(size_t)p * 18 + 2 * t];
+      float dxo = offset[(size_t)p * 18 + 2 * t + 1];
+      float gate_y = 1.f, gate_x = 1.f;
+      if (radius >= 0.f) {
+        gate_y = fabsf(dy) < radius ? 1.f : 0.f;
+        gate_x = fabsf(dxo) < radius ? 1.f : 0.f;
+        dy = fminf(fmaxf(dy, -radius), radius);
+        dxo = fminf(fmaxf(dxo, -radius), radius);
+      }
+      const float m = mask[(size_t)p * KK + t];
+      const float cy = (float)(yh + t / 3 - 1) + dy;
+      const float cx = (float)(xw + t % 3 - 1) + dxo;
+      const float fy = floorf(cy);
+      const float fx = floorf(cx);
+      const float ly = cy - fy;
+      const float lx = cx - fx;
+      // clamp before the int conversion: beyond [-2, H] both corners are outside
+      const int y0 = (int)fminf(fmaxf(fy, -2.f), (float)H);
+      const int x0 = (int)fminf(fmaxf(fx, -2.f), (float)W);
+      const float wy[2] = {1.f - ly, ly};
+      const float wx[2] = {1.f - lx, lx};
+      int idx[4];
+      float wk[4], dwy[4], dwx[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ky = k >> 1, kx = k & 1;
+        const int yy = y0 + ky, xx = x0 + kx;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        idx[k] = in ? (b * H + yy) * W + xx : -1;
+        wk[k] = in ? wy[ky] * wx[kx] : 0.f;
+        dwy[k] = in ? (ky ? wx[kx] : -wx[kx]) : 0.f;
+        dwx[k] = in ? (kx ? wy[ky] : -wy[ky]) : 0.f;
+      }
+      float a[4] = {0.f, 0.f, 0.f, 0.f};  // sum_c gs[c] x[corner_k, c]
+      for (int c = lane; c < C; c += 32) {
+        const float gsv = s_gs[pi * C + c];
+        const float mg = m * gsv;
+        float samp = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (idx[k] < 0) continue;
+          const size_t q = (size_t)idx[k] * C + c;
+          const float xv = to_f(x[q]);
+          samp = fmaf(wk[k], xv, samp);
+          a[k] = fmaf(gsv, xv, a[k]);
+          atomicAdd(dx + q, wk[k] * mg);
+        }
+        s_ms[pi * C + c] = m * samp;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], s);
+      if (lane == 0) {
+        float dm = 0.f, doy = 0.f, dox = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          dm = fmaf(wk[k], a[k], dm);
+          doy = fmaf(dwy[k], a[k], doy);
+          dox = fmaf(dwx[k], a[k], dox);
+        }
+        dmask[(size_t)p * KK + t] = dm;
+        doffset[(size_t)p * 18 + 2 * t] = gate_y * m * doy;
+        doffset[(size_t)p * 18 + 2 * t + 1] = gate_x * m * dox;
+      }
+    }
+    __syncthreads();
+
+    // dW_t += (m sampled)^T g: thread -> (channel, output channel) entries
+    for (int i = tid; i < C * Cout; i += NT) {
+      const int c = i / Cout;
+      const int o = i % Cout;
+      float acc = s_dw[i];
+      for (int pp = 0; pp < TP; ++pp) acc = fmaf(s_ms[pp * C + c], s_g[pp * Cout + o], acc);
+      s_dw[i] = acc;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < C * Cout; i += NT) atomicAdd(dweight + (size_t)t * C * Cout + i, s_dw[i]);
+}
+
+size_t bwd_smem_bytes(int C, int Cout) {
+  return sizeof(float) * ((size_t)C * (Cout + 1) + (size_t)C * Cout + (size_t)TP * Cout +
+                          2 * (size_t)TP * C);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* offset, const void* mask, const void* weight,
+               const void* g, void* dx, void* doffset, void* dmask, void* dweight, int npix,
+               int H, int W, int C, int Cout, float radius, cudaStream_t s) {
+  const size_t smem = bwd_smem_bytes(C, Cout);
+  cudaError_t err = cudaFuncSetAttribute(dcn_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (npix + TP - 1) / TP;
+  const dim3 grid(ntiles < BWD_TILE_GROUPS ? ntiles : BWD_TILE_GROUPS, KK);
+  dcn_bwd_kernel<T><<<grid, NT, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(offset),
+      static_cast<const float*>(mask), static_cast<const T*>(weight), static_cast<const T*>(g),
+      static_cast<float*>(dx), static_cast<float*>(doffset), static_cast<float*>(dmask),
+      static_cast<float*>(dweight), npix, H, W, C, Cout, radius);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Shared memory (bytes) one backward block needs at these channel counts.
+size_t dcn_backward_smem_bytes(int C, int Cout) { return bwd_smem_bytes(C, Cout); }
+
+// dx (B, H, W, C) and dweight (9, C, Cout) are fp32 and must be zeroed by the
+// caller (the kernel adds into them); doffset (B, H, W, 18) and dmask
+// (B, H, W, 9) are fp32 and fully written. dtype: 0 = fp32, 1 = bf16 (x,
+// weight and g). Returns cudaGetLastError().
+int dcn_backward(const void* x, const void* offset, const void* mask, const void* weight,
+                 const void* g, void* dx, void* doffset, void* dmask, void* dweight, int B,
+                 int H, int W, int C, int Cout, float radius, int dtype, void* stream) {
+  const int npix = B * H * W;
+  if (npix == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, npix, H,
+                             W, C, Cout, radius, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, offset, mask, weight, g, dx, doffset, dmask, dweight,
+                                     npix, H, W, C, Cout, radius, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = fp32, 1 = bf16 (x, weight and out). Returns cudaGetLastError().
 int dcn_forward(const void* x, const void* offset, const void* mask, const void* weight,

@@ -1,14 +1,27 @@
-"""Letterbox: aspect-preserving resize + gray pad, in torch.
+"""Image / label augmentations, and the letterbox.
 
-Counterpart of ``letterbox`` in ``yolo_ad_refine_tpu/data/augment.py``
-(reference ultralytics/data/augment.py:1475 LetterBox), without cv2: the
-resize is bilinear with half-pixel centers (cv2's INTER_LINEAR rule) on the
-tensor's own device. cv2 rounds in 11-bit fixed point, so pixels may differ
-from it by one grey level; the ratio and the pad are the reference's.
+Counterpart of ``yolo_ad_refine_tpu/data/augment.py`` (reference
+ultralytics/data/augment.py: Mosaic:489, MixUp:866, RandomPerspective:951,
+RandomHSV:1301, RandomFlip:1381, LetterBox:1475):
+
+- ``letterbox`` resizes and pads in torch on the tensor's own device, for
+  the predictor: the resize is bilinear with half-pixel centers (cv2's
+  INTER_LINEAR rule); cv2 rounds in 11-bit fixed point, so pixels may
+  differ from it by one grey level; the ratio and the pad are the
+  reference's.
+- the train augments and ``letterbox_np`` (validation) are numpy + cv2
+  copies of the JAX package's, host-side. Each takes an explicit
+  ``np.random.Generator`` and draws from it in the same order as the JAX
+  copy, so the same seeds give bit-equal images.
+
+Boxes are (n, 4) xyxy pixels with (n,) class ids throughout.
 """
 
 from __future__ import annotations
 
+import math
+
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -45,3 +58,209 @@ def letterbox(img, new_shape=(640, 640), color: int = 114, auto: bool = False,
                      color, dtype=torch.uint8, device=img.device)
     out[top:top + new_unpad[1], left:left + new_unpad[0]] = img
     return out, (r, r), (dw, dh)
+
+
+def letterbox_np(img, new_shape=(640, 640), color=(114, 114, 114), auto: bool = False,
+              scale_fill: bool = False, scaleup: bool = True, center: bool = True,
+              stride: int = 32):
+    """Aspect-preserving resize + pad of a numpy image with cv2, as the
+    validation loader does. Returns (img, ratio, (dw, dh)).
+
+    Matches reference LetterBox rounding: pad split round(d-0.1)/round(d+0.1).
+    """
+    shape = img.shape[:2]  # h, w
+    if isinstance(new_shape, int):
+        new_shape = (new_shape, new_shape)
+    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
+    if not scaleup:
+        r = min(r, 1.0)
+    new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))  # w, h
+    dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
+    if auto:
+        dw, dh = dw % stride, dh % stride
+    if center:
+        dw /= 2
+        dh /= 2
+    if shape[::-1] != new_unpad:
+        img = cv2.resize(img, new_unpad, interpolation=cv2.INTER_LINEAR)
+    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    img = cv2.copyMakeBorder(img, top, bottom, left, right, cv2.BORDER_CONSTANT, value=color)
+    return img, (r, r), (dw, dh)
+
+
+def apply_letterbox_to_boxes(boxes, ratio, pad):
+    out = boxes.copy()
+    out[:, [0, 2]] = out[:, [0, 2]] * ratio[0] + pad[0]
+    out[:, [1, 3]] = out[:, [1, 3]] * ratio[1] + pad[1]
+    return out
+
+
+def augment_hsv(img, rng: np.random.Generator, hgain: float = 0.015, sgain: float = 0.7,
+                vgain: float = 0.4):
+    """In-place LUT-based HSV jitter (reference augment.py:1301-1380). BGR in/out."""
+    if hgain or sgain or vgain:
+        r = rng.uniform(-1, 1, 3) * [hgain, sgain, vgain] + 1
+        hue, sat, val = cv2.split(cv2.cvtColor(img, cv2.COLOR_BGR2HSV))
+        x = np.arange(0, 256, dtype=r.dtype)
+        lut_hue = ((x * r[0]) % 180).astype(img.dtype)
+        lut_sat = np.clip(x * r[1], 0, 255).astype(img.dtype)
+        lut_val = np.clip(x * r[2], 0, 255).astype(img.dtype)
+        im_hsv = cv2.merge((cv2.LUT(hue, lut_hue), cv2.LUT(sat, lut_sat), cv2.LUT(val, lut_val)))
+        cv2.cvtColor(im_hsv, cv2.COLOR_HSV2BGR, dst=img)
+    return img
+
+
+def box_candidates(box1, box2, wh_thr: float = 2.0, ar_thr: float = 100.0,
+                   area_thr: float = 0.1, eps: float = 1e-16):
+    """Filter warped boxes (reference augment.py:1266-1300): min size, aspect
+    ratio, area-retention thresholds. box1 = before (4,n), box2 = after (4,n)."""
+    w1, h1 = box1[2] - box1[0], box1[3] - box1[1]
+    w2, h2 = box2[2] - box2[0], box2[3] - box2[1]
+    ar = np.maximum(w2 / (h2 + eps), h2 / (w2 + eps))
+    return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
+
+
+def random_perspective(img, boxes, cls, rng: np.random.Generator, degrees: float = 0.0,
+                       translate: float = 0.1, scale: float = 0.5, shear: float = 0.0,
+                       perspective: float = 0.0, border=(0, 0)):
+    """Combined affine/perspective warp of image + boxes (reference augment.py:951).
+
+    border < 0 crops a mosaic canvas back to the target size.
+    """
+    height = img.shape[0] + border[0] * 2
+    width = img.shape[1] + border[1] * 2
+
+    # center -> perspective -> rotation+scale -> shear -> translation
+    C = np.eye(3)
+    C[0, 2] = -img.shape[1] / 2
+    C[1, 2] = -img.shape[0] / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-perspective, perspective)
+    P[2, 1] = rng.uniform(-perspective, perspective)
+    R = np.eye(3)
+    a = rng.uniform(-degrees, degrees)
+    s = rng.uniform(1 - scale, 1 + scale)
+    R[:2] = cv2.getRotationMatrix2D(angle=a, center=(0, 0), scale=s)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    T = np.eye(3)
+    T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * width
+    T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * height
+    M = T @ S @ R @ P @ C
+
+    if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
+        if perspective:
+            img = cv2.warpPerspective(img, M, dsize=(width, height), borderValue=(114, 114, 114))
+        else:
+            img = cv2.warpAffine(img, M[:2], dsize=(width, height), borderValue=(114, 114, 114))
+
+    n = len(boxes)
+    if n:
+        xy = np.ones((n * 4, 3))
+        xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)  # corners
+        xy = xy @ M.T
+        xy = (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).reshape(n, 8)
+        x = xy[:, [0, 2, 4, 6]]
+        y = xy[:, [1, 3, 5, 7]]
+        new = np.concatenate((x.min(1), y.min(1), x.max(1), y.max(1))).reshape(4, n).T
+        new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
+        new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
+        keep = box_candidates(boxes.T * s, new.T, area_thr=0.1)
+        boxes, cls = new[keep], cls[keep]
+    return img, boxes.astype(np.float32), cls
+
+
+def mosaic4(items, imgsz: int, rng: np.random.Generator):
+    """4-image mosaic on a 2*imgsz canvas (reference augment.py:489-864).
+
+    items: list of 4 (img BGR, boxes xyxy px, cls). Returns canvas + merged
+    labels (clipped to the canvas); caller follows with random_perspective
+    using border=(-imgsz//2, -imgsz//2).
+    """
+    s = imgsz
+    yc = int(rng.uniform(s // 2, 3 * s // 2))
+    xc = int(rng.uniform(s // 2, 3 * s // 2))
+    canvas = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+    all_boxes, all_cls = [], []
+    for i, (img, boxes, cls) in enumerate(items):
+        h, w = img.shape[:2]
+        if i == 0:  # top-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+        elif i == 1:  # top-right
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+            x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+        elif i == 2:  # bottom-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+            x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+        else:  # bottom-right
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+            x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+        canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+        padw, padh = x1a - x1b, y1a - y1b
+        if len(boxes):
+            b = boxes.copy()
+            b[:, [0, 2]] += padw
+            b[:, [1, 3]] += padh
+            all_boxes.append(b)
+            all_cls.append(cls)
+    if all_boxes:
+        boxes = np.concatenate(all_boxes)
+        cls = np.concatenate(all_cls)
+        boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, 2 * s)
+        boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, 2 * s)
+    else:
+        boxes = np.zeros((0, 4), np.float32)
+        cls = np.zeros((0,), np.float32)
+    return canvas, boxes.astype(np.float32), cls
+
+
+def mixup(img1, boxes1, cls1, img2, boxes2, cls2, rng: np.random.Generator):
+    """beta(32,32) image blend, labels concatenated (reference augment.py:866)."""
+    r = rng.beta(32.0, 32.0)
+    img = (img1.astype(np.float32) * r + img2.astype(np.float32) * (1 - r)).astype(np.uint8)
+    return img, np.concatenate([boxes1, boxes2]), np.concatenate([cls1, cls2])
+
+
+def extra_augment(img, rng: np.random.Generator, p: float = 0.01):
+    """Low-probability photometric extras (reference augment.py:1732-1918
+    Albumentations wrapper: blur / median blur / CLAHE / grayscale, p=0.01
+    each), implemented directly in cv2 — no optional dependency.
+
+    copy_paste note: the reference's CopyPaste requires instance segments;
+    box-only datasets (this fork's) skip it upstream too.
+    """
+    if rng.random() < p:
+        k = int(rng.integers(1, 4)) * 2 + 1
+        img = cv2.blur(img, (k, k))
+    if rng.random() < p:
+        k = int(rng.integers(1, 4)) * 2 + 1
+        img = cv2.medianBlur(img, k)
+    if rng.random() < p:
+        lab = cv2.cvtColor(img, cv2.COLOR_BGR2LAB)
+        lab[..., 0] = cv2.createCLAHE(clipLimit=4.0, tileGridSize=(8, 8)).apply(lab[..., 0])
+        img = cv2.cvtColor(lab, cv2.COLOR_LAB2BGR)
+    if rng.random() < p:
+        gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        img = cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR)
+    return img
+
+
+def flip_lr(img, boxes):
+    img = np.fliplr(img)
+    if len(boxes):
+        w = img.shape[1]
+        boxes = boxes.copy()
+        boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+    return np.ascontiguousarray(img), boxes
+
+
+def flip_ud(img, boxes):
+    img = np.flipud(img)
+    if len(boxes):
+        h = img.shape[0]
+        boxes = boxes.copy()
+        boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+    return np.ascontiguousarray(img), boxes

@@ -27,7 +27,8 @@ SHAPES = ((480, 640), (640, 480), (720, 1280), (360, 640), (1080, 1920), (512, 5
           (300, 800), (640, 640))
 
 # (family, substrings of the lower-cased kernel name), first match wins
-_FAMILIES = (("K1 dcn_forward", ("dcn_fwd",)), ("K4 nms_suppress", ("nms_",)),
+_FAMILIES = (("K1 dcn_forward", ("dcn_fwd",)), ("K1 dcn_backward", ("dcn_bwd",)),
+             ("K4 nms_suppress", ("nms_",)),
              ("normalisation", ("norm", "bn_fw")),
              ("layout change", ("nhwctonchw", "nchwtonhwc", "transpose")),
              ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),

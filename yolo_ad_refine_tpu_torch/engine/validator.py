@@ -1,0 +1,146 @@
+"""Detection validator: forward -> NMS -> IoU matching -> mAP.
+
+Counterpart of the detect path of ``yolo_ad_refine_tpu/engine/validator.py``
+(reference engine/validator.py:106-219, models/yolo/detect/val.py:17-338):
+the model's eval forward gives (decoded, feats); the decoded predictions go
+through ``non_max_suppression(multi_label=True, max_nms=2048)``, whose
+suppression is K4 on the card; the feats give the val losses; detections
+and GT are rescaled to each image's native pixels and matched at IoU
+0.50:0.95 on the host, where ``DetMetrics`` computes AP. Other tasks,
+exported backends, ``save_json``, plots and rect batches are not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+from yolo_ad_refine_tpu_torch.data.build import DataLoader
+from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes
+from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
+from yolo_ad_refine_tpu_torch.train.step import images_to_tensor, targets_to_device
+from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported
+from yolo_ad_refine_tpu_torch.utils.metrics import (
+    ConfusionMatrix, DetMetrics, box_iou_np, match_predictions)
+
+
+class DetectionValidator:
+    """Runs a model over a val split and computes detection metrics.
+    ``args``: imgsz, batch, conf (0.001), iou (0.7), max_det (300),
+    max_nms (2048), max_boxes, split, data, amp (bf16 autocast on the card)."""
+
+    def __init__(self, args: dict | None = None, dataloader: DataLoader | None = None):
+        self.args = dict(args or {})
+        self.dataloader = dataloader
+        self.names = None
+        for key, item in (("save_json", "ROADMAP Queue 1 item 9, data"),
+                          ("rect", "ROADMAP Queue 1 item 9, data"),
+                          ("plots", "ROADMAP Queue 1 item 13, plotting")):
+            if self.args.get(key):
+                not_ported(f"{key}=True in validation", item)
+        task = self.args.get("task", "detect")
+        if task != "detect":
+            not_ported(f"validating task {task!r}", "ROADMAP Queue 1 item 12, the other tasks")
+
+    def _build_dataloader(self, data, imgsz: int, batch: int) -> DataLoader:
+        info = check_det_dataset(data)
+        split = self.args.get("split", "val")
+        path = info.get(split) or info.get("val") or info.get("train")
+        ds = YOLODataset(path, imgsz=imgsz, augment=False, nc=info["nc"],
+                         max_boxes=int(self.args.get("max_boxes", 128)))
+        self.names = info["names"]
+        return DataLoader(ds, batch_size=batch, shuffle=False)
+
+    @torch.no_grad()
+    def __call__(self, model=None, dataloader=None, loss_fn=None, backend=None) -> dict:
+        """model: a port DetectionModel (for example the EMA's). loss_fn:
+        a DetectionLoss for the val losses. ``backend`` (an exported model,
+        as the JAX validator takes) is not ported and raises."""
+        if backend is not None:
+            not_ported("validation through an exported backend",
+                       "ROADMAP Queue 1 item 11, export and serving")
+        args = self.args
+        imgsz = int(args.get("imgsz", 640))
+        conf = float(args.get("conf") or 0.001)
+        iou = float(args.get("iou", 0.7))
+        max_det = int(args.get("max_det", 300))
+        max_nms = int(args.get("max_nms", 2048))
+        nc = model.nc
+        dataloader = dataloader or self.dataloader
+        if dataloader is None:
+            dataloader = self._build_dataloader(args["data"], imgsz, int(args.get("batch", 16)))
+        names = self.names or getattr(model, "names", None) or {i: f"class{i}" for i in range(nc)}
+        dev = next(model.parameters()).device
+        amp = bool(args.get("amp")) and dev.type == "cuda"
+        training = model.training
+        model.eval()
+
+        metrics = DetMetrics(names)
+        confusion = ConfusionMatrix(nc)
+        loss_sum = torch.zeros(3, device=dev)
+        n_batches = seen = 0
+        t_inference = 0.0
+        t0 = time.perf_counter()
+        for batch in dataloader:
+            t1 = time.perf_counter()
+            img = images_to_tensor(batch["img"], dev)
+            with torch.autocast(dev.type, dtype=torch.bfloat16) if amp else contextlib.nullcontext():
+                y, feats = model(img)
+            det, cnt, _ = non_max_suppression(y, conf_thres=conf, iou_thres=iou, max_det=max_det,
+                                              max_nms=max_nms, multi_label=True, nc=nc)
+            if loss_fn is not None:
+                loss_sum += loss_fn(feats, *targets_to_device(batch, dev)).components
+                n_batches += 1
+            det, cnt = det.cpu().numpy(), cnt.cpu().numpy()
+            t_inference += time.perf_counter() - t1
+            self._update_metrics(det, cnt, batch, metrics, confusion, batch["img"].shape[1:3])
+            seen += len(batch["im_file"])
+        model.train(training)
+
+        results = metrics.process()
+        self.metrics, self.confusion_matrix = metrics, confusion
+        if n_batches:
+            ls = (loss_sum / n_batches).tolist()
+            results.update({"val/box_loss": ls[0], "val/cls_loss": ls[1], "val/dfl_loss": ls[2]})
+        results["speed_ms_per_image"] = (time.perf_counter() - t0) / max(seen, 1) * 1000
+        results["inference_ms_per_image"] = t_inference / max(seen, 1) * 1000
+        r = metrics.results_dict
+        LOGGER.info(f"{'all':>10}{seen:>8} P {r['metrics/precision(B)']:.3f} "
+                    f"R {r['metrics/recall(B)']:.3f} mAP50 {r['metrics/mAP50(B)']:.3f} "
+                    f"mAP50-95 {r['metrics/mAP50-95(B)']:.3f}")
+        return results
+
+    @staticmethod
+    def _update_metrics(det, cnt, batch, metrics: DetMetrics, confusion: ConfusionMatrix,
+                        imgsz):
+        """Rescale both sides to native pixels (reference _prepare_batch /
+        _prepare_pred) and match at the 10 IoU thresholds."""
+        imgsz = tuple(int(v) for v in imgsz)
+
+        def native(boxes, i):
+            return scale_boxes(imgsz, torch.from_numpy(np.ascontiguousarray(boxes)),
+                               batch["ori_shape"][i], ratio_pad=batch["ratio_pad"][i]).numpy()
+
+        for i in range(det.shape[0]):
+            n = int(cnt[i])
+            d = det[i, :n].copy()
+            m = batch["mask"][i, :, 0] > 0
+            gt_boxes = batch["bboxes"][i][m].copy()
+            gt_cls = batch["cls"][i][m, 0]
+            if n:
+                d[:, :4] = native(d[:, :4], i)
+            if len(gt_boxes):
+                gt_boxes = native(gt_boxes, i)
+            if n == 0:
+                if len(gt_cls):
+                    metrics.update_stats(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)
+                    confusion.process_batch(None, gt_boxes, gt_cls)
+                continue
+            tp = (match_predictions(d[:, 5], gt_cls, box_iou_np(gt_boxes, d[:, :4]))
+                  if len(gt_cls) else np.zeros((n, 10), bool))
+            metrics.update_stats(tp, d[:, 4], d[:, 5], gt_cls)
+            confusion.process_batch(d, gt_boxes, gt_cls)

@@ -1,39 +1,45 @@
 """YOLO user facade of the PyTorch port (reference engine/model.py Model).
 
-``YOLO(model_yaml).predict(images)`` runs on the card by default
-(``device="cuda"``) and raises where CUDA is absent; the CPU runs only
-when the caller passes ``device="cpu"``.
+``YOLO(model_yaml_or_checkpoint_dir)`` builds a model with seeded weights
+or loads a checkpoint directory the trainer wrote; ``.predict(images)``,
+``.train(data=...)`` and ``.val(data=...)`` run on the card by default
+(``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from yolo_ad_refine_tpu_torch.engine.checkpoint import load_checkpoint
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
 from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
-from yolo_ad_refine_tpu_torch.utils import select_device
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet ({item})")
+from yolo_ad_refine_tpu_torch.utils import not_ported, select_device
+from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
 
 
 class YOLO:
-    """User-facing model facade: build from a yaml with seeded weights and
-    predict."""
+    """User-facing model facade: build from a yaml with seeded weights (or
+    load a checkpoint directory), predict, train and validate."""
 
     def __init__(self, model: str = "yolo11n.yaml", device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32, seed: int = 0, imgsz: int = 640,
                  nc: int | None = None, verbose: bool = False):
         device = select_device(device)
         model = str(model)
-        if not model.endswith((".yaml", ".yml")):
-            _not_ported("loading a checkpoint", "ROADMAP Queue 1 item 7, engine/checkpoint.py")
-        self.model: DetectionModel = build_detection_model(
-            load_model_cfg(model), nc=nc, device=device, dtype=dtype, seed=seed, imgsz=imgsz,
-            verbose=verbose)
+        if model.endswith((".yaml", ".yml")):
+            self.model: DetectionModel = build_detection_model(
+                load_model_cfg(model), nc=nc, device=device, dtype=dtype, seed=seed,
+                imgsz=imgsz, verbose=verbose)
+        else:
+            self.model = load_checkpoint(model, device).to(dtype)
         self.device, self.dtype, self.imgsz = device, dtype, imgsz
         self.overrides = {"model": model, "imgsz": imgsz}
+        self.callbacks = Callbacks()
+
+    def add_callback(self, event: str, fn) -> None:
+        """Run ``fn(trainer)`` at a trainer hook (utils/callbacks.py HOOKS)."""
+        self.callbacks.add(event, fn)
 
     def predict(self, source=None, **kwargs):
         from yolo_ad_refine_tpu_torch.engine.predictor import DetectionPredictor
@@ -43,17 +49,38 @@ class YOLO:
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
 
-    def train(self, **kwargs):
-        _not_ported("train", "ROADMAP Queue 1 item 8, the train slice")
+    def train(self, **kwargs) -> dict:
+        """Train this model with default.yaml merged with ``kwargs`` (data=,
+        epochs=, batch=, imgsz=, plots=False, ...); afterwards ``self.model``
+        is the best checkpoint's model."""
+        from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
 
-    def val(self, **kwargs):
-        _not_ported("val", "ROADMAP Queue 1 item 7, the validation slice")
+        overrides = {**self.overrides, **kwargs, "mode": "train"}
+        trainer = DetectionTrainer(overrides=overrides, model=self.model,
+                                   callbacks=self.callbacks)
+        results = trainer.train()
+        best = trainer.wdir / "best"
+        self.model = load_checkpoint(best, self.device) if (best / "weights.pt").exists() \
+            else trainer.ema.ema
+        self.trainer = trainer
+        return results
+
+    def val(self, **kwargs) -> dict:
+        """Validate on ``data=`` (its val split) and return the metrics. The
+        model runs in its own type; ``amp=True`` runs it under bf16 autocast
+        on the card, as the trainer's validation does."""
+        from yolo_ad_refine_tpu_torch.cfg.config import get_cfg
+        from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
+
+        args = get_cfg({**self.overrides, **kwargs, "mode": "val"})
+        args.update(plots=bool(kwargs.get("plots", False)), amp=bool(kwargs.get("amp", False)))
+        return DetectionValidator(args=args)(model=self.model)
 
     def track(self, source=None, **kwargs):
-        _not_ported("track", "ROADMAP Queue 1 item 15, trackers")
+        not_ported("track", "ROADMAP Queue 1 item 15, trackers")
 
     def export(self, **kwargs):
-        _not_ported("export", "ROADMAP Queue 1 item 11, export and serving")
+        not_ported("export", "ROADMAP Queue 1 item 11, export and serving")
 
     def info(self) -> dict:
         return {"layers": len(self.model.model), "parameters": self.model.num_params(),

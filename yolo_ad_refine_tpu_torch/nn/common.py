@@ -3,8 +3,9 @@
 Counterpart of ``yolo_ad_refine_tpu/nn/common.py`` (reference
 ultralytics/nn/modules/conv.py Conv/Concat, head.py:607 Conv_GN,
 block.py:63 DFL). BatchNorm uses the reference's eps=1e-3 /
-momentum=0.03 (its ``initialize_weights`` overrides every BatchNorm2d);
-GroupNorm uses eps=1e-5.
+momentum=0.03 (its ``initialize_weights`` overrides every BatchNorm2d) and
+updates its running variance with the biased batch variance, as the JAX
+package's flax BatchNorm does; GroupNorm uses eps=1e-5.
 """
 
 from __future__ import annotations
@@ -32,8 +33,28 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return math.ceil(x / divisor) * divisor
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-3, momentum=0.03)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` uses
+    the biased (two-pass, fp32) batch variance, as flax's BatchNorm with
+    ``use_fast_variance=False`` does (``yolo_ad_refine_tpu/nn/common.py``);
+    torch's own update uses the unbiased one. Normalisation, eval and the
+    parameter and buffer names are torch's."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean * m)
+            self.running_var.mul_(1.0 - m).add_(var * m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-3, momentum=0.03)
 
 
 def _act(act) -> nn.Module:

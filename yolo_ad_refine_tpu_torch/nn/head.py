@@ -144,6 +144,9 @@ class ModulatedDeformConv(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def forward(self, x, offset, mask):
+        if torch.is_autocast_enabled(x.device.type):  # a conv: runs in the autocast type
+            x = x.to(torch.get_autocast_dtype(x.device.type)).contiguous(
+                memory_format=torch.channels_last)
         return modulated_deform_conv2d(x, offset, mask, self.weight)
 
 
@@ -197,6 +200,10 @@ class AYHead(nn.Module):
     offset/mask conv (18 offsets + 9 masks) -> DyDCNv2 -> CoordAtt; a
     foreground-probability conv gates the cls logits; the reg output is
     scaled per level. Trunk modules are shared across levels.
+
+    In train mode the forward also records ``dcn_offset_max``, max |offset|
+    over the three levels (raw offsets, detached), where the train step
+    reads it, as the JAX head sows it into "diagnostics".
     """
 
     def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, strides=(8, 16, 32)):
@@ -220,13 +227,14 @@ class AYHead(nn.Module):
         self.cv2 = nn.Conv2d(task_ch, 4 * reg_max, 1)
         self.cv3 = nn.Conv2d(task_ch, nc, 1)
         self.scale = nn.ModuleList(Scale(1.0) for _ in range(self.nl))
+        self.dcn_offset_max = None
 
     def bias_init(self):
         self.cv2.bias.data.fill_(1.0)
         self.cv3.bias.data.fill_(-math.log((1 - 0.01) / 0.01))
 
     def forward(self, xs, input_h: int | None = None):
-        outputs = []
+        outputs, offset_max = [], []
         for i in range(self.nl):
             feat = self.share_conv[1](self.share_conv[0](self.stems[i](xs[i])))
             avg_feat = feat.mean(dim=(2, 3), keepdim=True)
@@ -236,6 +244,7 @@ class AYHead(nn.Module):
             om = self.spatial_conv_offset(feat)
             offset = om[:, :18].float().contiguous(memory_format=torch.channels_last)
             mask = torch.sigmoid(om[:, 18:].float()).contiguous(memory_format=torch.channels_last)
+            offset_max.append(offset.detach().abs().amax())
             reg_enh = self.coord_attention_reg(
                 self.DyDCNV2(reg_feat.contiguous(memory_format=torch.channels_last), offset, mask))
             prob = self.cls_prob_conv(feat)
@@ -243,6 +252,7 @@ class AYHead(nn.Module):
             cls_output = self.cv3(cls_feat_enh * prob)
             outputs.append(torch.cat([reg_output, cls_output], 1))
         if self.training:
+            self.dcn_offset_max = torch.stack(offset_max).amax()
             return outputs
         y = decode_detections(outputs, _strides(outputs, input_h, self.strides), self.nc,
                               self.reg_max)

@@ -100,7 +100,8 @@ class CrossScaleAttentionTSSA(nn.Module):
                 xs = F.interpolate(xs, size=(h, w), mode="bilinear", align_corners=False)
             tokens = xs.flatten(2).transpose(1, 2)                     # (b, n, c)
             q, k, v = self.qkv_projections[i](tokens).chunk(3, dim=-1)
-            q, k, v = (t.reshape(b, -1, nh, d).transpose(1, 2).float() for t in (q, k, v))
+            acc = torch.promote_types(q.dtype, torch.float32)  # fp32 math, fp64 kept
+            q, k, v = (t.reshape(b, -1, nh, d).transpose(1, 2).to(acc) for t in (q, k, v))
             q_normed = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
             pi = torch.softmax((q_normed ** 2).sum(-1) * self.temps[i], dim=-1)  # over tokens
             dots = torch.einsum("bhn,bhnd->bhd", pi, k ** 2)[:, :, None, :]

@@ -1,7 +1,7 @@
-"""Anchor-free grid points and the distance -> box transform.
+"""Anchor-free grid points and the distance <-> box transforms.
 
 Counterpart of ``yolo_ad_refine_tpu/ops/anchors.py`` (reference
-ultralytics/utils/tal.py:303 make_anchors, :318 dist2bbox).
+ultralytics/utils/tal.py:303 make_anchors, :318 dist2bbox, :330 bbox2dist).
 """
 
 from __future__ import annotations
@@ -33,3 +33,11 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
     return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float):
+    """Encode xyxy boxes as (l, t, r, b) distances clamped to
+    [0, reg_max - 0.01], the DFL targets (reference tal.py:330)."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return dist.clamp(0, reg_max - 0.01)

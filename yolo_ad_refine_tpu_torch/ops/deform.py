@@ -7,9 +7,13 @@ reference's mmcv semantics) and of the TPU kernel
 - ``deform_conv2d_plain`` is a line-by-line PyTorch port of the JAX exact
   gather, in its NHWC / HWIO layout. The CPU path and the kernel's checks use
   it.
-- ``modulated_deform_conv2d`` is the wrapper the model calls, on
-  channels_last NCHW tensors. A CPU tensor takes the plain version; a CUDA
-  tensor launches ``csrc/deform_conv.cu`` or raises.
+- ``modulated_deform_conv2d`` is what the model calls, on channels_last
+  NCHW tensors, through a ``torch.autograd.Function``. A CPU tensor takes
+  the plain version and its autograd; a CUDA tensor launches K1 fwd
+  (``dcn_forward``) and, in the backward, K1 bwd (``dcn_backward``), the
+  port of ``deform_mxu2.py::_bwd_kernel``, or raises. There is no fallback.
+- ``deform_conv2d_grads_plain`` is K1 bwd's plain version (autograd of the
+  plain forward); only the tests and the card's smoke run call it.
 
 ``radius=None`` samples unbounded (mmcv, ``ops/deform.py``); an integer
 radius clips the offsets to +-radius first, as the TPU kernel does.
@@ -25,6 +29,7 @@ from yolo_ad_refine_tpu_torch.utils import kernels
 
 K = 3
 KK = K * K
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
 
 
 def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int):
@@ -50,8 +55,8 @@ def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int):
     flat = (rows * (w + 2) + cols).reshape(b, n * 4, 1).expand(b, n * 4, c)
     blocks = torch.gather(xp, 1, flat).reshape(b, n, 2, 2, c)
 
-    in_y = ((y0 >= -1) & (y0 <= h - 1)).float()
-    in_x = ((x0 >= -1) & (x0 <= w - 1)).float()
+    in_y = ((y0 >= -1) & (y0 <= h - 1)).to(ly.dtype)
+    in_x = ((x0 >= -1) & (x0 <= w - 1)).to(lx.dtype)
     wy = torch.stack([1.0 - ly, ly], dim=-1) * in_y[..., None]  # (B, N, 2)
     wx = torch.stack([1.0 - lx, lx], dim=-1) * in_x[..., None]
     weights = (wy[:, :, :, None] * wx[:, :, None, :]).to(x_flat.dtype)  # (B, N, 2, 2)
@@ -61,23 +66,29 @@ def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int):
 def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None):
     """DCNv2 forward in plain PyTorch. x (B,H,W,C), offset (B,H,W,18),
     mask (B,H,W,9), weight (3,3,C,Cout) HWIO. Returns (B,H,W,Cout) in
-    x.dtype, accumulated in fp32."""
+    x.dtype, accumulated in fp32 (fp64 for fp64 inputs, for gradcheck).
+
+    With an integer ``radius`` the offsets are clipped to +-radius and pass
+    gradient only where |offset| < radius, as the TPU kernel's VJP does
+    (``deform_mxu2.py:483``)."""
     b, h, w, c = x.shape
     cout = weight.shape[-1]
     pad = K // 2
     dev = x.device
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     x_flat = x.reshape(b, h * w, c)
 
-    gy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    gx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    gy = torch.arange(h, dtype=acc, device=dev)[:, None]
+    gx = torch.arange(w, dtype=acc, device=dev)[None, :]
     base_y = torch.broadcast_to(gy, (h, w)).reshape(1, h * w, 1)
     base_x = torch.broadcast_to(gx, (h, w)).reshape(1, h * w, 1)
-    tap_dy = torch.tensor([t // K - pad for t in range(KK)], dtype=torch.float32, device=dev)
-    tap_dx = torch.tensor([t % K - pad for t in range(KK)], dtype=torch.float32, device=dev)
+    tap_dy = torch.tensor([t // K - pad for t in range(KK)], dtype=acc, device=dev)
+    tap_dx = torch.tensor([t % K - pad for t in range(KK)], dtype=acc, device=dev)
 
-    offset = offset.float().reshape(b, h * w, KK, 2)
+    offset = offset.to(acc).reshape(b, h * w, KK, 2)
     if radius is not None:
-        offset = offset.clamp(-float(radius), float(radius))
+        r = float(radius)
+        offset = torch.where(offset.abs() < r, offset, offset.clamp(-r, r).detach())
     cy = (base_y + tap_dy[None, None, :] + offset[..., 0]).reshape(b, h * w * KK)
     cx = (base_x + tap_dx[None, None, :] + offset[..., 1]).reshape(b, h * w * KK)
 
@@ -85,8 +96,19 @@ def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None):
     sampled = sampled * mask.reshape(b, h * w * KK, 1).to(sampled.dtype)
     sampled = sampled.reshape(b, h * w, KK * c)
     w_mat = weight.reshape(KK * c, cout)
-    out = torch.matmul(sampled.float(), w_mat.float())
+    out = torch.matmul(sampled.to(acc), w_mat.to(acc))
     return out.reshape(b, h, w, cout).to(x.dtype)
+
+
+def deform_conv2d_grads_plain(x, offset, mask, weight, g, radius: int | None = None):
+    """The plain version of K1 bwd: (dx, doffset, dmask, dweight) of
+    ``deform_conv2d_plain`` for the incoming gradient g (B,H,W,Cout), by
+    autograd, in the layouts of ``deform_conv2d_plain``. The tests and the
+    card's smoke run hold the kernel against it."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, offset, mask, weight)]
+        y = deform_conv2d_plain(*ins, radius=radius)
+        return torch.autograd.grad(y, ins, g.to(y.dtype))
 
 
 def _nhwc(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -96,17 +118,9 @@ def _nhwc(t: torch.Tensor, name: str) -> torch.Tensor:
     return v
 
 
-def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
-    """DCNv2 forward on channels_last NCHW tensors: x (B,C,H,W), offset
-    (B,18,H,W) fp32, mask (B,9,H,W) fp32, weight (Cout,C,3,3) in x.dtype.
-    Returns (B,Cout,H,W) channels_last in x.dtype.
-
-    A CPU tensor runs ``deform_conv2d_plain``; a CUDA tensor launches the
-    kernel of ``csrc/deform_conv.cu``."""
-    if x.device.type == "cpu":
-        y = deform_conv2d_plain(x.permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
-                                mask.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0), radius)
-        return y.permute(0, 3, 1, 2)
+def _check(x, offset, mask, weight, radius):
+    """Device, type and shape checks of the CUDA wrappers (the kernels take
+    nothing else)."""
     if x.device.type != "cuda":
         raise ValueError(f"modulated_deform_conv2d: unsupported device {x.device}")
     b, c, h, w = x.shape
@@ -125,6 +139,13 @@ def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
     for t in (offset, mask, weight):
         if t.device != x.device:
             raise ValueError("x, offset, mask and weight must be on one device")
+    return b, c, h, w, cout
+
+
+def dcn_forward(x, offset, mask, weight, radius: int | None = None):
+    """K1 fwd on CUDA tensors (channels_last NCHW, see
+    ``modulated_deform_conv2d``): launches ``csrc/deform_conv.cu`` or raises."""
+    b, c, h, w, cout = _check(x, offset, mask, weight, radius)
     xv, ov, mv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask")
     wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
@@ -145,4 +166,88 @@ def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
     return out
 
 
+def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
+    """K1 bwd on CUDA tensors: (dx, doffset, dmask, dweight) of
+    ``modulated_deform_conv2d`` for the incoming gradient g (B,Cout,H,W),
+    which is taken in x.dtype and made channels_last here. dx and dweight
+    are summed in fp32 by the kernel and cast to x.dtype / weight.dtype;
+    doffset and dmask are fp32. Launches ``csrc/deform_conv.cu`` or raises."""
+    b, c, h, w, cout = _check(x, offset, mask, weight, radius)
+    if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
+        raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
+                         f"({b}, {cout}, {h}, {w}) on {x.device}")
+    g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    xv, ov, mv, gv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask"), _nhwc(g, "g")
+    wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros((b, h, w, c), **f32)           # the kernel adds into dx and dw
+    doff = torch.empty((b, h, w, 2 * KK), **f32)    # and writes all of doff and dmask
+    dmask = torch.empty((b, h, w, KK), **f32)
+    dw = torch.zeros((KK, c, cout), **f32)
+    if b * h * w > 0:
+        lib = kernels.load("deform_conv")
+        lib.dcn_backward_smem_bytes.restype = ctypes.c_size_t
+        lib.dcn_backward_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem = lib.dcn_backward_smem_bytes(c, cout)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"dcn_backward: C={c}, Cout={cout} need {smem} bytes of shared "
+                             f"memory per block, more than the {SMEM_PER_BLOCK} a block may use")
+        fn = lib.dcn_backward
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                                      ctypes.c_void_p]
+        status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wk.data_ptr(), gv.data_ptr(),
+                    dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
+                    b, h, w, c, cout, -1.0 if radius is None else float(radius),
+                    0 if x.dtype == torch.float32 else 1,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(lib, status, "dcn_backward")
+        dcn_backward.launches += 1
+    dweight = dw.reshape(K, K, c, cout).permute(3, 2, 0, 1).to(weight.dtype)
+    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2),
+            dmask.permute(0, 3, 1, 2), dweight)
+
+
+class _DeformConv(torch.autograd.Function):
+    """DCNv2 with its gradient. CUDA: forward K1 fwd, backward K1 bwd. CPU:
+    the plain version forward, and its autograd (recomputed) backward."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, radius):
+        ctx.save_for_backward(x, offset, mask, weight)
+        ctx.radius = radius
+        if x.device.type == "cpu":
+            y = deform_conv2d_plain(x.permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
+                                    mask.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0), radius)
+            return y.permute(0, 3, 1, 2)
+        return dcn_forward(x, offset, mask, weight, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, mask, weight = ctx.saved_tensors
+        if x.device.type == "cpu":
+            nhwc = [t.permute(0, 2, 3, 1) for t in (x, offset, mask, g)]
+            dx, doff, dmask, dw = deform_conv2d_grads_plain(
+                nhwc[0], nhwc[1], nhwc[2], weight.permute(2, 3, 1, 0), nhwc[3], ctx.radius)
+            return (dx.permute(0, 3, 1, 2), doff.permute(0, 3, 1, 2), dmask.permute(0, 3, 1, 2),
+                    dw.permute(3, 2, 0, 1), None)
+        return (*dcn_backward(x, offset, mask, weight, g, ctx.radius), None)
+
+
+def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
+    """DCNv2 on channels_last NCHW tensors: x (B,C,H,W), offset
+    (B,18,H,W) fp32, mask (B,9,H,W) fp32, weight (Cout,C,3,3), cast to
+    x.dtype here as the JAX DyDCNv2 does (its gradient flows back through
+    the cast). Returns (B,Cout,H,W) channels_last in x.dtype,
+    differentiable in all four inputs.
+
+    A CPU tensor runs ``deform_conv2d_plain`` (and its autograd); a CUDA
+    tensor launches the kernels of ``csrc/deform_conv.cu`` (K1 fwd, and K1
+    bwd in the backward) or raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"modulated_deform_conv2d: unsupported device {x.device}")
+    return _DeformConv.apply(x, offset, mask, weight.to(x.dtype), radius)
+
+
 modulated_deform_conv2d.launches = 0
+dcn_backward.launches = 0

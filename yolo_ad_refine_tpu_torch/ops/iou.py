@@ -1,0 +1,71 @@
+"""Elementwise IoU (with the CIoU variant) and the NWD similarity.
+
+Counterpart of ``yolo_ad_refine_tpu/ops/iou.py`` (reference
+ultralytics/utils/metrics.py:74 bbox_iou, :539 wasserstein_loss). Both
+broadcast over leading dimensions of (..., 4) box tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _corners(box, xywh: bool):
+    if xywh:
+        xy, wh = box[..., :2], box[..., 2:4]
+        half = wh * 0.5
+        return xy - half, xy + half
+    return box[..., :2], box[..., 2:4]
+
+
+def bbox_iou(box1, box2, xywh: bool = True, GIoU: bool = False, DIoU: bool = False,
+             CIoU: bool = False, eps: float = 1e-7):
+    """Elementwise IoU between broadcastable (..., 4) boxes. CIoU's
+    aspect-ratio factor ``alpha`` carries no gradient (reference
+    metrics.py:124-126)."""
+    p1, p2 = _corners(box1, xywh)
+    g1, g2 = _corners(box2, xywh)
+    wh1 = p2 - p1
+    wh2 = g2 - g1
+    w1, h1 = wh1[..., 0], wh1[..., 1] + (0.0 if xywh else eps)
+    w2, h2 = wh2[..., 0], wh2[..., 1] + (0.0 if xywh else eps)
+
+    inter_wh = (torch.minimum(p2, g2) - torch.maximum(p1, g1)).clamp(min=0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not (GIoU or DIoU or CIoU):
+        return iou
+
+    cwh = torch.maximum(p2, g2) - torch.minimum(p1, g1)  # convex hull
+    cw, ch = cwh[..., 0], cwh[..., 1]
+    if GIoU:
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
+    c2 = cw**2 + ch**2 + eps  # convex diagonal squared
+    rho2 = (((g1[..., 0] + g2[..., 0]) - (p1[..., 0] + p2[..., 0])) ** 2
+            + ((g1[..., 1] + g2[..., 1]) - (p1[..., 1] + p2[..., 1])) ** 2) / 4
+    if DIoU:
+        return iou - rho2 / c2
+    v = (4 / math.pi**2) * (torch.atan(w2 / (h2 + eps)) - torch.atan(w1 / (h1 + eps))) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1 + eps))
+    return iou - (rho2 / c2 + v * alpha)
+
+
+def wasserstein_similarity(pred, target, eps: float = 1e-7, constant: float = 12.8):
+    """exp(-sqrt(W2) / constant) NWD similarity between xyxy boxes
+    (reference metrics.py:539-565; eps is added to heights only, as there)."""
+    w1 = pred[..., 2] - pred[..., 0]
+    h1 = pred[..., 3] - pred[..., 1] + eps
+    w2 = target[..., 2] - target[..., 0]
+    h2 = target[..., 3] - target[..., 1] + eps
+    cx1 = pred[..., 0] + w1 / 2
+    cy1 = pred[..., 1] + h1 / 2
+    cx2 = target[..., 0] + w2 / 2
+    cy2 = target[..., 1] + h2 / 2
+    center_d = (cx1 - cx2) ** 2 + (cy1 - cy2) ** 2 + eps
+    wh_d = ((w1 - w2) ** 2 + (h1 - h2) ** 2) / 4
+    return torch.exp(-torch.sqrt(center_d + wh_d) / constant)

@@ -1,7 +1,9 @@
-"""Runtime utilities of the PyTorch port: logging, yaml IO, device selection.
+"""Runtime utilities of the PyTorch port: logging, yaml IO, run paths,
+device selection.
 
 Counterpart of ``yolo_ad_refine_tpu/utils/__init__.py``, kept to what the
-predict path needs. PyYAML reads the model yamls, as in the JAX package.
+predict and train paths need. PyYAML reads and writes the yamls, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -11,11 +13,13 @@ import os
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 import yaml
 
 RANK = int(os.getenv("RANK", -1))
 ROOT = Path(__file__).resolve().parents[1]  # package root
+DEFAULT_CFG_PATH = ROOT / "cfg" / "default.yaml"
 
 
 def _make_logger(name: str = "yolo_ad_refine_tpu_torch", verbose: bool = True) -> logging.Logger:
@@ -42,6 +46,48 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> dict:
     if append_filename:
         data["yaml_file"] = str(path)
     return data
+
+
+def yaml_save(file: str | Path, data: dict | None = None) -> None:
+    """Save a dict to yaml, converting paths and numpy scalars to builtins."""
+    file = Path(file)
+    file.parent.mkdir(parents=True, exist_ok=True)
+    clean = {}
+    for k, v in (data or {}).items():
+        if isinstance(v, Path):
+            v = str(v)
+        elif isinstance(v, np.generic):
+            v = v.item()
+        clean[k] = v
+    with open(file, "w", errors="ignore", encoding="utf-8") as f:
+        yaml.safe_dump(clean, f, sort_keys=False, allow_unicode=True)
+
+
+def colorstr(*args) -> str:
+    """ANSI-colour a string: colorstr('red', 'bold', 'text'); one argument is blue bold."""
+    *styles, string = args if len(args) > 1 else ("blue", "bold", args[0])
+    codes = {"red": "\033[31m", "green": "\033[32m", "yellow": "\033[33m", "blue": "\033[34m",
+             "bold": "\033[1m", "end": "\033[0m"}
+    return "".join(codes[s] for s in styles) + f"{string}" + codes["end"]
+
+
+def increment_path(path: str | Path, exist_ok: bool = False, mkdir: bool = False) -> Path:
+    """runs/train -> runs/train2, runs/train3, ... unless ``exist_ok``."""
+    path = Path(path)
+    if path.exists() and not exist_ok:
+        for n in range(2, 9999):
+            if not Path(f"{path}{n}").exists():
+                path = Path(f"{path}{n}")
+                break
+    if mkdir:
+        path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def not_ported(what: str, item: str):
+    """Raise for a feature of the JAX package that the port does not run
+    yet, naming the ROADMAP item that brings it."""
+    raise NotImplementedError(f"{what} is not ported to PyTorch yet ({item})")
 
 
 def select_device(device: str | torch.device = "cuda") -> torch.device:
