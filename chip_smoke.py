@@ -7,10 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
 
 It builds the hand-written CUDA kernels from ``yolo_ad_refine_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each kernel (K1 DCN
-forward, K1 DCN backward, K4 NMS) against its plain PyTorch version at the
-shapes of the flagship's paths and times both. Then it drives the two paths
-through the user's entry points, each with the launch counts set to 0 just
-before it and read just after:
+forward, K1 DCN backward, K4 NMS, K5 rotated NMS) against its plain PyTorch
+version at the shapes of its paths and times both. Then it drives four
+paths through the user's entry points, each with the launch counts set to
+0 just before it and read just after:
 
 - serving: 64 synthetic images through ``YOLO(...).predict`` with the
   flagship YOLO-AD-Refine at imgsz 640, checked against the same model on
@@ -19,15 +19,22 @@ before it and read just after:
   temporary directory (64 train, 16 val images), 1 epoch at batch 16,
   imgsz 640, bf16 autocast: 4 steps, the EMA validation through K1 fwd and
   K4, the checkpoints, and a reload of ``best``;
+- OBB serving: 32 seeded images (1024² DOTA tiles and a few of 800² to
+  1920×1080) through ``YOLO("yolo11n-obb.yaml", task="obb").predict`` at
+  batch 16, imgsz 1024, checked against the same model on the CPU;
+- OBB validation: ``.val`` of that model on a seeded DOTA-format set
+  written to a temporary directory (16 tiles of 1024², 15 classes),
+  checked against the same validation on the CPU;
 
 and holds one fp32 train step on the card against the same step on the
 CPU. Any failed phase raises and the script exits non-zero. The last line is
 the device record ``{"ok": true, "device": {...}}``; the line before the
 card's name and power limit, and the one before that the kernels'
-measurements: ``launches`` from the training run with each path's own count
-under ``launches_by_path``; K1 bwd in fp32 with its bf16 numbers under
-``bfloat16``, each against the bound of its own precision. Without CUDA,
-or without the package beside it, it fails before printing any result.
+measurements: ``launches`` from the training run (K5: the OBB serving run)
+with each path's own count under ``launches_by_path``; K1 bwd in fp32 with
+its bf16 numbers under ``bfloat16``, each against the bound of its own
+precision. Without CUDA, or without the package beside it, it fails before
+printing any result.
 Where one predict batch's time goes is the job of
 ``python -m yolo_ad_refine_tpu_torch.engine.profile_predict``.
 """
@@ -37,14 +44,18 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 FLAGSHIP = "yolo11-701-YOLO-AD-Refine.yaml"
+OBB_CFG = "yolo11n-obb.yaml"  # scale n, nc 15 (DOTA v1), 1024 px DOTA tiles
+OBB_IMGSZ = 1024
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores, H100 SXM data sheet
 BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores (fp32 accumulate), dense, data sheet
@@ -273,6 +284,225 @@ def phase_k4(dev, gen):
             "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def rotated_candidates(b: int, k: int, gen, dev):
+    """(B, K, 5) score-sorted xywhr over 1024 px with the class offsets of
+    15 classes (centres up to about 108k px) and (B, K) scores on a 1/64
+    grid, for ties."""
+    import torch
+
+    xy = torch.rand(b, k, 2, generator=gen) * OBB_IMGSZ
+    wh = torch.rand(b, k, 2, generator=gen) * 112 + 8
+    ang = torch.rand(b, k, 1, generator=gen) * math.pi - math.pi / 4
+    cls = torch.randint(0, 15, (b, k, 1), generator=gen).float() * 7680.0
+    scores = (torch.rand(b, k, generator=gen) * 64).round() / 64
+    scores = scores.sort(dim=1, descending=True, stable=True).values
+    return torch.cat([xy + cls, wh, ang], -1).to(dev).contiguous(), scores.to(dev).contiguous()
+
+
+def obb_model(dev):
+    """yolo11n-obb at imgsz 1024 with seeded weights. Its class biases take
+    the flagship head's prior, sigmoid(b) = 0.01 (AYHead.bias_init), in
+    place of Detect's (sigmoid(b) of about 5e-5 at nc 15), so that
+    conf=0.001 hands NMS a full candidate set, as in the serving phase."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    t0 = time.perf_counter()
+    model = YOLO(OBB_CFG, task="obb", device=dev, imgsz=OBB_IMGSZ, seed=0)
+    with torch.no_grad():
+        for seq in model.model.model[model.model.head_idx].cv3:
+            seq[-1].bias.fill_(-math.log((1 - 0.01) / 0.01))
+    log(f"OBB: {OBB_CFG} built on {dev} in {time.perf_counter() - t0:.1f} s, "
+        f"{model.model.num_params():,} parameters, task {model.task}, strides "
+        f"{model.model.strides}")
+    return model
+
+
+def obb_images(n: int, seed: int):
+    """n seeded uint8 images: 1024² tiles, every 8th of another shape."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    others = [(800, 800), (1080, 1920), (1200, 1000), (960, 1280)]
+    return [rng.integers(0, 256, (*(others[(i // 8) % 4] if i % 8 == 7 else (1024, 1024)), 3),
+                         dtype=np.uint8) for i in range(n)]
+
+
+def phase_k5(dev, gen, model):
+    """Rotated NMS kernel vs plain: equal keep masks but for printed
+    rounding ties (ops/nms.py:rotated_rounding_ties); timing."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+    from yolo_ad_refine_tpu_torch.ops.nms import (
+        rotated_rounding_ties, select_candidates, suppress_rotated, suppress_rotated_plain)
+
+    x, _ = preprocess(obb_images(16, 3), OBB_IMGSZ, 16, torch.device(dev), torch.float32)
+    with torch.inference_mode():
+        y = model.model(x)[0]
+    real = select_candidates(y, 0.001, nc=model.model.nc, rotated=True)[:2]
+    cases = [("synthetic", *rotated_candidates(16, 2048, gen, dev)),
+             ("synthetic", *rotated_candidates(3, 1000, gen, dev)),
+             ("one OBB predict batch", *real)]
+    differ = ties = 0
+    for label, rb, scores in cases:
+        got = suppress_rotated(rb, scores, 0.7, 0.001)
+        want = suppress_rotated_plain(rb, scores, 0.7, 0.001)
+        torch.cuda.synchronize()
+        n = int((got != want).sum())
+        t = rotated_rounding_ties(got, want, rb, scores, 0.7, 0.001)  # raises on a non-tie
+        differ, ties = differ + n, ties + t
+        b, k = scores.shape
+        log(f"K5 B={b} K={k} ({label}): {int(got.sum())} kept; {n} keep-mask entries differ "
+            f"from plain, {t} of them rounding ties (probiou within 1e-5 of iou 0.7; each "
+            f"difference held against a replay of the plain walk), the rest following from them")
+    real_ms = cuda_time(lambda: suppress_rotated(*real, 0.7, 0.001), iters=20)
+    log(f"K5 on the predict batch's candidates (B=16, K=2048): kernel {real_ms:.4f} ms")
+    rb, scores = cases[0][1:]
+    ms = cuda_time(lambda: suppress_rotated(rb, scores, 0.7, 0.001), iters=20)
+    plain_ms = cuda_time(lambda: suppress_rotated_plain(rb, scores, 0.7, 0.001), iters=3, warmup=1)
+    keep = suppress_rotated(rb, scores, 0.7, 0.001)
+    b, k = scores.shape
+    # work this data needs: each kept candidate's probiou against every later
+    # one, ~40 operations a pair (log, exp, sqrt and division one each), and
+    # ~20 a candidate for its Gaussian; rboxes and scores read, keep written
+    idx = torch.arange(k, device=dev)
+    pairs = int(((k - 1 - idx)[None, :] * keep).sum())
+    flops = pairs * 40 + b * k * 20
+    nbytes = b * k * (20 + 4 + 1)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    log(f"K5 B={b} K={k}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {max(t_bytes, t_ops):.5f} ms ({pairs} probiou pairs)")
+    return {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "rounding_ties": ties}
+
+
+def phase_obb_serving(model, dev):
+    """The OBB predict path on the card at batch 16, imgsz 1024, fp32,
+    conf 0.001, then one 2-image batch against the same model on the CPU."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+
+    imgs = obb_images(32, 0)
+    model.predict(imgs[:16], conf=0.001, batch=16)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    seconds = []
+    for _ in range(3):
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(imgs, conf=0.001, batch=16)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches["nms_rotated"] != 2:
+            raise AssertionError(f"K5 was not launched once a batch on the OBB predict path: "
+                                 f"{launches}")
+    dt = sorted(seconds)[1]
+    log(f"OBB serving: 32 images, batch 16, imgsz {OBB_IMGSZ}, fp32: {32 / dt:.1f} images/s, "
+        f"{dt / 2 * 1e3:.1f} ms/batch (median of 3 runs: "
+        + ", ".join(f"{32 / s:.1f}" for s in seconds)
+        + " images/s; host clock, preprocess + forward + NMS + results)")
+    log(f"OBB serving: launches per run of the path: {launches}")
+    if len(results) != 32:
+        raise AssertionError(f"expected 32 results, got {len(results)}")
+    for im, r in zip(imgs, results):
+        d = r.obb.data
+        if not (0 < len(d) <= 300 and len(r.boxes) == len(d) and np.isfinite(d).all()
+                and np.isfinite(r.boxes.data).all()):
+            raise AssertionError(f"bad OBB detections for an image of shape {im.shape}: {d.shape}")
+    log(f"OBB serving: {sum(len(r) for r in results)} rotated detections, all finite")
+
+    x, _ = preprocess(imgs[:2], OBB_IMGSZ, 2, torch.device(dev), torch.float32)
+    with torch.inference_mode():
+        y_gpu = model.model(x)[0].float().cpu()
+        y_cpu = copy.deepcopy(model.model).cpu()(x.cpu())[0]
+    nc = model.model.nc
+    errs = {"box": (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item(),
+            "score": (y_gpu[..., 4:4 + nc] - y_cpu[..., 4:4 + nc]).abs().max().item(),
+            "angle": (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).abs().max().item()}
+    log(f"OBB serving: card vs CPU on 2 images: max |box diff| {errs['box']:.3e} px (tol 5e-2), "
+        f"max |score diff| {errs['score']:.3e}, max |angle diff| {errs['angle']:.3e} rad "
+        "(tol 1e-3)")
+    n_anchors = sum((OBB_IMGSZ // s) ** 2 for s in model.model.strides)  # 21504 at 1024
+    if not (y_gpu.shape == (2, n_anchors, 4 + nc + 1) and torch.isfinite(y_gpu).all()):
+        raise AssertionError(f"bad decoded OBB predictions {tuple(y_gpu.shape)}")
+    if errs["box"] > 5e-2 or errs["score"] > 1e-3 or errs["angle"] > 1e-3:
+        raise AssertionError("card and CPU OBB predictions disagree")
+    return launches
+
+
+def phase_obb_val(model, dev):
+    """``.val`` of the OBB model on a seeded DOTA-format set of 16 tiles of
+    1024² at batch 8: K5 once a batch, finite metrics, and the metrics
+    within 1e-3 of the same validation on the CPU. Each tile is labelled
+    with the model's own 3 best rotated detections: random labels would
+    give mAP 0 on the card and the CPU alike and prove nothing."""
+    import cv2
+    import torch
+
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_dota_dataset
+    from yolo_ad_refine_tpu_torch.engine.results import OBBoxes
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obb_") as tmp:
+        t0 = time.perf_counter()
+        root = Path(tmp) / "dota"
+        data = make_dota_dataset(root, n_val=16, imgsz=OBB_IMGSZ, seed=0)
+        files = sorted((root / "val" / "images").glob("*.png"))
+        for f, r in zip(files, model.predict([cv2.imread(str(f)) for f in files], conf=0.001,
+                                             batch=16)):
+            quads = OBBoxes(r.obb.data[:3], r.orig_shape).xyxyxyxy / OBB_IMGSZ
+            (root / "val" / "labels" / f"{f.stem}.txt").write_text("".join(
+                f"{int(c)} " + " ".join(f"{v:.6f}" for v in q.reshape(-1)) + "\n"
+                for q, c in zip(quads, r.obb.cls[:3])))
+        log(f"OBB val: DOTA-format set (16 tiles of {OBB_IMGSZ}², 15 classes) written and "
+            f"labelled in {time.perf_counter() - t0:.1f} s")
+        args = {"data": data, "imgsz": OBB_IMGSZ, "batch": 8, "conf": 0.001}
+        counters = kernel_counters()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        metrics = model.val(**args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        cpu = copy.deepcopy(model)
+        cpu.model = cpu.model.cpu()
+        t1 = time.perf_counter()
+        want = cpu.val(**args)
+        cpu_s = time.perf_counter() - t1
+    log(f"OBB val: 16 images at batch 8 in {wall:.2f} s, {wall / 16 * 1e3:.1f} ms an image "
+        f"(host clock, loader to metrics; the validator's own: "
+        f"{metrics['speed_ms_per_image']:.1f} ms, of it inference + NMS "
+        f"{metrics['inference_ms_per_image']:.1f} ms); launches {launches}")
+    keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+            "metrics/mAP50-95(B)", "fitness")
+    log("OBB val: card " + ", ".join(f"{k} {metrics[k]:.6f}" for k in keys))
+    log(f"OBB val: CPU ({cpu_s:.1f} s) " + ", ".join(f"{k} {want[k]:.6f}" for k in keys)
+        + " (tol 1e-3)")
+    if launches["nms_rotated"] != 2:
+        raise AssertionError(f"K5 was not launched once a batch in the OBB validation: {launches}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite OBB val metrics {metrics}")
+    if metrics["metrics/mAP50(B)"] <= 0.05 or any(abs(metrics[k] - want[k]) > 1e-3 for k in keys):
+        raise AssertionError("the card's OBB val metrics are vacuous or disagree with the CPU's")
+    return launches
+
+
+def kernel_counters():
+    """Every kernel wrapper, by the name of its entry in the kernels line."""
+    from yolo_ad_refine_tpu_torch.ops.deform import dcn_backward, modulated_deform_conv2d
+    from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_rotated
+
+    return {"dcn_forward": modulated_deform_conv2d, "dcn_backward": dcn_backward,
+            "nms_suppress": suppress, "nms_rotated": suppress_rotated}
+
+
 def phase_serving(dev):
     """The flagship's predict path on the card, then one 2-image batch
     against the same model on the CPU."""
@@ -281,8 +511,6 @@ def phase_serving(dev):
 
     from yolo_ad_refine_tpu_torch import YOLO
     from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
-    from yolo_ad_refine_tpu_torch.ops.deform import modulated_deform_conv2d
-    from yolo_ad_refine_tpu_torch.ops.nms import suppress
 
     t0 = time.perf_counter()
     model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
@@ -297,16 +525,16 @@ def phase_serving(dev):
 
     # three timed runs of the path: the host clock here varies from run to run
     seconds = []
+    counters = kernel_counters()
     for _ in range(3):
-        modulated_deform_conv2d.launches = 0
-        suppress.launches = 0
+        for f in counters.values():
+            f.launches = 0
         t0 = time.perf_counter()
         results = model.predict(imgs, conf=0.001, batch=32)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        launches = {"dcn_forward": modulated_deform_conv2d.launches,
-                    "nms_suppress": suppress.launches}
-        if min(launches.values()) == 0:
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches["dcn_forward"] == 0 or launches["nms_suppress"] == 0:
             raise AssertionError(f"a kernel was not launched on the predict path: {launches}")
     dt = sorted(seconds)[1]
     log(f"serving: 64 images, batch 32, imgsz 640, fp32: {64 / dt:.1f} images/s, "
@@ -351,11 +579,8 @@ def phase_training(dev):
 
     from yolo_ad_refine_tpu_torch import YOLO
     from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
-    from yolo_ad_refine_tpu_torch.ops.deform import dcn_backward, modulated_deform_conv2d
-    from yolo_ad_refine_tpu_torch.ops.nms import suppress
 
-    counters = {"dcn_forward": modulated_deform_conv2d, "dcn_backward": dcn_backward,
-                "nms_suppress": suppress}
+    counters = kernel_counters()
 
     def counts():
         return {k: f.launches for k, f in counters.items()}
@@ -456,7 +681,14 @@ def phase_step_card_vs_cpu(dev):
     scalar gate) and fp32 rounding alone nears the limit. Such a leaf is
     held against the fp64 step instead: the card within 4 times the CPU
     fp32's own distance from it. The same card step with TF32 on is the
-    lower-precision control: its readings are printed, not held."""
+    lower-precision control: its readings are printed, not held. The card
+    steps run with PyTorch's deterministic algorithms (cuDNN's included),
+    as the CPU's do, so that their readings do not move from run to run
+    with the order of a library's atomics; the ops that have no
+    deterministic version are printed. K1 bwd keeps its sums in fp64 for
+    the same reason. A second run of the fp32 card step gives each
+    cancelling leaf's run-to-run spread; it is printed beside the leaf's
+    reading and not held."""
     import numpy as np
     import torch
 
@@ -516,18 +748,39 @@ def phase_step_card_vs_cpu(dev):
         return rel, over, ratio[0]
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    rel, over, ratio = compare("card vs CPU step, fp32", *step(copy.deepcopy(base).to(dev)))
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        loss, grads = step(copy.deepcopy(base).to(dev))
+        again = step(copy.deepcopy(base).to(dev))[1]
+    log("card step, deterministic algorithms; ops without a deterministic version: "
+        + ", ".join(sorted({str(w.message).split(" does not have")[0].split(" defaults to")[0]
+                            for w in caught if "deterministic" in str(w.message)})))
+    rel, over, ratio = compare("card vs CPU step, fp32", loss, grads)
+    log("card step, cancelling leaves: |card - fp64| / |cpu - fp64| and, not held, the "
+        "run-to-run spread |card - card again| / |cpu - fp64|: "
+        + ", ".join(f"{n} {(grads[n] - g64[n]).norm().item() / max(cpu_off[n], 1e-30):.2f} "
+                    f"{(grads[n] - again[n]).norm().item() / max(cpu_off[n], 1e-30):.2f}"
+                    for n in sorted(cancels)))
     if rel > 1e-4:
         raise AssertionError("card and CPU train-step losses disagree")
     if over or ratio > 4:
         raise AssertionError(f"card and CPU gradients disagree: {over[:8]}, cancelling-leaf "
                              f"ratio {ratio:.2f}")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    compare("control, card step with TF32 on", *step(copy.deepcopy(base).to(dev)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        compare("control, card step with TF32 on", *step(copy.deepcopy(base).to(dev)))
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
 
 
 def main() -> int:
+    # cuBLAS's fixed-workspace mode, under which its results repeat from run
+    # to run, as the deterministic card step (phase_step_card_vs_cpu) asks
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -560,23 +813,32 @@ def main() -> int:
     serving = phase_serving(dev)
     training, per_step = phase_training(dev)
     phase_step_card_vs_cpu(dev)
+    obb = obb_model(dev)
+    k5 = phase_k5(dev, gen, obb)
+    obb_serving = phase_obb_serving(obb, dev)
+    obb_val = phase_obb_val(obb, dev)
 
-    def entry(name, source, replaces, measured, **extra):
-        # launches: the training run's count, and each path's own beside it
+    def entry(name, source, replaces, measured, launches, **extra):
+        # launches: the count of the kernel's own main path, each path's beside it
         return {"name": name, "route": "cuda", "source": f"yolo_ad_refine_tpu_torch/csrc/{source}",
-                "replaces": f"yolo_ad_refine_tpu/{replaces}", "launches": training[name],
+                "replaces": f"yolo_ad_refine_tpu/{replaces}", "launches": launches,
                 "launches_by_path": {"serving_run": serving.get(name, 0),
-                                     "training_run": training[name],
-                                     "training_step": per_step[name]},
+                                     "training_run": training.get(name, 0),
+                                     "training_step": per_step.get(name, 0),
+                                     "obb_serving_run": obb_serving[name],
+                                     "obb_val_run": obb_val[name]},
                 **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by")},
                 "library_ms": None, **extra}
 
     kernels_line = {"kernels": [
-        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1, dtype="float32"),
+        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1,
+              training["dcn_forward"], dtype="float32"),
         entry("dcn_backward", "deform_conv.cu", "ops/deform_mxu2.py:169", k1b["float32"],
-              dtype="float32", bfloat16=k1b["bfloat16"]),
-        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4),
+              training["dcn_backward"], dtype="float32", bfloat16=k1b["bfloat16"]),
+        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, training["nms_suppress"]),
+        entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, obb_serving["nms_rotated"],
+              rounding_ties=k5["rounding_ties"]),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

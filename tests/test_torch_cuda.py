@@ -15,7 +15,8 @@ import torch
 
 from yolo_ad_refine_tpu_torch.ops.deform import (
     dcn_backward, deform_conv2d_grads_plain, deform_conv2d_plain, modulated_deform_conv2d)
-from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_plain
+from yolo_ad_refine_tpu_torch.ops.nms import (
+    rotated_rounding_ties, suppress, suppress_plain, suppress_rotated, suppress_rotated_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,9 +66,9 @@ def test_dcn_kernel_matches_plain(dev, dtype, tol, radius, shape):
 @pytest.mark.parametrize("shape,sigma", [((2, 40, 40, 64, 64), 4.0), ((3, 13, 29, 48, 80), 5.0),
                                          ((2, 20, 20, 64, 64), 0.0)])
 def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma):
-    """Each of the four gradients within ``tol`` of max |plain|: fp32 sums
-    in another order (and with atomics, in an order that changes from run
-    to run); bf16 as the forward. sigma 0 puts every sample on an integer
+    """Each of the four gradients within ``tol`` of max |plain|: sums in
+    another order (dx and dweight in fp64, with atomics in an order that
+    changes from run to run); bf16 as the forward. sigma 0 puts every sample on an integer
     coordinate, where the one-sided derivative is taken."""
     dt = getattr(torch, dtype)
     b, h, w, c, cout = shape
@@ -142,3 +143,54 @@ def test_flagship_predict_launches_both_kernels(dev):
     results = model.predict(imgs, imgsz=128, conf=0.001, batch=2)
     assert modulated_deform_conv2d.launches == 3 and suppress.launches == 1
     assert all(len(res) > 0 and np.isfinite(res.boxes.data).all() for res in results)
+
+
+@pytest.mark.parametrize("b,k", [(16, 2048), (3, 1000), (1, 64), (4, 65)])
+def test_rotated_nms_kernel_keep_mask_equals_plain(dev, b, k):
+    """K5 against its plain version on the card: equal keep masks, but for
+    rounding ties (a probiou within 1e-5 of the threshold, each difference
+    checked against a replay of the plain walk, ``rotated_rounding_ties``)."""
+    g = torch.Generator().manual_seed(k)
+    xy = torch.rand(b, k, 2, generator=g) * 400
+    wh = torch.rand(b, k, 2, generator=g) * 80 + 8
+    ang = torch.rand(b, k, 1, generator=g) * math.pi - math.pi / 4
+    cls = torch.randint(0, 15, (b, k, 1), generator=g).float() * 7680.0
+    rb = torch.cat([xy + cls, wh, ang], -1).to(dev)
+    scores = ((torch.rand(b, k, generator=g) * 16).round() / 16).sort(
+        dim=1, descending=True, stable=True).values.to(dev)
+    launches = suppress_rotated.launches
+    got = suppress_rotated(rb, scores, 0.5, 0.1)
+    torch.cuda.synchronize()
+    assert suppress_rotated.launches == launches + 1
+    want = suppress_rotated_plain(rb, scores, 0.5, 0.1)
+    rotated_rounding_ties(got, want, rb, scores, 0.5, 0.1)  # raises on any other difference
+    assert 0 < int(got.sum()) < int((scores > 0.1).sum())
+
+
+def test_rotated_nms_wrapper_rejects_bad_inputs(dev):
+    rb = torch.rand(2, 70, 5, device=dev)
+    scores = torch.rand(2, 70, device=dev)
+    with pytest.raises(ValueError):
+        suppress_rotated(rb[..., :4].contiguous(), scores, 0.5, 0.1)
+    with pytest.raises(TypeError):
+        suppress_rotated(rb.double(), scores, 0.5, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        suppress_rotated(rb.transpose(0, 1).contiguous().transpose(0, 1), scores, 0.5, 0.1)
+
+
+def test_obb_predict_and_val_launch_k5(dev, tmp_path):
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_dota_dataset
+
+    model = YOLO("yolo11n-obb.yaml", task="obb", device=dev, imgsz=128)
+    r = np.random.default_rng(0)
+    imgs = [r.integers(0, 256, (128, 128, 3), dtype=np.uint8) for _ in range(3)]
+    suppress_rotated.launches = suppress.launches = 0
+    results = model.predict(imgs, imgsz=128, conf=1e-6, batch=2)
+    assert suppress_rotated.launches == 2 and suppress.launches == 0
+    assert all(len(res) > 0 and np.isfinite(res.obb.data).all() for res in results)
+    data = make_dota_dataset(tmp_path / "dota", n_val=4, imgsz=128)
+    suppress_rotated.launches = 0
+    metrics = model.val(data=data, imgsz=128, batch=2)
+    assert suppress_rotated.launches == 2
+    assert all(math.isfinite(v) for v in metrics.values())

@@ -117,6 +117,9 @@ def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
     ("dcn_fwd_kernel<float>", "K1 dcn_forward"),
     ("void (anonymous namespace)::dcn_bwd_kernel<__nv_bfloat16>", "K1 dcn_backward"),
     ("nms_reduce_kernel", "K4 nms_suppress"),
+    ("void (anonymous namespace)::nms_rotated_reduce_kernel(unsigned long long const*)",
+     "K5 nms_rotated"),
+    ("void (anonymous namespace)::nms_rotated_mask_kernel(float const*, int)", "K5 nms_rotated"),
     ("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float>", "normalisation"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32", "convolution"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),

@@ -2,7 +2,9 @@
 
 The keep mask and the (max_det, 6) detections must be bit-equal to JAX's
 ``non_max_suppression(use_pallas=False)``, and the port's suppression must
-equal the TPU kernel K4 (``suppress_pallas``) run in interpret mode. Inputs
+equal the TPU kernel K4 (``suppress_pallas``) run in interpret mode. The
+rotated branch's rows are held within 1e-5 (its probiou takes exp / log
+from another library); its kernel-level checks are in test_torch_obb.py. Inputs
 include tied scores (the common case with freshly initialised weights),
 dense overlaps and candidate counts that are not multiples of 64.
 """
@@ -85,6 +87,19 @@ def test_suppress_on_cpu_launches_nothing():
     assert suppress.launches == launches
 
 
-def test_rotated_raises_naming_k5():
-    with pytest.raises(NotImplementedError, match="K5"):
-        non_max_suppression(torch.zeros(1, 10, 4 + NC + 1), nc=NC, rotated=True)
+@pytest.mark.parametrize("seed,n,conf,iou", [(5, 300, 0.25, 0.45), (6, 1000, 0.001, 0.7)])
+def test_rotated_nms_matches_jax(seed, n, conf, iou):
+    """The rotated branch (probiou suppression, K5 on the card): the same
+    counts, rows and carried angles as JAX's, candidates from the
+    axis-aligned cases above with an angle column."""
+    pred = _prediction(seed, n, dense=seed % 2 == 0)
+    ang = np.random.default_rng(seed).uniform(-np.pi / 4, 3 * np.pi / 4, (*pred.shape[:2], 1))
+    pred = np.concatenate([pred, ang.astype(np.float32)], -1)
+    jdet, jcnt, jext = jax_nms(jnp.asarray(pred), conf_thres=conf, iou_thres=iou, nc=NC,
+                               rotated=True, use_pallas=False)
+    det, cnt, ext = non_max_suppression(torch.from_numpy(pred), conf_thres=conf, iou_thres=iou,
+                                        nc=NC, rotated=True)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_allclose(det.numpy(), np.asarray(jdet), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(ext.numpy(), np.asarray(jext))
+    assert cnt.min() > 0

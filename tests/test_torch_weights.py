@@ -74,7 +74,7 @@ def jax_shapes(cfg: str, imgsz: int):
 
 
 def test_yaml_copies_identical():
-    for name in (FLAGSHIP, "yolo11.yaml"):
+    for name in (FLAGSHIP, "yolo11.yaml", "yolo11-obb.yaml"):
         ours = (REPO / "yolo_ad_refine_tpu_torch" / "cfg" / "models" / name).read_bytes()
         ref = (REPO / "yolo_ad_refine_tpu" / "cfg" / "models" / name).read_bytes()
         assert ours == ref, name

@@ -191,8 +191,8 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 // w_k from floor-based corners, before the mask) and gs_t = g . W_t^T:
 //   dmask[p, t]   = sum_c sampled_t[p, c] gs_t[p, c]
 //   doffset[p, t] = m sum_c gs_t[p, c] sum_k (dw_k / d coord) x[corner_k, c]
-//   dx[corner_k]  += m w_k gs_t[p, :]                       (fp32 atomics)
-//   dW_t          += (m sampled_t)^T g                      (fp32 atomics)
+//   dx[corner_k]  += m w_k gs_t[p, :]                       (fp64 atomics)
+//   dW_t          += (m sampled_t)^T g                      (fp64 atomics)
 // The floor-based weights give, at an integer sample coordinate, the
 // one-sided derivative that autodiff of ops/deform.py (and mmcv) gives; the
 // TPU kernel's hat form gives 0 there. A corner outside the map is zero, so
@@ -206,8 +206,12 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 // corner rows, writes m * sampled to shared memory, scatters dx with atomics
 // and reduces the four corner dot products over the warp into dmask and
 // doffset. Last, dW_t += (m sampled)^T g from shared memory. At the end the
-// block adds its dW_t partial into the global fp32 dW with atomics, so dx and
-// dW are summed in an order that changes from run to run (last bits only).
+// block adds its dW_t partial into the global dW with atomics. dx and dW are
+// summed in an order that changes from run to run, so both sums are kept in
+// fp64 and rounded to fp32 once, by the wrapper: two runs then give the same
+// fp32 gradient but where an fp64 sum lies within its own rounding of an fp32
+// rounding boundary, where fp32 atomics would move the last bits of nearly
+// every sum of several terms (and a train step's gradient with them).
 //
 // What bounds it: the per-tap products g . W_t^T and (m sampled)^T g are
 // 4 C Cout flops per pixel and tap (~1.3 GFLOP per 640 image over the three
@@ -222,9 +226,9 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 dcn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                const float* __restrict__ mask, const T* __restrict__ weight,
-               const T* __restrict__ g, float* __restrict__ dx,
+               const T* __restrict__ g, double* __restrict__ dx,
                float* __restrict__ doffset, float* __restrict__ dmask,
-               float* __restrict__ dweight, int npix, int H, int W, int C, int Cout,
+               double* __restrict__ dweight, int npix, int H, int W, int C, int Cout,
                float radius) {
   extern __shared__ float smem[];
   float* s_w = smem;                      // C x (Cout + 1), padded rows
@@ -317,7 +321,7 @@ dcn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
           const float xv = to_f(x[q]);
           samp = fmaf(wk[k], xv, samp);
           a[k] = fmaf(gsv, xv, a[k]);
-          atomicAdd(dx + q, wk[k] * mg);
+          atomicAdd(dx + q, (double)(wk[k] * mg));
         }
         s_ms[pi * C + c] = m * samp;
       }
@@ -350,7 +354,8 @@ dcn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
     }
   }
   __syncthreads();
-  for (int i = tid; i < C * Cout; i += NT) atomicAdd(dweight + (size_t)t * C * Cout + i, s_dw[i]);
+  for (int i = tid; i < C * Cout; i += NT)
+    atomicAdd(dweight + (size_t)t * C * Cout + i, (double)s_dw[i]);
 }
 
 size_t bwd_smem_bytes(int C, int Cout) {
@@ -371,8 +376,8 @@ int launch_bwd(const void* x, const void* offset, const void* mask, const void* 
   dcn_bwd_kernel<T><<<grid, NT, smem, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(offset),
       static_cast<const float*>(mask), static_cast<const T*>(weight), static_cast<const T*>(g),
-      static_cast<float*>(dx), static_cast<float*>(doffset), static_cast<float*>(dmask),
-      static_cast<float*>(dweight), npix, H, W, C, Cout, radius);
+      static_cast<double*>(dx), static_cast<float*>(doffset), static_cast<float*>(dmask),
+      static_cast<double*>(dweight), npix, H, W, C, Cout, radius);
   return (int)cudaGetLastError();
 }
 
@@ -383,7 +388,7 @@ extern "C" {
 // Shared memory (bytes) one backward block needs at these channel counts.
 size_t dcn_backward_smem_bytes(int C, int Cout) { return bwd_smem_bytes(C, Cout); }
 
-// dx (B, H, W, C) and dweight (9, C, Cout) are fp32 and must be zeroed by the
+// dx (B, H, W, C) and dweight (9, C, Cout) are fp64 and must be zeroed by the
 // caller (the kernel adds into them); doffset (B, H, W, 18) and dmask
 // (B, H, W, 9) are fp32 and fully written. dtype: 0 = fp32, 1 = bf16 (x,
 // weight and g). Returns cudaGetLastError().

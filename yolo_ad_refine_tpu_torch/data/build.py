@@ -26,11 +26,12 @@ NUM_THREADS = min(8, max(1, (os.cpu_count() or 1) - 1))
 def collate(samples: list[dict], max_boxes: int) -> dict:
     """Stack samples into numpy batch arrays: img (B, H, W, 3) uint8 RGB
     (the BGR -> RGB flip happens here, once), cls (B, N, 1), bboxes
-    (B, N, 4) xyxy px, mask (B, N, 1); boxes past max_boxes are dropped."""
+    (B, N, 4) xyxy px or (B, N, 5) xywhr px for OBB, mask (B, N, 1); boxes
+    past max_boxes are dropped."""
     b = len(samples)
     img = np.stack([s["img"][..., ::-1] for s in samples])  # BGR -> RGB
     cls = np.zeros((b, max_boxes, 1), np.float32)
-    bboxes = np.zeros((b, max_boxes, 4), np.float32)
+    bboxes = np.zeros((b, max_boxes, samples[0]["bboxes"].shape[-1]), np.float32)
     mask = np.zeros((b, max_boxes, 1), np.float32)
     overflow = 0
     for i, s in enumerate(samples):

@@ -1,13 +1,15 @@
 """YOLO-format detection dataset (host-side numpy + cv2).
 
 Counterpart of ``yolo_ad_refine_tpu/data/dataset.py`` for ``task="detect"``
-(reference ultralytics/data/base.py:21, dataset.py:45, data/utils.py:254):
-images are globbed, YOLO txt labels parsed (exact duplicate rows dropped),
-each image resized so its long side is imgsz (ceil, base.py:171), and
-``get_sample`` runs the train pipeline (mosaic, perspective, mixup, extras,
-HSV, flips) or the val letterbox, drawing from the given generator in the
-JAX package's order. Samples: img uint8 HWC BGR, bboxes (n, 4) xyxy px,
-cls (n,), ori_shape, ratio_pad, im_file.
+and ``task="obb"`` (reference ultralytics/data/base.py:21, dataset.py:45,
+data/utils.py:254): images are globbed, YOLO txt labels parsed (exact
+duplicate rows dropped), each image resized so its long side is imgsz
+(ceil, base.py:171), and ``get_sample`` runs the train pipeline (mosaic,
+perspective, mixup, extras, HSV, flips) or the val letterbox, drawing from
+the given generator in the JAX package's order. Samples: img uint8 HWC
+BGR, bboxes (n, 4) xyxy px (OBB: (n, 5) xywhr px from DOTA-style corner
+rows), cls (n,), ori_shape, ratio_pad, im_file. OBB runs the val case
+only: its augments wait for OBB training.
 """
 
 from __future__ import annotations
@@ -48,6 +50,21 @@ def check_det_dataset(data: str | Path | dict) -> dict:
     return d
 
 
+def xyxyxyxy2xywhr_np(corners: np.ndarray) -> np.ndarray:
+    """(n, 4, 2) corner quads -> (n, 5) xywhr, r in radians [0, pi/2)
+    (reference utils/ops.py:xyxyxyxy2xywhr, cv2.minAreaRect)."""
+    if not len(corners):
+        return np.zeros((0, 5), np.float32)
+    out = []
+    for pts in corners:
+        (cx, cy), (w, h), angle = cv2.minAreaRect(pts.astype(np.float32))
+        r = (angle / 180.0 * np.pi) % np.pi  # into [0, pi/2) with the
+        if r >= np.pi / 2:                   # (w, h, r) == (h, w, r + pi/2) identity
+            w, h, r = h, w, r - np.pi / 2
+        out.append([cx, cy, w, h, r])
+    return np.asarray(out, np.float32)
+
+
 def img2label_path(img_path: str) -> str:
     """.../images/xxx.jpg -> .../labels/xxx.txt (the last 'images' part)."""
     p = Path(img_path)
@@ -65,8 +82,10 @@ class YOLODataset:
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = False,
                  hyp: dict | None = None, max_boxes: int = 128, nc: int = 80,
                  fraction: float = 1.0, task: str = "detect", cache_images: str | bool = False):
-        if task != "detect":
+        if task not in ("detect", "obb"):
             not_ported(f"the {task!r} dataset", "ROADMAP Queue 1 item 12, the other tasks")
+        if task == "obb" and augment:
+            not_ported("OBB augmentation", "ROADMAP Queue 1 item 12, OBB training")
         if cache_images:
             not_ported("image caching (cache=ram/disk)", "ROADMAP Queue 1 item 9, data")
         self.imgsz = imgsz
@@ -104,20 +123,33 @@ class YOLODataset:
     def _load_labels(self) -> list[dict]:
         labels = []
         n_missing = 0
+        obb = self.task == "obb"
         for lf in self.label_files:
             rows = np.zeros((0, 5), np.float32)
+            corners = np.zeros((0, 4, 2), np.float32)
             if Path(lf).exists():
                 raw = [x.split() for x in Path(lf).read_text().splitlines() if x.strip()]
-                if raw:
+                if raw and obb:
+                    # DOTA-style rows: cls x1 y1 x2 y2 x3 y3 x4 y4, normalised
+                    # corners; rows keep their axis-aligned hull
+                    vals = np.asarray(raw, np.float32)
+                    corners = vals[:, 1:9].reshape(-1, 4, 2).clip(0, 1)
+                    rows = np.stack([vals[:, 0], corners[..., 0].mean(-1), corners[..., 1].mean(-1),
+                                     np.ptp(corners[..., 0], -1), np.ptp(corners[..., 1], -1)], -1)
+                elif raw:
                     rows = np.asarray(raw, dtype=np.float32)[:, :5]
                     rows[:, 1:] = rows[:, 1:].clip(0, 1)
             else:
                 n_missing += 1
             if len(rows) > 1:  # drop exact duplicates, keep the first, in order
-                _, keep = np.unique(rows, axis=0, return_index=True)
+                key = np.concatenate([rows, corners.reshape(len(rows), -1)], 1) if obb else rows
+                _, keep = np.unique(key, axis=0, return_index=True)
                 if len(keep) < len(rows):
-                    rows = rows[np.sort(keep)]
-            labels.append({"cls": rows[:, 0], "xywhn": rows[:, 1:5]})
+                    keep = np.sort(keep)
+                    rows = rows[keep]
+                    corners = corners[keep] if obb else corners
+            labels.append({"cls": rows[:, 0], "xywhn": rows[:, 1:5],
+                           **({"corners": corners} if obb else {})})
         if n_missing:
             LOGGER.warning(f"{n_missing}/{len(self.im_files)} label files missing "
                            "(treated as background)")
@@ -164,6 +196,8 @@ class YOLODataset:
                    mosaic: bool | None = None) -> dict:
         """The train or val transform pipeline for one index."""
         rng = rng or np.random.default_rng()
+        if self.task == "obb":
+            return self._get_obb_sample(i)
         hyp = self.hyp
         if mosaic is None:
             mosaic = self.mosaic_enabled and rng.random() < hyp.get("mosaic", 1.0)
@@ -203,3 +237,19 @@ class YOLODataset:
         return {"img": np.ascontiguousarray(img), "bboxes": boxes.astype(np.float32),
                 "cls": cls.astype(np.float32), "ori_shape": tuple(ori_shape),
                 "ratio_pad": ratio_pad, "im_file": self.im_files[i % len(self)]}
+
+    def _get_obb_sample(self, i: int) -> dict:
+        """OBB val sample: the letterbox, with the corner quads moved with the
+        image and then turned into xywhr px (cv2.minAreaRect, angle in
+        [0, pi/2))."""
+        img, _, cls, (h0, w0) = self.load_item(i, with_shape=True)
+        r1 = img.shape[0] / h0
+        h, w = img.shape[:2]
+        corners = self.labels[i]["corners"] * np.asarray([w, h], np.float32)
+        img, ratio, pad = A.letterbox_np(img, self.imgsz, scaleup=False)
+        corners = corners * ratio[0] + np.asarray(pad, np.float32)
+        return {"img": np.ascontiguousarray(img),
+                "bboxes": xyxyxyxy2xywhr_np(corners).astype(np.float32),
+                "cls": cls.astype(np.float32), "ori_shape": (h0, w0),
+                "ratio_pad": ((ratio[0] * r1, ratio[1] * r1), pad),
+                "im_file": self.im_files[i % len(self)]}

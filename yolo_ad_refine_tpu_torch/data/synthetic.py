@@ -1,10 +1,13 @@
-"""Synthetic shapes detection dataset.
+"""Synthetic detection datasets.
 
-Counterpart of ``yolo_ad_refine_tpu/data/synthetic.py``: a deterministic
-stand-in for a real detection set (textured backgrounds with coloured
-discs, boxes and triangles) in YOLO layout (images/ + labels/ txt + a data
-dict), so the whole train pipeline runs without a download. The same seed
-writes the same files as the JAX package's generator.
+``make_shapes_dataset`` is the counterpart of
+``yolo_ad_refine_tpu/data/synthetic.py``: a deterministic stand-in for a
+real detection set (textured backgrounds with coloured discs, boxes and
+triangles) in YOLO layout (images/ + labels/ txt + a data dict), so the
+whole train pipeline runs without a download. The same seed writes the same
+files as the JAX package's generator. ``make_dota_dataset`` writes an
+oriented-box val set in the DOTA layout that ``data/split_dota.py`` tiles
+produce (square tiles, 15 DOTA v1 classes, corner-quad labels).
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ from pathlib import Path
 import numpy as np
 
 CLASS_NAMES = {0: "disc", 1: "box", 2: "tri"}
+DOTA_NAMES = dict(enumerate((
+    "plane", "ship", "storage-tank", "baseball-diamond", "tennis-court", "basketball-court",
+    "ground-track-field", "harbor", "bridge", "large-vehicle", "small-vehicle", "helicopter",
+    "roundabout", "soccer-ball-field", "swimming-pool")))
 
 
 def _draw_object(img: np.ndarray, rng: np.random.Generator, cls: int,
@@ -95,3 +102,34 @@ def make_shapes_dataset(root: str | Path, n_train: int = 200, n_val: int = 48,
                 "\n".join(lines) + "\n")
     return {"path": str(root), "train": "train/images", "val": "val/images",
             "names": dict(CLASS_NAMES)}
+
+
+def make_dota_dataset(root: str | Path, n_val: int = 16, imgsz: int = 1024, seed: int = 0,
+                      max_objects: int = 24) -> dict:
+    """Write a DOTA-format val set: ``n_val`` square ``imgsz`` PNG tiles of
+    blurred noise with filled rotated rectangles of the 15 DOTA v1 classes
+    (8-25 % of the tile long, any angle, each inside its tile), labelled
+    ``cls x1 y1 x2 y2 x3 y3 x4 y4`` in normalised corners. Deterministic in
+    (seed, sizes); returns a data dict for ``val(data=...)``."""
+    import cv2
+
+    root = Path(root)
+    (root / "val" / "images").mkdir(parents=True, exist_ok=True)
+    (root / "val" / "labels").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n_val):
+        img = rng.integers(40, 110, (imgsz, imgsz, 3), dtype=np.uint8)
+        img = cv2.GaussianBlur(img, (0, 0), sigmaX=float(rng.uniform(2, 6)))
+        lines = []
+        for _ in range(int(rng.integers(1, max_objects + 1))):
+            cls = int(rng.integers(0, len(DOTA_NAMES)))
+            w, h = rng.uniform(0.08, 0.25, 2) * imgsz * np.array([1.0, rng.uniform(0.3, 1.0)])
+            half = 0.5 * float(np.hypot(w, h)) + 1
+            cx, cy = rng.uniform(half, imgsz - half, 2)
+            pts = cv2.boxPoints(((cx, cy), (w, h), float(rng.uniform(0, 180))))
+            color = tuple(int(v) for v in rng.integers(0, 256, 3))
+            cv2.fillPoly(img, [np.round(pts).astype(np.int32)], color)
+            lines.append(f"{cls} " + " ".join(f"{v / imgsz:.6f}" for v in pts.reshape(-1)))
+        cv2.imwrite(str(root / "val" / "images" / f"{i:04d}.png"), img)
+        (root / "val" / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "val": "val/images", "names": dict(DOTA_NAMES)}

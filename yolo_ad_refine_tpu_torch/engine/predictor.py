@@ -3,7 +3,10 @@
 Counterpart of ``yolo_ad_refine_tpu/engine/predictor.py`` (reference
 engine/predictor.py:63-403 and models/yolo/detect/predict.py:23). Images are
 letterboxed on the model's device to one square size, and a partial last
-batch is padded to the batch size, as in the JAX predictor.
+batch is padded to the batch size, as in the JAX predictor. The task
+follows the model's head: an OBB model goes through the rotated NMS (K5 on
+the card) and its xywhr detections are rescaled into ``Results.obb``, with
+their axis-aligned hulls in ``Results.boxes``.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ import numpy as np
 import torch
 
 from yolo_ad_refine_tpu_torch.data.augment import letterbox
-from yolo_ad_refine_tpu_torch.engine.results import Results
-from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes
+from yolo_ad_refine_tpu_torch.engine.results import OBBoxes, Results
+from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
 from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
 from yolo_ad_refine_tpu_torch.utils import LOGGER
 
@@ -63,6 +66,7 @@ class DetectionPredictor:
         verbose = bool(args.get("verbose", False))
         names = names or getattr(model, "names", None) or {i: f"class{i}" for i in range(model.nc)}
         p = next(model.parameters())
+        rotated = model.task == "obb"
         model.eval()
 
         items = load_sources(source)
@@ -73,17 +77,24 @@ class DetectionPredictor:
             with torch.inference_mode():
                 x, metas = preprocess([im for _, im in chunk], imgsz, batch_size, p.device, p.dtype)
                 y, _ = model(x)
-                det, cnt, _ = non_max_suppression(y, conf_thres=conf, iou_thres=iou,
-                                                  max_det=max_det, agnostic=agnostic, nc=model.nc)
-                det, cnt = det.cpu().numpy(), cnt.cpu().numpy()
+                det, cnt, extras = non_max_suppression(
+                    y, conf_thres=conf, iou_thres=iou, max_det=max_det, agnostic=agnostic,
+                    nc=model.nc, rotated=rotated)
+                det, cnt, extras = det.cpu().numpy(), cnt.cpu().numpy(), extras.cpu().numpy()
             dt = (time.perf_counter() - t0) / len(chunk) * 1000
             for j, ((name, im0), (ratio, pad)) in enumerate(zip(chunk, metas)):
                 n = int(cnt[j])
                 d = det[j, :n].copy()
-                if n:
+                kw = {}
+                if rotated:  # rows are xywh: rescale them with the angle
+                    rb = scale_rboxes(np.concatenate([d[:, :4], extras[j, :n, :1]], -1),
+                                      (ratio, pad))
+                    kw["obb"] = np.concatenate([rb, d[:, 4:6]], -1)
+                    d = np.concatenate([OBBoxes(kw["obb"], im0.shape[:2]).xyxy, d[:, 4:6]], -1)
+                elif n:
                     d[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(d[:, :4]),
                                            im0.shape[:2], ratio_pad=(ratio, pad)).numpy()
-                r = Results(im0, name, names, d, speed={"inference": dt})
+                r = Results(im0, name, names, d, speed={"inference": dt}, **kw)
                 results.append(r)
                 if verbose:
                     LOGGER.info(f"{name}: {r.verbose()} ({dt:.1f} ms/img)")

@@ -6,8 +6,12 @@ the model's eval forward gives (decoded, feats); the decoded predictions go
 through ``non_max_suppression(multi_label=True, max_nms=2048)``, whose
 suppression is K4 on the card; the feats give the val losses; detections
 and GT are rescaled to each image's native pixels and matched at IoU
-0.50:0.95 on the host, where ``DetMetrics`` computes AP. Other tasks,
-exported backends, ``save_json``, plots and rect batches are not ported.
+0.50:0.95 on the host, where ``DetMetrics`` computes AP. ``task="obb"``
+(an OBB model) takes the rotated NMS (K5 on the card), rescales xywhr
+predictions and GT with ``scale_rboxes``, matches them by ``probiou_np``
+and leaves the confusion matrix alone, as the JAX validator does; its val
+loss waits for OBB training. Other tasks, exported backends,
+``save_json``, plots and rect batches are not ported.
 """
 
 from __future__ import annotations
@@ -20,18 +24,19 @@ import torch
 
 from yolo_ad_refine_tpu_torch.data.build import DataLoader
 from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
-from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes
+from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
 from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
 from yolo_ad_refine_tpu_torch.train.step import images_to_tensor, targets_to_device
 from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported
 from yolo_ad_refine_tpu_torch.utils.metrics import (
-    ConfusionMatrix, DetMetrics, box_iou_np, match_predictions)
+    ConfusionMatrix, DetMetrics, box_iou_np, match_predictions, probiou_np)
 
 
 class DetectionValidator:
     """Runs a model over a val split and computes detection metrics.
     ``args``: imgsz, batch, conf (0.001), iou (0.7), max_det (300),
-    max_nms (2048), max_boxes, split, data, amp (bf16 autocast on the card)."""
+    max_nms (2048), max_boxes, split, data, task ("detect" or "obb"), amp
+    (bf16 autocast on the card)."""
 
     def __init__(self, args: dict | None = None, dataloader: DataLoader | None = None):
         self.args = dict(args or {})
@@ -42,16 +47,17 @@ class DetectionValidator:
                           ("plots", "ROADMAP Queue 1 item 13, plotting")):
             if self.args.get(key):
                 not_ported(f"{key}=True in validation", item)
-        task = self.args.get("task", "detect")
-        if task != "detect":
-            not_ported(f"validating task {task!r}", "ROADMAP Queue 1 item 12, the other tasks")
+        self.task = self.args.get("task") or "detect"
+        if self.task not in ("detect", "obb"):
+            not_ported(f"validating task {self.task!r}",
+                       "ROADMAP Queue 1 item 12, the other tasks")
 
     def _build_dataloader(self, data, imgsz: int, batch: int) -> DataLoader:
         info = check_det_dataset(data)
         split = self.args.get("split", "val")
         path = info.get(split) or info.get("val") or info.get("train")
         ds = YOLODataset(path, imgsz=imgsz, augment=False, nc=info["nc"],
-                         max_boxes=int(self.args.get("max_boxes", 128)))
+                         max_boxes=int(self.args.get("max_boxes", 128)), task=self.task)
         self.names = info["names"]
         return DataLoader(ds, batch_size=batch, shuffle=False)
 
@@ -70,6 +76,11 @@ class DetectionValidator:
         max_det = int(args.get("max_det", 300))
         max_nms = int(args.get("max_nms", 2048))
         nc = model.nc
+        rotated = self.task == "obb"
+        if model.task != self.task:
+            raise ValueError(f"validating task {self.task!r} with a {model.task!r} model")
+        if rotated and loss_fn is not None:
+            not_ported("the OBB val loss", "ROADMAP Queue 1 item 12, OBB training")
         dataloader = dataloader or self.dataloader
         if dataloader is None:
             dataloader = self._build_dataloader(args["data"], imgsz, int(args.get("batch", 16)))
@@ -90,14 +101,17 @@ class DetectionValidator:
             img = images_to_tensor(batch["img"], dev)
             with torch.autocast(dev.type, dtype=torch.bfloat16) if amp else contextlib.nullcontext():
                 y, feats = model(img)
-            det, cnt, _ = non_max_suppression(y, conf_thres=conf, iou_thres=iou, max_det=max_det,
-                                              max_nms=max_nms, multi_label=True, nc=nc)
+            det, cnt, extras = non_max_suppression(
+                y, conf_thres=conf, iou_thres=iou, max_det=max_det, max_nms=max_nms,
+                multi_label=True, nc=nc, rotated=rotated)
             if loss_fn is not None:
                 loss_sum += loss_fn(feats, *targets_to_device(batch, dev)).components
                 n_batches += 1
             det, cnt = det.cpu().numpy(), cnt.cpu().numpy()
+            angles = extras[..., 0].cpu().numpy() if rotated else None
             t_inference += time.perf_counter() - t1
-            self._update_metrics(det, cnt, batch, metrics, confusion, batch["img"].shape[1:3])
+            self._update_metrics(det, cnt, batch, metrics, confusion, batch["img"].shape[1:3],
+                                 angles)
             seen += len(batch["im_file"])
         model.train(training)
 
@@ -116,12 +130,17 @@ class DetectionValidator:
 
     @staticmethod
     def _update_metrics(det, cnt, batch, metrics: DetMetrics, confusion: ConfusionMatrix,
-                        imgsz):
+                        imgsz, angles=None):
         """Rescale both sides to native pixels (reference _prepare_batch /
-        _prepare_pred) and match at the 10 IoU thresholds."""
+        _prepare_pred) and match at the 10 IoU thresholds. With ``angles``
+        (B, max_det), OBB: det rows are xywh, GT (n, 5) xywhr, matched by
+        probiou; the confusion matrix stays axis-aligned only."""
         imgsz = tuple(int(v) for v in imgsz)
+        rotated = angles is not None
 
         def native(boxes, i):
+            if rotated:
+                return scale_rboxes(boxes, batch["ratio_pad"][i])
             return scale_boxes(imgsz, torch.from_numpy(np.ascontiguousarray(boxes)),
                                batch["ori_shape"][i], ratio_pad=batch["ratio_pad"][i]).numpy()
 
@@ -131,16 +150,21 @@ class DetectionValidator:
             m = batch["mask"][i, :, 0] > 0
             gt_boxes = batch["bboxes"][i][m].copy()
             gt_cls = batch["cls"][i][m, 0]
+            pred = np.concatenate([d[:, :4], angles[i, :n, None]], -1) if rotated else d[:, :4]
             if n:
-                d[:, :4] = native(d[:, :4], i)
+                pred = native(pred, i)
+                d[:, :4] = pred[:, :4]
             if len(gt_boxes):
                 gt_boxes = native(gt_boxes, i)
             if n == 0:
                 if len(gt_cls):
                     metrics.update_stats(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)
-                    confusion.process_batch(None, gt_boxes, gt_cls)
+                    if not rotated:
+                        confusion.process_batch(None, gt_boxes, gt_cls)
                 continue
-            tp = (match_predictions(d[:, 5], gt_cls, box_iou_np(gt_boxes, d[:, :4]))
-                  if len(gt_cls) else np.zeros((n, 10), bool))
+            iou = probiou_np(gt_boxes, pred) if rotated else box_iou_np(gt_boxes, pred)
+            tp = (match_predictions(d[:, 5], gt_cls, iou) if len(gt_cls)
+                  else np.zeros((n, 10), bool))
             metrics.update_stats(tp, d[:, 4], d[:, 5], gt_cls)
-            confusion.process_batch(d, gt_boxes, gt_cls)
+            if not rotated:
+                confusion.process_batch(d, gt_boxes, gt_cls)

@@ -22,10 +22,12 @@ _WEIGHTED = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear, ModulatedDefor
 
 
 class DetectionModel(nn.Module):
-    """A yaml-built detector. ``forward`` in eval mode returns
-    ``(y, feats)`` with y (B, N, 4+nc); in train mode the per-level maps."""
-
-    task = "detect"
+    """A yaml-built detector. ``forward`` in eval mode returns the head's
+    eval output: ``(y, feats)`` with y (B, N, 4+nc), or for the OBB head
+    ``(y, (feats, angle))`` with the angle appended to y; in train mode the
+    per-level maps (with the angle for OBB). ``task`` follows the head, as
+    the JAX predictor derives it (reference: the task guessed from the
+    model)."""
 
     def __init__(self, cfg: str | dict = "yolo11n.yaml", ch: int = 3, nc: int | None = None,
                  verbose: bool = False):
@@ -42,6 +44,10 @@ class DetectionModel(nn.Module):
         self.head_idx = next((s.i for s in self.specs if s.is_head), -1)
         self.strides = None
         self.names = {i: f"class{i}" for i in range(self.nc)}
+
+    @property
+    def task(self) -> str:
+        return "obb" if self.specs[self.head_idx].name == "OBB" else "detect"
 
     @property
     def deconv_layer_indices(self) -> tuple:
@@ -72,6 +78,8 @@ class DetectionModel(nn.Module):
         x = torch.zeros(1, 3, imgsz, imgsz, dtype=p.dtype, device=p.device).contiguous(
             memory_format=torch.channels_last)
         feats = self(x)[1]
+        if isinstance(feats, tuple):  # OBB: (feats, angle)
+            feats = feats[0]
         self.train(training)
         self.strides = tuple(imgsz // f.shape[2] for f in feats)
         return self.strides

@@ -29,7 +29,7 @@ from yolo_ad_refine_tpu_torch.nn import tssa as T
 from yolo_ad_refine_tpu_torch.nn.common import make_divisible
 from yolo_ad_refine_tpu_torch.utils import LOGGER, ROOT, yaml_load
 
-HEAD_MODULES = {"Detect", "AYHead", "AYHead1"}
+HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB"}
 # modules whose first yaml arg is an out-channel subject to width scaling
 WIDTH_SCALED = {"Conv", "SPPF", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA", "C2PTSSA",
                 "nn.Conv2d", "nn.ConvTranspose2d"}
@@ -173,8 +173,10 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
         elif name in HEAD_MODULES:
             head_ch = tuple(ch_list[x] for x in f)
             head_nc = _arg(args, 0, nc)
-            cls = H.Detect if name == "Detect" else H.AYHead
-            module = cls(nc=head_nc, ch=head_ch)
+            if name == "OBB":
+                module = H.OBB(nc=head_nc, ne=_arg(args, 1, 1), ch=head_ch)
+            else:
+                module = (H.Detect if name == "Detect" else H.AYHead)(nc=head_nc, ch=head_ch)
             c2 = 0
         else:
             raise KeyError(

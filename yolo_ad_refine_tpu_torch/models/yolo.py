@@ -1,10 +1,13 @@
 """YOLO user facade of the PyTorch port (reference engine/model.py Model).
 
-``YOLO(model_yaml_or_checkpoint_dir)`` builds a model with seeded weights
-or loads a checkpoint directory the trainer wrote; ``.predict(images)``,
+``YOLO(model_yaml_or_checkpoint_dir, task=...)`` builds a model with seeded
+weights or loads a checkpoint directory the trainer wrote; ``.predict(images)``,
 ``.train(data=...)`` and ``.val(data=...)`` run on the card by default
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``. ``task`` ("detect" or "obb", as the JAX
+facade's) defaults to the one the model's head implies, as the reference
+guesses it from the model; OBB predicts and validates, and its training
+raises until it is ported.
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ class YOLO:
     """User-facing model facade: build from a yaml with seeded weights (or
     load a checkpoint directory), predict, train and validate."""
 
-    def __init__(self, model: str = "yolo11n.yaml", device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.float32, seed: int = 0, imgsz: int = 640,
-                 nc: int | None = None, verbose: bool = False):
+    def __init__(self, model: str = "yolo11n.yaml", task: str | None = None,
+                 device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
+                 seed: int = 0, imgsz: int = 640, nc: int | None = None, verbose: bool = False):
         device = select_device(device)
         model = str(model)
         if model.endswith((".yaml", ".yml")):
@@ -33,8 +36,12 @@ class YOLO:
                 imgsz=imgsz, verbose=verbose)
         else:
             self.model = load_checkpoint(model, device).to(dtype)
+        if task is not None and task != self.model.task:
+            raise ValueError(f"task={task!r} does not fit {model}, whose head gives "
+                             f"task={self.model.task!r}")
+        self.task = self.model.task
         self.device, self.dtype, self.imgsz = device, dtype, imgsz
-        self.overrides = {"model": model, "imgsz": imgsz}
+        self.overrides = {"model": model, "imgsz": imgsz, "task": self.task}
         self.callbacks = Callbacks()
 
     def add_callback(self, event: str, fn) -> None:

@@ -1,11 +1,12 @@
-"""Detection heads: stock Detect and the fork's AYHead.
+"""Detection heads: stock Detect, the oriented-box OBB and the fork's AYHead.
 
 Counterpart of ``yolo_ad_refine_tpu/nn/head.py`` (reference
-ultralytics/nn/modules/head.py: Detect:21-163, TaskDecomposition:626,
-CoordAtt:671, CrossTaskInteraction:722, DyDCNv2:751, Scale:783,
-ResidualBlockGN:1031, AYHead(1):1049-1252). Train forward returns the
-per-level raw maps; eval returns ``(y, feats)`` with ``y`` (B, N, 4+nc):
-xywh boxes in input pixels and sigmoided class scores.
+ultralytics/nn/modules/head.py: Detect:21-163, OBB:189-217,
+TaskDecomposition:626, CoordAtt:671, CrossTaskInteraction:722, DyDCNv2:751,
+Scale:783, ResidualBlockGN:1031, AYHead(1):1049-1252). Train forward returns
+the per-level raw maps; eval returns ``(y, feats)`` with ``y`` (B, N, 4+nc):
+xywh boxes in input pixels and sigmoided class scores (OBB appends its
+angle).
 """
 
 from __future__ import annotations
@@ -62,13 +63,63 @@ class Detect(nn.Module):
             a[-1].bias.data.fill_(1.0)
             b[-1].bias.data.fill_(math.log(5 / self.nc / (640 / self.strides[i]) ** 2))
 
+    def maps(self, xs):
+        """Per-level raw (B, 4*reg_max + nc, H, W) maps."""
+        return [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]
+
     def forward(self, xs, input_h: int | None = None):
-        outputs = [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]
+        outputs = self.maps(xs)
         if self.training:
             return outputs
         y = decode_detections(outputs, _strides(outputs, input_h, self.strides), self.nc,
                               self.reg_max)
         return y, outputs
+
+
+def dist2rbox(distance, angle, anchor_points):
+    """Rotated boxes (cx, cy, w, h) from lt / rb distances turned by
+    ``angle`` around their anchors (reference utils/tal.py dist2rbox)."""
+    lt, rb = distance.chunk(2, dim=-1)
+    cos, sin = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    xf_yf = (rb - lt) / 2
+    x = xf_yf[..., 0:1] * cos - xf_yf[..., 1:2] * sin
+    y = xf_yf[..., 0:1] * sin + xf_yf[..., 1:2] * cos
+    return torch.cat([torch.cat([x, y], -1) + anchor_points, lt + rb], -1)
+
+
+@register
+class OBB(Detect):
+    """Oriented-box head (reference head.py:189-217): Detect plus a per-level
+    angle branch ``cv4.i`` (Conv 3x3, Conv 3x3, 1x1 to ``ne``). The angle is
+    (sigmoid(logit) - 0.25) * pi in fp32, in [-pi/4, 3pi/4). Train returns
+    (feats, angle); eval returns (y, (feats, angle)) with y (B, N, 4+nc+ne):
+    rotated xywh in input pixels, sigmoided scores, the angle."""
+
+    def __init__(self, nc: int = 80, ne: int = 1, ch=(), reg_max: int = 16,
+                 strides=(8, 16, 32)):
+        super().__init__(nc, ch, reg_max, strides)
+        self.ne = ne
+        c4 = max(ch[0] // 4, ne)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, ne, 1)) for x in ch)
+
+    def forward(self, xs, input_h: int | None = None):
+        b = xs[0].shape[0]
+        logits = torch.cat([self.cv4[i](x).reshape(b, self.ne, -1) for i, x in enumerate(xs)], 2)
+        angle = ((torch.sigmoid(logits.float()) - 0.25) * math.pi).transpose(1, 2)  # (B, A, ne)
+        feats = self.maps(xs)
+        if self.training:
+            return feats, angle
+        no = 4 * self.reg_max + self.nc
+        x_cat = torch.cat([f.reshape(b, no, -1) for f in feats], dim=2).transpose(1, 2)
+        box, cls = x_cat[..., : 4 * self.reg_max], x_cat[..., 4 * self.reg_max:]
+        anchors, stride_t = make_anchors([(f.shape[2], f.shape[3]) for f in feats],
+                                         _strides(feats, input_h, self.strides), 0.5,
+                                         device=x_cat.device)
+        dist = dfl_decode(box, self.reg_max)
+        rbox = dist2rbox(dist, angle[..., 0], anchors[None]) * stride_t[None]
+        y = torch.cat([rbox, torch.sigmoid(cls.float()), angle], dim=-1)
+        return y, (feats, angle)
 
 
 class TaskDecomposition(nn.Module):

@@ -1,7 +1,9 @@
-"""Box format conversions and rescaling on torch tensors.
+"""Box format conversions and rescaling on torch tensors, and the rescaling
+of rotated boxes on host-side numpy.
 
 Counterpart of ``yolo_ad_refine_tpu/ops/boxes.py`` (reference
-ultralytics/utils/ops.py:88 scale_boxes, :337 clip_boxes, :392-599).
+ultralytics/utils/ops.py:88 scale_boxes, :337 clip_boxes, :392-599) and of
+the JAX validator's ``_scale_rboxes`` (reference models/yolo/obb/val.py).
 """
 
 from __future__ import annotations
@@ -47,3 +49,16 @@ def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape, ratio_pad=None,
         boxes = boxes - pad.to(torch.promote_types(boxes.dtype, torch.float32))
     boxes = boxes / gain
     return clip_boxes(boxes, img0_shape)
+
+
+def scale_rboxes(rboxes, ratio_pad):
+    """(n, 5) xywhr numpy boxes from letterboxed to native pixels, given
+    ``ratio_pad`` ((gain, gain), (padw, padh)): centres lose the pad and the
+    gain, w and h the gain, the angle stays. Returns a new array."""
+    gain = ratio_pad[0][0]
+    padw, padh = ratio_pad[1]
+    rb = rboxes.copy()
+    rb[:, 0] = (rb[:, 0] - padw) / gain
+    rb[:, 1] = (rb[:, 1] - padh) / gain
+    rb[:, 2:4] /= gain
+    return rb

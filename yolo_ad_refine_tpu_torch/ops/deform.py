@@ -170,8 +170,9 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
     """K1 bwd on CUDA tensors: (dx, doffset, dmask, dweight) of
     ``modulated_deform_conv2d`` for the incoming gradient g (B,Cout,H,W),
     which is taken in x.dtype and made channels_last here. dx and dweight
-    are summed in fp32 by the kernel and cast to x.dtype / weight.dtype;
-    doffset and dmask are fp32. Launches ``csrc/deform_conv.cu`` or raises."""
+    are summed in fp64 by the kernel (with atomics, whose order changes from
+    run to run) and rounded to x.dtype / weight.dtype here; doffset and
+    dmask are fp32. Launches ``csrc/deform_conv.cu`` or raises."""
     b, c, h, w, cout = _check(x, offset, mask, weight, radius)
     if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
@@ -180,10 +181,11 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
     xv, ov, mv, gv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask"), _nhwc(g, "g")
     wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.zeros((b, h, w, c), **f32)           # the kernel adds into dx and dw
+    f64 = dict(dtype=torch.float64, device=x.device)
+    dx = torch.zeros((b, h, w, c), **f64)           # the kernel adds into dx and dw
     doff = torch.empty((b, h, w, 2 * KK), **f32)    # and writes all of doff and dmask
     dmask = torch.empty((b, h, w, KK), **f32)
-    dw = torch.zeros((KK, c, cout), **f32)
+    dw = torch.zeros((KK, c, cout), **f64)
     if b * h * w > 0:
         lib = kernels.load("deform_conv")
         lib.dcn_backward_smem_bytes.restype = ctypes.c_size_t

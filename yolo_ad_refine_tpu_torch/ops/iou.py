@@ -1,8 +1,10 @@
-"""Elementwise IoU (with the CIoU variant) and the NWD similarity.
+"""Elementwise IoU (with the CIoU variant), the NWD similarity and the
+probabilistic IoU of oriented boxes.
 
 Counterpart of ``yolo_ad_refine_tpu/ops/iou.py`` (reference
-ultralytics/utils/metrics.py:74 bbox_iou, :539 wasserstein_loss). Both
-broadcast over leading dimensions of (..., 4) box tensors.
+ultralytics/utils/metrics.py:74 bbox_iou, :539 wasserstein_loss, :804
+probiou). All broadcast over leading dimensions of (..., 4) xyxy / xywh or
+(..., 5) xywhr box tensors.
 """
 
 from __future__ import annotations
@@ -69,3 +71,46 @@ def wasserstein_similarity(pred, target, eps: float = 1e-7, constant: float = 12
     center_d = (cx1 - cx2) ** 2 + (cy1 - cy2) ** 2 + eps
     wh_d = ((w1 - w2) ** 2 + (h1 - h2) ** 2) / 4
     return torch.exp(-torch.sqrt(center_d + wh_d) / constant)
+
+
+def _obb_covariance(obb):
+    """Gaussian covariance terms (a, b, c) of xywhr boxes (reference
+    metrics.py _get_covariance_matrix)."""
+    w, h, r = obb[..., 2], obb[..., 3], obb[..., 4]
+    a = w**2 / 12.0
+    b = h**2 / 12.0
+    cos, sin = torch.cos(r), torch.sin(r)
+    return a * cos**2 + b * sin**2, a * sin**2 + b * cos**2, (a - b) * cos * sin
+
+
+def probiou(obb1, obb2, CIoU: bool = False, eps: float = 1e-7):
+    """Probabilistic IoU of broadcastable xywhr boxes: 1 - the Hellinger
+    distance of their Gaussians (reference metrics.py:804, arXiv:2106.06072).
+    CIoU's aspect-ratio factor carries no gradient, as in ``bbox_iou``."""
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _obb_covariance(obb1)
+    a2, b2, c2 = _obb_covariance(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    t3 = 0.5 * torch.log(
+        ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+        / (4 * torch.sqrt((a1 * b1 - c1**2).clamp(min=0) * (a2 * b2 - c2**2).clamp(min=0)) + eps)
+        + eps)
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    iou = 1.0 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    if CIoU:
+        w1, h1 = obb1[..., 2], obb1[..., 3]
+        w2, h2 = obb2[..., 2], obb2[..., 3]
+        v = (4 / math.pi**2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+        with torch.no_grad():
+            alpha = v / (v - iou + (1 + eps))
+        return iou - v * alpha
+    return iou
+
+
+def batch_probiou(obb1, obb2, eps: float = 1e-7):
+    """Pairwise probiou (N, 5) x (M, 5) -> (N, M) (reference metrics.py
+    batch_probiou)."""
+    return probiou(obb1[:, None, :], obb2[None, :, :], eps=eps)

@@ -15,6 +15,8 @@ are converted on the way (flax -> torch):
 - EDFFN fft (8, 5, C) -> (C, 1, 1, 8, 5); AdaptiveDynamicTanh alphas
   (ns,) -> (1, ns, 1, 1); AYHead scale{i} -> scale.{i}.scale
 - DyDCNv2 weight (3, 3, C, Cout) -> DyDCNV2.conv.weight (Cout, C, 3, 3)
+- OBB head: the reference's ``cv2`` / ``cv3`` sit under ``detect/``
+  (``detect/cv2_i_j``), the angle branch ``cv4.i.j`` at ``cv4_i_j``
 
 ``load_jax_variables`` takes the flax trees flattened to
 ``{"modules_8/m0/m1/cv1/conv/kernel": array}``.
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolo_ad_refine_tpu_torch.nn.head import ModulatedDeformConv
+from yolo_ad_refine_tpu_torch.nn.head import OBB, ModulatedDeformConv
 
 STATS = {"running_mean": "mean", "running_var": "var"}
 
@@ -83,9 +85,13 @@ def _module_path(name: str) -> list[str]:
     return out
 
 
-def _targets(mname: str, mod: nn.Module, pname: str, shape: tuple):
-    """[(collection, flax path, converter flax -> port)] for one tensor."""
+def _targets(mname: str, mod: nn.Module, pname: str, shape: tuple, nested=frozenset()):
+    """[(collection, flax path, converter flax -> port)] for one tensor.
+    ``nested``: yaml rows ("modules_23") whose flax head holds its Detect
+    branches one level down, under ``detect/``."""
     path = _module_path(mname)
+    if path[0] in nested and re.match(r"cv[23]_\d", path[1]):
+        path.insert(1, "detect")
     if len(path) == 1 and isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
         path.append("conv")  # bare nn.Conv2d / nn.ConvTranspose2d yaml rows
     if isinstance(mod, nn.GroupNorm) and path[-1] == "norm":
@@ -137,12 +143,14 @@ def load_jax_variables(model: nn.Module, params: dict, batch_stats: dict | None 
     sources = {"params": dict(params), "batch_stats": dict(batch_stats or {})}
     used: set = set()
     errors: list[str] = []
+    # the JAX OBB head nests its Detect under "detect" (its nn/head.py OBB)
+    nested = frozenset(_module_path(n)[0] for n, m in model.named_modules() if isinstance(m, OBB))
     for mname, mod in model.named_modules():
         tensors = list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False))
         for pname, t in tensors:
             if pname == "num_batches_tracked" or not mname:
                 continue
-            targets = _targets(mname, mod, pname, tuple(t.shape))
+            targets = _targets(mname, mod, pname, tuple(t.shape), nested)
             parts = []
             for coll, key, fn in targets:
                 if key not in sources[coll]:

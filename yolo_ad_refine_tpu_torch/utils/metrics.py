@@ -4,7 +4,9 @@ Counterpart of ``yolo_ad_refine_tpu/utils/metrics.py`` (reference
 ultralytics/utils/metrics.py: compute_ap:1112 with 101-point interpolation,
 ap_per_class:1144, Metric / DetMetrics:1234-1500, ConfusionMatrix:900) and
 the fork's fitness 0.9 * mAP50 + 0.1 * mAP50-95 (metrics.py:1356-1359),
-which picks the best checkpoint. Host-side numpy, as in the reference.
+which picks the best checkpoint; ``box_iou_np`` and ``probiou_np`` from
+``yolo_ad_refine_tpu/utils/metrics_np.py`` for the validator's matching.
+Host-side numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,6 +24,33 @@ def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndar
     area1 = np.prod(box1[:, 2:4] - box1[:, :2], -1)[:, None]
     area2 = np.prod(box2[:, 2:4] - box2[:, :2], -1)[None, :]
     return inter / (area1 + area2 - inter + eps)
+
+
+def _obb_cov_np(rb: np.ndarray):
+    """Gaussian covariance terms (a, b, c) of xywhr boxes (ops/iou.py)."""
+    a = rb[..., 2] ** 2 / 12.0
+    b = rb[..., 3] ** 2 / 12.0
+    c, s = np.cos(rb[..., 4]), np.sin(rb[..., 4])
+    return a * c**2 + b * s**2, a * s**2 + b * c**2, (a - b) * c * s
+
+
+def probiou_np(rb1: np.ndarray, rb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Pairwise probabilistic IoU of (N, 5) x (M, 5) xywhr boxes -> (N, M),
+    for the validator's OBB matching (ops/iou.py:probiou in numpy)."""
+    r1, r2 = rb1[:, None, :], rb2[None, :, :]
+    x1, y1, x2, y2 = r1[..., 0], r1[..., 1], r2[..., 0], r2[..., 1]
+    a1, b1, c1 = _obb_cov_np(r1)
+    a2, b2, c2 = _obb_cov_np(r2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    t3 = 0.5 * np.log(
+        ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+        / (4 * np.sqrt(np.clip(a1 * b1 - c1**2, 0, None) * np.clip(a2 * b2 - c2**2, 0, None))
+           + eps)
+        + eps)
+    bd = np.clip(t1 + t2 + t3, eps, 100.0)
+    return 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
 
 
 def smooth(y: np.ndarray, f: float = 0.05) -> np.ndarray:
