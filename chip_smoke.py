@@ -7,10 +7,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
 
 It builds the hand-written CUDA kernels from ``yolo_ad_refine_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each kernel (K1 DCN
-forward, K1 DCN backward, K4 NMS, K5 rotated NMS) against its plain PyTorch
-version at the shapes of its paths and times both. Then it drives four
-paths through the user's entry points, each with the launch counts set to
-0 just before it and read just after:
+forward and backward; K2, the separable DCN, and K3, the bounded-window
+DCN, forward and backward; K4 NMS; K5 rotated NMS) against its plain
+PyTorch version at the shapes of its paths and times both. Then it drives
+the paths through the user's entry points, each with the launch counts set
+to 0 just before it and read just after, each DCN variant under its own
+``YAT_DCN_IMPL`` (set for the phase and restored after it):
 
 - serving: 64 synthetic images through ``YOLO(...).predict`` with the
   flagship YOLO-AD-Refine at imgsz 640, checked against the same model on
@@ -19,6 +21,14 @@ paths through the user's entry points, each with the launch counts set to
   temporary directory (64 train, 16 val images), 1 epoch at batch 16,
   imgsz 640, bf16 autocast: 4 steps, the EMA validation through K1 fwd and
   K4, the checkpoints, and a reload of ``best``;
+- serving on the bounded variants: 32 images at batch 32, imgsz 640, fp32
+  under ``mxu`` (K2), ``pallas`` (K3) and ``mxu2`` (K1 at radius 3), each
+  held against the CPU under the same variable;
+- training on ``mxu`` and ``pallas``: the training path above, each step
+  launching its variant's forward and backward kernel 3 times and no other
+  DCN kernel; the ``pallas`` run's ``best`` is then reloaded with its
+  dcn_offset_max raised to 11.5, which widens the radius to 13, and serves
+  a batch through K3 at that radius;
 - OBB serving: 32 seeded images (1024² DOTA tiles and a few of 800² to
   1920×1080) through ``YOLO("yolo11n-obb.yaml", task="obb").predict`` at
   batch 16, imgsz 1024, checked against the same model on the CPU;
@@ -30,9 +40,10 @@ and holds one fp32 train step on the card against the same step on the
 CPU. Any failed phase raises and the script exits non-zero. The last line is
 the device record ``{"ok": true, "device": {...}}``; the line before the
 card's name and power limit, and the one before that the kernels'
-measurements: ``launches`` from the training run (K5: the OBB serving run)
-with each path's own count under ``launches_by_path``; K1 bwd in fp32 with
-its bf16 numbers under ``bfloat16``, each against the bound of its own
+measurements: ``launches`` from each kernel's main path (``main_path``: the
+training run of its variant; K5: the OBB serving run) with each path's own
+count under ``launches_by_path``; K1 bwd, K2 and K3 in fp32 with their
+bf16 numbers under ``bfloat16``, each against the bound of its own
 precision. Without CUDA, or without the package beside it, it fails before
 printing any result.
 Where one predict batch's time goes is the job of
@@ -45,6 +56,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -134,17 +146,29 @@ def phase_k1(dev, gen):
         args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
         ms += cuda_time(lambda: modulated_deform_conv2d(*args), iters=20)
         plain_ms += cuda_time(lambda: deform_conv2d_plain(x, off, mask, w), iters=3, warmup=1)
-        px = 32 * s * s
-        nbytes = 4 * (px * (C + 18 + 9 + C) + 9 * C * C)
-        # contraction 2*9*C*C, sampling 9*C*(4 mul + 4 add) + ~20 per tap for coords
-        flops = px * (2 * 9 * C * C + 9 * C * 8 + 9 * 20)
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        t_bytes, t_ops = dcn_fwd_bound(32, s, 4)
         by_ops = by_ops and t_ops >= t_bytes
         bound_ms += max(t_bytes, t_ops)
     log(f"K1 fp32 B=32 three levels: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms")
     return {"max_abs_err": max_err["float32"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if by_ops else "bytes"}
+
+
+def dcn_fwd_bound(b: int, s: int, itemsize: int, tensor_cores: bool = False
+                  ) -> tuple[float, float]:
+    """(ms for the bytes, ms for the operations) of a DCN forward at one
+    level: x, offset, mask and weight read once, out written once; the
+    contraction 2*9*C*C a pixel (on the tensor cores where the function
+    contracts bf16 x bf16, else on the fp32 cores), and sampling
+    9*C*(4 mul + 4 add) + ~20 per tap for coordinates."""
+    px = b * s * s
+    nbytes = itemsize * (px * 2 * C + 9 * C * C) + 4 * px * (18 + 9)
+    products = px * 2 * 9 * C * C
+    other = px * (9 * C * 8 + 9 * 20)
+    t_ops = (products / (BF16_TC_FLOPS if tensor_cores else FP32_FLOPS)
+             + other / FP32_FLOPS) * 1e3
+    return nbytes / H100_BYTES_PER_S * 1e3, t_ops
 
 
 def k1_bwd_work(b: int, s: int, itemsize: int) -> tuple[float, float, float]:
@@ -237,6 +261,141 @@ def phase_k1_bwd(dev, gen):
         log(f"K1 bwd {name} B=16 three levels: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({times[name]['bound_by']})")
     return times
+
+
+BOUNDED = {  # YAT_DCN_IMPL value: its forward and backward entries, TPU kernel file
+    "mxu": ("dcn_separable_forward", "dcn_separable_backward", "ops/deform_mxu.py"),
+    "pallas": ("dcn_window_forward", "dcn_window_backward", "ops/deform_pallas.py"),
+}
+
+
+def bounded_inputs(b: int, s: int, dtype, gen, dev, radius: int):
+    """DCN inputs whose offsets reach past ``radius`` (N(0, 4/3 radius)), with
+    the y-offset of every other tap made integral."""
+    x, off, mask, w = dcn_inputs(b, s, dtype, gen, dev)
+    off = (off / 3.0 * radius).reshape(b, s, s, 9, 2)
+    off[:, :, :, 0::2, 0] = off[:, :, :, 0::2, 0].round()
+    return x, off.reshape(b, s, s, 18).contiguous(), mask, w
+
+
+def phase_bounded(dev, gen, impl: str):
+    """K2 (``mxu``) or K3 (``pallas``), forward and backward, against its
+    plain version at the flagship's levels, radius 3, in fp32 and bf16
+    (forward at B=32, backward at B=16), and at radius 13 on the 80² map
+    (B=8), with K1's limits; then timed beside the plain version at those
+    batches. d offset must be 0 on the integral axis and beyond the radius."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
+
+    mod = deform_mxu if impl == "mxu" else deform_pallas
+    fwd_name, bwd_name, _ = BOUNDED[impl]
+    fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
+    plain = getattr(mod, f"deform_conv2d_{impl}_plain")
+    grads_plain = getattr(mod, f"deform_conv2d_{impl}_grads_plain")
+
+    def run_fwd(x, off, mask, w, r):
+        return fwd(nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1), r)
+
+    def run_bwd(x, off, mask, w, g, r):
+        return bwd(nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1), nchw(g), r)
+
+    err = {"fwd": {}, "bwd": {}}
+    times = {"fwd": {}, "bwd": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        atol, rtol = K1_TOL[name]
+        cases = [(s, 3) for s in LEVELS] + [(LEVELS[0], 13)]
+        for s, r in cases:
+            b = 32 if r == 3 else 8
+            x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
+            got = run_fwd(x, off, mask, w, r).permute(0, 2, 3, 1).float()
+            want = plain(x, off, mask, w, r).float()
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{fwd_name} {name} r={r} {s}x{s}: {m}")
+            err["fwd"][name] = max(err["fwd"].get(name, 0.0), e)
+            b = 16 if r == 3 else 8
+            x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
+            g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
+            got = run_bwd(x, off, mask, w, g, r)
+            got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
+                   got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)]
+            want = grads_plain(x, off, mask, w, g, r)
+            torch.cuda.synchronize()
+            doff = got[1].reshape(b, s, s, 9, 2)
+            if doff[:, :, :, 0::2, 0].any() or doff[off.reshape(b, s, s, 9, 2).abs() >= r].any():
+                raise AssertionError(f"{bwd_name} {name} r={r}: d offset not 0 on an integral "
+                                     "axis or beyond the radius")
+            rels = []
+            for gname, a, ref in zip(GRADS, got, want):
+                a, ref = a.float(), ref.float()
+                if a.shape != ref.shape or not torch.isfinite(a).all():
+                    raise AssertionError(f"{bwd_name} {name} {gname}: bad output {tuple(a.shape)}")
+                rel = ((a - ref).abs().max() / ref.abs().max()).item()
+                rels.append(rel)
+                if rel > K1_BWD_TOL[name]:
+                    raise AssertionError(f"{bwd_name} {name} r={r} {s}x{s} {gname}: max |kernel - "
+                                         f"plain| / max |plain| = {rel:.3e} > {K1_BWD_TOL[name]}")
+                err["bwd"][name] = max(err["bwd"].get(name, 0.0), (a - ref).abs().max().item())
+            log(f"{impl} {name:8s} r={r:<2d} {s}x{s}x{C}->{C}: fwd B={32 if r == 3 else 8} "
+                f"max |kernel - plain| {e:.3e} (atol {atol}, rtol {rtol}); bwd B={b} max |kernel "
+                "- plain| / max |plain| " + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
+                + f" (tol {K1_BWD_TOL[name]})")
+
+        # the paths' work, radius 3: forward at B=32, backward at B=16, one launch a level
+        for kind, b in (("fwd", 32), ("bwd", 16)):
+            ms = plain_ms = bound_ms = 0.0
+            by_ops = True
+            for s in LEVELS:
+                x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, 3)
+                if kind == "fwd":
+                    ms += cuda_time(lambda: run_fwd(x, off, mask, w, 3), iters=10)
+                    plain_ms += cuda_time(lambda: plain(x, off, mask, w, 3), iters=3, warmup=1)
+                    # K3's bf16 forward contracts bf16 x bf16; K2's contracts fp32 samples
+                    t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), tensor_cores=(
+                        impl == "pallas" and dtype == torch.bfloat16))
+                else:
+                    g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
+                    ms += cuda_time(lambda: run_bwd(x, off, mask, w, g, 3), iters=10)
+                    plain_ms += cuda_time(lambda: grads_plain(x, off, mask, w, g, 3), iters=3,
+                                          warmup=1)
+                    # both backwards are all fp32 (deform_mxu.py:343, deform_pallas.py:294)
+                    nbytes, products, other = k1_bwd_work(b, s, x.element_size())
+                    t_ops = (products + other) / FP32_FLOPS * 1e3
+                    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+                by_ops = by_ops and t_ops >= t_bytes
+                bound_ms += max(t_bytes, t_ops)
+            times[kind][name] = {"max_abs_err": err[kind][name], "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms,
+                                 "bound_by": "operations" if by_ops else "bytes"}
+            log(f"{fwd_name if kind == 'fwd' else bwd_name} {name} B={b} three levels r=3: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                f"({times[kind][name]['bound_by']})")
+    return times
+
+
+class dcn_env:
+    """Set YAT_DCN_IMPL (and YAT_DCN_RADIUS) for one phase, and restore both."""
+
+    def __init__(self, impl: str | None, radius: int | None = None):
+        self.want = {"YAT_DCN_IMPL": impl, "YAT_DCN_RADIUS": None if radius is None else str(radius)}
+
+    @staticmethod
+    def _apply(values: dict):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.want}
+        self._apply(self.want)
+
+    def __exit__(self, *exc):
+        self._apply(self.saved)
 
 
 def nms_candidates(b: int, k: int, gen, dev):
@@ -496,11 +655,21 @@ def phase_obb_val(model, dev):
 
 def kernel_counters():
     """Every kernel wrapper, by the name of its entry in the kernels line."""
+    from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
     from yolo_ad_refine_tpu_torch.ops.deform import dcn_backward, modulated_deform_conv2d
     from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_rotated
 
     return {"dcn_forward": modulated_deform_conv2d, "dcn_backward": dcn_backward,
+            "dcn_separable_forward": deform_mxu.dcn_separable_forward,
+            "dcn_separable_backward": deform_mxu.dcn_separable_backward,
+            "dcn_window_forward": deform_pallas.dcn_window_forward,
+            "dcn_window_backward": deform_pallas.dcn_window_backward,
             "nms_suppress": suppress, "nms_rotated": suppress_rotated}
+
+
+def dcn_kernels(impl: str | None) -> tuple[str, str]:
+    """The (forward, backward) kernels DyDCNv2 runs under YAT_DCN_IMPL=impl."""
+    return BOUNDED[impl][:2] if impl in BOUNDED else ("dcn_forward", "dcn_backward")
 
 
 def phase_serving(dev):
@@ -571,9 +740,62 @@ def phase_serving(dev):
     return launches
 
 
-def phase_training(dev):
-    """YOLO(...).train on the card: 1 epoch of 4 steps at batch 16, imgsz
-    640, bf16, then the EMA validation, checkpoints and a reload of best."""
+def phase_serving_variant(dev, impl: str):
+    """The flagship's predict path under YAT_DCN_IMPL=impl: 32 images at
+    batch 32, imgsz 640, fp32, which must launch the variant's forward
+    kernel once a level and no other DCN kernel; then 2 images against the
+    same model on the CPU under the same variable (its plain version), within
+    the serving limits."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+
+    fwd_k = dcn_kernels(impl)[0]
+    with dcn_env(impl):
+        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+        rng = np.random.default_rng(5)
+        imgs = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(32)]
+        model.predict(imgs, conf=0.001, batch=32)  # warm-up
+        torch.cuda.synchronize()
+        counters = kernel_counters()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(imgs, conf=0.001, batch=32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        dcn = {k: v for k, v in launches.items() if k.startswith("dcn_")}
+        if dcn != {**{k: 0 for k in dcn}, fwd_k: 3} or launches["nms_suppress"] != 1:
+            raise AssertionError(f"serving ({impl}) did not launch {fwd_k} alone once a level: "
+                                 f"{launches}")
+        if not all(0 < len(r) <= 300 and np.isfinite(r.boxes.data).all() for r in results):
+            raise AssertionError(f"serving ({impl}): bad detections")
+        x, _ = preprocess(imgs[:2], 640, 2, torch.device(dev), torch.float32)
+        with torch.inference_mode():
+            y_gpu = model.model(x)[0].float().cpu()
+            y_cpu = copy.deepcopy(model.model).cpu()(x.cpu())[0]
+    box_err = (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item()
+    score_err = (y_gpu[..., 4:] - y_cpu[..., 4:]).abs().max().item()
+    log(f"serving ({impl}): 32 images, batch 32, imgsz 640, fp32 in {dt * 1e3:.1f} ms "
+        f"({32 / dt:.1f} images/s, host clock, one run); launches {dcn}; card vs CPU on 2 "
+        f"images: max |box diff| {box_err:.3e} px (tol 5e-2), max |score diff| {score_err:.3e} "
+        "(tol 1e-3)")
+    if box_err > 5e-2 or score_err > 1e-3 or not torch.isfinite(y_gpu).all():
+        raise AssertionError(f"serving ({impl}): card and CPU predictions disagree")
+    return launches
+
+
+def phase_training(dev, impl: str | None = None):
+    """YOLO(...).train on the card under YAT_DCN_IMPL=impl: 1 epoch of 4
+    steps at batch 16, imgsz 640, bf16, then the EMA validation, checkpoints
+    and a reload of best. Each step launches the variant's forward and
+    backward kernel 3 times each (one a level) and no other DCN kernel.
+    Under ``pallas`` the reload also widens the radius: best's meta.yaml
+    gets dcn_offset_max 11.5, the reloaded head must clip at 13, and one
+    predict batch runs K3 at that radius."""
     import numpy as np
     import torch
 
@@ -581,14 +803,15 @@ def phase_training(dev):
     from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
 
     counters = kernel_counters()
+    label = impl or "auto"
 
     def counts():
         return {k: f.launches for k, f in counters.items()}
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+    with dcn_env(impl), tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         t0 = time.perf_counter()
         data = make_shapes_dataset(Path(tmp) / "shapes", n_train=64, n_val=16, imgsz=640, seed=0)
-        log(f"training: synthetic shapes set (64 train, 16 val, 640 px) written in "
+        log(f"training ({label}): synthetic shapes set (64 train, 16 val, 640 px) written in "
             f"{time.perf_counter() - t0:.1f} s")
         model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
         steps, grad_checks = [], []
@@ -626,27 +849,30 @@ def phase_training(dev):
         wall = time.perf_counter() - t0
         launches = counts()
         trainer = model.trainer
-        log(f"training: {len(steps)} steps + validation in {wall:.1f} s; "
+        fwd_k, bwd_k = dcn_kernels(impl)
+        others = [k for k in counters if k.startswith("dcn_") and k not in (fwd_k, bwd_k)]
+        log(f"training ({label}): {len(steps)} steps + validation in {wall:.1f} s; "
             f"bf16 autocast: {trainer.amp_dtype is not None}; launches in the run: {launches}")
         if len(steps) != 4:
             raise AssertionError(f"expected 4 train steps, got {len(steps)}")
         for i, st in enumerate(steps):
-            log(f"training: step {i + 1}: {st['s'] * 1e3:.1f} ms, launches "
-                f"dcn_forward {st['dcn_forward']}, dcn_backward {st['dcn_backward']}"
+            log(f"training ({label}): step {i + 1}: {st['s'] * 1e3:.1f} ms, launches "
+                f"{fwd_k} {st[fwd_k]}, {bwd_k} {st[bwd_k]}"
                 + (f", data wait after it {st['data_s'] * 1e3:.1f} ms" if "data_s" in st else ""))
-            if st["dcn_forward"] != 3 or st["dcn_backward"] != 3:
-                raise AssertionError(f"step {i + 1}: K1 fwd / bwd launched {st['dcn_forward']} / "
-                                     f"{st['dcn_backward']} times, expected 3 / 3")
+            if st[fwd_k] != 3 or st[bwd_k] != 3 or any(st[k] for k in others):
+                raise AssertionError(f"step {i + 1}: {fwd_k} / {bwd_k} launched {st[fwd_k]} / "
+                                     f"{st[bwd_k]} times, expected 3 / 3, and the other DCN "
+                                     f"kernels {[st[k] for k in others]}, expected none")
         if trainer.amp_dtype is None:
             raise AssertionError("training did not run in bf16 (the AMP canary failed)")
         for name, ok, norm in grad_checks:
-            log(f"training: after step 1, |grad {name}| = {norm:.4e}")
+            log(f"training ({label}): after step 1, |grad {name}| = {norm:.4e}")
             if not ok:
                 raise AssertionError(f"gradient of {name} is missing, not finite or all zero")
         val = {k: launches[k] - mark["after_steps"][k] for k in launches}
-        log(f"training: launches in the validations after the steps: {val}")
-        if val["dcn_forward"] == 0 or val["nms_suppress"] == 0:
-            raise AssertionError("the validation did not launch K1 fwd and K4")
+        log(f"training ({label}): launches in the validations after the steps: {val}")
+        if val[fwd_k] == 0 or val["nms_suppress"] == 0 or any(val[k] for k in others):
+            raise AssertionError(f"the validation did not launch {fwd_k} and K4 alone")
         csv = (Path(results["save_dir"]) / "results.csv").read_text().splitlines()
         row = dict(zip(csv[0].split(","), csv[1].split(",")))
         losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")]
@@ -654,9 +880,9 @@ def phase_training(dev):
             raise AssertionError(f"non-finite train losses {losses}")
         per_step = {k: steps[-1][k] for k in launches}
         ms = statistics.median(st["s"] for st in steps[1:]) * 1e3
-        log(f"training: {ms:.1f} ms per train step (median of steps 2-4, host clock with a "
+        log(f"training ({label}): {ms:.1f} ms per train step (median of steps 2-4, host clock with a "
             f"synchronise), {16 / ms * 1e3:.1f} images/s at batch 16, imgsz 640, bf16")
-        log(f"training: results.csv losses box {losses[0]:.4f} cls {losses[1]:.4f} "
+        log(f"training ({label}): results.csv losses box {losses[0]:.4f} cls {losses[1]:.4f} "
             f"dfl {losses[2]:.4f}; mAP50 {results.get('metrics/mAP50(B)', 0.0):.4f}, "
             f"dcn_offset_max {row['train/dcn_offset_max']}")
 
@@ -666,9 +892,47 @@ def phase_training(dev):
         res = reloaded.predict([img], imgsz=640, conf=0.001)
         if not (len(res) == 1 and np.isfinite(res[0].boxes.data).all()):
             raise AssertionError("the reloaded best checkpoint did not predict")
-        log(f"training: {best.name} reloaded ({reloaded.model.num_params():,} parameters) and "
+        log(f"training ({label}): {best.name} reloaded ({reloaded.model.num_params():,} parameters) and "
             f"predicted {len(res[0])} boxes")
-    return launches, per_step
+        extra = {} if impl != "pallas" else {"reload_r13_run": reload_widened(best, dev)}
+    return launches, per_step, extra
+
+
+def reload_widened(best: Path, dev) -> dict:
+    """A copy of ``best`` whose meta.yaml says dcn_offset_max 11.5 reloads
+    with the DCN radius widened to ceil(11.5) + 1 = 13 and serves one batch
+    of 8 images through K3 at that radius; returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.utils import yaml_load, yaml_save
+
+    wide = best.parent / "best_offsets_11.5"
+    shutil.copytree(best, wide)
+    meta = yaml_load(wide / "meta.yaml")
+    yaml_save(wide / "meta.yaml", {**meta, "dcn_offset_max": 11.5})
+    model = YOLO(str(wide), device=dev)
+    head = model.model.model[model.model.head_idx]
+    if head.dcn_radius != 13 or head.DyDCNV2.radius != 13:
+        raise AssertionError(f"dcn_offset_max 11.5 gave radius {head.dcn_radius} / "
+                             f"{head.DyDCNV2.radius}, expected 13")
+    rng = np.random.default_rng(2)
+    imgs = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(8)]
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    res = model.predict(imgs, imgsz=640, conf=0.001, batch=8)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    dcn = {k: v for k, v in launches.items() if k.startswith("dcn_")}
+    if dcn != {**{k: 0 for k in dcn}, "dcn_window_forward": 3}:
+        raise AssertionError(f"the widened reload did not run K3 alone, once a level: {dcn}")
+    if not (len(res) == 8 and all(np.isfinite(r.boxes.data).all() for r in res)):
+        raise AssertionError("the widened reload did not predict")
+    log(f"reload: dcn_offset_max 11.5 -> DCN radius {head.dcn_radius:g}; 8 images served with "
+        f"K3 at radius 13, {sum(len(r) for r in res)} boxes; launches {dcn}")
+    return launches
 
 
 def phase_step_card_vs_cpu(dev):
@@ -798,7 +1062,7 @@ def main() -> int:
         f"Python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    report = kernels.build("deform_conv", "nms")
+    report = kernels.build("deform_conv", "deform_window", "nms")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (parallel nvcc): "
         + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
     for name, r in report.items():
@@ -807,39 +1071,56 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
-    k1 = phase_k1(dev, gen)
-    k1b = phase_k1_bwd(dev, gen)
-    k4 = phase_k4(dev, gen)
-    serving = phase_serving(dev)
-    training, per_step = phase_training(dev)
-    phase_step_card_vs_cpu(dev)
-    obb = obb_model(dev)
-    k5 = phase_k5(dev, gen, obb)
-    obb_serving = phase_obb_serving(obb, dev)
-    obb_val = phase_obb_val(obb, dev)
+    with dcn_env(None):  # each phase sets the DCN variant it drives
+        k1 = phase_k1(dev, gen)
+        k1b = phase_k1_bwd(dev, gen)
+        k4 = phase_k4(dev, gen)
+        bounded = {impl: phase_bounded(dev, gen, impl) for impl in BOUNDED}
+        paths = {"serving_run": phase_serving(dev)}
+        for impl in ("mxu", "pallas", "mxu2"):
+            paths[f"serving_{impl}_run"] = phase_serving_variant(dev, impl)
+        for impl in (None, "mxu", "pallas"):
+            tag = "" if impl is None else f"_{impl}"
+            run, step, extra = phase_training(dev, impl)
+            paths.update({f"training{tag}_run": run, f"training{tag}_step": step, **extra})
+        phase_step_card_vs_cpu(dev)
+        obb = obb_model(dev)
+        k5 = phase_k5(dev, gen, obb)
+        paths["obb_serving_run"] = phase_obb_serving(obb, dev)
+        paths["obb_val_run"] = phase_obb_val(obb, dev)
 
-    def entry(name, source, replaces, measured, launches, **extra):
+    def entry(name, source, replaces, measured, main_path, **extra):
         # launches: the count of the kernel's own main path, each path's beside it
         return {"name": name, "route": "cuda", "source": f"yolo_ad_refine_tpu_torch/csrc/{source}",
-                "replaces": f"yolo_ad_refine_tpu/{replaces}", "launches": launches,
-                "launches_by_path": {"serving_run": serving.get(name, 0),
-                                     "training_run": training.get(name, 0),
-                                     "training_step": per_step.get(name, 0),
-                                     "obb_serving_run": obb_serving[name],
-                                     "obb_val_run": obb_val[name]},
+                "replaces": f"yolo_ad_refine_tpu/{replaces}", "launches": paths[main_path][name],
+                "main_path": main_path,
+                "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
                 **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by")},
                 "library_ms": None, **extra}
 
+    bounded_entries = []
+    for impl, (fwd_name, bwd_name, src) in BOUNDED.items():
+        line = {"mxu": (91, 161), "pallas": (67, 122)}[impl]
+        t = bounded[impl]
+        bounded_entries += [
+            entry(fwd_name, "deform_window.cu", f"{src}:{line[0]}", t["fwd"]["float32"],
+                  f"training_{impl}_run", dtype="float32", bfloat16=t["fwd"]["bfloat16"]),
+            entry(bwd_name, "deform_window.cu", f"{src}:{line[1]}", t["bwd"]["float32"],
+                  f"training_{impl}_run", dtype="float32", bfloat16=t["bwd"]["bfloat16"])]
     kernels_line = {"kernels": [
-        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1,
-              training["dcn_forward"], dtype="float32"),
+        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1, "training_run",
+              dtype="float32"),
         entry("dcn_backward", "deform_conv.cu", "ops/deform_mxu2.py:169", k1b["float32"],
-              training["dcn_backward"], dtype="float32", bfloat16=k1b["bfloat16"]),
-        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, training["nms_suppress"]),
-        entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, obb_serving["nms_rotated"],
+              "training_run", dtype="float32", bfloat16=k1b["bfloat16"]),
+        *bounded_entries,
+        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run"),
+        entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",
               rounding_ties=k5["rounding_ties"]),
     ]}
+    for k in kernels_line["kernels"]:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was not launched on its main path {k['main_path']}")
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,6 +15,12 @@ import torch
 
 from yolo_ad_refine_tpu_torch.ops.deform import (
     dcn_backward, deform_conv2d_grads_plain, deform_conv2d_plain, modulated_deform_conv2d)
+from yolo_ad_refine_tpu_torch.ops.deform_mxu import (
+    dcn_separable_backward, dcn_separable_forward, deform_conv2d_mxu_grads_plain,
+    deform_conv2d_mxu_plain, modulated_deform_conv2d_mxu)
+from yolo_ad_refine_tpu_torch.ops.deform_pallas import (
+    dcn_window_backward, dcn_window_forward, deform_conv2d_pallas_grads_plain,
+    deform_conv2d_pallas_plain, modulated_deform_conv2d_pallas)
 from yolo_ad_refine_tpu_torch.ops.nms import (
     rotated_rounding_ties, suppress, suppress_plain, suppress_rotated, suppress_rotated_plain)
 
@@ -69,7 +75,9 @@ def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma
     """Each of the four gradients within ``tol`` of max |plain|: sums in
     another order (dx and dweight in fp64, with atomics in an order that
     changes from run to run); bf16 as the forward. sigma 0 puts every sample on an integer
-    coordinate, where the one-sided derivative is taken."""
+    coordinate, where the one-sided derivative is taken unbounded and the hat
+    derivative, 0, at radius 3: a gradient that is 0 in the plain version
+    must be 0 in the kernel."""
     dt = getattr(torch, dtype)
     b, h, w, c, cout = shape
     x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout)
@@ -83,10 +91,129 @@ def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma
     want = deform_conv2d_grads_plain(x, off, mask, wt, g, radius)
     got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
            got[3].permute(2, 3, 1, 0)]
+    _assert_grads_close(got, want, tol)
+
+
+def _assert_grads_close(got, want, tol):
     for name, a, e in zip(("dx", "doffset", "dmask", "dweight"), got, want):
         assert a.shape == e.shape, name
-        err = (a.float() - e.float()).abs().max().item() / e.float().abs().max().item()
+        scale = e.float().abs().max().item()
+        if scale == 0:
+            assert not a.float().any(), f"{name}: the plain gradient is 0, the kernel's is not"
+            continue
+        err = (a.float() - e.float()).abs().max().item() / scale
         assert err <= tol, f"{name}: max |kernel - plain| / max |plain| = {err:.2e}"
+
+
+def test_dcn_backward_integer_radius_takes_the_hat_derivative(dev):
+    """At radius 3, integral y-offsets give d offset_y = 0 in the kernel as in
+    the plain version (deform_mxu2's hat derivative); x-offsets 0.3 off the
+    integers keep d offset_x."""
+    x, off, mask, wt = _dcn(dev, torch.float32, 2, 20, 20, 64, 64)
+    off = off.reshape(2, 20, 20, 9, 2)
+    off[..., 0] = off[..., 0].round().clamp(-2, 2)
+    off[..., 1] = off[..., 1].round().clamp(-2, 2) + 0.3
+    off = off.reshape(2, 20, 20, 18).contiguous()
+    g = torch.randn(2, 20, 20, 64, generator=torch.Generator().manual_seed(1)).to(dev)
+    got = dcn_backward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+                       wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), 3)
+    torch.cuda.synchronize()
+    doff = got[1].permute(0, 2, 3, 1)
+    assert not doff[..., 0::2].any() and doff[..., 1::2].abs().max() > 0.1
+    want = deform_conv2d_grads_plain(x, off, mask, wt, g, 3)
+    _assert_grads_close([got[0].permute(0, 2, 3, 1), doff, got[2].permute(0, 2, 3, 1),
+                         got[3].permute(2, 3, 1, 0)], want, 1e-4)
+
+
+BOUNDED = {  # kind: (forward wrapper, backward wrapper, plain forward, plain backward, function)
+    "mxu": (dcn_separable_forward, dcn_separable_backward, deform_conv2d_mxu_plain,
+            deform_conv2d_mxu_grads_plain, modulated_deform_conv2d_mxu),
+    "pallas": (dcn_window_forward, dcn_window_backward, deform_conv2d_pallas_plain,
+               deform_conv2d_pallas_grads_plain, modulated_deform_conv2d_pallas),
+}
+
+
+def _bounded_inputs(dev, dt, shape, radius, seed=0):
+    """Offsets N(0, radius): a share beyond the radius, and one axis of
+    every other tap integral."""
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout, seed)
+    off = (off / 5.0 * radius).reshape(b, h, w, 9, 2)
+    off[:, :, :, 0::2, 0] = off[:, :, :, 0::2, 0].round()
+    return x, off.reshape(b, h, w, 18).contiguous(), mask, wt
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("shape,radius", [((2, 40, 40, 64, 64), 3), ((3, 13, 29, 48, 80), 3),
+                                          ((1, 24, 30, 64, 64), 20), ((2, 11, 9, 8, 8), 2)])
+def test_bounded_dcn_forward_kernel_matches_plain(dev, kind, dtype, tol, shape, radius):
+    """K2 / K3 forward against its plain version: fp32 to 1e-4 (sums in
+    another order), bf16 to 5e-2 (an fp32 ulp in a sample can move a bf16
+    rounding). Radius 20 takes the narrow channel chunks; C = 8 the
+    staging without 16-byte copies in bf16."""
+    fwd, _, plain, _, fn = BOUNDED[kind]
+    dt = getattr(torch, dtype)
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _bounded_inputs(dev, dt, shape, radius)
+    launches = fwd.launches
+    got = fn(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+             wt.permute(3, 2, 0, 1), radius)
+    torch.cuda.synchronize()
+    assert fwd.launches == launches + 1
+    assert got.dtype == dt and got.shape == (b, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = plain(x, off, mask, wt, radius).float()
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("shape,radius", [((2, 40, 40, 64, 64), 3), ((3, 13, 29, 48, 80), 3),
+                                          ((1, 24, 30, 64, 64), 20), ((2, 11, 9, 8, 8), 2)])
+def test_bounded_dcn_backward_kernel_matches_plain(dev, kind, dtype, tol, shape, radius):
+    """K2 / K3 backward against its plain version, each gradient within
+    ``tol`` of max |plain| (dx and dweight summed in fp64 with atomics).
+    d offset is 0 on the integral axis and beyond the radius in both."""
+    fwd, bwd, _, grads_plain, fn = BOUNDED[kind]
+    dt = getattr(torch, dtype)
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _bounded_inputs(dev, dt, shape, radius)
+    g = torch.randn(b, h, w, cout, generator=torch.Generator().manual_seed(1)).to(dev, dt)
+    launches = bwd.launches
+    got = bwd(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+              wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), radius)
+    torch.cuda.synchronize()
+    assert bwd.launches == launches + 1
+    got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
+           got[3].permute(2, 3, 1, 0)]
+    doff = got[1].reshape(b, h, w, 9, 2)
+    assert not doff[:, :, :, 0::2, 0].any()
+    assert not doff[off.reshape(b, h, w, 9, 2).abs() >= radius].any()
+    _assert_grads_close(got, grads_plain(x, off, mask, wt, g, radius), tol)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+def test_bounded_dcn_on_cuda_runs_both_kernels(dev, kind):
+    fwd, bwd, _, _, fn = BOUNDED[kind]
+    x, off, mask, wt = _dcn(dev, torch.float32, 2, 16, 16, 64, 64)
+    args = [t.permute(0, 3, 1, 2).requires_grad_() for t in (x, off, mask)]
+    weight = wt.permute(3, 2, 0, 1).detach().requires_grad_()
+    launches = fwd.launches, bwd.launches, modulated_deform_conv2d.launches
+    y = fn(*args, weight, 3)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, modulated_deform_conv2d.launches) == (
+        launches[0] + 1, launches[1] + 1, launches[2])
+    for t in (*args, weight):
+        assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
+
+
+def test_bounded_dcn_raises_beyond_shared_memory(dev):
+    x, off, mask, wt = _dcn(dev, torch.float32, 1, 8, 8, 64, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        dcn_window_forward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                           mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), 200)
 
 
 def test_dcn_on_cuda_has_grad_fn_and_launches_backward(dev):

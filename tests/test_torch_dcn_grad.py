@@ -100,3 +100,32 @@ def test_gradcheck_float64(radius):
     ins = [t.requires_grad_() for t in (x, off, mask, wt)]
     assert torch.autograd.gradcheck(
         lambda *a: modulated_deform_conv2d(*a, radius=radius), ins)
+
+
+def test_integer_radius_takes_the_hat_derivative_of_deform_mxu2(monkeypatch):
+    """At an integer radius the port follows ``deform_mxu2``'s hat
+    derivative, which is 0 along an axis where the sample coordinate is
+    integral: integral y-offsets in [-2, 2] give d offset_y = 0, where the
+    floor form's one-sided derivative is not 0; x-offsets 0.3 off the
+    integers keep d offset_x. All four gradients within 1e-5 of max |JAX|."""
+    monkeypatch.setattr(dm2, "_INTERPRET", True)
+    r = np.random.default_rng(0)
+    b, h, w, c, cout = 1, 8, 8, 4, 4
+    x = r.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    off = r.integers(-2, 3, (b, h, w, 9, 2)).astype(np.float32)
+    off[..., 1] += 0.3
+    off = off.reshape(b, h, w, 18)
+    mask = r.random((b, h, w, 9)).astype(np.float32)
+    wt = r.normal(0, 0.1, (3, 3, c, cout)).astype(np.float32)
+    g = r.normal(0, 1, (b, h, w, cout)).astype(np.float32)
+
+    def f(x, off, mask, wt):
+        return jnp.sum(dm2.modulated_deform_conv2d_mxu2(x, off, mask, wt, 3) * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (x, off, mask, wt)))
+    got = _port_grads(x, off, mask, wt, g, radius=3)
+    assert not np.asarray(want[1])[..., 0::2].any() and not got[1][..., 0::2].any()
+    assert np.abs(got[1][..., 1::2]).max() > 0.1
+    _assert_scaled_close(got, want, tol=1e-5)
+    # unbounded, the same inputs take the one-sided derivative of the floor form
+    assert np.abs(_port_grads(x, off, mask, wt, g)[1][..., 0::2]).max() > 0.1

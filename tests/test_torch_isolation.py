@@ -34,10 +34,12 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the train slice's modules, each imported under the blocker above
+# the train slice's and the bounded-DCN slice's modules, each imported under
+# the blocker above
 TRAIN_SLICE_MODULES = (
     "cfg.config", "data.augment", "data.build", "data.dataset", "data.synthetic",
-    "engine.checkpoint", "engine.validator", "ops.anchors", "ops.deform", "ops.iou",
+    "engine.checkpoint", "engine.validator", "ops.anchors", "ops.deform", "ops.deform_mxu",
+    "ops.deform_pallas", "ops.iou",
     "train.loss", "train.optim", "train.step", "train.tal", "train.trainer",
     "utils.callbacks", "utils.checks", "utils.metrics",
 )
@@ -48,7 +50,7 @@ def test_port_imports_nothing_of_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 38  # every module was imported
+    assert len(names) >= 40  # every module was imported
     missing = [m for m in TRAIN_SLICE_MODULES if f"yolo_ad_refine_tpu_torch.{m}" not in names]
     assert not missing, missing
 
@@ -116,6 +118,12 @@ def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
 @pytest.mark.parametrize("name,family", [
     ("dcn_fwd_kernel<float>", "K1 dcn_forward"),
     ("void (anonymous namespace)::dcn_bwd_kernel<__nv_bfloat16>", "K1 dcn_backward"),
+    ("void (anonymous namespace)::dcn_separable_forward_kernel<float>(float const*)",
+     "K2 dcn_separable_forward"),
+    ("dcn_separable_backward_kernel<__nv_bfloat16>", "K2 dcn_separable_backward"),
+    ("void (anonymous namespace)::dcn_window_forward_kernel<float>(float const*)",
+     "K3 dcn_window_forward"),
+    ("dcn_window_backward_kernel<float>", "K3 dcn_window_backward"),
     ("nms_reduce_kernel", "K4 nms_suppress"),
     ("void (anonymous namespace)::nms_rotated_reduce_kernel(unsigned long long const*)",
      "K5 nms_rotated"),

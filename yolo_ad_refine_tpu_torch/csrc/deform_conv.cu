@@ -193,11 +193,14 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 //   doffset[p, t] = m sum_c gs_t[p, c] sum_k (dw_k / d coord) x[corner_k, c]
 //   dx[corner_k]  += m w_k gs_t[p, :]                       (fp64 atomics)
 //   dW_t          += (m sampled_t)^T g                      (fp64 atomics)
-// The floor-based weights give, at an integer sample coordinate, the
-// one-sided derivative that autodiff of ops/deform.py (and mmcv) gives; the
-// TPU kernel's hat form gives 0 there. A corner outside the map is zero, so
-// its terms drop. With radius >= 0 the offsets are clipped first and
-// doffset is zeroed where |offset| >= radius, as deform_mxu2.py:483 does.
+// With radius < 0 (unbounded) the floor-based weights give, at an integer
+// sample coordinate, the one-sided derivative that autodiff of ops/deform.py
+// (and mmcv) gives. With radius >= 0 the derivative is the TPU kernel's
+// hat derivative (deform_mxu2.py:71-76), which is 0 along an axis where the
+// sample coordinate is integral, so that axis's doffset term is zeroed
+// where its fraction is 0. A corner outside the map is zero, so its terms
+// drop. With radius >= 0 the offsets are clipped first and doffset is also
+// zeroed where |offset| >= radius, as deform_mxu2.py:483 does.
 //
 // Design: block (tile group, tap). The block stages its tap's weight slice
 // W_t (C x Cout) in shared memory once and keeps its dW_t partial there; it
@@ -292,6 +295,10 @@ dcn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
       const float fx = floorf(cx);
       const float ly = cy - fy;
       const float lx = cx - fx;
+      if (radius >= 0.f) {  // the hat derivative is 0 at an integral coordinate
+        if (ly == 0.f) gate_y = 0.f;
+        if (lx == 0.f) gate_x = 0.f;
+      }
       // clamp before the int conversion: beyond [-2, H] both corners are outside
       const int y0 = (int)fminf(fmaxf(fy, -2.f), (float)H);
       const int x0 = (int)fminf(fmaxf(fx, -2.f), (float)W);

@@ -11,15 +11,20 @@ directory:
 - ``meta.yaml``: the JAX package's keys (model_yaml, nc,
   dcn_offset_max, names, epoch, best_fitness, train_args, date, version).
 
-Tensors are written with ``torch.save``. Reading the JAX package's msgpack
-checkpoints is not ported (ROADMAP Queue 1 item 7).
+Tensors are written with ``torch.save``. ``load_checkpoint`` also reads a
+directory the JAX package wrote (``weights.msgpack`` in flax's msgpack
+format, decoded with ``msgpack`` alone, and the same ``meta.yaml``), and in
+both cases widens the DCN clip radius to cover the checkpoint's
+``dcn_offset_max`` as the JAX package does (its engine/checkpoint.py:85-104).
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from yolo_ad_refine_tpu_torch.utils import LOGGER, select_device, yaml_load, yaml_save
@@ -44,8 +49,8 @@ def save_checkpoint(path: str | Path, *, model, ema=None, optimizer=None, epoch:
     yaml_save(path / "meta.yaml", {
         "model_yaml": model.yaml,
         "nc": model.nc,
-        # max |DCN offset| seen in training; the JAX package widens its
-        # bounded kernels' clip radius from it, the port samples unbounded
+        # max |DCN offset| seen in training: load_checkpoint widens the
+        # bounded kernels' clip radius to cover it
         "dcn_offset_max": float(dcn_offset_max) if dcn_offset_max is not None else None,
         "names": names or getattr(model, "names", None),
         "epoch": epoch,
@@ -57,22 +62,94 @@ def save_checkpoint(path: str | Path, *, model, ema=None, optimizer=None, epoch:
     return path
 
 
+def widen_dcn_radius(model_yaml, dcn_offset_max):
+    """The model yaml with ``dcn_radius`` raised to cover a checkpoint's
+    ``dcn_offset_max`` (+1 px of headroom: validation images can push the
+    offsets slightly past the training maximum), as the JAX package's
+    ``load_checkpoint`` does. A yaml that already covers it is returned
+    as it is."""
+    if not dcn_offset_max:
+        return model_yaml
+    from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
+
+    model_yaml = load_model_cfg(model_yaml)
+    need = math.ceil(float(dcn_offset_max)) + 1
+    have = float(model_yaml.get("dcn_radius", 3.0))
+    if need > have:
+        model_yaml = dict(model_yaml, dcn_radius=float(need))
+        LOGGER.info(f"DCN radius {have:g} -> {need} (checkpoint dcn_offset_max "
+                    f"{float(dcn_offset_max):.2f}; bounded kernels stay exact)")
+    return model_yaml
+
+
+def _flax_ndarray(data: bytes) -> np.ndarray:
+    """One array of flax's msgpack encoding: (shape, dtype name, C-order bytes)."""
+    import msgpack
+
+    shape, name, buf = msgpack.unpackb(data, raw=True)
+    if name == b"bfloat16":  # numpy has no bfloat16: widen through torch
+        bits = torch.from_numpy(np.frombuffer(buf, np.uint16).copy())
+        return bits.view(torch.bfloat16).float().numpy().reshape(shape)
+    return np.frombuffer(buf, np.dtype(name.decode())).reshape(shape)
+
+
+def read_flax_msgpack(path: str | Path) -> dict:
+    """A tree that flax's ``msgpack_serialize`` wrote, decoded with
+    ``msgpack`` alone: ext type 1 is an ndarray, 3 a numpy scalar, 2 a
+    complex. The chunked form, which flax uses only for arrays over 2**30
+    bytes, raises."""
+    import msgpack
+
+    def ext(code, data):
+        if code == 1:
+            return _flax_ndarray(data)
+        if code == 3:
+            return _flax_ndarray(data)[()]
+        if code == 2:
+            re, im = msgpack.unpackb(data)
+            return complex(re, im)
+        raise ValueError(f"{path}: unknown msgpack ext type {code}")
+
+    def check(tree):
+        if isinstance(tree, dict):
+            if "__msgpack_chunked_array__" in tree:
+                raise ValueError(f"{path}: chunked arrays (over 2**30 bytes) are not supported")
+            for v in tree.values():
+                check(v)
+
+    tree = msgpack.unpackb(Path(path).read_bytes(), ext_hook=ext, raw=False)
+    check(tree)
+    return tree
+
+
 def load_checkpoint(path: str | Path, device: str | torch.device = "cuda"):
     """Rebuild a DetectionModel from a checkpoint directory (its EMA
-    weights), in eval mode on ``device`` with its strides probed."""
+    weights), the port's (``weights.pt``) or the JAX package's
+    (``weights.msgpack``, loaded strictly through ``load_jax_variables``),
+    in eval mode on ``device`` with its strides probed. The DCN radius is
+    widened to cover the checkpoint's ``dcn_offset_max``."""
     from yolo_ad_refine_tpu_torch.models.model import DetectionModel
+    from yolo_ad_refine_tpu_torch.utils.jax_weights import flatten_tree, load_jax_variables
 
     device = select_device(device)
     path = Path(path)
-    if path.is_file():  # meta.yaml or weights.pt
+    if path.is_file():  # meta.yaml, weights.pt or weights.msgpack
         path = path.parent
-    if not (path / "weights.pt").exists():
-        raise FileNotFoundError(f"no port checkpoint at {path} (weights.pt missing); reading "
-                                "the JAX package's msgpack checkpoints is not ported yet "
-                                "(ROADMAP Queue 1 item 7)")
+    if not (path / "weights.pt").exists() and not (path / "weights.msgpack").exists():
+        raise FileNotFoundError(f"no checkpoint at {path} (neither weights.pt nor weights.msgpack)")
     meta = yaml_load(path / "meta.yaml")
-    model = DetectionModel(meta["model_yaml"], nc=meta.get("nc"))
-    model.load_state_dict(torch.load(path / "weights.pt", map_location="cpu"))
+    model_yaml = widen_dcn_radius(meta["model_yaml"], meta.get("dcn_offset_max"))
+    model = DetectionModel(model_yaml, nc=meta.get("nc"))
+    if (path / "weights.pt").exists():
+        model.load_state_dict(torch.load(path / "weights.pt", map_location="cpu"))
+    else:
+        variables = read_flax_msgpack(path / "weights.msgpack")
+        extra = set(variables) - {"params", "batch_stats"}
+        if extra:
+            raise KeyError(f"{path}/weights.msgpack holds collections the port does not load: "
+                           f"{sorted(extra)}")
+        load_jax_variables(model, flatten_tree(variables["params"]),
+                           flatten_tree(variables.get("batch_stats", {})))
     model = model.to(device).eval()
     imgsz = int((meta.get("train_args") or {}).get("imgsz") or 640)
     model.probe_strides(imgsz)

@@ -35,6 +35,9 @@ SHAPES = ((480, 640), (640, 480), (720, 1280), (360, 640), (1080, 1920), (512, 5
 
 # (family, substrings of the lower-cased kernel name), first match wins
 _FAMILIES = (("K1 dcn_forward", ("dcn_fwd",)), ("K1 dcn_backward", ("dcn_bwd",)),
+             *((f"{k} {n}", (n,)) for k, n in (
+                 ("K2", "dcn_separable_forward"), ("K2", "dcn_separable_backward"),
+                 ("K3", "dcn_window_forward"), ("K3", "dcn_window_backward"))),
              ("K5 nms_rotated", ("nms_rotated",)), ("K4 nms_suppress", ("nms_",)),
              ("normalisation", ("norm", "bn_fw")),
              ("layout change", ("nhwctonchw", "nchwtonhwc", "transpose")),

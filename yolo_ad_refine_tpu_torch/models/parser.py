@@ -175,8 +175,13 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             head_nc = _arg(args, 0, nc)
             if name == "OBB":
                 module = H.OBB(nc=head_nc, ne=_arg(args, 1, 1), ch=head_ch)
+            elif name == "Detect":
+                module = H.Detect(nc=head_nc, ch=head_ch)
             else:
-                module = (H.Detect if name == "Detect" else H.AYHead)(nc=head_nc, ch=head_ch)
+                # dcn_radius: the top-level model-yaml key (checkpoint-aware:
+                # load_checkpoint widens it to cover a checkpoint's offsets)
+                module = H.AYHead(nc=head_nc, ch=head_ch,
+                                  dcn_radius=float(d.get("dcn_radius", 3.0)))
             c2 = 0
         else:
             raise KeyError(

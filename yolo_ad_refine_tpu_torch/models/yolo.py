@@ -1,7 +1,8 @@
 """YOLO user facade of the PyTorch port (reference engine/model.py Model).
 
 ``YOLO(model_yaml_or_checkpoint_dir, task=...)`` builds a model with seeded
-weights or loads a checkpoint directory the trainer wrote; ``.predict(images)``,
+weights or loads a checkpoint directory, one the port's trainer wrote or one
+the JAX package wrote (``weights.msgpack``); ``.predict(images)``,
 ``.train(data=...)`` and ``.val(data=...)`` run on the card by default
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
 the caller passes ``device="cpu"``. ``task`` ("detect" or "obb", as the JAX

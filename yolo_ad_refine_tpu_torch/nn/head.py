@@ -20,7 +20,7 @@ from torch import nn
 from yolo_ad_refine_tpu_torch.nn.common import Conv, ConvGN, batch_norm, dfl_decode
 from yolo_ad_refine_tpu_torch.nn.registry import register
 from yolo_ad_refine_tpu_torch.ops.anchors import dist2bbox, make_anchors
-from yolo_ad_refine_tpu_torch.ops.deform import modulated_deform_conv2d
+from yolo_ad_refine_tpu_torch.ops.deform import dcn_impl
 
 
 def decode_detections(feats, strides, nc: int, reg_max: int = 16):
@@ -187,34 +187,41 @@ class CrossTaskInteraction(nn.Module):
 
 class ModulatedDeformConv(nn.Module):
     """The weight of a 3x3 modulated deformable conv (no bias) and its call
-    into ``ops/deform.py`` (stands in for mmcv's ModulatedDeformConv2d)."""
+    into the DCN implementation ``dcn(x, offset, mask, weight, radius)``
+    that DyDCNv2 picked (stands in for mmcv's ModulatedDeformConv2d)."""
 
     def __init__(self, c1: int, c2: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c2, c1, 3, 3))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
-    def forward(self, x, offset, mask):
+    def forward(self, x, offset, mask, dcn, radius: int | None):
         if torch.is_autocast_enabled(x.device.type):  # a conv: runs in the autocast type
             x = x.to(torch.get_autocast_dtype(x.device.type)).contiguous(
                 memory_format=torch.channels_last)
-        return modulated_deform_conv2d(x, offset, mask, self.weight)
+        return dcn(x, offset, mask, self.weight, radius)
 
 
 class DyDCNv2(nn.Module):
     """Modulated deformable conv 3x3 + GroupNorm(16) (reference head.py:751-782).
 
-    Samples unbounded (radius=None), as the reference's mmcv kernel and the
-    JAX package's CPU path do; the JAX TPU path clips at ``dcn_radius``
-    (an intended difference, ROADMAP Queue 3)."""
+    Each forward picks its implementation through ``ops/deform.py
+    dcn_impl``, from ``YAT_DCN_IMPL`` and ``YAT_DCN_RADIUS`` as the JAX
+    module does at each trace (its nn/head.py:517-523): by default
+    (``auto``, ``exact``) K1 samples unbounded, as the reference's mmcv
+    kernel and the JAX package off the TPU do; ``mxu2`` runs K1, ``mxu`` K2
+    and ``pallas`` K3, each clipping the offsets at ``radius``
+    (``YAT_DCN_RADIUS`` overrides it)."""
 
-    def __init__(self, c1: int, c2: int):
+    def __init__(self, c1: int, c2: int, radius: float = 3.0):
         super().__init__()
+        self.radius = radius
         self.conv = ModulatedDeformConv(c1, c2)
         self.norm = nn.GroupNorm(16, c2, eps=1e-5)
 
     def forward(self, x, offset, mask):
-        return self.norm(self.conv(x, offset, mask))
+        dcn, radius = dcn_impl(self.radius)
+        return self.norm(self.conv(x, offset, mask, dcn, radius))
 
 
 class ResidualBlockGN(nn.Module):
@@ -254,12 +261,16 @@ class AYHead(nn.Module):
 
     In train mode the forward also records ``dcn_offset_max``, max |offset|
     over the three levels (raw offsets, detached), where the train step
-    reads it, as the JAX head sows it into "diagnostics".
+    reads it, as the JAX head sows it into "diagnostics". ``dcn_radius``
+    (the model yaml's top-level key) is the DyDCNv2's clip radius, which the
+    trainer's offset guard reads.
     """
 
-    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, strides=(8, 16, 32)):
+    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, strides=(8, 16, 32),
+                 dcn_radius: float = 3.0):
         super().__init__()
         self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        self.dcn_radius = dcn_radius
         self.nl = len(ch)
         hidc = max(ch) if ch else 512
         task_ch = hidc // 2
@@ -270,7 +281,7 @@ class AYHead(nn.Module):
         self.cross_task = CrossTaskInteraction(task_ch)
         self.rep_block_cls = ResidualBlockGN(task_ch, task_ch)
         self.coord_attention_reg = CoordAtt(task_ch, task_ch)
-        self.DyDCNV2 = DyDCNv2(task_ch, task_ch)
+        self.DyDCNV2 = DyDCNv2(task_ch, task_ch, radius=dcn_radius)
         self.spatial_conv_offset = nn.Conv2d(task_ch, 27, 3, padding=1)
         self.cls_prob_conv = nn.Sequential(
             nn.Conv2d(task_ch, task_ch // 2, 1), nn.ReLU(),

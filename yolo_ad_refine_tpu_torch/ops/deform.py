@@ -15,13 +15,22 @@ reference's mmcv semantics) and of the TPU kernel
 - ``deform_conv2d_grads_plain`` is K1 bwd's plain version (autograd of the
   plain forward); only the tests and the card's smoke run call it.
 
-``radius=None`` samples unbounded (mmcv, ``ops/deform.py``); an integer
-radius clips the offsets to +-radius first, as the TPU kernel does.
+``radius=None`` samples unbounded (mmcv, ``ops/deform.py``), and its
+positional derivative at an integral sample coordinate is autodiff's
+one-sided one. An integer radius clips the offsets to +-radius first and
+takes the TPU kernel's hat derivative, which is 0 along an axis where the
+sample coordinate is integral (``deform_mxu2.py:71-76``).
+
+``dcn_impl`` picks the implementation ``DyDCNv2`` runs, from the JAX
+package's ``YAT_DCN_IMPL`` and ``YAT_DCN_RADIUS`` (``nn/head.py:517-523``):
+K1 unbounded (``auto``, ``exact``), K1 at the radius (``mxu2``), K2
+(``mxu``, ``ops/deform_mxu.py``) or K3 (``pallas``, ``ops/deform_pallas.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -30,14 +39,43 @@ from yolo_ad_refine_tpu_torch.utils import kernels
 K = 3
 KK = K * K
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
+DCN_IMPLS = ("auto", "mxu2", "mxu", "pallas", "exact")  # YAT_DCN_IMPL's values
 
 
-def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int):
+def dcn_impl(radius: float = 3.0):
+    """(function, radius) that ``DyDCNv2`` calls, read from the environment
+    at each call as the JAX ``DyDCNv2`` reads it at each trace
+    (``nn/head.py:517-523``). ``YAT_DCN_IMPL``: ``auto`` and ``exact`` give
+    K1 unbounded (the JAX package's choice off the TPU, so ``auto`` keeps
+    the earlier slices' semantics), ``mxu2`` K1 at the radius, ``mxu`` K2,
+    ``pallas`` K3. ``YAT_DCN_RADIUS`` overrides ``radius``; both are cut to
+    an integer. An unknown value raises, where the JAX package silently
+    takes ``exact`` (ROADMAP Queue 3): a typo must not hide the kernel."""
+    impl = os.environ.get("YAT_DCN_IMPL", "auto")
+    if impl not in DCN_IMPLS:
+        raise ValueError(f"YAT_DCN_IMPL={impl!r} is none of {', '.join(DCN_IMPLS)}")
+    r_env = os.environ.get("YAT_DCN_RADIUS")
+    r = int(float(r_env)) if r_env else int(radius)
+    if impl in ("auto", "exact"):
+        return modulated_deform_conv2d, None
+    if impl == "mxu2":
+        return modulated_deform_conv2d, r
+    if impl == "mxu":
+        from yolo_ad_refine_tpu_torch.ops.deform_mxu import modulated_deform_conv2d_mxu
+
+        return modulated_deform_conv2d_mxu, r
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import modulated_deform_conv2d_pallas
+
+    return modulated_deform_conv2d_pallas, r
+
+
+def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int, hat: bool = False):
     """Bilinearly sample x_flat (B, H*W, C) at float coords (B, N).
 
     Corners outside the map contribute zero (mmcv convention). The map is
     zero-padded by 1 so each sample reads one 2x2 block; coordinates beyond
-    the pad ring clip into it and get zero weight.
+    the pad ring clip into it and get zero weight. With ``hat`` the
+    derivative along an axis is 0 where that coordinate is integral.
     """
     b, n = coords_y.shape
     c = x_flat.shape[-1]
@@ -48,6 +86,9 @@ def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int):
     x0 = torch.floor(coords_x)
     ly = coords_y - y0
     lx = coords_x - x0
+    if hat:
+        ly = torch.where(ly == 0, ly.detach(), ly)
+        lx = torch.where(lx == 0, lx.detach(), lx)
     iy = (y0.long() + 1).clamp(0, h)
     ix = (x0.long() + 1).clamp(0, w)
     rows = torch.stack([iy, iy, iy + 1, iy + 1], dim=-1)
@@ -70,7 +111,8 @@ def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None):
 
     With an integer ``radius`` the offsets are clipped to +-radius and pass
     gradient only where |offset| < radius, as the TPU kernel's VJP does
-    (``deform_mxu2.py:483``)."""
+    (``deform_mxu2.py:483``), and the derivative along an axis is 0 where
+    the sample coordinate is integral (its ``_dhat``)."""
     b, h, w, c = x.shape
     cout = weight.shape[-1]
     pad = K // 2
@@ -92,7 +134,7 @@ def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None):
     cy = (base_y + tap_dy[None, None, :] + offset[..., 0]).reshape(b, h * w * KK)
     cx = (base_x + tap_dx[None, None, :] + offset[..., 1]).reshape(b, h * w * KK)
 
-    sampled = _bilinear_sample(x_flat, cy, cx, h, w)  # (B, HW*KK, C)
+    sampled = _bilinear_sample(x_flat, cy, cx, h, w, hat=radius is not None)  # (B, HW*KK, C)
     sampled = sampled * mask.reshape(b, h * w * KK, 1).to(sampled.dtype)
     sampled = sampled.reshape(b, h * w, KK * c)
     w_mat = weight.reshape(KK * c, cout)

@@ -1,0 +1,326 @@
+"""Bounded-window modulated deformable convolution (K3).
+
+Counterpart of ``yolo_ad_refine_tpu/ops/deform_pallas.py`` (the TPU kernel
+``modulated_deform_conv2d_pallas``, its ``_fwd_kernel`` :67 and
+``_bwd_kernel`` :122). No Pallas is involved: the CUDA kernels
+``dcn_window_forward`` / ``dcn_window_backward`` in ``csrc/deform_window.cu``
+take its place, and the plain PyTorch versions here repeat its arithmetic.
+
+The function is 3x3 DCNv2 (``ops/deform.py``) with the offsets clipped to
++-radius, sampled with the hat weights hat(u) = max(0, 1 - |u|) at the two
+window positions floor(u) and floor(u) + 1 of each axis, where an axis's
+coordinate is offset - k for the integer window shift k
+(``deform_pallas.py:90,98``). Its derivative is the hat's, -sign(u) on
+|u| < 1, so d offset is 0 along an axis where the sample coordinate is
+integral, and 0 where |offset| >= radius (the clip's VJP, :338).
+
+Rounding, as the TPU kernel: in bf16 the samples are taken in fp32, the
+modulated sample is rounded to bf16 and contracted bf16 x bf16 with fp32
+sums (:104, :256); the backward is all fp32 (:294-342).
+
+``ops/deform_mxu.py`` (K2) computes the same function in the separable
+form and shares the helpers here: ``window_taps`` (with ``separable`` for
+K2's coordinates), ``window_forward_plain`` and ``window_grads_plain``.
+
+Layouts: the plain versions take NHWC x (B,H,W,C), offset (B,H,W,18) as
+(dy, dx) pairs, mask (B,H,W,9) and an HWIO weight (3,3,C,Cout);
+``modulated_deform_conv2d_pallas`` takes channels_last NCHW tensors as
+``ops/deform.py::modulated_deform_conv2d`` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yolo_ad_refine_tpu_torch.ops.deform import KK, SMEM_PER_BLOCK, _check, _nhwc
+from yolo_ad_refine_tpu_torch.utils import kernels
+
+MXU_CH = 8  # output rows per chunk of deform_mxu.py (its CH): K2's y coordinate is chunk-local
+# blocks of each kernel that should share an SM: a channel chunk is sized to
+# leave each that share of shared memory, and narrowed further only if needed
+BLOCKS_PER_SM = {0: 3, 1: 2}  # 0 forward, 1 backward
+
+
+def _hat(u):
+    return (1.0 - u.abs()).clamp(min=0.0)
+
+
+def _dhat(u):
+    return torch.where(u.abs() < 1.0, -torch.sign(u), torch.zeros_like(u))
+
+
+def window_taps(offset, radius: int, separable: bool):
+    """Sampling geometry of every (pixel, tap) for clipped offsets
+    (B,H,W,18): (index, wy, wx, dwy, dwx). ``index`` (B, H*W*9, 2, 2)
+    indexes the map zero-padded by s = radius + 2 on each side (flattened),
+    for rows floor and floor + 1 and columns floor and floor + 1; the hat
+    weights and their derivatives are (B, H*W*9, 2) per axis, in the
+    offset's type. ``separable``: K2's coordinates (``deform_mxu.py:118,
+    122``), else K3's."""
+    b, h, w, _ = offset.shape
+    r, s = int(radius), int(radius) + 2
+    wp = w + 2 * s
+    dev, dt = offset.device, offset.dtype
+    off = offset.reshape(b, h, w, KK, 2)
+    oy, ox = off[..., 0], off[..., 1]
+    taps = torch.arange(KK, device=dev)
+    ty, tx = (taps // 3 - 1).to(dt), (taps % 3 - 1).to(dt)
+    yy = torch.arange(h, device=dev, dtype=dt)[:, None, None]
+    xx = torch.arange(w, device=dev, dtype=dt)[None, :, None]
+    two = torch.arange(2, device=dev, dtype=dt)
+    if separable:
+        yl = torch.remainder(yy, MXU_CH)
+        ay = (oy + yl) + float(r + 1)                  # window row d of the 8-row chunk
+        ax = (ox + (tx + s)) + xx                      # padded column j
+        ky = torch.floor(ay)[..., None] + two
+        kx = torch.floor(ax)[..., None] + two
+        uy, ux = ay[..., None] - ky, ax[..., None] - kx
+        rows = (yy - yl + ty + 1)[..., None] + ky      # padded row
+        cols = kx
+    else:
+        ky = torch.floor(oy)[..., None] + two          # window shift k, rows y + ty + k
+        kx = torch.floor(ox)[..., None] + two
+        uy, ux = oy[..., None] - ky, ox[..., None] - kx
+        rows = (yy + ty)[..., None] + ky + s
+        cols = (xx + tx)[..., None] + kx + s
+    index = rows.long()[..., :, None] * wp + cols.long()[..., None, :]
+    n = h * w * KK
+    return (index.reshape(b, n, 2, 2), _hat(uy).reshape(b, n, 2), _hat(ux).reshape(b, n, 2),
+            _dhat(uy).reshape(b, n, 2), _dhat(ux).reshape(b, n, 2))
+
+
+def _corners(x, index, radius: int):
+    """x (B,H,W,C) zero-padded by radius + 2 and gathered at ``index``:
+    (B, N, 2, 2, C) in x's type."""
+    b, h, w, c = x.shape
+    s = int(radius) + 2
+    xp = torch.nn.functional.pad(x, (0, 0, s, s, s, s)).reshape(b, -1, c)
+    n = index.shape[1]
+    flat = index.reshape(b, n * 4, 1).expand(b, n * 4, c)
+    return torch.gather(xp, 1, flat).reshape(b, n, 2, 2, c)
+
+
+def _acc_type(x):
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _clip(offset, radius: int, acc):
+    return offset.to(acc).clamp(-float(radius), float(radius))
+
+
+def _sample(blocks, wy, wx):
+    """The bilinear sample (B, N, C): the x pass over the two rows, then the
+    y combine, in the TPU kernels' order."""
+    rows = wx[..., 0, None, None] * blocks[:, :, :, 0] + wx[..., 1, None, None] * blocks[:, :, :, 1]
+    return wy[..., 0, None] * rows[:, :, 0] + wy[..., 1, None] * rows[:, :, 1]
+
+
+def window_forward_plain(x, offset, mask, weight, radius: int, separable: bool = False):
+    """The plain forward of K3 (``separable=False``) or K2 (``True``):
+    (B,H,W,Cout) in x's type, sums in fp32 (fp64 for fp64 inputs). In fp32
+    the two are one function; in bf16 K3 rounds the modulated sample to
+    bf16 and K2 the x weights (``deform_mxu.py:128``), with an fp32
+    contraction."""
+    b, h, w, c = x.shape
+    cout = weight.shape[-1]
+    acc = _acc_type(x)
+    index, wy, wx, _, _ = window_taps(_clip(offset, radius, acc), radius, separable)
+    if separable:
+        wx = wx.to(x.dtype).to(acc)
+    ms = _sample(_corners(x, index, radius).to(acc), wy, wx) * mask.to(acc).reshape(b, -1, 1)
+    if not separable:
+        ms = ms.to(x.dtype).to(acc)
+    out = ms.reshape(b, h * w, KK * c) @ weight.reshape(KK * c, cout).to(acc)
+    return out.reshape(b, h, w, cout).to(x.dtype)
+
+
+def window_grads_plain(x, offset, mask, weight, g, radius: int, separable: bool = False):
+    """The plain backward of K3 or K2: (dx, doffset, dmask, dweight) for
+    the incoming gradient g (B,H,W,Cout), all in fp32 (fp64 for fp64
+    inputs) from the hat and its derivative, written out rather than left
+    to autograd's rules at |u| = 1. dx and dweight come back in the types
+    of x and weight, doffset and dmask in those of offset and mask."""
+    b, h, w, c = x.shape
+    cout = weight.shape[-1]
+    acc = _acc_type(x)
+    s = int(radius) + 2
+    off = _clip(offset, radius, acc)
+    index, wy, wx, dwy, dwx = window_taps(off, radius, separable)
+    blocks = _corners(x.to(acc), index, radius)                     # (B, N, 2, 2, C)
+    g2 = g.to(acc).reshape(b, h * w, cout)
+    w3 = weight.to(acc).reshape(KK, c, cout)
+    gs = torch.einsum("bpo,tco->bptc", g2, w3).reshape(b, -1, c)   # g . W_t^T
+    m = mask.to(acc).reshape(b, -1, 1)
+    gsm = gs * m
+    samp = _sample(blocks, wy, wx)
+    dmask = (gs * samp).sum(-1)
+    cg = torch.einsum("bnyxc,bnc->bnyx", blocks, gsm)               # gsm . x_corner
+    if separable:  # deform_mxu.py:221-243: over the x-passed rows, dWx per column
+        doy = (dwy * (wx[:, :, None, :] * cg).sum(-1)).sum(-1)
+        dox = (dwx * (wy[:, :, :, None] * cg).sum(-2)).sum(-1)
+    else:          # deform_pallas.py:169-171: over the four window terms
+        doy = (dwy[:, :, :, None] * wx[:, :, None, :] * cg).sum((-2, -1))
+        dox = (wy[:, :, :, None] * dwx[:, :, None, :] * cg).sum((-2, -1))
+    doff = torch.stack([doy, dox], -1).reshape(b, h, w, 2 * KK)
+    doff = doff * (off.abs() < float(radius)).to(acc)
+    wk = wy[:, :, :, None] * wx[:, :, None, :]                     # (B, N, 2, 2)
+    contrib = (wk[..., None] * gsm[:, :, None, None, :]).reshape(-1, c)
+    hp, wp = h + 2 * s, w + 2 * s
+    flat = (index + torch.arange(b, device=x.device)[:, None, None, None] * (hp * wp)).reshape(-1)
+    dxp = torch.zeros(b * hp * wp, c, dtype=acc, device=x.device).index_add_(0, flat, contrib)
+    dx = dxp.reshape(b, hp, wp, c)[:, s:s + h, s:s + w]
+    dw = torch.einsum("bptc,bpo->tco", (samp * m).reshape(b, h * w, KK, c), g2)
+    return (dx.to(x.dtype), doff.to(offset.dtype), dmask.reshape(b, h, w, KK).to(mask.dtype),
+            dw.reshape(3, 3, c, cout).to(weight.dtype))
+
+
+def deform_conv2d_pallas_plain(x, offset, mask, weight, radius: int):
+    """K3's plain forward, NHWC / HWIO as ``deform_conv2d_plain``: clip to
+    +-radius, sample with the hat weights (zero outside the map), output in
+    x's type."""
+    return window_forward_plain(x, offset, mask, weight, radius, separable=False)
+
+
+def deform_conv2d_pallas_grads_plain(x, offset, mask, weight, g, radius: int):
+    """K3's plain backward: (dx, doffset, dmask, dweight) for g (B,H,W,Cout),
+    all in fp32 from the hat and its derivative."""
+    return window_grads_plain(x, offset, mask, weight, g, radius, separable=False)
+
+
+def _prepare(x, offset, mask, weight, radius, kind: int):
+    """Checks and launch arguments shared by the four CUDA wrappers: the
+    NHWC views, the (9, C, Cout) weight, the channel chunk and the cp.async
+    flag. ``kind``: 0 forward, 1 backward."""
+    if radius is None:
+        raise ValueError("the bounded DCN kernels need an integer radius, got None")
+    b, c, h, w, cout = _check(x, offset, mask, weight, radius)
+    xv, ov, mv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask")
+    wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
+    dtype = 0 if x.dtype == torch.float32 else 1
+    item = x.element_size()
+    vec16 = (c * item) % 16 == 0 and xv.data_ptr() % 16 == 0
+    step = 16 // item if vec16 else 1
+    lib = kernels.load("deform_window")
+    lib.dcn_window_smem_bytes.restype = ctypes.c_size_t
+    lib.dcn_window_smem_bytes.argtypes = [ctypes.c_int] * 6
+    cap = max(step, 1 << (c - 1).bit_length())  # no chunk wider than C needs
+    cands = [cc for cc in (64, 32, 16, 8, 4, 2, 1) if cc % step == 0 and cc <= cap]
+    sizes = {cc: lib.dcn_window_smem_bytes(kind, int(radius), c, cout, cc, dtype) for cc in cands}
+    fit = [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK // BLOCKS_PER_SM[kind]] or \
+          [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK]
+    if not fit:
+        least = min(sizes.values())
+        raise ValueError(f"{'backward' if kind else 'forward'} at radius {radius}, C={c}, "
+                         f"Cout={cout} needs {least} bytes of shared memory per block, more "
+                         f"than the {SMEM_PER_BLOCK} a block may use")
+    return lib, (b, c, h, w, cout), (xv, ov, mv, wk), max(fit), int(vec16), dtype
+
+
+def _forward(entry: str, x, offset, mask, weight, radius):
+    lib, (b, c, h, w, cout), (xv, ov, mv, wk), cc, vec16, dtype = _prepare(
+        x, offset, mask, weight, radius, 0)
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                b, h, w, c, cout, int(radius), cc, vec16, dtype,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(lib, status, entry)
+    return out
+
+
+def _backward(entry: str, x, offset, mask, weight, g, radius):
+    lib, (b, c, h, w, cout), (xv, ov, mv, wk), cc, vec16, dtype = _prepare(
+        x, offset, mask, weight, radius, 1)
+    if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
+        raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
+                         f"({b}, {cout}, {h}, {w}) on {x.device}")
+    gv = _nhwc(g.to(x.dtype).contiguous(memory_format=torch.channels_last), "g")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    f64 = dict(dtype=torch.float64, device=x.device)
+    dx = torch.zeros((b, h, w, c), **f64)           # the kernel adds into dx and dw
+    doff = torch.empty((b, h, w, 2 * KK), **f32)    # and writes all of doff and dmask
+    dmask = torch.empty((b, h, w, KK), **f32)
+    dw = torch.zeros((KK, c, cout), **f64)
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wk.data_ptr(), gv.data_ptr(),
+                dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
+                b, h, w, c, cout, int(radius), cc, vec16, dtype,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(lib, status, entry)
+    dweight = dw.reshape(3, 3, c, cout).permute(3, 2, 0, 1).to(weight.dtype)
+    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2),
+            dmask.permute(0, 3, 1, 2), dweight)
+
+
+def dcn_window_forward(x, offset, mask, weight, radius: int):
+    """K3 fwd on CUDA tensors (channels_last NCHW, as
+    ``modulated_deform_conv2d_pallas``): launches ``csrc/deform_window.cu``
+    or raises."""
+    out = _forward("dcn_window_forward", x, offset, mask, weight, radius)
+    dcn_window_forward.launches += 1
+    return out
+
+
+def dcn_window_backward(x, offset, mask, weight, g, radius: int):
+    """K3 bwd on CUDA tensors: (dx, doffset, dmask, dweight) for the
+    incoming gradient g (B,Cout,H,W), taken in x's type. dx and dweight are
+    summed in fp64 by the kernel (atomics, in an order that changes from run
+    to run) and rounded once here. Launches ``csrc/deform_window.cu`` or
+    raises."""
+    grads = _backward("dcn_window_backward", x, offset, mask, weight, g, radius)
+    dcn_window_backward.launches += 1
+    return grads
+
+
+class WindowConv(torch.autograd.Function):
+    """K3 or K2 with its gradient. CUDA: the form's forward and backward
+    kernels (``kernels``: the two wrappers). CPU: the plain forward and the
+    plain backward. No fallback."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, radius, separable, kernels):
+        ctx.save_for_backward(x, offset, mask, weight)
+        ctx.radius, ctx.separable, ctx.kernels = radius, separable, kernels
+        if x.device.type == "cpu":
+            y = window_forward_plain(x.permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
+                                     mask.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0),
+                                     radius, separable)
+            return y.permute(0, 3, 1, 2)
+        return kernels[0](x, offset, mask, weight, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, mask, weight = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, doff, dmask, dw = window_grads_plain(
+                *(t.permute(0, 2, 3, 1) for t in (x, offset, mask)), weight.permute(2, 3, 1, 0),
+                g.permute(0, 2, 3, 1), ctx.radius, ctx.separable)
+            grads = (dx.permute(0, 3, 1, 2), doff.permute(0, 3, 1, 2), dmask.permute(0, 3, 1, 2),
+                     dw.permute(3, 2, 0, 1))
+        else:
+            grads = ctx.kernels[1](x, offset, mask, weight, g, ctx.radius)
+        return (*grads, None, None, None)
+
+
+def modulated_deform_conv2d_pallas(x, offset, mask, weight, radius: int = 3):
+    """K3 on channels_last NCHW tensors: x (B,C,H,W), offset (B,18,H,W)
+    fp32, mask (B,9,H,W) fp32, weight (Cout,C,3,3) cast to x's type here;
+    the offsets are clipped to +-radius. Returns (B,Cout,H,W) in x's type,
+    differentiable in all four inputs. A CPU tensor runs the plain
+    versions; a CUDA tensor launches ``dcn_window_forward`` (and
+    ``dcn_window_backward``) or raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"modulated_deform_conv2d_pallas: unsupported device {x.device}")
+    return WindowConv.apply(x, offset, mask, weight.to(x.dtype), int(radius), False,
+                            (dcn_window_forward, dcn_window_backward))
+
+
+dcn_window_forward.launches = 0
+dcn_window_backward.launches = 0

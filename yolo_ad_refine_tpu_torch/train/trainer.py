@@ -199,6 +199,7 @@ class DetectionTrainer:
             mloss = fetched[:, :3].mean(axis=0)
             self.dcn_offset_max = float(fetched[:, 3].max())
             self.dcn_offset_max_run = max(self.dcn_offset_max, self.dcn_offset_max_run)
+            self._check_dcn_offsets()
 
             results, fitness = {}, 0.0
             if args.get("val", True) or epoch == final_epoch:
@@ -228,6 +229,18 @@ class DetectionTrainer:
         LOGGER.info(f"training complete in {(time.time() - t_start) / 3600:.3f} h; "
                     f"best fitness {self.best_fitness:.4f}")
         return {"best_fitness": self.best_fitness, "save_dir": str(self.save_dir), **results}
+
+    def _check_dcn_offsets(self):
+        """The DCN offset-bound guard (JAX train/trainer.py:392-398): the
+        bounded kernels clip |offset| at the head's ``dcn_radius``, so warn
+        when the epoch's max |offset| passes 0.9 of it."""
+        head = self.model.model[self.model.head_idx]
+        dcn_radius = float(getattr(head, "dcn_radius", 3.0))
+        if self.dcn_offset_max > 0.9 * dcn_radius:
+            LOGGER.warning(
+                f"max |DCN offset| = {self.dcn_offset_max:.2f} is near/over the "
+                f"Pallas kernel bound (radius {dcn_radius:g}); sampling is "
+                f"clipped beyond it — consider raising DyDCNv2.radius")
 
     # -- logging / checkpoints ----------------------------------------------
     def _log_epoch(self, epoch: int, mloss, results: dict, elapsed: float):
