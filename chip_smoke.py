@@ -42,9 +42,12 @@ the device record ``{"ok": true, "device": {...}}``; the line before the
 card's name and power limit, and the one before that the kernels'
 measurements: ``launches`` from each kernel's main path (``main_path``: the
 training run of its variant; K5: the OBB serving run) with each path's own
-count under ``launches_by_path``; K1 bwd, K2 and K3 in fp32 with their
-bf16 numbers under ``bfloat16``, each against the bound of its own
-precision. Without CUDA, or without the package beside it, it fails before
+count under ``launches_by_path``; K1 fwd and bwd, K2 and K3 in fp32 with
+their bf16 numbers under ``bfloat16``, each against the bound of its own
+precision (K1's fp32 against its 3xTF32 tensor-core route, with the
+fp32-core bound beside it as ``bound_ms_fp32_cores``); K1's ``ms`` is
+CUDA events around the wrapper's call, as for every kernel, and its
+``device_ms`` the kernel's own device time from torch.profiler. Without CUDA, or without the package beside it, it fails before
 printing any result.
 Where one predict batch's time goes is the job of
 ``python -m yolo_ad_refine_tpu_torch.engine.profile_predict``.
@@ -71,6 +74,7 @@ OBB_IMGSZ = 1024
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores, H100 SXM data sheet
 BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores (fp32 accumulate), dense, data sheet
+TF32_TC_FLOPS = 495e12       # TF32 on the tensor cores, dense, data sheet
 LEVELS = (80, 40, 20)        # AYHead DCN maps at imgsz 640, C = Cout = 64
 C = 64
 K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}  # (atol, rtol)
@@ -117,6 +121,7 @@ def phase_k1(dev, gen):
     """DCNv2 forward kernel vs plain at the three level shapes; timing at B=32."""
     import torch
 
+    from yolo_ad_refine_tpu_torch.engine.profile_dcn import device_ms
     from yolo_ad_refine_tpu_torch.ops.deform import deform_conv2d_plain, modulated_deform_conv2d
 
     max_err = {}
@@ -138,36 +143,55 @@ def phase_k1(dev, gen):
                 log(f"K1 {name:8s} radius={str(radius):4s} B=8 {s}x{s}x{C}->{C}: "
                     f"max |kernel - plain| = {err:.3e} (atol {atol}, rtol {rtol})")
 
-    # time the main path's work: one launch per level, B = 32, fp32
-    ms = plain_ms = bound_ms = 0.0
-    by_ops = True
-    for s in LEVELS:
-        x, off, mask, w = dcn_inputs(32, s, torch.float32, gen, dev)
-        args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
-        ms += cuda_time(lambda: modulated_deform_conv2d(*args), iters=20)
-        plain_ms += cuda_time(lambda: deform_conv2d_plain(x, off, mask, w), iters=3, warmup=1)
-        t_bytes, t_ops = dcn_fwd_bound(32, s, 4)
-        by_ops = by_ops and t_ops >= t_bytes
-        bound_ms += max(t_bytes, t_ops)
-    log(f"K1 fp32 B=32 three levels: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms")
-    return {"max_abs_err": max_err["float32"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if by_ops else "bytes"}
+    # time the main path's work, one launch per level: fp32 at B = 32 (a
+    # serving batch), bf16 at B = 16 (a train step under autocast)
+    times = {}
+    for dtype, b in ((torch.float32, 32), (torch.bfloat16, 16)):
+        name = str(dtype).split(".")[1]
+        ms = plain_ms = kernel_ms = 0.0
+        routes = ("3xtf32", "fp32") if dtype == torch.float32 else ("bf16",)
+        bound = {r: [0.0, True] for r in routes}  # ms, bound by the operations
+        for s in LEVELS:
+            x, off, mask, w = dcn_inputs(b, s, dtype, gen, dev)
+            args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
+            ms += cuda_time(lambda: modulated_deform_conv2d(*args), iters=20)
+            kernel_ms += device_ms(lambda: modulated_deform_conv2d(*args))
+            plain_ms += cuda_time(lambda: deform_conv2d_plain(x, off, mask, w), iters=3, warmup=1)
+            for r in routes:
+                t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), r)
+                bound[r][0] += max(t_bytes, t_ops)
+                bound[r][1] = bound[r][1] and t_ops >= t_bytes
+        times[name] = {"max_abs_err": max_err[name], "ms": ms, "device_ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound[routes[0]][0],
+                       "bound_by": "operations" if bound[routes[0]][1] else "bytes"}
+        if dtype == torch.float32:
+            times[name]["bound_ms_fp32_cores"] = bound["fp32"][0]
+        log(f"K1 {name} B={b} three levels: kernel {ms:.4f} ms (device {kernel_ms:.4f} ms), "
+            f"plain {plain_ms:.3f} ms, bound "
+            f"{times[name]['bound_ms']:.4f} ms ({routes[0]}, {times[name]['bound_by']})"
+            + (f", fp32-core bound {bound['fp32'][0]:.4f} ms" if "fp32" in bound else ""))
+    return times
 
 
-def dcn_fwd_bound(b: int, s: int, itemsize: int, tensor_cores: bool = False
-                  ) -> tuple[float, float]:
+def products_ms(flops: float, route: str) -> float:
+    """ms for GEMM-shaped products of ``flops`` on one route: "fp32" the
+    fp32 cores, "bf16" the tensor cores in bf16, "3xtf32" three TF32
+    products on the tensor cores (fp32 accuracy)."""
+    return {"fp32": flops / FP32_FLOPS, "bf16": flops / BF16_TC_FLOPS,
+            "3xtf32": 3 * flops / TF32_TC_FLOPS}[route] * 1e3
+
+
+def dcn_fwd_bound(b: int, s: int, itemsize: int, route: str = "fp32") -> tuple[float, float]:
     """(ms for the bytes, ms for the operations) of a DCN forward at one
     level: x, offset, mask and weight read once, out written once; the
-    contraction 2*9*C*C a pixel (on the tensor cores where the function
-    contracts bf16 x bf16, else on the fp32 cores), and sampling
-    9*C*(4 mul + 4 add) + ~20 per tap for coordinates."""
+    contraction 2*9*C*C a pixel on ``route`` (``products_ms``), and
+    sampling 9*C*(4 mul + 4 add) + ~20 per tap for coordinates on the fp32
+    cores."""
     px = b * s * s
     nbytes = itemsize * (px * 2 * C + 9 * C * C) + 4 * px * (18 + 9)
     products = px * 2 * 9 * C * C
     other = px * (9 * C * 8 + 9 * 20)
-    t_ops = (products / (BF16_TC_FLOPS if tensor_cores else FP32_FLOPS)
-             + other / FP32_FLOPS) * 1e3
+    t_ops = products_ms(products, route) + other / FP32_FLOPS * 1e3
     return nbytes / H100_BYTES_PER_S * 1e3, t_ops
 
 
@@ -189,6 +213,7 @@ def phase_k1_bwd(dev, gen):
     three level shapes; timing at B=16, the train batch."""
     import torch
 
+    from yolo_ad_refine_tpu_torch.engine.profile_dcn import device_ms
     from yolo_ad_refine_tpu_torch.ops.deform import (
         dcn_backward, deform_conv2d_grads_plain, modulated_deform_conv2d)
 
@@ -240,26 +265,33 @@ def phase_k1_bwd(dev, gen):
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        ms = plain_ms = bound_ms = 0.0
-        by_ops = True
+        ms = plain_ms = kernel_ms = 0.0
+        # the products on the kernel's route (bf16, or 3xTF32 for fp32), the
+        # rest on the fp32 cores; fp32 also all on the fp32 cores, as before
+        routes = ("3xtf32", "fp32") if dtype == torch.float32 else ("bf16",)
+        bound = {r: [0.0, True] for r in routes}
         for s in LEVELS:
             x, off, mask, w = dcn_inputs(16, s, dtype, gen, dev)
             g = torch.randn(16, s, s, C, generator=gen).to(dev, dtype)
             ms += cuda_time(lambda: run(x, off, mask, w, g, None), iters=10)
+            kernel_ms += device_ms(lambda: run(x, off, mask, w, g, None))
             plain_ms += cuda_time(lambda: deform_conv2d_grads_plain(x, off, mask, w, g), iters=3,
                                   warmup=1)
             nbytes, products, other = k1_bwd_work(16, s, x.element_size())
-            # fp32: all of it on the fp32 cores; bf16: the products could run
-            # on the tensor cores, the rest on the fp32 cores
-            t_ops = ((products / (BF16_TC_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-                      + other / FP32_FLOPS) * 1e3)
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-            by_ops = by_ops and t_ops >= t_bytes
-            bound_ms += max(t_bytes, t_ops)
-        times[name] = {"max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": "operations" if by_ops else "bytes"}
-        log(f"K1 bwd {name} B=16 three levels: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({times[name]['bound_by']})")
+            for r in routes:
+                t_ops = products_ms(products, r) + other / FP32_FLOPS * 1e3
+                bound[r][0] += max(t_bytes, t_ops)
+                bound[r][1] = bound[r][1] and t_ops >= t_bytes
+        times[name] = {"max_abs_err": max_err[name], "ms": ms, "device_ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound[routes[0]][0],
+                       "bound_by": "operations" if bound[routes[0]][1] else "bytes"}
+        if dtype == torch.float32:
+            times[name]["bound_ms_fp32_cores"] = bound["fp32"][0]
+        log(f"K1 bwd {name} B=16 three levels: kernel {ms:.4f} ms (device {kernel_ms:.4f} ms), "
+            f"plain {plain_ms:.3f} ms, "
+            f"bound {times[name]['bound_ms']:.4f} ms ({routes[0]}, {times[name]['bound_by']})"
+            + (f", fp32-core bound {bound['fp32'][0]:.4f} ms" if "fp32" in bound else ""))
     return times
 
 
@@ -354,8 +386,8 @@ def phase_bounded(dev, gen, impl: str):
                     ms += cuda_time(lambda: run_fwd(x, off, mask, w, 3), iters=10)
                     plain_ms += cuda_time(lambda: plain(x, off, mask, w, 3), iters=3, warmup=1)
                     # K3's bf16 forward contracts bf16 x bf16; K2's contracts fp32 samples
-                    t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), tensor_cores=(
-                        impl == "pallas" and dtype == torch.bfloat16))
+                    t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), "bf16" if (
+                        impl == "pallas" and dtype == torch.bfloat16) else "fp32")
                 else:
                     g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
                     ms += cuda_time(lambda: run_bwd(x, off, mask, w, g, 3), iters=10)
@@ -1109,10 +1141,14 @@ def main() -> int:
             entry(bwd_name, "deform_window.cu", f"{src}:{line[1]}", t["bwd"]["float32"],
                   f"training_{impl}_run", dtype="float32", bfloat16=t["bwd"]["bfloat16"])]
     kernels_line = {"kernels": [
-        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1, "training_run",
-              dtype="float32"),
+        entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1["float32"],
+              "training_run", dtype="float32", bfloat16=k1["bfloat16"],
+              device_ms=k1["float32"]["device_ms"],
+              bound_ms_fp32_cores=k1["float32"]["bound_ms_fp32_cores"]),
         entry("dcn_backward", "deform_conv.cu", "ops/deform_mxu2.py:169", k1b["float32"],
-              "training_run", dtype="float32", bfloat16=k1b["bfloat16"]),
+              "training_run", dtype="float32", bfloat16=k1b["bfloat16"],
+              device_ms=k1b["float32"]["device_ms"],
+              bound_ms_fp32_cores=k1b["float32"]["bound_ms_fp32_cores"]),
         *bounded_entries,
         entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run"),
         entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",

@@ -49,10 +49,12 @@ def _dcn(dev, dtype, b=2, h=40, w=40, c=64, cout=64, seed=0):
 @pytest.mark.parametrize("radius", [None, 3])
 @pytest.mark.parametrize("shape", [(2, 40, 40, 64, 64), (3, 13, 29, 48, 80)])
 def test_dcn_kernel_matches_plain(dev, dtype, tol, radius, shape):
-    """fp32 to 1e-4 (sums in another order); bf16 to 5e-2 (the plain
-    version rounds the samples to bf16 before the contraction, the kernel
-    keeps them in fp32). The second shape has channel counts that are not
-    multiples of the kernel's 64-wide tiles and a ragged pixel tile."""
+    """fp32 to 1e-4 (sums in another order, products by 3xTF32); bf16 to
+    5e-2 (both round the modulated sample to bf16 before a bf16 x bf16
+    contraction with fp32 sums, at slightly different points: the plain
+    version also rounds the bilinear weights and the sum of the corners).
+    The second shape has channel counts that are not multiples of the
+    kernel's mma tiles and a ragged pixel tile."""
     dt = getattr(torch, dtype)
     b, h, w, c, cout = shape
     x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout)
@@ -92,6 +94,90 @@ def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma
     got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
            got[3].permute(2, 3, 1, 0)]
     _assert_grads_close(got, want, tol)
+
+
+K1_SHAPES = [(2, 9, 11, 20, 36), (1, 12, 10, 128, 128), (2, 1, 1, 64, 64), (3, 3, 5, 48, 80),
+             (1, 6, 7, 64, 200)]
+
+
+def _k1_case(dev, dtype, shape, far):
+    dt = getattr(torch, dtype)
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout, seed=c + cout)
+    if far:  # every corner of every tap outside the map
+        off = torch.full_like(off, 1000.0)
+        off[..., 1::4] = -1000.0
+    return x, off, mask, wt
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("radius", [None, 3])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+@pytest.mark.parametrize("far", [False, True])
+def test_dcn_kernel_shapes(dev, dtype, tol, radius, shape, far):
+    """K1 fwd at channel counts off the mma tiles (C = 20, Cout = 36), at
+    C = Cout = 128, beyond one block's 128 output channels (Cout = 200), on
+    1 x 1 and 3 x 5 maps, and with offsets that put every corner outside
+    the map (radius None; at radius 3 the clip keeps some inside)."""
+    x, off, mask, wt = _k1_case(dev, dtype, shape, far)
+    got = modulated_deform_conv2d(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), radius)
+    torch.cuda.synchronize()
+    want = deform_conv2d_plain(x, off, mask, wt, radius).float()
+    if far and radius is None:
+        assert not want.any()
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("radius", [None, 3])
+@pytest.mark.parametrize("shape", [s for s in K1_SHAPES if s[4] <= 128])
+@pytest.mark.parametrize("far", [False, True])
+def test_dcn_backward_kernel_shapes(dev, dtype, tol, radius, shape, far):
+    """K1 bwd at the shapes of ``test_dcn_kernel_shapes`` (C and Cout at
+    most 128, the backward's bound): each gradient within ``tol`` of max
+    |plain|, and exactly 0 where the plain gradient is."""
+    x, off, mask, wt = _k1_case(dev, dtype, shape, far)
+    b, h, w, c, cout = shape
+    g = torch.randn(b, h, w, cout, generator=torch.Generator().manual_seed(2)).to(dev, x.dtype)
+    got = dcn_backward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+                       wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), radius)
+    torch.cuda.synchronize()
+    want = deform_conv2d_grads_plain(x, off, mask, wt, g, radius)
+    _assert_grads_close([got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
+                         got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)], want, tol)
+
+
+def test_dcn_backward_repeats_bit_for_bit(dev):
+    """dx and dW are summed in fp64 (atomics, in an order that changes from
+    run to run) and rounded once: two fp32 backwards give the same bits."""
+    x, off, mask, wt = _dcn(dev, torch.float32, 4, 40, 40, 64, 64)
+    g = torch.randn(4, 40, 40, 64, generator=torch.Generator().manual_seed(3)).to(dev)
+    args = (x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+            wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2))
+    first = dcn_backward(*args)
+    second = dcn_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,c,cout", [(k, c, co) for k in (0, 1) for c, co in (
+    (64, 64), (20, 36), (128, 128), (48, 80), (64, 200)) if k == 0 or co <= 128])
+def test_dcn_smem_bytes_match_python(dev, kernel, dtype, c, cout):
+    """The kernel's own shared-memory arithmetic is the wrapper's (the
+    backward's bound, C and Cout at most 128, is a CPU test's)."""
+    import ctypes
+
+    from yolo_ad_refine_tpu_torch.ops.deform import k1_launch
+    from yolo_ad_refine_tpu_torch.utils import kernels
+
+    lib = kernels.load("deform_conv")
+    lib.dcn_smem_bytes.restype = ctypes.c_size_t
+    lib.dcn_smem_bytes.argtypes = [ctypes.c_int] * 4
+    want = k1_launch(("fwd", "bwd")[kernel], c, cout, getattr(torch, dtype))["smem"]
+    assert lib.dcn_smem_bytes(kernel, c, cout, int(dtype == "bfloat16")) == want
 
 
 def _assert_grads_close(got, want, tol):

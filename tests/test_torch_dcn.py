@@ -13,7 +13,10 @@ import torch
 
 import yolo_ad_refine_tpu.ops.deform_mxu2 as dm2
 from yolo_ad_refine_tpu.ops.deform import modulated_deform_conv2d as jax_dcn
-from yolo_ad_refine_tpu_torch.ops.deform import deform_conv2d_plain, modulated_deform_conv2d
+from yolo_ad_refine_tpu_torch.engine import profile_dcn
+from yolo_ad_refine_tpu_torch.ops.deform import (
+    SMEM_PER_BLOCK, dcn_backward, deform_conv2d_plain, k1_fwd_weight, k1_launch,
+    modulated_deform_conv2d)
 
 
 def _inputs(seed=0, b=2, h=13, w=16, c=16, cout=16, off_scale=1.0):
@@ -58,3 +61,65 @@ def test_wrapper_on_cpu_is_plain_version_in_nchw():
     assert got.shape == (2, 16, 13, 16)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want.numpy())
     assert modulated_deform_conv2d.launches == launches  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("kernel,dtype,smem,blocks", [
+    ("fwd", torch.float32, 64_512, 3), ("fwd", torch.bfloat16, 44_032, 5),
+    ("bwd", torch.float32, 89_088, 2), ("bwd", torch.bfloat16, 56_320, 4)])
+def test_k1_launch_fits_the_flagship(kernel, dtype, smem, blocks):
+    """K1 at the AYHead's C = Cout = 64: padded mma dimensions and the
+    shared memory of a block, and how many such blocks share an SM's
+    232,448 bytes."""
+    got = k1_launch(kernel, 64, 64, dtype)
+    assert got["smem"] == smem and SMEM_PER_BLOCK // smem == blocks
+    if kernel == "fwd":
+        assert (got["np"], got["cpad"]) == (64, 64)
+    else:
+        assert (got["cpn"], got["cok"]) == (64, 64)
+
+
+@pytest.mark.parametrize("c,cout", [(20, 36), (128, 128), (48, 80), (512, 1024)])
+def test_k1_forward_launches_at_any_width(c, cout):
+    """The forward tiles output channels over blocks and input channels
+    over steps, so its shared memory stops growing at Cout = 64."""
+    got = k1_launch("fwd", c, cout, torch.float32)
+    assert got["cpad"] % 32 == 0 and got["cpad"] >= c
+    assert got["np"] == min(-(-cout // 16) * 16, 64)
+    assert got["smem"] <= 64_512
+
+
+@pytest.mark.parametrize("c,cout", [(256, 64), (64, 129)])
+def test_k1_backward_raises_beyond_its_bound(c, cout):
+    """dW_t stays in mma accumulators, so the backward takes C, Cout <= 128;
+    the wrapper raises naming the bound before any build (here, with no
+    nvcc and no card, on CPU tensors)."""
+    with pytest.raises(ValueError, match="bounds C and Cout at 128"):
+        k1_launch("bwd", c, cout, torch.float32)
+    x = torch.zeros(1, c, 4, 4).contiguous(memory_format=torch.channels_last)
+    off = torch.zeros(1, 18, 4, 4).contiguous(memory_format=torch.channels_last)
+    mask = torch.zeros(1, 9, 4, 4).contiguous(memory_format=torch.channels_last)
+    g = torch.zeros(1, cout, 4, 4).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="bounds C and Cout at 128"):
+        dcn_backward(x, off, mask, torch.zeros(cout, c, 3, 3), g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_fwd_weight_is_each_tap_transposed_and_padded(dtype):
+    r = np.random.default_rng(7)
+    w = torch.from_numpy(r.normal(0, 1, (36, 20, 3, 3)).astype(np.float32)).to(dtype)
+    wt = k1_fwd_weight(w, k1_launch("fwd", 20, 36, dtype)["cpad"])
+    assert wt.shape == (9, 36, 32) and wt.dtype == dtype and wt.is_contiguous()
+    for t in range(9):
+        np.testing.assert_array_equal(wt[t, :, :20].float().numpy(),
+                                      w[:, :, t // 3, t % 3].float().numpy())
+    assert not wt[:, :, 20:].any()
+
+
+@pytest.mark.parametrize("split", sorted(profile_dcn.TREE_SPLITS))
+def test_profile_cuts_apply_to_the_kernel_source(split, tmp_path):
+    """``engine/profile_dcn.py --tree-split`` times cut copies of
+    ``csrc/deform_conv.cu``: each cut must still find its text there, and
+    change the source."""
+    src = profile_dcn.kernels.CSRC / "deform_conv.cu"
+    out = profile_dcn.cut_copy(src, split, profile_dcn.TREE_SPLITS[split], tmp_path)
+    assert out.parent == tmp_path and out.read_text() != src.read_text()

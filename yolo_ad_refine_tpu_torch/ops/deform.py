@@ -40,6 +40,54 @@ K = 3
 KK = K * K
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
 DCN_IMPLS = ("auto", "mxu2", "mxu", "pallas", "exact")  # YAT_DCN_IMPL's values
+# csrc/deform_conv.cu's tiles: pixels a block tile, input channels a forward
+# step, output channels a forward block, stages of the forward's weight
+# ring, the backward's C / Cout bound
+K1_TILE_PIXELS, K1_FWD_KC, K1_FWD_NMAX, K1_FWD_STAGES, K1_BWD_CMAX = 64, 32, 64, 3, 128
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def k1_launch(kernel: str, c: int, cout: int, dtype: torch.dtype) -> dict:
+    """The launch arithmetic of K1 (``csrc/deform_conv.cu``) for ``kernel``
+    "fwd" or "bwd" at C input and Cout output channels in ``dtype``: the
+    padded mma dimensions and the shared memory of one block, in bytes (the
+    kernel computes the same; ``dcn_smem_bytes`` reports it). Raises
+    ValueError, naming the bound, for a shape that cannot launch.
+
+    Forward: a block takes 64 pixels x up to 64 output channels (``np``,
+    padded to 16) and walks (tap, 32-channel) steps with a 3-stage ring of
+    weight chunks, two sample buffers (rows of 32 channels + 4 words) and
+    the corner tables; the weight is passed as ``k1_fwd_weight`` lays it
+    out, C zero-padded to ``cpad``. Backward: C
+    and Cout pad to 16 (``cpn``, ``cok``), the tap's weight, two g tiles
+    (with the tap's offsets and mask), gs (fp32) and m * sampled sit in
+    shared memory, and dW_t (C x Cout) in mma accumulators, which bounds C
+    and Cout at 128."""
+    isz = 2 if dtype == torch.bfloat16 else 4
+    tp = K1_TILE_PIXELS
+    if kernel == "fwd":
+        np_ = _round_up(min(cout, K1_FWD_NMAX), 16)
+        rw = K1_FWD_KC * isz // 4 + 4
+        smem = 4 * (K1_FWD_STAGES * np_ * rw + 2 * tp * rw + KK * tp * 4 * 2)
+        out = {"np": np_, "cpad": _round_up(c, K1_FWD_KC), "smem": smem}
+    elif kernel == "bwd":
+        if c > K1_BWD_CMAX or cout > K1_BWD_CMAX:
+            raise ValueError(f"dcn_backward: C={c}, Cout={cout}: K1 bwd keeps dW_t (C x Cout) in "
+                             f"mma accumulators, which bounds C and Cout at {K1_BWD_CMAX}")
+        cpn, cok = _round_up(c, 16), _round_up(cout, 16)
+        rw_o, rw_c, rw_s = cok * isz // 4 + 4, cpn * isz // 4 + 4, cpn + 4
+        smem = 4 * (cpn * rw_o + 2 * tp * rw_o + tp * rw_s + tp * rw_c + 2 * tp * 4)
+        out = {"cpn": cpn, "cok": cok, "smem": smem}
+    else:
+        raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
+    if out["smem"] > SMEM_PER_BLOCK:
+        raise ValueError(f"dcn_{'forward' if kernel == 'fwd' else 'backward'}: C={c}, Cout={cout} "
+                         f"need {out['smem']} bytes of shared memory per block, more than the "
+                         f"{SMEM_PER_BLOCK} a block may use")
+    return out
 
 
 def dcn_impl(radius: float = 3.0):
@@ -184,12 +232,22 @@ def _check(x, offset, mask, weight, radius):
     return b, c, h, w, cout
 
 
+def k1_fwd_weight(weight: torch.Tensor, cpad: int) -> torch.Tensor:
+    """K1 fwd's weight operand: (Cout, C, 3, 3) as (9, Cout, cpad), each
+    tap's slice transposed (rows are output channels, as the mma's B
+    operand is read) and C zero-padded to ``cpad``."""
+    cout, c = weight.shape[:2]
+    return torch.nn.functional.pad(weight.permute(2, 3, 0, 1).reshape(KK, cout, c),
+                                   (0, cpad - c)).contiguous()
+
+
 def dcn_forward(x, offset, mask, weight, radius: int | None = None):
     """K1 fwd on CUDA tensors (channels_last NCHW, see
     ``modulated_deform_conv2d``): launches ``csrc/deform_conv.cu`` or raises."""
     b, c, h, w, cout = _check(x, offset, mask, weight, radius)
+    cpad = k1_launch("fwd", c, cout, x.dtype)["cpad"]
     xv, ov, mv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask")
-    wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
+    wt = k1_fwd_weight(weight, cpad)
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
@@ -197,10 +255,10 @@ def dcn_forward(x, offset, mask, weight, radius: int | None = None):
     lib = kernels.load("deform_conv")
     fn = lib.dcn_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                                   ctypes.c_void_p]
-    status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wk.data_ptr(), out.data_ptr(),
-                b, h, w, c, cout, -1.0 if radius is None else float(radius),
+    status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                b, h, w, c, cout, cpad, -1.0 if radius is None else float(radius),
                 0 if x.dtype == torch.float32 else 1,
                 torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(lib, status, "dcn_forward")
@@ -214,7 +272,9 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
     which is taken in x.dtype and made channels_last here. dx and dweight
     are summed in fp64 by the kernel (with atomics, whose order changes from
     run to run) and rounded to x.dtype / weight.dtype here; doffset and
-    dmask are fp32. Launches ``csrc/deform_conv.cu`` or raises."""
+    dmask are fp32. Launches ``csrc/deform_conv.cu`` or raises, before any
+    build where C or Cout is beyond the kernel's bound (``k1_launch``)."""
+    k1_launch("bwd", x.shape[1], weight.shape[0], x.dtype)
     b, c, h, w, cout = _check(x, offset, mask, weight, radius)
     if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
@@ -230,12 +290,6 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
     dw = torch.zeros((KK, c, cout), **f64)
     if b * h * w > 0:
         lib = kernels.load("deform_conv")
-        lib.dcn_backward_smem_bytes.restype = ctypes.c_size_t
-        lib.dcn_backward_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem = lib.dcn_backward_smem_bytes(c, cout)
-        if smem > SMEM_PER_BLOCK:
-            raise ValueError(f"dcn_backward: C={c}, Cout={cout} need {smem} bytes of shared "
-                             f"memory per block, more than the {SMEM_PER_BLOCK} a block may use")
         fn = lib.dcn_backward
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
