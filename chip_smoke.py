@@ -8,8 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
 It builds the hand-written CUDA kernels from ``yolo_ad_refine_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each kernel (K1 DCN
 forward and backward; K2, the separable DCN, and K3, the bounded-window
-DCN, forward and backward; K4 NMS; K5 rotated NMS) against its plain
-PyTorch version at the shapes of its paths and times both. Then it drives
+DCN, forward and backward; K4 NMS; K5 rotated NMS; the gather probe)
+against its plain PyTorch version at the shapes of its paths and times
+both; K1 also at the flagship's wider DCN of scales m, l (C = Cout = 256)
+and x (384), where its backward runs in (C-chunk, Cout-chunk) pairs, and
+K2 and K3 at 384. The gather probe's path is ``engine/profile_gather.py``'s
+run at bench_dcn.py's probe shapes. Then it drives
 the paths through the user's entry points, each with the launch counts set
 to 0 just before it and read just after, each DCN variant under its own
 ``YAT_DCN_IMPL`` (set for the phase and restored after it):
@@ -17,6 +21,10 @@ to 0 just before it and read just after, each DCN variant under its own
 - serving: 64 synthetic images through ``YOLO(...).predict`` with the
   flagship YOLO-AD-Refine at imgsz 640, checked against the same model on
   the CPU;
+- folder and video serving: the same shapes as 64 JPEGs in a directory and
+  a 24-frame MJPG video, predicted from their paths with ``save``,
+  ``save_txt``, ``save_conf`` and ``save_crop``: every label file against
+  its results, and ``vid_stride``;
 - training: ``YOLO(...).train`` on a synthetic shapes set written to a
   temporary directory (64 train, 16 val images), 1 epoch at batch 16,
   imgsz 640, bf16 autocast: 4 steps, the EMA validation through K1 fwd and
@@ -29,6 +37,8 @@ to 0 just before it and read just after, each DCN variant under its own
   DCN kernel; the ``pallas`` run's ``best`` is then reloaded with its
   dcn_offset_max raised to 11.5, which widens the radius to 13, and serves
   a batch through K3 at that radius;
+- training at scale x (``yolo11x-701-YOLO-AD-Refine.yaml``): the training
+  path above, whose DCN backward at C = Cout = 384 runs K1 bwd's wide path;
 - OBB serving: 32 seeded images (1024² DOTA tiles and a few of 800² to
   1920×1080) through ``YOLO("yolo11n-obb.yaml", task="obb").predict`` at
   batch 16, imgsz 1024, checked against the same model on the CPU;
@@ -69,6 +79,7 @@ import warnings
 from pathlib import Path
 
 FLAGSHIP = "yolo11-701-YOLO-AD-Refine.yaml"
+FLAGSHIP_X = "yolo11x-701-YOLO-AD-Refine.yaml"  # the flagship at scale x: DCN at C = Cout = 384
 OBB_CFG = "yolo11n-obb.yaml"  # scale n, nc 15 (DOTA v1), 1024 px DOTA tiles
 OBB_IMGSZ = 1024
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
@@ -76,7 +87,10 @@ FP32_FLOPS = 67e12           # fp32 outside the tensor cores, H100 SXM data shee
 BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores (fp32 accumulate), dense, data sheet
 TF32_TC_FLOPS = 495e12       # TF32 on the tensor cores, dense, data sheet
 LEVELS = (80, 40, 20)        # AYHead DCN maps at imgsz 640, C = Cout = 64
+SERVING_SHAPES = [(480, 640), (640, 480), (720, 1280), (360, 640), (1080, 1920), (512, 512),
+                  (300, 800), (640, 640)]  # the serving phases' image shapes
 C = 64
+WIDE = (256, 384)            # the flagship's DCN width at scales m / l and x (max(ch) // 2)
 K1_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}  # (atol, rtol)
 K1_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # max |kernel - plain| / max |plain|
 GRADS = ("dx", "doffset", "dmask", "dweight")
@@ -103,13 +117,13 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def dcn_inputs(b: int, s: int, dtype, gen, dev):
+def dcn_inputs(b: int, s: int, dtype, gen, dev, c: int = C):
     import torch
 
-    x = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
+    x = torch.randn(b, s, s, c, generator=gen).to(dev, dtype)
     off = (torch.randn(b, s, s, 18, generator=gen) * 4.0).to(dev)  # reaches well past 3 px
     mask = torch.rand(b, s, s, 9, generator=gen).to(dev)
-    w = (torch.randn(3, 3, C, C, generator=gen) / math.sqrt(9 * C)).to(dev, dtype)
+    w = (torch.randn(3, 3, c, c, generator=gen) / math.sqrt(9 * c)).to(dev, dtype)
     return x, off, mask, w
 
 
@@ -181,31 +195,58 @@ def products_ms(flops: float, route: str) -> float:
             "3xtf32": 3 * flops / TF32_TC_FLOPS}[route] * 1e3
 
 
-def dcn_fwd_bound(b: int, s: int, itemsize: int, route: str = "fp32") -> tuple[float, float]:
+def dcn_fwd_bound(b: int, s: int, itemsize: int, route: str = "fp32",
+                  c: int = C) -> tuple[float, float]:
     """(ms for the bytes, ms for the operations) of a DCN forward at one
-    level: x, offset, mask and weight read once, out written once; the
-    contraction 2*9*C*C a pixel on ``route`` (``products_ms``), and
-    sampling 9*C*(4 mul + 4 add) + ~20 per tap for coordinates on the fp32
-    cores."""
+    level and C = Cout = c: x, offset, mask and weight read once, out
+    written once; the contraction 2*9*C*C a pixel on ``route``
+    (``products_ms``), and sampling 9*C*(4 mul + 4 add) + ~20 per tap for
+    coordinates on the fp32 cores."""
     px = b * s * s
-    nbytes = itemsize * (px * 2 * C + 9 * C * C) + 4 * px * (18 + 9)
-    products = px * 2 * 9 * C * C
-    other = px * (9 * C * 8 + 9 * 20)
+    nbytes = itemsize * (px * 2 * c + 9 * c * c) + 4 * px * (18 + 9)
+    products = px * 2 * 9 * c * c
+    other = px * (9 * c * 8 + 9 * 20)
     t_ops = products_ms(products, route) + other / FP32_FLOPS * 1e3
     return nbytes / H100_BYTES_PER_S * 1e3, t_ops
 
 
-def k1_bwd_work(b: int, s: int, itemsize: int) -> tuple[float, float, float]:
+def k1_bwd_work(b: int, s: int, itemsize: int, c: int = C) -> tuple[float, float, float]:
     """(bytes, product flops, other flops) K1 bwd must move and do at one
-    level: x, offset, mask, weight and g read once, dx, doffset, dmask and
-    dweight written once; per pixel and tap the two C x Cout products
-    (g . W_t^T and the dW_t update, GEMM-shaped), and besides them the
-    4-corner sampling recompute, the corner dot products and the dx scatter
-    (~24 flops a channel) and ~30 flops of coordinates."""
+    level and C = Cout = c: x, offset, mask, weight and g read once, dx,
+    doffset, dmask and dweight written once; per pixel and tap the two C x
+    Cout products (g . W_t^T and the dW_t update, GEMM-shaped), and besides
+    them the 4-corner sampling recompute, the corner dot products and the
+    dx scatter (~24 flops a channel) and ~30 flops of coordinates."""
     px = b * s * s
-    nbytes = (itemsize * px * (C + C + C) + 4 * px * (18 + 9) * 2
-              + itemsize * 9 * C * C * 2)
-    return nbytes, px * 9 * 4 * C * C, px * 9 * (24 * C + 30)
+    nbytes = (itemsize * px * (c + c + c) + 4 * px * (18 + 9) * 2
+              + itemsize * 9 * c * c * 2)
+    return nbytes, px * 9 * 4 * c * c, px * 9 * (24 * c + 30)
+
+
+def grads_nhwc(got):
+    """A backward wrapper's (dx, doffset, dmask, dweight) in the plain
+    versions' NHWC / HWIO layouts."""
+    return [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
+            got[3].permute(2, 3, 1, 0)]
+
+
+def hold_grads(label: str, got, want, tol: float) -> tuple[list, float]:
+    """Each gradient within ``tol`` of max |plain| (raises); returns the
+    relative errors and the largest absolute one."""
+    import torch
+
+    rels, worst = [], 0.0
+    for gname, a, e in zip(GRADS, got, want):
+        a, e = a.float(), e.float()
+        if a.shape != e.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label} {gname}: bad output {tuple(a.shape)}")
+        rel = ((a - e).abs().max() / e.abs().max()).item()
+        rels.append(rel)
+        if rel > tol:
+            raise AssertionError(f"{label} {gname}: max |kernel - plain| / max |plain| = "
+                                 f"{rel:.3e} > {tol}")
+        worst = max(worst, (a - e).abs().max().item())
+    return rels, worst
 
 
 def phase_k1_bwd(dev, gen):
@@ -239,23 +280,12 @@ def phase_k1_bwd(dev, gen):
             for s in LEVELS:
                 x, off, mask, w = dcn_inputs(8, s, dtype, gen, dev)
                 g = torch.randn(8, s, s, C, generator=gen).to(dev, dtype)
-                got = run(x, off, mask, w, g, radius)
+                got = grads_nhwc(run(x, off, mask, w, g, radius))
                 want = deform_conv2d_grads_plain(x, off, mask, w, g, radius)
                 torch.cuda.synchronize()
-                got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
-                       got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)]
-                errs = []
-                for gname, a, e in zip(GRADS, got, want):
-                    a, e = a.float(), e.float()
-                    if a.shape != e.shape or not torch.isfinite(a).all():
-                        raise AssertionError(f"K1 bwd {name} {gname}: bad output {tuple(a.shape)}")
-                    rel = ((a - e).abs().max() / e.abs().max()).item()
-                    errs.append(rel)
-                    if rel > K1_BWD_TOL[name]:
-                        raise AssertionError(f"K1 bwd {name} radius={radius} {s}x{s} {gname}: "
-                                             f"max |kernel - plain| / max |plain| = {rel:.3e} "
-                                             f"> {K1_BWD_TOL[name]}")
-                    max_err[name] = max(max_err.get(name, 0.0), (a - e).abs().max().item())
+                errs, worst = hold_grads(f"K1 bwd {name} radius={radius} {s}x{s}", got, want,
+                                         K1_BWD_TOL[name])
+                max_err[name] = max(max_err.get(name, 0.0), worst)
                 log(f"K1 bwd {name:8s} radius={str(radius):4s} B=8 {s}x{s}x{C}->{C}: "
                     f"max |kernel - plain| / max |plain| = "
                     + ", ".join(f"{n} {e:.2e}" for n, e in zip(GRADS, errs))
@@ -301,10 +331,10 @@ BOUNDED = {  # YAT_DCN_IMPL value: its forward and backward entries, TPU kernel 
 }
 
 
-def bounded_inputs(b: int, s: int, dtype, gen, dev, radius: int):
+def bounded_inputs(b: int, s: int, dtype, gen, dev, radius: int, c: int = C):
     """DCN inputs whose offsets reach past ``radius`` (N(0, 4/3 radius)), with
     the y-offset of every other tap made integral."""
-    x, off, mask, w = dcn_inputs(b, s, dtype, gen, dev)
+    x, off, mask, w = dcn_inputs(b, s, dtype, gen, dev, c)
     off = (off / 3.0 * radius).reshape(b, s, s, 9, 2)
     off[:, :, :, 0::2, 0] = off[:, :, :, 0::2, 0].round()
     return x, off.reshape(b, s, s, 18).contiguous(), mask, w
@@ -351,26 +381,16 @@ def phase_bounded(dev, gen, impl: str):
             b = 16 if r == 3 else 8
             x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
             g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
-            got = run_bwd(x, off, mask, w, g, r)
-            got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
-                   got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)]
+            got = grads_nhwc(run_bwd(x, off, mask, w, g, r))
             want = grads_plain(x, off, mask, w, g, r)
             torch.cuda.synchronize()
             doff = got[1].reshape(b, s, s, 9, 2)
             if doff[:, :, :, 0::2, 0].any() or doff[off.reshape(b, s, s, 9, 2).abs() >= r].any():
                 raise AssertionError(f"{bwd_name} {name} r={r}: d offset not 0 on an integral "
                                      "axis or beyond the radius")
-            rels = []
-            for gname, a, ref in zip(GRADS, got, want):
-                a, ref = a.float(), ref.float()
-                if a.shape != ref.shape or not torch.isfinite(a).all():
-                    raise AssertionError(f"{bwd_name} {name} {gname}: bad output {tuple(a.shape)}")
-                rel = ((a - ref).abs().max() / ref.abs().max()).item()
-                rels.append(rel)
-                if rel > K1_BWD_TOL[name]:
-                    raise AssertionError(f"{bwd_name} {name} r={r} {s}x{s} {gname}: max |kernel - "
-                                         f"plain| / max |plain| = {rel:.3e} > {K1_BWD_TOL[name]}")
-                err["bwd"][name] = max(err["bwd"].get(name, 0.0), (a - ref).abs().max().item())
+            rels, worst = hold_grads(f"{bwd_name} {name} r={r} {s}x{s}", got, want,
+                                     K1_BWD_TOL[name])
+            err["bwd"][name] = max(err["bwd"].get(name, 0.0), worst)
             log(f"{impl} {name:8s} r={r:<2d} {s}x{s}x{C}->{C}: fwd B={32 if r == 3 else 8} "
                 f"max |kernel - plain| {e:.3e} (atol {atol}, rtol {rtol}); bwd B={b} max |kernel "
                 "- plain| / max |plain| " + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
@@ -406,6 +426,149 @@ def phase_bounded(dev, gen, impl: str):
                 f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
                 f"({times[kind][name]['bound_by']})")
     return times
+
+
+def phase_k1_wide(dev, gen):
+    """K1 past the flagship-n width. Forward and backward against the plain
+    versions at C = Cout = 256 (scales m, l) and 384 (x), the three levels
+    at B=16 (a train step's), fp32 and bf16, radius None and 3, with K1's
+    limits (the backward past 128 channels runs its wide path of chunk
+    pairs); then both timed at 128 (scale s), 256 and 384 beside their
+    bounds; and K2 and K3, forward and backward, at 384 on the 80² map
+    (B=4, radius 3) against their plain versions."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.profile_dcn import device_ms
+    from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
+    from yolo_ad_refine_tpu_torch.ops.deform import (
+        dcn_backward, deform_conv2d_grads_plain, deform_conv2d_plain, modulated_deform_conv2d)
+
+    err = {}
+    for c in WIDE:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            atol, rtol = K1_TOL[name]
+            for radius in (None, 3):
+                for s in LEVELS:
+                    x, off, mask, w = dcn_inputs(16, s, dtype, gen, dev, c)
+                    g = torch.randn(16, s, s, c, generator=gen).to(dev, dtype)
+                    args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
+                    got = modulated_deform_conv2d(*args, radius).permute(0, 2, 3, 1).float()
+                    want = deform_conv2d_plain(x, off, mask, w, radius).float()
+                    torch.cuda.synchronize()
+                    e_fwd = (got - want).abs().max().item()
+                    torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=lambda m: (
+                        f"K1 {name} C={c} radius={radius} {s}x{s}: {m}"))
+                    del got, want
+                    label = f"K1 bwd {name} C={c} radius={radius} {s}x{s}"
+                    got = grads_nhwc(dcn_backward(*args, nchw(g), radius))
+                    want = deform_conv2d_grads_plain(x, off, mask, w, g, radius)
+                    torch.cuda.synchronize()
+                    rels, e_bwd = hold_grads(label, got, want, K1_BWD_TOL[name])
+                    del got, want
+                    key = (c, name)
+                    err[key] = {"fwd": max(err.get(key, {}).get("fwd", 0.0), e_fwd),
+                                "bwd": max(err.get(key, {}).get("bwd", 0.0), e_bwd)}
+                    log(f"K1 wide {name:8s} C=Cout={c} radius={str(radius):4s} B=16 {s}x{s}: "
+                        f"fwd max |kernel - plain| {e_fwd:.3e} (atol {atol}, rtol {rtol}); bwd max "
+                        "|kernel - plain| / max |plain| " + ", ".join(
+                            f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
+                        + f" (tol {K1_BWD_TOL[name]})")
+    torch.cuda.empty_cache()
+
+    times = {}
+    for c in (128, *WIDE):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            route = "3xtf32" if dtype == torch.float32 else "bf16"
+            t = {"fwd_ms": 0.0, "fwd_device_ms": 0.0, "fwd_bound_ms": 0.0, "bwd_ms": 0.0,
+                 "bwd_device_ms": 0.0, "bwd_bound_ms": 0.0}
+            for s in LEVELS:
+                x, off, mask, w = dcn_inputs(16, s, dtype, gen, dev, c)
+                g = torch.randn(16, s, s, c, generator=gen).to(dev, dtype)
+                args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
+                t["fwd_ms"] += cuda_time(lambda: modulated_deform_conv2d(*args), iters=10)
+                t["fwd_device_ms"] += device_ms(lambda: modulated_deform_conv2d(*args), iters=5)
+                t["bwd_ms"] += cuda_time(lambda: dcn_backward(*args, nchw(g)), iters=5)
+                t["bwd_device_ms"] += device_ms(lambda: dcn_backward(*args, nchw(g)), iters=5)
+                t["fwd_bound_ms"] += max(dcn_fwd_bound(16, s, x.element_size(), route, c))
+                nbytes, products, other = k1_bwd_work(16, s, x.element_size(), c)
+                t["bwd_bound_ms"] += max(nbytes / H100_BYTES_PER_S * 1e3,
+                                         products_ms(products, route) + other / FP32_FLOPS * 1e3)
+            if (c, name) in err:
+                t.update(max_abs_err_fwd=err[(c, name)]["fwd"], max_abs_err_bwd=err[(c, name)]["bwd"])
+            times[f"{c} {name}"] = t
+            log(f"K1 C=Cout={c} {name} B=16 three levels: fwd {t['fwd_ms']:.4f} ms (device "
+                f"{t['fwd_device_ms']:.4f}) against a {route} bound of {t['fwd_bound_ms']:.4f} ms; "
+                f"bwd {t['bwd_ms']:.4f} ms (device {t['bwd_device_ms']:.4f}) against "
+                f"{t['bwd_bound_ms']:.4f} ms")
+
+    for impl, mod in (("mxu", deform_mxu), ("pallas", deform_pallas)):
+        fwd_name, bwd_name, _ = BOUNDED[impl]
+        plain = getattr(mod, f"deform_conv2d_{impl}_plain")
+        grads_plain = getattr(mod, f"deform_conv2d_{impl}_grads_plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            atol, rtol = K1_TOL[name]
+            x, off, mask, w = bounded_inputs(4, LEVELS[0], dtype, gen, dev, 3, 384)
+            g = torch.randn(4, LEVELS[0], LEVELS[0], 384, generator=gen).to(dev, dtype)
+            args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
+            got = getattr(mod, fwd_name)(*args, 3).permute(0, 2, 3, 1).float()
+            want = plain(x, off, mask, w, 3).float()
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=lambda m: (
+                f"{fwd_name} {name} C=384: {m}"))
+            got = grads_nhwc(getattr(mod, bwd_name)(*args, nchw(g), 3))
+            rels, _ = hold_grads(f"{bwd_name} {name} C=384", got,
+                                 grads_plain(x, off, mask, w, g, 3), K1_BWD_TOL[name])
+            log(f"{impl} {name:8s} C=Cout=384 r=3 B=4 {LEVELS[0]}x{LEVELS[0]}: fwd max |kernel - "
+                f"plain| {e:.3e}; bwd max |kernel - plain| / max |plain| "
+                + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels)))
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_gather(dev):
+    """The gather probe (``csrc/gather.cu``, the port of bench_dcn.py's
+    Pallas probe): bit-equal to its plain version at the probe's shapes in
+    bf16 and fp32 and on a batch of wrapped and out-of-range indices; then
+    ``engine/profile_gather.py``'s run at batch 32 in both types, the
+    probe's path, with the launch counts set to 0 just before it."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.profile_gather import LEVELS as PROBE_LEVELS
+    from yolo_ad_refine_tpu_torch.engine.profile_gather import probe_inputs, profile
+    from yolo_ad_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [probe_inputs(32, h, w, dtype, dev) for h, w in PROBE_LEVELS]
+        x, n = cases[-1][0], cases[-1][0].shape[1]
+        cases.append((x, torch.randint(-2 * n, 2 * n, (32, 9 * n), dtype=torch.int32,
+                                       generator=torch.Generator().manual_seed(1)).to(dev)))
+        for x, idx in cases:
+            got, want = gather_rows(x, idx), gather_rows_plain(x, idx)
+            max_err = max(max_err, (got.float() - want.float()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather {dtype} {tuple(idx.shape)}: kernel differs from "
+                                     "plain")
+        log(f"gather {str(dtype).split('.')[1]}: bit-equal to plain at the probe's shapes (B=32, "
+            f"80², 40², 20², C=64) and on indices in [-2N, 2N) ({int((want == 0).all(-1).sum())} "
+            "rows of fill)")
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    res = {name: profile(32, getattr(torch, name), dev) for name in ("bfloat16", "float32")}
+    res["max_abs_err"] = max_err
+    launches = {k: f.launches for k, f in counters.items()}
+    for name in ("bfloat16", "float32"):
+        t = res[name]["total"]
+        log(f"gather {name} B=32 three levels: kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), bound {t['bound_ms']:.4f} ms (bytes), torch.gather "
+            f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms")
+    return res, launches
 
 
 class dcn_env:
@@ -689,6 +852,7 @@ def kernel_counters():
     """Every kernel wrapper, by the name of its entry in the kernels line."""
     from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
     from yolo_ad_refine_tpu_torch.ops.deform import dcn_backward, modulated_deform_conv2d
+    from yolo_ad_refine_tpu_torch.ops.gather import gather_rows
     from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_rotated
 
     return {"dcn_forward": modulated_deform_conv2d, "dcn_backward": dcn_backward,
@@ -696,7 +860,7 @@ def kernel_counters():
             "dcn_separable_backward": deform_mxu.dcn_separable_backward,
             "dcn_window_forward": deform_pallas.dcn_window_forward,
             "dcn_window_backward": deform_pallas.dcn_window_backward,
-            "nms_suppress": suppress, "nms_rotated": suppress_rotated}
+            "nms_suppress": suppress, "nms_rotated": suppress_rotated, "gather_rows": gather_rows}
 
 
 def dcn_kernels(impl: str | None) -> tuple[str, str]:
@@ -718,9 +882,8 @@ def phase_serving(dev):
     log(f"serving: flagship built on {dev} in {time.perf_counter() - t0:.1f} s, "
         f"{model.model.num_params():,} parameters, strides {model.model.strides}")
     rng = np.random.default_rng(0)
-    shapes = [(480, 640), (640, 480), (720, 1280), (360, 640), (1080, 1920), (512, 512),
-              (300, 800), (640, 640)]
-    imgs = [rng.integers(0, 256, (*shapes[i % len(shapes)], 3), dtype=np.uint8) for i in range(64)]
+    imgs = [rng.integers(0, 256, (*SERVING_SHAPES[i % len(SERVING_SHAPES)], 3), dtype=np.uint8)
+            for i in range(64)]
     model.predict(imgs[:32], conf=0.001, batch=32)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
@@ -820,11 +983,108 @@ def phase_serving_variant(dev, impl: str):
     return launches
 
 
-def phase_training(dev, impl: str | None = None):
-    """YOLO(...).train on the card under YAT_DCN_IMPL=impl: 1 epoch of 4
+def phase_folder_serving(dev):
+    """The flagship served from a directory and a video file, the way its
+    users serve image folders and camera recordings: 64 seeded JPEGs of the
+    serving phase's 8 shapes and a 24-frame MJPG video at 1280x720, through
+    ``YOLO.predict(source=<dir or file>, batch=32, imgsz=640, save=True,
+    save_txt=True, save_conf=True, save_crop=True, project=<tmp>)``
+    (conf 0.001, max_det 20). The run must launch K1 fwd and K4; every image
+    and frame gets its label file, whose rows equal its results' boxes
+    within 1e-3 (normalised); the video at vid_stride 3 gives 8 frames.
+    images/s of the folder with and without the save options and of the
+    same decoded images as numpy arrays are printed (host clock)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+    counters = kernel_counters()
+    opts = dict(batch=32, imgsz=640, conf=0.001, max_det=20)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_folder_") as tmp:
+        root = Path(tmp)
+        rng = np.random.default_rng(7)
+        folder = root / "images"
+        folder.mkdir()
+        for i in range(64):
+            h, w = SERVING_SHAPES[i % len(SERVING_SHAPES)]
+            cv2.imwrite(str(folder / f"im{i:02d}.jpg"), rng.integers(0, 256, (h, w, 3), np.uint8))
+        video = root / "clip.avi"
+        vw = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"MJPG"), 24, (1280, 720))
+        for _ in range(24):
+            vw.write(rng.integers(0, 256, (720, 1280, 3), np.uint8))
+        vw.release()
+        t0 = time.perf_counter()
+        decoded = [cv2.imread(str(f)) for f in sorted(folder.glob("*.jpg"))]
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        jpeg_mb = sum(f.stat().st_size for f in folder.glob("*.jpg")) / 1e6
+        model.predict(decoded[:32], **opts)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+
+        rate = {}
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(source=str(folder), project=str(root / "runs"), save=True,
+                                save_txt=True, save_conf=True, save_crop=True, **opts)
+        torch.cuda.synchronize()
+        rate["folder, save options"] = 64 / (time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches["dcn_forward"] != 6 or launches["nms_suppress"] != 2:
+            raise AssertionError(f"folder serving did not launch K1 fwd and K4 once a batch: "
+                                 f"{launches}")
+        for label, src in (("folder", str(folder)), ("numpy arrays", decoded)):
+            t0 = time.perf_counter()
+            model.predict(source=src, **opts)
+            torch.cuda.synchronize()
+            rate[label] = 64 / (time.perf_counter() - t0)
+        run = root / "runs" / "predict"
+        t0 = time.perf_counter()
+        vres = model.predict(source=str(video), project=str(root / "runs"), save=True,
+                             save_txt=True, save_conf=True, save_crop=True, **opts)
+        torch.cuda.synchronize()
+        rate["video, save options"] = 24 / (time.perf_counter() - t0)
+        vrun = root / "runs" / "predict2"
+        checked = rows = 0
+        for out_dir, res, stems in ((run, results, [f"im{i:02d}" for i in range(64)]),
+                                    (vrun, vres, [f"clip_{i}" for i in range(1, 25)])):
+            if len(res) != len(stems):
+                raise AssertionError(f"expected {len(stems)} results, got {len(res)}")
+            for r, stem in zip(res, stems):
+                f = out_dir / "labels" / f"{stem}.txt"
+                got = np.loadtxt(f, ndmin=2)
+                d = r.boxes
+                if not (0 < len(d) == len(got) and (out_dir / f"{stem}.jpg").exists()):
+                    raise AssertionError(f"{f}: {len(got)} rows for {len(d)} boxes, or no image")
+                want = np.concatenate([d.cls[:, None], d.xywhn, d.conf[:, None]], 1)
+                err = np.abs(got - want).max()
+                if err > 1e-3:
+                    raise AssertionError(f"{f}: rows differ from the results by {err:.2e}")
+                checked, rows = checked + 1, rows + len(got)
+        crops = len(list((run / "crops").rglob("*.jpg"))) + len(list((vrun / "crops").rglob("*.jpg")))
+        stride = model.predict(source=str(video), vid_stride=3, **opts)
+        if [r.path.rsplit("#", 1)[1] for r in stride] != [str(i) for i in range(3, 25, 3)]:
+            raise AssertionError(f"vid_stride 3 gave frames {[r.path for r in stride]}")
+    log(f"folder serving: 64 JPEGs (8 shapes) and a 24-frame 1280x720 MJPG video, batch 32, "
+        f"imgsz 640: {checked} label files ({rows} rows) equal to their results within 1e-3, "
+        f"{crops} crops, annotated images; vid_stride 3 gave frames 3..24 by 3; launches in the "
+        f"folder run {launches}")
+    log("folder serving: images/s (host clock, one run each): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rate.items())
+        + f"; cv2.imread of the 64 JPEGs ({jpeg_mb:.1f} MB of seeded noise, the costliest "
+        f"content to decode) alone {decode_ms:.1f} ms on one host thread")
+    return launches, rate
+
+
+def phase_training(dev, impl: str | None = None, cfg: str = FLAGSHIP):
+    """YOLO(cfg).train on the card under YAT_DCN_IMPL=impl: 1 epoch of 4
     steps at batch 16, imgsz 640, bf16, then the EMA validation, checkpoints
     and a reload of best. Each step launches the variant's forward and
     backward kernel 3 times each (one a level) and no other DCN kernel.
+    ``cfg`` FLAGSHIP_X trains the flagship at scale x, whose DCN backward
+    (C = Cout = 384) runs K1 bwd's wide path.
     Under ``pallas`` the reload also widens the radius: best's meta.yaml
     gets dcn_offset_max 11.5, the reloaded head must clip at 13, and one
     predict batch runs K3 at that radius."""
@@ -835,7 +1095,7 @@ def phase_training(dev, impl: str | None = None):
     from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
 
     counters = kernel_counters()
-    label = impl or "auto"
+    label = (impl or "auto") + ("" if cfg == FLAGSHIP else f", {cfg}")
 
     def counts():
         return {k: f.launches for k, f in counters.items()}
@@ -845,7 +1105,9 @@ def phase_training(dev, impl: str | None = None):
         data = make_shapes_dataset(Path(tmp) / "shapes", n_train=64, n_val=16, imgsz=640, seed=0)
         log(f"training ({label}): synthetic shapes set (64 train, 16 val, 640 px) written in "
             f"{time.perf_counter() - t0:.1f} s")
-        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+        model = YOLO(cfg, device=dev, imgsz=640, seed=0)
+        log(f"training ({label}): {model.model.num_params():,} parameters, DCN at C = Cout = "
+            f"{model.model.model[model.model.head_idx].DyDCNV2.conv.weight.shape[0]}")
         steps, grad_checks = [], []
         mark = {}
 
@@ -1094,7 +1356,7 @@ def main() -> int:
         f"Python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    report = kernels.build("deform_conv", "deform_window", "nms")
+    report = kernels.build("deform_conv", "deform_window", "gather", "nms")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (parallel nvcc): "
         + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
     for name, r in report.items():
@@ -1106,15 +1368,20 @@ def main() -> int:
     with dcn_env(None):  # each phase sets the DCN variant it drives
         k1 = phase_k1(dev, gen)
         k1b = phase_k1_bwd(dev, gen)
+        k1_wide = phase_k1_wide(dev, gen)
         k4 = phase_k4(dev, gen)
         bounded = {impl: phase_bounded(dev, gen, impl) for impl in BOUNDED}
-        paths = {"serving_run": phase_serving(dev)}
+        gather, gather_run = phase_gather(dev)
+        paths = {"gather_probe_run": gather_run, "serving_run": phase_serving(dev)}
+        paths["folder_serving_run"], folder_rates = phase_folder_serving(dev)
         for impl in ("mxu", "pallas", "mxu2"):
             paths[f"serving_{impl}_run"] = phase_serving_variant(dev, impl)
         for impl in (None, "mxu", "pallas"):
             tag = "" if impl is None else f"_{impl}"
             run, step, extra = phase_training(dev, impl)
             paths.update({f"training{tag}_run": run, f"training{tag}_step": step, **extra})
+        run, step, _ = phase_training(dev, None, FLAGSHIP_X)
+        paths.update({"training_x_run": run, "training_x_step": step})
         phase_step_card_vs_cpu(dev)
         obb = obb_model(dev)
         k5 = phase_k5(dev, gen, obb)
@@ -1124,12 +1391,13 @@ def main() -> int:
     def entry(name, source, replaces, measured, main_path, **extra):
         # launches: the count of the kernel's own main path, each path's beside it
         return {"name": name, "route": "cuda", "source": f"yolo_ad_refine_tpu_torch/csrc/{source}",
-                "replaces": f"yolo_ad_refine_tpu/{replaces}", "launches": paths[main_path][name],
+                "replaces": replaces if replaces.startswith("benchmarks/")
+                else f"yolo_ad_refine_tpu/{replaces}", "launches": paths[main_path][name],
                 "main_path": main_path,
                 "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
                 **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by")},
-                "library_ms": None, **extra}
+                "library_ms": measured.get("library_ms"), **extra}
 
     bounded_entries = []
     for impl, (fwd_name, bwd_name, src) in BOUNDED.items():
@@ -1144,15 +1412,24 @@ def main() -> int:
         entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1["float32"],
               "training_run", dtype="float32", bfloat16=k1["bfloat16"],
               device_ms=k1["float32"]["device_ms"],
-              bound_ms_fp32_cores=k1["float32"]["bound_ms_fp32_cores"]),
+              bound_ms_fp32_cores=k1["float32"]["bound_ms_fp32_cores"],
+              by_width_b16={k: {n: v for n, v in t.items() if "fwd" in n}
+                            for k, t in k1_wide.items()}),
         entry("dcn_backward", "deform_conv.cu", "ops/deform_mxu2.py:169", k1b["float32"],
               "training_run", dtype="float32", bfloat16=k1b["bfloat16"],
               device_ms=k1b["float32"]["device_ms"],
-              bound_ms_fp32_cores=k1b["float32"]["bound_ms_fp32_cores"]),
+              bound_ms_fp32_cores=k1b["float32"]["bound_ms_fp32_cores"],
+              by_width_b16={k: {n: v for n, v in t.items() if "bwd" in n}
+                            for k, t in k1_wide.items()}),
         *bounded_entries,
         entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run"),
         entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",
               rounding_ties=k5["rounding_ties"]),
+        entry("gather_rows", "gather.cu", "benchmarks/bench_dcn.py:103", {
+            "max_abs_err": gather["max_abs_err"], **gather["bfloat16"]["total"],
+            "bound_by": "bytes"}, "gather_probe_run", dtype="bfloat16",
+            float32={**gather["float32"]["total"], "bound_by": "bytes"},
+            levels={n: gather[n]["levels"] for n in ("bfloat16", "float32")}),
     ]}
     for k in kernels_line["kernels"]:
         if k["launches"] == 0:

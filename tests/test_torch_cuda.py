@@ -21,6 +21,7 @@ from yolo_ad_refine_tpu_torch.ops.deform_mxu import (
 from yolo_ad_refine_tpu_torch.ops.deform_pallas import (
     dcn_window_backward, dcn_window_forward, deform_conv2d_pallas_grads_plain,
     deform_conv2d_pallas_plain, modulated_deform_conv2d_pallas)
+from yolo_ad_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from yolo_ad_refine_tpu_torch.ops.nms import (
     rotated_rounding_ties, suppress, suppress_plain, suppress_rotated, suppress_rotated_plain)
 
@@ -97,7 +98,7 @@ def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma
 
 
 K1_SHAPES = [(2, 9, 11, 20, 36), (1, 12, 10, 128, 128), (2, 1, 1, 64, 64), (3, 3, 5, 48, 80),
-             (1, 6, 7, 64, 200)]
+             (1, 6, 7, 64, 200), (1, 12, 10, 256, 256), (1, 6, 7, 384, 384)]
 
 
 def _k1_case(dev, dtype, shape, far):
@@ -116,7 +117,8 @@ def _k1_case(dev, dtype, shape, far):
 @pytest.mark.parametrize("far", [False, True])
 def test_dcn_kernel_shapes(dev, dtype, tol, radius, shape, far):
     """K1 fwd at channel counts off the mma tiles (C = 20, Cout = 36), at
-    C = Cout = 128, beyond one block's 128 output channels (Cout = 200), on
+    C = Cout = 128, beyond one block's 128 output channels (Cout = 200), at
+    the flagship's widths of scales m / l and x (C = Cout = 256, 384), on
     1 x 1 and 3 x 5 maps, and with offsets that put every corner outside
     the map (radius None; at radius 3 the clip keeps some inside)."""
     x, off, mask, wt = _k1_case(dev, dtype, shape, far)
@@ -131,12 +133,13 @@ def test_dcn_kernel_shapes(dev, dtype, tol, radius, shape, far):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
 @pytest.mark.parametrize("radius", [None, 3])
-@pytest.mark.parametrize("shape", [s for s in K1_SHAPES if s[4] <= 128])
+@pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("far", [False, True])
 def test_dcn_backward_kernel_shapes(dev, dtype, tol, radius, shape, far):
-    """K1 bwd at the shapes of ``test_dcn_kernel_shapes`` (C and Cout at
-    most 128, the backward's bound): each gradient within ``tol`` of max
-    |plain|, and exactly 0 where the plain gradient is."""
+    """K1 bwd at the shapes of ``test_dcn_kernel_shapes``, those past 128
+    channels (Cout = 200; C = Cout = 256, 384) through the wide path's
+    chunk pairs: each gradient within ``tol`` of max |plain|, and exactly 0
+    where the plain gradient is."""
     x, off, mask, wt = _k1_case(dev, dtype, shape, far)
     b, h, w, c, cout = shape
     g = torch.randn(b, h, w, cout, generator=torch.Generator().manual_seed(2)).to(dev, x.dtype)
@@ -148,11 +151,15 @@ def test_dcn_backward_kernel_shapes(dev, dtype, tol, radius, shape, far):
                          got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)], want, tol)
 
 
-def test_dcn_backward_repeats_bit_for_bit(dev):
+@pytest.mark.parametrize("c", [64, 384])
+def test_dcn_backward_repeats_bit_for_bit(dev, c):
     """dx and dW are summed in fp64 (atomics, in an order that changes from
-    run to run) and rounded once: two fp32 backwards give the same bits."""
-    x, off, mask, wt = _dcn(dev, torch.float32, 4, 40, 40, 64, 64)
-    g = torch.randn(4, 40, 40, 64, generator=torch.Generator().manual_seed(3)).to(dev)
+    run to run) and rounded once: two fp32 backwards give the same bits. At
+    C = Cout = 384 (the wide path) doffset and dmask are fp64 sums of the
+    chunk pairs' partials, rounded once, and repeat too."""
+    b = 4 if c == 64 else 1
+    x, off, mask, wt = _dcn(dev, torch.float32, b, 40, 40, c, c)
+    g = torch.randn(b, 40, 40, c, generator=torch.Generator().manual_seed(3)).to(dev)
     args = (x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
             wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2))
     first = dcn_backward(*args)
@@ -164,10 +171,11 @@ def test_dcn_backward_repeats_bit_for_bit(dev):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kernel,c,cout", [(k, c, co) for k in (0, 1) for c, co in (
-    (64, 64), (20, 36), (128, 128), (48, 80), (64, 200)) if k == 0 or co <= 128])
+    (64, 64), (20, 36), (128, 128), (48, 80), (64, 200), (256, 64), (64, 129), (256, 256),
+    (384, 384))])
 def test_dcn_smem_bytes_match_python(dev, kernel, dtype, c, cout):
-    """The kernel's own shared-memory arithmetic is the wrapper's (the
-    backward's bound, C and Cout at most 128, is a CPU test's)."""
+    """The kernel's own shared-memory arithmetic is the wrapper's, and so is
+    its choice of the backward's wide path (C or Cout above 128)."""
     import ctypes
 
     from yolo_ad_refine_tpu_torch.ops.deform import k1_launch
@@ -176,8 +184,11 @@ def test_dcn_smem_bytes_match_python(dev, kernel, dtype, c, cout):
     lib = kernels.load("deform_conv")
     lib.dcn_smem_bytes.restype = ctypes.c_size_t
     lib.dcn_smem_bytes.argtypes = [ctypes.c_int] * 4
-    want = k1_launch(("fwd", "bwd")[kernel], c, cout, getattr(torch, dtype))["smem"]
-    assert lib.dcn_smem_bytes(kernel, c, cout, int(dtype == "bfloat16")) == want
+    plan = k1_launch(("fwd", "bwd")[kernel], c, cout, getattr(torch, dtype))
+    assert lib.dcn_smem_bytes(kernel, c, cout, int(dtype == "bfloat16")) == plan["smem"]
+    if kernel == 1:
+        lib.dcn_backward_wide.argtypes = [ctypes.c_int] * 2
+        assert lib.dcn_backward_wide(c, cout) == int(plan["wide"])
 
 
 def _assert_grads_close(got, want, tol):
@@ -277,6 +288,32 @@ def test_bounded_dcn_backward_kernel_matches_plain(dev, kind, dtype, tol, shape,
     assert not doff[:, :, :, 0::2, 0].any()
     assert not doff[off.reshape(b, h, w, 9, 2).abs() >= radius].any()
     _assert_grads_close(got, grads_plain(x, off, mask, wt, g, radius), tol)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_bounded_dcn_at_scale_x_width(dev, kind, dtype, tol):
+    """K2 / K3 forward and backward at the flagship's scale-x DCN width, C =
+    Cout = 384, radius 3: the backward takes (C-chunk, Cout-chunk) pairs of
+    at most 128 x 128 (3 x 3 here), which add their parts of doffset and
+    dmask in fp64; within the limits of the tests above."""
+    fwd, bwd, plain, grads_plain, fn = BOUNDED[kind]
+    dt = getattr(torch, dtype)
+    shape = (1, 11, 13, 384, 384)
+    x, off, mask, wt = _bounded_inputs(dev, dt, shape, 3)
+    got = fn(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+             wt.permute(3, 2, 0, 1), 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(),
+                               plain(x, off, mask, wt, 3).float(), atol=tol, rtol=tol)
+    g = torch.randn(*shape[:3], 384, generator=torch.Generator().manual_seed(1)).to(dev, dt)
+    got = bwd(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+              wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), 3)
+    torch.cuda.synchronize()
+    got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
+           got[3].permute(2, 3, 1, 0)]
+    assert not got[1].reshape(*shape[:3], 9, 2)[:, :, :, 0::2, 0].any()
+    _assert_grads_close(got, grads_plain(x, off, mask, wt, g, 3), tol)
 
 
 @pytest.mark.parametrize("kind", ["mxu", "pallas"])
@@ -407,3 +444,51 @@ def test_obb_predict_and_val_launch_k5(dev, tmp_path):
     metrics = model.val(data=data, imgsz=128, batch=2)
     assert suppress_rotated.launches == 2
     assert all(math.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,c", [(2, 400, 64), (3, 37, 5), (1, 1, 8), (2, 6400, 64)])
+def test_gather_kernel_equals_plain(dev, dtype, b, n, c):
+    """The probe's row gather, bit for bit, with indices in range, from -N
+    to -1 (wrapped), below -N and at N and above (rows of zeros), at row
+    lengths of 16-byte pieces and of odd element counts (2- or 4-byte
+    pieces)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(b, n, c, generator=gen).to(dev, dt)
+    idx = torch.randint(-2 * n - 3, 2 * n + 3, (b, 9 * n), generator=gen, dtype=torch.int32)
+    idx[:, :4] = torch.tensor([-1, -n, -n - 1, n], dtype=torch.int32)
+    idx = idx.to(dev)
+    launches = gather_rows.launches
+    got = gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == launches + 1
+    want = gather_rows_plain(x, idx)
+    assert got.dtype == dt and got.shape == (b, 9 * n, c)
+    assert torch.equal(got, want)
+    assert not got[:, 2:4].any() and torch.equal(got[:, 0], x[:, -1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_kernel_equals_torch_gather_in_range(dev, dtype):
+    """For in-range indices the kernel computes what torch.gather does (the
+    library call the probe's profile times beside it)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 1600, 64, generator=gen).to(dev, dt)
+    idx = torch.randint(0, 1600, (4, 9 * 1600), generator=gen, dtype=torch.int32).to(dev)
+    want = torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, 64))
+    assert torch.equal(gather_rows(x, idx), want)
+
+
+def test_gather_wrapper_rejects_bad_inputs(dev):
+    x = torch.randn(2, 10, 8, device=dev)
+    idx = torch.zeros(2, 5, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        gather_rows(x, idx.long())
+    with pytest.raises(TypeError):
+        gather_rows(x.half(), idx)
+    with pytest.raises(ValueError):
+        gather_rows(x.transpose(1, 2), idx)
+    with pytest.raises(ValueError):
+        gather_rows(x, idx[:1])

@@ -15,8 +15,7 @@ import yolo_ad_refine_tpu.ops.deform_mxu2 as dm2
 from yolo_ad_refine_tpu.ops.deform import modulated_deform_conv2d as jax_dcn
 from yolo_ad_refine_tpu_torch.engine import profile_dcn
 from yolo_ad_refine_tpu_torch.ops.deform import (
-    SMEM_PER_BLOCK, dcn_backward, deform_conv2d_plain, k1_fwd_weight, k1_launch,
-    modulated_deform_conv2d)
+    SMEM_PER_BLOCK, deform_conv2d_plain, k1_fwd_weight, k1_launch, modulated_deform_conv2d)
 
 
 def _inputs(seed=0, b=2, h=13, w=16, c=16, cout=16, off_scale=1.0):
@@ -88,19 +87,19 @@ def test_k1_forward_launches_at_any_width(c, cout):
     assert got["smem"] <= 64_512
 
 
-@pytest.mark.parametrize("c,cout", [(256, 64), (64, 129)])
-def test_k1_backward_raises_beyond_its_bound(c, cout):
-    """dW_t stays in mma accumulators, so the backward takes C, Cout <= 128;
-    the wrapper raises naming the bound before any build (here, with no
-    nvcc and no card, on CPU tensors)."""
-    with pytest.raises(ValueError, match="bounds C and Cout at 128"):
-        k1_launch("bwd", c, cout, torch.float32)
-    x = torch.zeros(1, c, 4, 4).contiguous(memory_format=torch.channels_last)
-    off = torch.zeros(1, 18, 4, 4).contiguous(memory_format=torch.channels_last)
-    mask = torch.zeros(1, 9, 4, 4).contiguous(memory_format=torch.channels_last)
-    g = torch.zeros(1, cout, 4, 4).contiguous(memory_format=torch.channels_last)
-    with pytest.raises(ValueError, match="bounds C and Cout at 128"):
-        dcn_backward(x, off, mask, torch.zeros(cout, c, 3, 3), g)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout,pairs", [(256, 64, 2), (64, 129, 2), (256, 256, 4),
+                                          (384, 384, 9)])
+def test_k1_backward_launches_at_any_width(c, cout, pairs, dtype):
+    """Past 128 channels (the flagship's DCN at scales m, l: 256; x: 384)
+    K1 bwd runs wide: one block a (C-chunk, Cout-chunk) pair of at most 128
+    x 128, each with the shared memory of the 128 x 128 backward, within a
+    block's 232,448 bytes."""
+    got = k1_launch("bwd", c, cout, dtype)
+    full = k1_launch("bwd", min(c, 128), min(cout, 128), dtype)
+    assert got["wide"] and not full["wide"] and got["pairs"] == pairs and full["pairs"] == 1
+    assert (got["cpn"], got["cok"]) == (min(c, 128), min(cout, 128))
+    assert got["smem"] == full["smem"] <= SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

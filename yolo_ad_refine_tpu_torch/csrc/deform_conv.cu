@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int KK = 9;     // taps
@@ -488,13 +490,31 @@ int launch_fwd(const void* x, const void* offset, const void* mask, const void* 
 // block per tap a shared-memory window would merge only the few corners
 // that one tap's neighbouring pixels share, so the cut left for later is a
 // block over all 9 taps of a tile summing dx in a window, with dW in a
-// second pass. dW_t lives in registers, so C and Cout are at most 128.
+// second pass.
+//
+// Past 128 channels (the flagship's DCN at scales m, l and x: C = Cout = 256
+// or 384) dW_t no longer fits in a block's registers. The kernel is then
+// launched WIDE, with a third grid dimension over (C-chunk, Cout-chunk)
+// pairs of at most 128 x 128: each block runs the body above on its chunk
+// pair, on strided views of x, g and W. Every gradient is bilinear in the
+// pair: gs = g . W_t^T is a sum over the Cout chunks, dmask and doffset sums
+// over both, and dW_t's chunk is its own block's. So dx takes the partial
+// gs of each Cout chunk (fp64 atomics, as always), doffset and dmask add
+// their partials into fp64 buffers that the wrapper rounds once (so a wide
+// fp32 backward repeats like the narrow one), and dW_t is whole. The price
+// is the corner gather and the dx scatter repeated once per Cout chunk: at
+// C = Cout = 384, 3 times; a later PR may split gs from dW_t to avoid it.
 // -Xptxas -v (sm_90a, 16-byte loads, C, Cout <= 64): 128 registers fp32
 // and bf16, no spills; 89,088 / 56,320 bytes of shared memory. Above 64
 // channels the bf16 variant spills (255 registers, 280 bytes).
 
 constexpr int BWD_TILE_GROUPS = 64;  // tile groups per tap (grid.x upper bound)
-constexpr int BWD_CMAX = 128;        // C and Cout bound: dW_t in mma accumulators
+constexpr int BWD_CMAX = 128;        // C and Cout a block takes: dW_t in mma accumulators
+
+// doffset and dmask: fp32, written once; or (WIDE) fp64 sums of the chunk
+// pairs' partials
+template <bool WIDE>
+using GradOut = typename std::conditional<WIDE, double, float>::type;
 
 struct BwdLayout {  // shared-memory rows of the backward, in 32-bit words
   int cpn, cok;     // C and Cout padded to 16 (mma n / k multiples)
@@ -545,13 +565,15 @@ __device__ __forceinline__ void stage_rows(uint32_t* dst, int rw, const typename
 // BF: bf16 (else fp32); VEC: channels a corner load takes; BIG: C or Cout
 // above 64 (8 n-tiles a warp in gs, a warp per 16 channels of dW over all
 // out channels; else 4 n-tiles in gs, and 4 x 2 warps over dW). Registers
-// are capped for 2 blocks an SM.
-template <bool BF, int VEC, bool BIG>
+// are capped for 2 blocks an SM. WIDE: C or Cout above BWD_CMAX; blockIdx.z
+// is the block's (C-chunk, Cout-chunk) pair (see above). C and Cout are
+// the full widths, the row strides of x, g, W, dx and dW.
+template <bool BF, int VEC, bool BIG, bool WIDE>
 __global__ void __launch_bounds__(NT, BIG ? 1 : 2)
 dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restrict__ offset,
                const float* __restrict__ mask, const typename Elt<BF>::S* __restrict__ weight,
                const typename Elt<BF>::S* __restrict__ g, double* __restrict__ dx,
-               float* __restrict__ doffset, float* __restrict__ dmask,
+               GradOut<WIDE>* __restrict__ doffset, GradOut<WIDE>* __restrict__ dmask,
                double* __restrict__ dweight, int npix, int H, int W, int C, int Cout,
                float radius) {
   using S = typename Elt<BF>::S;
@@ -560,7 +582,13 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
   constexpr int WM = BIG ? 8 : 4;     // dW: warps along the channels (16 each)
   constexpr int MAXT = BIG ? 16 : 4;  // and (8-wide) out-channel tiles a warp
   constexpr int EPW = BF ? 2 : 1;
-  const BwdLayout L(C, Cout, BF);
+  // the block's channels c0 .. c0 + Cb - 1 and out channels o0 .. o0 + Ob - 1
+  const int nob = WIDE ? (Cout + BWD_CMAX - 1) / BWD_CMAX : 1;
+  const int c0 = WIDE ? (int)(blockIdx.z / nob) * BWD_CMAX : 0;
+  const int o0 = WIDE ? (int)(blockIdx.z % nob) * BWD_CMAX : 0;
+  const int Cb = WIDE ? min(BWD_CMAX, C - c0) : C;
+  const int Ob = WIDE ? min(BWD_CMAX, Cout - o0) : Cout;
+  const BwdLayout L(Cb, Ob, BF);
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* s_w = smem;                        // [cpn][rw_o]  W_t, zero-padded
   uint32_t* s_g2 = s_w + L.cpn * L.rw_o;       // [2][TP][rw_o] g tiles, zero-padded
@@ -578,7 +606,8 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
   const bool wvec =
       (Cout * (int)sizeof(S)) % 16 == 0 && (reinterpret_cast<uintptr_t>(weight) & 15) == 0;
 
-  stage_rows<BF>(s_w, L.rw_o, weight + (size_t)t * C * Cout, Cout, L.cpn, C, L.cok, Cout, wvec);
+  stage_rows<BF>(s_w, L.rw_o, weight + ((size_t)t * C + c0) * Cout + o0, Cout, L.cpn, Cb, L.cok,
+                 Ob, wvec);
 
   // the g tile of pixels p0 .. p0 + TP - 1 into buffer buf: by cp.async
   // (zero-filled past npix and Cout) where rows allow 16-byte copies; and
@@ -597,12 +626,12 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
       const int vpr = L.cok / V;
       for (int i = tid; i < TP * vpr; i += NT) {
         const int r = i / vpr, c = (i % vpr) * V;
-        const bool valid = r < rows && c < Cout;
-        cp_async16(dst + r * L.rw_o + c / EPW, valid ? g + (size_t)(p0 + r) * Cout + c : g,
+        const bool valid = r < rows && c < Ob;
+        cp_async16(dst + r * L.rw_o + c / EPW, valid ? g + (size_t)(p0 + r) * Cout + o0 + c : g,
                    valid);
       }
     } else {
-      stage_rows<BF>(dst, L.rw_o, g + (size_t)p0 * Cout, Cout, TP, rows, L.cok, Cout, false);
+      stage_rows<BF>(dst, L.rw_o, g + (size_t)p0 * Cout + o0, Cout, TP, rows, L.cok, Ob, false);
     }
     cp_async_commit();
   };
@@ -623,7 +652,7 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
     for (int i = 0; i < 4; ++i) dw[j][i] = 0.f;
 
   // corner work: a group of G lanes (a power of two) per pixel
-  const int nv = (C + VEC - 1) / VEC;
+  const int nv = (Cb + VEC - 1) / VEC;
   int G = 1;
   while (G < nv && G < 32) G <<= 1;
   const int ppw = 32 / G;  // pixels a warp takes at once
@@ -744,7 +773,7 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (idx[k] >= 0) {
-            xv[k] = *reinterpret_cast<const P*>(x + (size_t)idx[k] * C + c);
+            xv[k] = *reinterpret_cast<const P*>(x + (size_t)idx[k] * C + c0 + c);
           } else {
 #pragma unroll
             for (int e = 0; e < VEC; ++e) xv[k].v[e] = S(0);
@@ -767,13 +796,13 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
       }
       // the dx scatter, lanes over consecutive channels: one atomic
       // instruction covers G consecutive doubles of a corner row
-      for (int c = sub; c < C; c += G) {
+      for (int c = sub; c < Cb; c += G) {
         const float mg = m * s_gs[pi * L.rw_s + c];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          if (wk[k] != 0.f) atomicAdd(dx + (size_t)idx[k] * C + c, (double)(wk[k] * mg));
+          if (wk[k] != 0.f) atomicAdd(dx + (size_t)idx[k] * C + c0 + c, (double)(wk[k] * mg));
       }
-      for (int c = C + sub; c < L.cpn; c += G) ms[c] = S(0);  // the mma's zero pad
+      for (int c = Cb + sub; c < L.cpn; c += G) ms[c] = S(0);  // the mma's zero pad
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         for (int s = G / 2; s > 0; s >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], s);
@@ -785,9 +814,15 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
           doy = fmaf(dwy[k], a[k], doy);
           dox = fmaf(dwx[k], a[k], dox);
         }
-        dmask[(size_t)p * KK + t] = dm;
-        doffset[(size_t)p * 18 + 2 * t] = gate_y * m * doy;
-        doffset[(size_t)p * 18 + 2 * t + 1] = gate_x * m * dox;
+        if constexpr (WIDE) {
+          atomicAdd(dmask + (size_t)p * KK + t, (double)dm);
+          atomicAdd(doffset + (size_t)p * 18 + 2 * t, (double)(gate_y * m * doy));
+          atomicAdd(doffset + (size_t)p * 18 + 2 * t + 1, (double)(gate_x * m * dox));
+        } else {
+          dmask[(size_t)p * KK + t] = dm;
+          doffset[(size_t)p * 18 + 2 * t] = gate_y * m * doy;
+          doffset[(size_t)p * 18 + 2 * t + 1] = gate_x * m * dox;
+        }
       }
     }
     __syncthreads();
@@ -845,32 +880,53 @@ dcn_bwd_kernel(const typename Elt<BF>::S* __restrict__ x, const float* __restric
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = cm + gq + 8 * (i >> 1), o = dn0 + j * 8 + 2 * tg + (i & 1);
-      if (c < C && o < Cout) atomicAdd(dweight + ((size_t)t * C + c) * Cout + o, (double)dw[j][i]);
+      if (c < Cb && o < Ob)
+        atomicAdd(dweight + ((size_t)t * C + c0 + c) * Cout + o0 + o, (double)dw[j][i]);
     }
   }
+}
+
+bool bwd_wide(int C, int Cout) { return C > BWD_CMAX || Cout > BWD_CMAX; }
+
+size_t bwd_block_smem_bytes(int C, int Cout, bool bf) {  // a block's chunk pair
+  return bwd_smem_bytes(C < BWD_CMAX ? C : BWD_CMAX, Cout < BWD_CMAX ? Cout : BWD_CMAX, bf);
+}
+
+template <bool BF, int VEC, bool BIG, bool WIDE>
+int launch_bwd_kernel(const void* x, const void* offset, const void* mask, const void* weight,
+                      const void* g, void* dx, void* doffset, void* dmask, void* dweight,
+                      int npix, int H, int W, int C, int Cout, float radius, cudaStream_t s) {
+  using S = typename Elt<BF>::S;
+  using GO = GradOut<WIDE>;
+  auto kernel = dcn_bwd_kernel<BF, VEC, BIG, WIDE>;
+  const size_t smem = bwd_block_smem_bytes(C, Cout, BF);
+  const int ntiles = (npix + TP - 1) / TP;
+  const int pairs = ((C + BWD_CMAX - 1) / BWD_CMAX) * ((Cout + BWD_CMAX - 1) / BWD_CMAX);
+  const dim3 grid(ntiles < BWD_TILE_GROUPS ? ntiles : BWD_TILE_GROUPS, KK, WIDE ? pairs : 1);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NT, smem, s>>>(
+      static_cast<const S*>(x), static_cast<const float*>(offset),
+      static_cast<const float*>(mask), static_cast<const S*>(weight), static_cast<const S*>(g),
+      static_cast<double*>(dx), static_cast<GO*>(doffset), static_cast<GO*>(dmask),
+      static_cast<double*>(dweight), npix, H, W, C, Cout, radius);
+  return (int)cudaGetLastError();
 }
 
 template <bool BF, int VEC>
 int launch_bwd(const void* x, const void* offset, const void* mask, const void* weight,
                const void* g, void* dx, void* doffset, void* dmask, void* dweight, int npix,
                int H, int W, int C, int Cout, float radius, cudaStream_t s) {
-  using S = typename Elt<BF>::S;
-  const size_t smem = bwd_smem_bytes(C, Cout, BF);
-  const int ntiles = (npix + TP - 1) / TP;
-  const dim3 grid(ntiles < BWD_TILE_GROUPS ? ntiles : BWD_TILE_GROUPS, KK);
-  auto run = [&](auto kernel) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, NT, smem, s>>>(
-        static_cast<const S*>(x), static_cast<const float*>(offset),
-        static_cast<const float*>(mask), static_cast<const S*>(weight), static_cast<const S*>(g),
-        static_cast<double*>(dx), static_cast<float*>(doffset), static_cast<float*>(dmask),
-        static_cast<double*>(dweight), npix, H, W, C, Cout, radius);
-    return (int)cudaGetLastError();
-  };
-  if (C <= 64 && Cout <= 64) return run(dcn_bwd_kernel<BF, VEC, false>);
-  return run(dcn_bwd_kernel<BF, VEC, true>);
+  if (bwd_wide(C, Cout))
+    return launch_bwd_kernel<BF, VEC, true, true>(x, offset, mask, weight, g, dx, doffset, dmask,
+                                                  dweight, npix, H, W, C, Cout, radius, s);
+  if (C <= 64 && Cout <= 64)
+    return launch_bwd_kernel<BF, VEC, false, false>(x, offset, mask, weight, g, dx, doffset,
+                                                    dmask, dweight, npix, H, W, C, Cout, radius,
+                                                    s);
+  return launch_bwd_kernel<BF, VEC, true, false>(x, offset, mask, weight, g, dx, doffset, dmask,
+                                                 dweight, npix, H, W, C, Cout, radius, s);
 }
 
 // 16-byte corner loads where C and the pointer allow them
@@ -887,19 +943,20 @@ extern "C" {
 // Shared memory (bytes) one block needs: kernel 0 = forward, 1 = backward;
 // dtype 0 = fp32, 1 = bf16. ops/deform.py computes the same and checks it.
 size_t dcn_smem_bytes(int kernel, int C, int Cout, int dtype) {
-  return kernel == 0 ? fwd_smem_bytes(Cout, dtype == 1) : bwd_smem_bytes(C, Cout, dtype == 1);
+  return kernel == 0 ? fwd_smem_bytes(Cout, dtype == 1) : bwd_block_smem_bytes(C, Cout, dtype == 1);
 }
 
 // dx (B, H, W, C) and dweight (9, C, Cout) are fp64 and must be zeroed by the
 // caller (the kernel adds into them); doffset (B, H, W, 18) and dmask
-// (B, H, W, 9) are fp32 and fully written. dtype: 0 = fp32, 1 = bf16 (x,
-// weight and g). C and Cout at most 128. Returns cudaGetLastError().
+// (B, H, W, 9) are fp32 and fully written where C and Cout are at most 128,
+// else (dcn_backward_wide) fp64 sums the caller zeroes. dtype: 0 = fp32,
+// 1 = bf16 (x, weight and g). Returns cudaGetLastError().
 int dcn_backward(const void* x, const void* offset, const void* mask, const void* weight,
                  const void* g, void* dx, void* doffset, void* dmask, void* dweight, int B,
                  int H, int W, int C, int Cout, float radius, int dtype, void* stream) {
   const int npix = B * H * W;
   if (npix == 0) return 0;
-  if (C > BWD_CMAX || Cout > BWD_CMAX || C < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return vec_ok<false>(x, C)
@@ -941,6 +998,10 @@ int dcn_forward(const void* x, const void* offset, const void* mask, const void*
                                      radius, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// 1 where dcn_backward runs WIDE (C or Cout above 128: doffset and dmask
+// are then fp64 sums), else 0
+int dcn_backward_wide(int C, int Cout) { return bwd_wide(C, Cout) ? 1 : 0; }
 
 const char* yat_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

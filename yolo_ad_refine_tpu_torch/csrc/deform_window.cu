@@ -46,12 +46,16 @@
 // channels; per chunk and tap it writes the masked samples of its pixels to
 // shared memory beside the tap's weight slice and multiplies the two into
 // fp32 registers (4 pixels x 4 channels a thread). Backward: a block owns one
-// tap and walks many tiles; per tile it forms gs = g . W_t^T in the kernel,
-// accumulates per pixel the four corner dot products gs . x_corner over the
-// chunks (a warp per pixel, reduced by shuffles, so doffset and dmask are
-// written once and repeat from run to run), scatters dx with fp64 atomics
-// and keeps its dW_t partial in shared memory, added into the fp64 dW with
-// atomics at the end. dx and dW are rounded once, by the wrapper.
+// tap and one (C-chunk, Cout-chunk) pair of at most 128 x 128 (grid.z; a
+// single pair up to 128 channels) and walks many tiles; per tile it forms
+// its pair's part of gs = g . W_t^T in the kernel, accumulates per pixel the
+// four corner dot products gs . x_corner over the window chunks (a warp per
+// pixel, reduced by shuffles), scatters dx with fp64 atomics and keeps its
+// dW_t chunk in shared memory, added into the fp64 dW with atomics at the
+// end. doffset and dmask add each pair's partial into fp64 sums. dx, dW,
+// doffset and dmask are rounded once, by the wrapper: with a single pair
+// doffset and dmask take one add each and equal the fp32 sums exactly; with
+// several (C or Cout above 128) they repeat from run to run like dx.
 //
 // What bounds it: the per-tap (C x Cout) products, 2 * 9 * C * Cout flops a
 // pixel forward and twice that backward, run here on the fp32 CUDA cores,
@@ -74,6 +78,7 @@ constexpr int TO = 64;       // output channels per forward block
 constexpr int NT = 256;      // threads per block
 constexpr int MXU_CH = 8;    // rows per chunk of deform_mxu.py (its CH)
 constexpr int BWD_TILE_GROUPS = 64;  // backward blocks per tap (grid.x upper bound)
+constexpr int BWD_CHUNK = 128;       // channels and out channels a backward block takes
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -241,6 +246,8 @@ size_t fwd_smem(int r, int cc, int itemsize) {
 }
 
 size_t bwd_smem(int r, int C, int Cout, int cc, int itemsize) {
+  C = C < BWD_CHUNK ? C : BWD_CHUNK;  // a block's chunk pair
+  Cout = Cout < BWD_CHUNK ? Cout : BWD_CHUNK;
   return window_bytes(r, cc, itemsize) +
          sizeof(float) * ((size_t)C * (Cout + 1) + (size_t)C * Cout + (size_t)TP * Cout +
                           2 * (size_t)TP * cc + 4 * (size_t)TP) +
@@ -371,26 +378,32 @@ dcn_separable_forward_kernel(const T* __restrict__ x, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// Backward. grid (tile groups, 9 taps), NT threads. dx (B, H, W, C) and
-// dweight (9, C, Cout) are fp64 sums the caller zeroes; doffset and dmask
-// are fp32 and written once.
+// Backward. grid (tile groups, 9 taps, chunk pairs), NT threads. dx
+// (B, H, W, C), dweight (9, C, Cout), doffset and dmask are fp64 sums the
+// caller zeroes.
 
 template <typename T, bool SEP>
 __device__ __forceinline__ void bwd_body(unsigned char* smem, const T* __restrict__ x,
                                          const float* __restrict__ offset,
                                          const float* __restrict__ mask,
                                          const T* __restrict__ weight, const T* __restrict__ g,
-                                         double* __restrict__ dx, float* __restrict__ doffset,
-                                         float* __restrict__ dmask, double* __restrict__ dweight,
+                                         double* __restrict__ dx, double* __restrict__ doffset,
+                                         double* __restrict__ dmask, double* __restrict__ dweight,
                                          int B, int H, int W, int C, int Cout, int r, int cc,
                                          bool vec16) {
   const int s = r + 2;
   const int WW = TW + 2 * s;
+  // the block's channels cb0 .. cb0 + Cb - 1 and out channels ob0 .. ob0 + Ob - 1
+  const int nob = (Cout + BWD_CHUNK - 1) / BWD_CHUNK;
+  const int cb0 = (int)(blockIdx.z / nob) * BWD_CHUNK;
+  const int ob0 = (int)(blockIdx.z % nob) * BWD_CHUNK;
+  const int Cb = min(BWD_CHUNK, C - cb0);
+  const int Ob = min(BWD_CHUNK, Cout - ob0);
   T* s_x = reinterpret_cast<T*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + window_bytes(r, cc, sizeof(T)));  // C x (Cout+1)
-  float* s_dw = s_w + C * (Cout + 1);   // C x Cout, this block's dW_t partial
-  float* s_g = s_dw + C * Cout;         // TP x Cout
-  float* s_gs = s_g + TP * Cout;        // TP x cc, g . W_t^T of the chunk
+  float* s_w = reinterpret_cast<float*>(smem + window_bytes(r, cc, sizeof(T)));  // Cb x (Ob+1)
+  float* s_dw = s_w + Cb * (Ob + 1);    // Cb x Ob, this block's dW_t chunk
+  float* s_g = s_dw + Cb * Ob;          // TP x Ob
+  float* s_gs = s_g + TP * Ob;          // TP x cc, g . W_t^T of the chunk
   float* s_ms = s_gs + TP * cc;         // TP x cc, mask * sample
   float* s_cg = s_ms + TP * cc;         // TP x 4, gs . x_corner over the chunks so far
   Geo* s_geo = reinterpret_cast<Geo*>(s_cg + 4 * TP);
@@ -401,20 +414,21 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem, const T* __restric
   const int warp = tid >> 5;
   const int ntiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 
-  for (int i = tid; i < C * Cout; i += NT) {
-    s_w[(i / Cout) * (Cout + 1) + i % Cout] = to_f(weight[(size_t)t * C * Cout + i]);
+  for (int i = tid; i < Cb * Ob; i += NT) {
+    s_w[(i / Ob) * (Ob + 1) + i % Ob] =
+        to_f(weight[((size_t)t * C + cb0 + i / Ob) * Cout + ob0 + i % Ob]);
     s_dw[i] = 0.f;
   }
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const Tile tl = tile_of(tile, H, W);
     __syncthreads();  // the previous tile's readers of s_g, s_geo and s_cg are done
-    for (int i = tid; i < TP * Cout; i += NT) {
-      const int p = i / Cout;
+    for (int i = tid; i < TP * Ob; i += NT) {
+      const int p = i / Ob;
       const int y = tl.y0 + p / TW;
       const int xx = tl.x0 + p % TW;
       s_g[i] = (y < H && xx < W)
-                   ? to_f(g[(((size_t)tl.b * H + y) * W + xx) * Cout + i % Cout])
+                   ? to_f(g[(((size_t)tl.b * H + y) * W + xx) * Cout + ob0 + i % Ob])
                    : 0.f;
     }
     if (tid < TP) {
@@ -425,16 +439,18 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem, const T* __restric
 #pragma unroll
       for (int k = 0; k < 4; ++k) s_cg[tid * 4 + k] = 0.f;
     }
-    for (int c0 = 0; c0 < C; c0 += cc) {
+    // window chunks of cc channels (a power of two of at most 64, so none
+    // straddles two blocks' chunks)
+    for (int c0 = cb0; c0 < cb0 + Cb; c0 += cc) {
       stage_window(s_x, x, tl, H, W, C, c0, cc, s, vec16);  // ends with a barrier
-      // gs = g . W_t^T for the chunk's channels
+      // the block's part of gs = g . W_t^T for the chunk's channels
       for (int i = tid; i < TP * cc; i += NT) {
         const int c = c0 + i % cc;
         float acc = 0.f;
         if (c < C) {
-          const float* gr = s_g + (i / cc) * Cout;
-          const float* wr = s_w + c * (Cout + 1);
-          for (int o = 0; o < Cout; ++o) acc = fmaf(gr[o], wr[o], acc);
+          const float* gr = s_g + (i / cc) * Ob;
+          const float* wr = s_w + (c - cb0) * (Ob + 1);
+          for (int o = 0; o < Ob; ++o) acc = fmaf(gr[o], wr[o], acc);
         }
         s_gs[i] = acc;
       }
@@ -480,13 +496,13 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem, const T* __restric
       __syncthreads();
 
       // dW_t += (m sample)^T g for the chunk's channels
-      for (int i = tid; i < cc * Cout; i += NT) {
-        const int c = c0 + i / Cout;
+      for (int i = tid; i < cc * Ob; i += NT) {
+        const int c = c0 + i / Ob;
         if (c >= C) continue;
-        const int o = i % Cout;
-        float acc = s_dw[c * Cout + o];
-        for (int p = 0; p < TP; ++p) acc = fmaf(s_ms[p * cc + i / Cout], s_g[p * Cout + o], acc);
-        s_dw[c * Cout + o] = acc;
+        const int o = i % Ob;
+        float acc = s_dw[(c - cb0) * Ob + o];
+        for (int p = 0; p < TP; ++p) acc = fmaf(s_ms[p * cc + i / Ob], s_g[p * Ob + o], acc);
+        s_dw[(c - cb0) * Ob + o] = acc;
       }
       __syncthreads();  // s_x, s_gs and s_ms are free for the next chunk
     }
@@ -516,15 +532,15 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem, const T* __restric
           }
         }
         const size_t p = ((size_t)tl.b * H + y) * W + xx;
-        dmask[p * KK + t] = dm;
-        doffset[p * 18 + 2 * t] = gg.gy * (gg.m * doy);
-        doffset[p * 18 + 2 * t + 1] = gg.gx * (gg.m * dox);
+        atomicAdd(dmask + p * KK + t, (double)dm);
+        atomicAdd(doffset + p * 18 + 2 * t, (double)(gg.gy * (gg.m * doy)));
+        atomicAdd(doffset + p * 18 + 2 * t + 1, (double)(gg.gx * (gg.m * dox)));
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < C * Cout; i += NT)
-    atomicAdd(dweight + (size_t)t * C * Cout + i, (double)s_dw[i]);
+  for (int i = tid; i < Cb * Ob; i += NT)
+    atomicAdd(dweight + ((size_t)t * C + cb0 + i / Ob) * Cout + ob0 + i % Ob, (double)s_dw[i]);
 }
 
 template <typename T>
@@ -532,7 +548,7 @@ __global__ void __launch_bounds__(NT)
 dcn_window_backward_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                            const float* __restrict__ mask, const T* __restrict__ weight,
                            const T* __restrict__ g, double* __restrict__ dx,
-                           float* __restrict__ doffset, float* __restrict__ dmask,
+                           double* __restrict__ doffset, double* __restrict__ dmask,
                            double* __restrict__ dweight, int B, int H, int W, int C, int Cout,
                            int r, int cc, int vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -545,7 +561,7 @@ __global__ void __launch_bounds__(NT)
 dcn_separable_backward_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                               const float* __restrict__ mask, const T* __restrict__ weight,
                               const T* __restrict__ g, double* __restrict__ dx,
-                              float* __restrict__ doffset, float* __restrict__ dmask,
+                              double* __restrict__ doffset, double* __restrict__ dmask,
                               double* __restrict__ dweight, int B, int H, int W, int C, int Cout,
                               int r, int cc, int vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -578,7 +594,7 @@ int launch_fwd(FwdKernel<T> kernel, const void* x, const void* offset, const voi
 
 template <typename T>
 using BwdKernel = void (*)(const T*, const float*, const float*, const T*, const T*, double*,
-                           float*, float*, double*, int, int, int, int, int, int, int, int);
+                           double*, double*, double*, int, int, int, int, int, int, int, int);
 
 template <typename T>
 int launch_bwd(BwdKernel<T> kernel, const void* x, const void* offset, const void* mask,
@@ -590,11 +606,12 @@ int launch_bwd(BwdKernel<T> kernel, const void* x, const void* offset, const voi
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int ntiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  const dim3 grid(ntiles < BWD_TILE_GROUPS ? ntiles : BWD_TILE_GROUPS, KK);
+  const int pairs = ((C + BWD_CHUNK - 1) / BWD_CHUNK) * ((Cout + BWD_CHUNK - 1) / BWD_CHUNK);
+  const dim3 grid(ntiles < BWD_TILE_GROUPS ? ntiles : BWD_TILE_GROUPS, KK, pairs);
   kernel<<<grid, NT, smem, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(offset),
       static_cast<const float*>(mask), static_cast<const T*>(weight), static_cast<const T*>(g),
-      static_cast<double*>(dx), static_cast<float*>(doffset), static_cast<float*>(dmask),
+      static_cast<double*>(dx), static_cast<double*>(doffset), static_cast<double*>(dmask),
       static_cast<double*>(dweight), B, H, W, C, Cout, r, cc, vec16);
   return (int)cudaGetLastError();
 }
@@ -644,10 +661,9 @@ int dcn_separable_forward(const void* x, const void* offset, const void* mask,
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward entries: dx (B, H, W, C) and dweight (9, C, Cout) are fp64 and
-// zeroed by the caller (the kernel adds into them); doffset (B, H, W, 18)
-// and dmask (B, H, W, 9) are fp32 and fully written. g (B, H, W, Cout) in
-// the working type.
+// Backward entries: dx (B, H, W, C), dweight (9, C, Cout), doffset
+// (B, H, W, 18) and dmask (B, H, W, 9) are fp64 and zeroed by the caller
+// (the kernel adds into them). g (B, H, W, Cout) in the working type.
 int dcn_window_backward(const void* x, const void* offset, const void* mask, const void* weight,
                         const void* g, void* dx, void* doffset, void* dmask, void* dweight, int B,
                         int H, int W, int C, int Cout, int radius, int cc, int vec16, int dtype,

@@ -9,9 +9,11 @@ both at batch 16, each over the flagship's three AYHead levels (80², 40²,
 20², C = Cout = 64, offsets N(0, 4²), radius None), as ``chip_smoke.py``
 times them: CUDA-event means after warm-up, through the wrappers of
 ``ops/deform.py`` for this tree. ``--baseline`` names an earlier
-``deform_conv.cu`` with the entry points ``dcn_forward`` / ``dcn_backward``
-and the weight laid out (9, C, Cout); it is built with the same flags and
-timed in turns with this tree's (baseline, tree, tree, baseline).
+``deform_conv.cu`` with the entry points ``dcn_forward`` / ``dcn_backward``,
+and either the weight laid out (9, C, Cout) (before the tensor-core K1)
+or this tree's C interface (it exports ``dcn_smem_bytes``), which runs
+through this tree's wrappers; it is built with the same flags and timed
+in turns with this tree's (baseline, tree, tree, baseline).
 ``--split`` also builds three cut copies of the baseline's backward
 (``SPLITS``) and times them: the two C x Cout products alone, the corner
 work with the dx scatter and the corner work without it; ``--tree-split``
@@ -69,7 +71,8 @@ TREE_SPLITS = {
                             ("if (cm < L.cpn) {", "if (false) {")],
 }
 TREE_SPLITS["bwd_corners"] = TREE_SPLITS["bwd_corners_scatter"] + [
-    ("if (wk[k] != 0.f) atomicAdd(dx + (size_t)idx[k] * C + c, (double)(wk[k] * mg));", ";")]
+    ("if (wk[k] != 0.f) atomicAdd(dx + (size_t)idx[k] * C + c0 + c, (double)(wk[k] * mg));",
+     ";")]
 
 
 def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
@@ -209,10 +212,11 @@ CASES = (("fwd", torch.float32, 32), ("fwd", torch.bfloat16, 16),
          ("bwd", torch.float32, 16), ("bwd", torch.bfloat16, 16))
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Mean device time a call of the K1 kernels (``dcn_*`` names) take, from
-    torch.profiler: the kernels alone, without the wrapper's host work or
-    its other launches, which CUDA events around the call also count."""
+def device_ms(fn, iters: int = 10, name: str = "dcn_") -> float:
+    """Mean device time a call of the kernels whose names hold ``name`` (K1's
+    ``dcn_*`` by default) take, from torch.profiler: the kernels alone,
+    without the wrapper's host work or its other launches, which CUDA events
+    around the call also count."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -221,7 +225,7 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if "dcn_" in e.key)
+    us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
     return us / iters / 1e3
 
 
@@ -281,7 +285,10 @@ def main() -> None:
             sources.update({f"baseline_{n}": cut_copy(args.baseline, n, e)
                             for n, e in SPLITS.items()})
     for name, lib in build(sources).items():
-        impls[name] = Tree(lib) if name.startswith("tree_") else Baseline(lib)
+        # a source with this tree's C interface (dcn_smem_bytes; the weight
+        # as k1_fwd_weight lays it out) runs through this tree's wrappers
+        impls[name] = Tree(lib) if name.startswith("tree_") or hasattr(lib, "dcn_smem_bytes") \
+            else Baseline(lib)
 
     gen = torch.Generator().manual_seed(0)
     data = {(dtype, b): [inputs(b, s, dtype, gen) for s in LEVELS]

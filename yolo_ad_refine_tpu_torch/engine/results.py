@@ -1,13 +1,16 @@
 """Inference result containers (host-side numpy).
 
 Counterpart of ``Boxes`` / ``OBBoxes`` / ``Results`` in
-``yolo_ad_refine_tpu/engine/results.py`` (reference engine/results.py);
-plotting and saving come in a later slice.
+``yolo_ad_refine_tpu/engine/results.py`` (reference engine/results.py),
+with its ``plot``, ``save``, ``save_txt`` and ``save_crop`` for boxes and
+oriented boxes, drawn with cv2 on the host. The masks and keypoints
+branches come with the segment and pose tasks (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import json
+from pathlib import Path
 
 import numpy as np
 
@@ -111,6 +114,82 @@ class Results:
 
     def __len__(self):
         return len(self.boxes)
+
+    @staticmethod
+    def _color(c: int) -> tuple:
+        return tuple(int(v) for v in np.array([37, 255, 153]) * ((c * 17 + 29) % 7 + 1) % 255)
+
+    def plot(self, line_width: int | None = None, font_scale: float = 0.5) -> np.ndarray:
+        """Draw the detections (and the rotated boxes' outlines) on a copy
+        of the original BGR image."""
+        import cv2
+
+        img = self.orig_img.copy()
+        lw = line_width or max(round(sum(img.shape) / 2 * 0.003), 2)
+        if self.obb is not None and len(self.obb):
+            for i, pts in enumerate(self.obb.xyxyxyxy):
+                cv2.polylines(img, [pts.astype(np.int32)], True, self._color(int(self.obb.cls[i])),
+                              lw)
+        for x1, y1, x2, y2, conf, cls in self.boxes.data:
+            c = int(cls)
+            color = self._color(c)
+            p1, p2 = (int(x1), int(y1)), (int(x2), int(y2))
+            cv2.rectangle(img, p1, p2, color, lw)
+            label = f"{self.names.get(c, c)} {conf:.2f}"
+            tw, th = cv2.getTextSize(label, 0, font_scale, 1)[0]
+            cv2.rectangle(img, p1, (p1[0] + tw, p1[1] - th - 3), color, -1)
+            cv2.putText(img, label, (p1[0], p1[1] - 2), 0, font_scale, (255, 255, 255), 1)
+        return img
+
+    def save(self, filename: str | Path):
+        """Write ``plot()`` to ``filename``, making its directory."""
+        import cv2
+
+        Path(filename).parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(filename), self.plot())
+        return filename
+
+    def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> Path:
+        """YOLO-format label rows, one a detection: ``cls cx cy w h`` of the
+        box normalised by the image (OBB: ``cls`` and the 4 normalised
+        corner points), with the confidence last under ``save_conf``."""
+        h, w = self.orig_shape
+        lines = []
+        for i in range(len(self.obb if self.obb is not None else self.boxes)):
+            if self.obb is not None:
+                c, conf = int(self.obb.cls[i]), float(self.obb.conf[i])
+                coords = (self.obb.xyxyxyxy[i] / np.asarray([w, h], np.float32)).reshape(-1)
+            else:
+                c, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])
+                coords = self.boxes.xywhn[i]
+            row = (c, *np.asarray(coords).tolist()) + ((conf,) if save_conf else ())
+            lines.append(("%g " * len(row)).rstrip() % row)
+        p = Path(txt_file)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text("\n".join(lines) + ("\n" if lines else ""))
+        return p
+
+    def save_crop(self, save_dir: str | Path, file_name: str | Path = "im.jpg") -> Path:
+        """One crop a detection, ``save_dir/<class name>/<stem>[_i].jpg``:
+        the box grown by 2 % and 10 px a side, clipped to the image
+        (reference utils/plotting.py save_one_box)."""
+        import cv2
+
+        h, w = self.orig_shape
+        stem = Path(file_name).stem
+        for i in range(len(self.boxes)):
+            x1, y1, x2, y2 = self.boxes.xyxy[i]
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            bw, bh = (x2 - x1) * 1.02 + 20, (y2 - y1) * 1.02 + 20
+            xa, xb = int(max(0, cx - bw / 2)), int(min(w, cx + bw / 2))
+            ya, yb = int(max(0, cy - bh / 2)), int(min(h, cy + bh / 2))
+            if xb <= xa or yb <= ya:
+                continue
+            name = str(self.names.get(int(self.boxes.cls[i]), int(self.boxes.cls[i])))
+            out = Path(save_dir) / name / f"{stem}{'' if i == 0 else f'_{i}'}.jpg"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(out), self.orig_img[ya:yb, xa:xb])
+        return Path(save_dir)
 
     def tojson(self) -> str:
         out = []

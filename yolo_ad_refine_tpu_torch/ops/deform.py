@@ -42,7 +42,7 @@ SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
 DCN_IMPLS = ("auto", "mxu2", "mxu", "pallas", "exact")  # YAT_DCN_IMPL's values
 # csrc/deform_conv.cu's tiles: pixels a block tile, input channels a forward
 # step, output channels a forward block, stages of the forward's weight
-# ring, the backward's C / Cout bound
+# ring, the C / Cout a backward block takes (wider shapes take chunk pairs)
 K1_TILE_PIXELS, K1_FWD_KC, K1_FWD_NMAX, K1_FWD_STAGES, K1_BWD_CMAX = 64, 32, 64, 3, 128
 
 
@@ -61,11 +61,13 @@ def k1_launch(kernel: str, c: int, cout: int, dtype: torch.dtype) -> dict:
     padded to 16) and walks (tap, 32-channel) steps with a 3-stage ring of
     weight chunks, two sample buffers (rows of 32 channels + 4 words) and
     the corner tables; the weight is passed as ``k1_fwd_weight`` lays it
-    out, C zero-padded to ``cpad``. Backward: C
-    and Cout pad to 16 (``cpn``, ``cok``), the tap's weight, two g tiles
-    (with the tap's offsets and mask), gs (fp32) and m * sampled sit in
-    shared memory, and dW_t (C x Cout) in mma accumulators, which bounds C
-    and Cout at 128."""
+    out, C zero-padded to ``cpad``. Backward: a block takes at most 128
+    channels and 128 output channels, because its dW_t sits in mma
+    accumulators; C and Cout pad to 16 (``cpn``, ``cok``, of the first
+    chunk), and the tap's weight, two g tiles (with the tap's offsets and
+    mask), gs (fp32) and m * sampled sit in shared memory. Past 128 the
+    kernel runs ``wide``: ``pairs`` blocks, one a (C-chunk, Cout-chunk)
+    pair, share each tile, and doffset and dmask become fp64 sums."""
     isz = 2 if dtype == torch.bfloat16 else 4
     tp = K1_TILE_PIXELS
     if kernel == "fwd":
@@ -74,13 +76,14 @@ def k1_launch(kernel: str, c: int, cout: int, dtype: torch.dtype) -> dict:
         smem = 4 * (K1_FWD_STAGES * np_ * rw + 2 * tp * rw + KK * tp * 4 * 2)
         out = {"np": np_, "cpad": _round_up(c, K1_FWD_KC), "smem": smem}
     elif kernel == "bwd":
-        if c > K1_BWD_CMAX or cout > K1_BWD_CMAX:
-            raise ValueError(f"dcn_backward: C={c}, Cout={cout}: K1 bwd keeps dW_t (C x Cout) in "
-                             f"mma accumulators, which bounds C and Cout at {K1_BWD_CMAX}")
-        cpn, cok = _round_up(c, 16), _round_up(cout, 16)
+        if c < 1 or cout < 1:
+            raise ValueError(f"dcn_backward: C={c}, Cout={cout} must both be at least 1")
+        cpn, cok = _round_up(min(c, K1_BWD_CMAX), 16), _round_up(min(cout, K1_BWD_CMAX), 16)
         rw_o, rw_c, rw_s = cok * isz // 4 + 4, cpn * isz // 4 + 4, cpn + 4
         smem = 4 * (cpn * rw_o + 2 * tp * rw_o + tp * rw_s + tp * rw_c + 2 * tp * 4)
-        out = {"cpn": cpn, "cok": cok, "smem": smem}
+        pairs = -(-c // K1_BWD_CMAX) * -(-cout // K1_BWD_CMAX)
+        out = {"cpn": cpn, "cok": cok, "smem": smem, "wide": c > K1_BWD_CMAX or cout > K1_BWD_CMAX,
+               "pairs": pairs}
     else:
         raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
     if out["smem"] > SMEM_PER_BLOCK:
@@ -272,9 +275,10 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
     which is taken in x.dtype and made channels_last here. dx and dweight
     are summed in fp64 by the kernel (with atomics, whose order changes from
     run to run) and rounded to x.dtype / weight.dtype here; doffset and
-    dmask are fp32. Launches ``csrc/deform_conv.cu`` or raises, before any
-    build where C or Cout is beyond the kernel's bound (``k1_launch``)."""
-    k1_launch("bwd", x.shape[1], weight.shape[0], x.dtype)
+    dmask are fp32, written once, or past 128 channels (``k1_launch``'s
+    ``wide``) fp64 sums of the chunk pairs' partials rounded here. Launches
+    ``csrc/deform_conv.cu`` or raises."""
+    wide = k1_launch("bwd", x.shape[1], weight.shape[0], x.dtype)["wide"]
     b, c, h, w, cout = _check(x, offset, mask, weight, radius)
     if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
@@ -285,8 +289,10 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
     f32 = dict(dtype=torch.float32, device=x.device)
     f64 = dict(dtype=torch.float64, device=x.device)
     dx = torch.zeros((b, h, w, c), **f64)           # the kernel adds into dx and dw
-    doff = torch.empty((b, h, w, 2 * KK), **f32)    # and writes all of doff and dmask
-    dmask = torch.empty((b, h, w, KK), **f32)
+    if wide:  # the kernel adds the chunk pairs' doff and dmask
+        doff, dmask = torch.zeros((b, h, w, 2 * KK), **f64), torch.zeros((b, h, w, KK), **f64)
+    else:     # the kernel writes all of doff and dmask
+        doff, dmask = torch.empty((b, h, w, 2 * KK), **f32), torch.empty((b, h, w, KK), **f32)
     dw = torch.zeros((KK, c, cout), **f64)
     if b * h * w > 0:
         lib = kernels.load("deform_conv")
@@ -302,8 +308,8 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
         kernels.check(lib, status, "dcn_backward")
         dcn_backward.launches += 1
     dweight = dw.reshape(K, K, c, cout).permute(3, 2, 0, 1).to(weight.dtype)
-    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2),
-            dmask.permute(0, 3, 1, 2), dweight)
+    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2).float(),
+            dmask.permute(0, 3, 1, 2).float(), dweight)
 
 
 class _DeformConv(torch.autograd.Function):

@@ -53,8 +53,8 @@ def dcn_separable_forward(x, offset, mask, weight, radius: int):
 
 def dcn_separable_backward(x, offset, mask, weight, g, radius: int):
     """K2 bwd on CUDA tensors: (dx, doffset, dmask, dweight) for g
-    (B,Cout,H,W), dx and dweight summed in fp64 and rounded once here.
-    Launches ``csrc/deform_window.cu`` or raises."""
+    (B,Cout,H,W), all four summed in fp64 (as K3 bwd's) and rounded once
+    here. Launches ``csrc/deform_window.cu`` or raises."""
     grads = _backward("dcn_separable_backward", x, offset, mask, weight, g, radius)
     dcn_separable_backward.launches += 1
     return grads

@@ -240,12 +240,10 @@ def _backward(entry: str, x, offset, mask, weight, g, radius):
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
                          f"({b}, {cout}, {h}, {w}) on {x.device}")
     gv = _nhwc(g.to(x.dtype).contiguous(memory_format=torch.channels_last), "g")
-    f32 = dict(dtype=torch.float32, device=x.device)
     f64 = dict(dtype=torch.float64, device=x.device)
-    dx = torch.zeros((b, h, w, c), **f64)           # the kernel adds into dx and dw
-    doff = torch.empty((b, h, w, 2 * KK), **f32)    # and writes all of doff and dmask
-    dmask = torch.empty((b, h, w, KK), **f32)
-    dw = torch.zeros((KK, c, cout), **f64)
+    # the kernel adds into all four: each (C-chunk, Cout-chunk) pair its part
+    dx, dw = torch.zeros((b, h, w, c), **f64), torch.zeros((KK, c, cout), **f64)
+    doff, dmask = torch.zeros((b, h, w, 2 * KK), **f64), torch.zeros((b, h, w, KK), **f64)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -255,8 +253,8 @@ def _backward(entry: str, x, offset, mask, weight, g, radius):
                 torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(lib, status, entry)
     dweight = dw.reshape(3, 3, c, cout).permute(3, 2, 0, 1).to(weight.dtype)
-    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2),
-            dmask.permute(0, 3, 1, 2), dweight)
+    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2).float(),
+            dmask.permute(0, 3, 1, 2).float(), dweight)
 
 
 def dcn_window_forward(x, offset, mask, weight, radius: int):
@@ -270,10 +268,11 @@ def dcn_window_forward(x, offset, mask, weight, radius: int):
 
 def dcn_window_backward(x, offset, mask, weight, g, radius: int):
     """K3 bwd on CUDA tensors: (dx, doffset, dmask, dweight) for the
-    incoming gradient g (B,Cout,H,W), taken in x's type. dx and dweight are
+    incoming gradient g (B,Cout,H,W), taken in x's type. All four are
     summed in fp64 by the kernel (atomics, in an order that changes from run
-    to run) and rounded once here. Launches ``csrc/deform_window.cu`` or
-    raises."""
+    to run; past 128 channels doffset and dmask add one partial per
+    (C-chunk, Cout-chunk) pair) and rounded once here. Launches
+    ``csrc/deform_window.cu`` or raises."""
     grads = _backward("dcn_window_backward", x, offset, mask, weight, g, radius)
     dcn_window_backward.launches += 1
     return grads
