@@ -57,8 +57,14 @@ their bf16 numbers under ``bfloat16``, each against the bound of its own
 precision (K1's fp32 against its 3xTF32 tensor-core route, with the
 fp32-core bound beside it as ``bound_ms_fp32_cores``); K1's ``ms`` is
 CUDA events around the wrapper's call, as for every kernel, and its
-``device_ms`` the kernel's own device time from torch.profiler. Without CUDA, or without the package beside it, it fails before
-printing any result.
+``device_ms`` the kernel's own device time from torch.profiler; K4's and
+K5's ``device_ms`` too, split into the mask kernel and the walk under
+``parts``, and the same on a predict batch's candidates at conf 0.001 and
+0.25 under ``predict_batch``. K4 and K5 are held against their plain
+versions also at one candidate, max_nms 4096, a ragged last word past 64
+words, a batch of 64, with no valid row, every row valid, unsorted scores
+and a predict batch's candidates at both confs. Without CUDA, or without
+the package beside it, it fails before printing any result.
 Where one predict batch's time goes is the job of
 ``python -m yolo_ad_refine_tpu_torch.engine.profile_predict``.
 """
@@ -593,64 +599,87 @@ class dcn_env:
         self._apply(self.saved)
 
 
-def nms_candidates(b: int, k: int, gen, dev):
+# (B, K) of the NMS kernels' further synthetic cases, beside a serving
+# batch (K4, B = 32) or an OBB batch (K5, B = 16) at max_nms 2048: a ragged
+# K, one candidate, max_nms 4096, a ragged last word past 64 words, and twice
+# a serving batch
+NMS_SHAPES = ((3, 1000), (1, 1), (2, 4096), (3, 4100), (64, 2048))
+NMS_IOU = 0.7
+
+
+def nms_variants(data, scores, gen):
+    """(label, data, scores, conf) of the synthetic batch's cases: conf
+    0.001; no valid row (conf 1.0, the top score); every row valid (conf
+    -1); and unsorted scores with valid and invalid rows interleaved (the
+    scores permuted along K, conf 0.5)."""
     import torch
 
-    cxy = torch.rand(b, k, 2, generator=gen) * 600
-    wh = torch.rand(b, k, 2, generator=gen) * 120 + 4
-    cls = torch.randint(0, 8, (b, k, 1), generator=gen).float() * 7680.0  # class offsets
-    boxes = torch.cat([cxy - wh / 2, cxy + wh / 2], -1) + cls
-    scores = (torch.rand(b, k, generator=gen) * 64).round() / 64  # many ties
-    scores = scores.sort(dim=1, descending=True, stable=True).values
-    return boxes.to(dev).contiguous(), scores.to(dev).contiguous()
+    perm = torch.randperm(scores.shape[1], generator=gen).to(scores.device)
+    return [("conf 0.001", data, scores, 0.001), ("no valid row", data, scores, 1.0),
+            ("every row valid", data, scores, -1.0),
+            ("unsorted, interleaved", data, scores[:, perm].contiguous(), 0.5)]
 
 
 def phase_k4(dev, gen):
-    """NMS suppression kernel vs plain: exactly equal keep masks; timing."""
+    """NMS suppression kernel vs plain: exactly equal keep masks on
+    synthetic candidates (a serving batch under ``nms_variants``, the
+    shapes of NMS_SHAPES) and on the candidates of one flagship predict
+    batch at conf 0.001 and 0.25; timing, split into mask and walk."""
+    import numpy as np
     import torch
 
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import (
+        Impl, predict_candidates, synthetic_candidates, time_case)
     from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_plain
 
-    differ = 0  # keep-mask entries where kernel and plain disagree, over both checks
-    for b, k in ((32, 2048), (3, 1000)):
-        boxes, scores = nms_candidates(b, k, gen, dev)
-        got = suppress(boxes, scores, 0.7, 0.001)
-        want = suppress_plain(boxes, scores, 0.7, 0.001)
+    boxes, scores = synthetic_candidates(32, 2048, gen, dev)
+    cases = [(f"synthetic, {v}", *rest) for v, *rest in nms_variants(boxes, scores, gen)]
+    cases += [("synthetic, conf 0.001", *synthetic_candidates(b, k, gen, dev), 0.001)
+              for b, k in NMS_SHAPES]
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (*SERVING_SHAPES[i % len(SERVING_SHAPES)], 3), dtype=np.uint8)
+            for i in range(32)]
+    real = predict_candidates(YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0), imgs, 640,
+                              (0.001, 0.25))
+    cases += [(f"one flagship predict batch, conf {c}", *v, c) for c, v in real.items()]
+    differ = 0  # keep-mask entries where kernel and plain disagree, over every case
+    for label, bx, sc, conf in cases:
+        got = suppress(bx, sc, NMS_IOU, conf)
+        want = suppress_plain(bx, sc, NMS_IOU, conf)
         n = int((got != want).sum())
         differ += n
+        b, k = sc.shape
         if n or not torch.equal(got, want):
-            raise AssertionError(f"K4 keep mask differs from plain at B={b} K={k}: {n} entries")
-        log(f"K4 B={b} K={k}: keep mask equal to plain ({int(got.sum())} kept)")
-    boxes, scores = nms_candidates(32, 2048, gen, dev)
-    ms = cuda_time(lambda: suppress(boxes, scores, 0.7, 0.001), iters=20)
-    plain_ms = cuda_time(lambda: suppress_plain(boxes, scores, 0.7, 0.001), iters=3, warmup=1)
-    keep = suppress(boxes, scores, 0.7, 0.001)
-    k = 2048
+            raise AssertionError(f"K4 keep mask differs from plain at B={b} K={k} ({label}): "
+                                 f"{n} entries")
+        log(f"K4 B={b} K={k} ({label}): keep mask equal to plain ({int(got.sum())} kept of "
+            f"{int((sc > conf).sum())} valid)")
+    t = time_case(Impl(), "K4", boxes, scores, 0.001)
+    plain_ms = cuda_time(lambda: suppress_plain(boxes, scores, NMS_IOU, 0.001), iters=3, warmup=1)
+    keep = t["keep"]
+    b, k = scores.shape
     # work this data needs: each kept candidate's IoU against every later one
     idx = torch.arange(k, device=dev)
     pairs = int(((k - 1 - idx)[None, :] * keep).sum())
-    flops = pairs * 15 + 32 * k * 3
-    nbytes = 32 * k * (16 + 4 + 1)
+    flops = pairs * 15 + b * k * 3
+    nbytes = b * k * (16 + 4 + 1)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    log(f"K4 B=32 K=2048: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    log(f"K4 B={b} K={k}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: mask "
+        f"{t['mask_ms']:.4f}, walk {t['walk_ms']:.4f}), plain {plain_ms:.3f} ms, "
         f"bound {max(t_bytes, t_ops):.5f} ms ({pairs} IoU pairs)")
-    return {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def rotated_candidates(b: int, k: int, gen, dev):
-    """(B, K, 5) score-sorted xywhr over 1024 px with the class offsets of
-    15 classes (centres up to about 108k px) and (B, K) scores on a 1/64
-    grid, for ties."""
-    import torch
-
-    xy = torch.rand(b, k, 2, generator=gen) * OBB_IMGSZ
-    wh = torch.rand(b, k, 2, generator=gen) * 112 + 8
-    ang = torch.rand(b, k, 1, generator=gen) * math.pi - math.pi / 4
-    cls = torch.randint(0, 15, (b, k, 1), generator=gen).float() * 7680.0
-    scores = (torch.rand(b, k, generator=gen) * 64).round() / 64
-    scores = scores.sort(dim=1, descending=True, stable=True).values
-    return torch.cat([xy + cls, wh, ang], -1).to(dev).contiguous(), scores.to(dev).contiguous()
+    batch = {}
+    for c, v in real.items():
+        r = time_case(Impl(), "K4", *v, c)
+        batch[f"conf {c}"] = {n: r[n] for n in ("ms", "device_ms", "mask_ms", "walk_ms")}
+        log(f"K4 on the flagship predict batch's candidates at conf {c} "
+            f"(B={v[1].shape[0]}, K={v[1].shape[1]}): kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}: mask {r['mask_ms']:.4f}, walk "
+            f"{r['walk_ms']:.4f}), {r['kept']} kept of {r['valid']} valid")
+    return {"max_abs_err": float(differ), "ms": t["ms"], "device_ms": t["device_ms"],
+            "parts": {"mask_ms": t["mask_ms"], "walk_ms": t["walk_ms"]}, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "predict_batch": batch}
 
 
 def obb_model(dev):
@@ -685,38 +714,40 @@ def obb_images(n: int, seed: int):
 
 def phase_k5(dev, gen, model):
     """Rotated NMS kernel vs plain: equal keep masks but for printed
-    rounding ties (ops/nms.py:rotated_rounding_ties); timing."""
+    rounding ties (ops/nms.py:rotated_rounding_ties) on synthetic
+    candidates (an OBB batch under ``nms_variants``, the shapes of
+    NMS_SHAPES) and on the candidates of one OBB predict batch at conf 0.001
+    and 0.25; timing, split into mask and walk."""
     import torch
 
-    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import (
+        Impl, predict_candidates, synthetic_rotated_candidates, time_case)
     from yolo_ad_refine_tpu_torch.ops.nms import (
-        rotated_rounding_ties, select_candidates, suppress_rotated, suppress_rotated_plain)
+        rotated_rounding_ties, suppress_rotated, suppress_rotated_plain)
 
-    x, _ = preprocess(obb_images(16, 3), OBB_IMGSZ, 16, torch.device(dev), torch.float32)
-    with torch.inference_mode():
-        y = model.model(x)[0]
-    real = select_candidates(y, 0.001, nc=model.model.nc, rotated=True)[:2]
-    cases = [("synthetic", *rotated_candidates(16, 2048, gen, dev)),
-             ("synthetic", *rotated_candidates(3, 1000, gen, dev)),
-             ("one OBB predict batch", *real)]
+    rb, scores = synthetic_rotated_candidates(16, 2048, gen, dev)
+    cases = [(f"synthetic, {v}", *rest) for v, *rest in nms_variants(rb, scores, gen)]
+    cases += [("synthetic, conf 0.001", *synthetic_rotated_candidates(b, k, gen, dev), 0.001)
+              for b, k in NMS_SHAPES]
+    real = predict_candidates(model, obb_images(16, 3), OBB_IMGSZ, (0.001, 0.25), rotated=True)
+    cases += [(f"one OBB predict batch, conf {c}", *v, c) for c, v in real.items()]
     differ = ties = 0
-    for label, rb, scores in cases:
-        got = suppress_rotated(rb, scores, 0.7, 0.001)
-        want = suppress_rotated_plain(rb, scores, 0.7, 0.001)
+    for label, r, sc, conf in cases:
+        got = suppress_rotated(r, sc, NMS_IOU, conf)
+        want = suppress_rotated_plain(r, sc, NMS_IOU, conf)
         torch.cuda.synchronize()
         n = int((got != want).sum())
-        t = rotated_rounding_ties(got, want, rb, scores, 0.7, 0.001)  # raises on a non-tie
+        t = rotated_rounding_ties(got, want, r, sc, NMS_IOU, conf)  # raises on a non-tie
         differ, ties = differ + n, ties + t
-        b, k = scores.shape
-        log(f"K5 B={b} K={k} ({label}): {int(got.sum())} kept; {n} keep-mask entries differ "
-            f"from plain, {t} of them rounding ties (probiou within 1e-5 of iou 0.7; each "
-            f"difference held against a replay of the plain walk), the rest following from them")
-    real_ms = cuda_time(lambda: suppress_rotated(*real, 0.7, 0.001), iters=20)
-    log(f"K5 on the predict batch's candidates (B=16, K=2048): kernel {real_ms:.4f} ms")
-    rb, scores = cases[0][1:]
-    ms = cuda_time(lambda: suppress_rotated(rb, scores, 0.7, 0.001), iters=20)
-    plain_ms = cuda_time(lambda: suppress_rotated_plain(rb, scores, 0.7, 0.001), iters=3, warmup=1)
-    keep = suppress_rotated(rb, scores, 0.7, 0.001)
+        b, k = sc.shape
+        log(f"K5 B={b} K={k} ({label}): {int(got.sum())} kept of {int((sc > conf).sum())} "
+            f"valid; {n} keep-mask entries differ from plain, {t} of them rounding ties "
+            f"(probiou within 1e-5 of iou 0.7; each difference held against a replay of the "
+            f"plain walk), the rest following from them")
+    t = time_case(Impl(), "K5", rb, scores, 0.001)
+    plain_ms = cuda_time(lambda: suppress_rotated_plain(rb, scores, NMS_IOU, 0.001), iters=3,
+                         warmup=1)
+    keep = t["keep"]
     b, k = scores.shape
     # work this data needs: each kept candidate's probiou against every later
     # one, ~40 operations a pair (log, exp, sqrt and division one each), and
@@ -726,11 +757,22 @@ def phase_k5(dev, gen, model):
     flops = pairs * 40 + b * k * 20
     nbytes = b * k * (20 + 4 + 1)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    log(f"K5 B={b} K={k}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    log(f"K5 B={b} K={k}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: mask "
+        f"{t['mask_ms']:.4f}, walk {t['walk_ms']:.4f}), plain {plain_ms:.3f} ms, "
         f"bound {max(t_bytes, t_ops):.5f} ms ({pairs} probiou pairs)")
-    return {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
+    batch = {}
+    for c, v in real.items():
+        r = time_case(Impl(), "K5", *v, c)
+        batch[f"conf {c}"] = {n: r[n] for n in ("ms", "device_ms", "mask_ms", "walk_ms")}
+        log(f"K5 on the OBB predict batch's candidates at conf {c} "
+            f"(B={v[1].shape[0]}, K={v[1].shape[1]}): kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}: mask {r['mask_ms']:.4f}, walk "
+            f"{r['walk_ms']:.4f}), {r['kept']} kept of {r['valid']} valid")
+    return {"max_abs_err": float(differ), "ms": t["ms"], "device_ms": t["device_ms"],
+            "parts": {"mask_ms": t["mask_ms"], "walk_ms": t["walk_ms"]}, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "rounding_ties": ties}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "rounding_ties": ties,
+            "predict_batch": batch}
 
 
 def phase_obb_serving(model, dev):
@@ -1422,8 +1464,10 @@ def main() -> int:
               by_width_b16={k: {n: v for n, v in t.items() if "bwd" in n}
                             for k, t in k1_wide.items()}),
         *bounded_entries,
-        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run"),
+        entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run",
+              device_ms=k4["device_ms"], parts=k4["parts"], predict_batch=k4["predict_batch"]),
         entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",
+              device_ms=k5["device_ms"], parts=k5["parts"], predict_batch=k5["predict_batch"],
               rounding_ties=k5["rounding_ties"]),
         entry("gather_rows", "gather.cu", "benchmarks/bench_dcn.py:103", {
             "max_abs_err": gather["max_abs_err"], **gather["bfloat16"]["total"],

@@ -7,6 +7,7 @@ so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -23,7 +24,8 @@ from yolo_ad_refine_tpu_torch.ops.deform_pallas import (
     deform_conv2d_pallas_plain, modulated_deform_conv2d_pallas)
 from yolo_ad_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from yolo_ad_refine_tpu_torch.ops.nms import (
-    rotated_rounding_ties, suppress, suppress_plain, suppress_rotated, suppress_rotated_plain)
+    NMS_SMEM_DEFAULT, nms_launch, rotated_rounding_ties, suppress, suppress_plain,
+    suppress_rotated, suppress_rotated_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -444,6 +446,111 @@ def test_obb_predict_and_val_launch_k5(dev, tmp_path):
     metrics = model.val(data=data, imgsz=128, batch=2)
     assert suppress_rotated.launches == 2
     assert all(math.isfinite(v) for v in metrics.values())
+
+
+# conf of each score pattern; "unsorted, interleaved" also permutes the
+# scores along K, so that valid and invalid rows alternate out of order
+NMS_PATTERNS = {"conf 0.1": 0.1, "no valid row": 1.0, "every row valid": -1.0,
+                "unsorted, interleaved": 0.5}
+
+
+def _nms_case(dev, kernel, b, k, pattern):
+    """K4 boxes (B, K, 4) xyxy or K5 rboxes (B, K, 5) xywhr with class
+    offsets, scores (B, K) on a 1/16 grid (ties), and the pattern's conf."""
+    g = torch.Generator().manual_seed(b * 10007 + k)
+    xy = torch.rand(b, k, 2, generator=g) * 300
+    wh = torch.rand(b, k, 2, generator=g) * 80 + 4
+    cls = torch.randint(0, 4, (b, k, 1), generator=g).float() * 7680.0
+    if kernel == "K4":
+        data = torch.cat([xy - wh / 2, xy + wh / 2], -1) + cls
+    else:
+        ang = torch.rand(b, k, 1, generator=g) * math.pi - math.pi / 4
+        data = torch.cat([xy + cls, wh, ang], -1)
+    scores = ((torch.rand(b, k, generator=g) * 16).round() / 16).sort(
+        dim=1, descending=True, stable=True).values
+    if pattern == "unsorted, interleaved":
+        scores = scores[:, torch.randperm(k, generator=g)]
+    return data.to(dev).contiguous(), scores.to(dev).contiguous(), NMS_PATTERNS[pattern]
+
+
+@pytest.mark.parametrize("pattern", list(NMS_PATTERNS))
+@pytest.mark.parametrize("b,k", [(32, 2048), (16, 2048), (1, 1), (2, 4096), (3, 4100),
+                                 (64, 2048)])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_nms_kernels_match_plain_at_any_shape_and_score_order(dev, kernel, b, k, pattern):
+    """K4 bit-equal to its plain version, K5 but for rounding ties, at
+    the serving and OBB batches, one candidate, max_nms 4096, a ragged last
+    word past 64 words and a batch of 64; with no valid row, every row valid
+    and unsorted scores. One launch a call."""
+    data, scores, conf = _nms_case(dev, kernel, b, k, pattern)
+    fn, plain = ((suppress, suppress_plain) if kernel == "K4"
+                 else (suppress_rotated, suppress_rotated_plain))
+    launches = fn.launches
+    got = fn(data, scores, 0.5, conf)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    want = plain(data, scores, 0.5, conf)
+    if kernel == "K4":
+        assert torch.equal(got, want)
+    else:
+        rotated_rounding_ties(got, want, data, scores, 0.5, conf)  # raises on any other difference
+    assert not (got & ~(scores > conf)).any()
+    if pattern == "no valid row":
+        assert not got.any()
+    elif pattern == "every row valid":
+        assert got[:, 0].all()
+
+
+@pytest.mark.parametrize("b,k", [(2, 2048), (1, 4100)])
+def test_nms_kernel_on_a_chain_of_kills(dev, b, k):
+    """K4 where each box kills the next one alone (30 px boxes 7 px apart):
+    the walk's longest chain within a word, every other candidate kept."""
+    x = torch.arange(k, dtype=torch.float32) * 7.0
+    boxes = torch.stack([x, torch.zeros(k), x + 30.0, torch.full((k,), 30.0)], -1)
+    boxes = boxes.expand(b, k, 4).contiguous().to(dev)
+    scores = torch.linspace(1.0, 0.2, k).expand(b, k).contiguous().to(dev)
+    got = suppress(boxes, scores, 0.5, 0.1)
+    assert torch.equal(got, suppress_plain(boxes, scores, 0.5, 0.1))
+    assert got[:, ::2].all() and not got[:, 1::2].any()
+
+
+@pytest.mark.parametrize("conf", [0.001, 0.25])
+def test_nms_kernel_on_flagship_predict_candidates(dev, conf):
+    """K4 on the candidates of a flagship predict batch (seeded weights,
+    8 images at 640: K = 2048) at predict's conf 0.001 and default 0.25."""
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import predict_candidates
+    from yolo_ad_refine_tpu_torch.engine.profile_predict import SHAPES
+
+    model = YOLO("yolo11-701-YOLO-AD-Refine.yaml", device=dev, imgsz=640, seed=0)
+    r = np.random.default_rng(0)
+    imgs = [r.integers(0, 256, (*SHAPES[i], 3), dtype=np.uint8) for i in range(8)]
+    boxes, scores = predict_candidates(model, imgs, 640, (conf,))[conf]
+    assert scores.shape == (8, 2048)
+    launches = suppress.launches
+    got = suppress(boxes, scores, 0.7, conf)
+    assert suppress.launches == launches + 1
+    assert torch.equal(got, suppress_plain(boxes, scores, 0.7, conf))
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (32, 2048), (2, 4096), (3, 4100), (70, 65)])
+def test_nms_launch_plan_matches_nms_launch(dev, b, k):
+    """The C side's launch arithmetic (``nms_launch_plan``) is ops/nms.py's,
+    and it refuses what ``nms_launch`` refuses."""
+    from yolo_ad_refine_tpu_torch.utils import kernels
+
+    lib = kernels.load("nms")
+    lib.nms_launch_plan.restype = ctypes.c_int
+    lib.nms_launch_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_longlong * 7)()
+    assert lib.nms_launch_plan(b, k, out) == 0
+    plan = nms_launch(b, k)
+    assert list(out) == [plan[n] for n in ("nwords", "tiles", "mask_blocks", "mask_threads",
+                                           "walk_blocks", "walk_threads", "walk_smem")]
+    k_max = 64 * ((NMS_SMEM_DEFAULT - 144) // 8)
+    assert lib.nms_launch_plan(b, k_max, out) == 0
+    assert lib.nms_launch_plan(b, k_max + 1, out) != 0
+    assert lib.nms_launch_plan(65536, k, out) != 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

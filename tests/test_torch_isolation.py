@@ -125,6 +125,8 @@ def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
      "K3 dcn_window_forward"),
     ("dcn_window_backward_kernel<float>", "K3 dcn_window_backward"),
     ("nms_reduce_kernel", "K4 nms_suppress"),
+    ("void (anonymous namespace)::nms_mask_kernel(float const*, float const*, int, int, long "
+     "long, float, float, unsigned long long*)", "K4 nms_suppress"),
     ("void (anonymous namespace)::nms_rotated_reduce_kernel(unsigned long long const*)",
      "K5 nms_rotated"),
     ("void (anonymous namespace)::nms_rotated_mask_kernel(float const*, int)", "K5 nms_rotated"),

@@ -109,7 +109,7 @@ def cut_copy(src: Path, split: str, edits, out_dir: Path | None = None) -> Path:
         if old not in text:
             raise ValueError(f"split {split}: {old!r} is not in {src}")
         text = text.replace(old, new)
-    out = (out_dir or kernels.BUILD / "profile") / f"deform_conv_{split}.cu"
+    out = (out_dir or kernels.BUILD / "profile") / f"{src.stem}_{split}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
     return out

@@ -23,6 +23,7 @@ ties unspecified.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -62,6 +63,50 @@ def _greedy_walk(over, scores, conf_thres: float, forced=None):
     return keep
 
 
+# csrc/nms.cu's launch: candidates a mask word, threads of a mask block (one
+# row of each of 4 tiles a thread) and of a walk block (one image), the
+# walk's fixed shared bytes (kept word and kept list of two rounds), a
+# block's shared memory without opting in, and grid.y (the image) bound
+NMS_WORD, NMS_MASK_THREADS, NMS_WALK_THREADS = 64, 256, 512
+NMS_WALK_FIXED_SMEM, NMS_SMEM_DEFAULT, NMS_GRID_Y_MAX = 2 * 8 + 2 * 64, 48 * 1024, 65535
+
+
+def nms_launch(b: int, k: int) -> dict:
+    """The launch arithmetic of K4 and K5 (``csrc/nms.cu``, whose
+    ``nms_launch_plan`` computes the same) for B images of K candidates:
+    ``nwords`` mask words a row, ``tiles`` 64 x 64 mask tiles an image (the
+    upper triangle the walk reads, nwords * (nwords + 1) / 2),
+    ``mask_blocks`` / ``mask_threads`` of the mask kernel (4 tiles a block),
+    ``walk_blocks`` / ``walk_threads`` and ``walk_smem`` bytes of the walk
+    (one block an image, the removed bitmask in shared memory). Raises
+    ValueError, naming the bound, for a shape that cannot launch."""
+    if b < 1 or k < 1:
+        raise ValueError(f"nms: B={b} and K={k} must both be at least 1")
+    nwords = -(-k // NMS_WORD)
+    tiles = nwords * (nwords + 1) // 2
+    tiles_per_block = NMS_MASK_THREADS // NMS_WORD
+    smem = 8 * nwords + NMS_WALK_FIXED_SMEM
+    if smem > NMS_SMEM_DEFAULT:
+        raise ValueError(f"nms: K={k} needs {smem} bytes of shared memory for the walk's removed "
+                         f"bitmask, more than the {NMS_SMEM_DEFAULT} a block takes without opting "
+                         f"in (K <= {NMS_WORD * ((NMS_SMEM_DEFAULT - NMS_WALK_FIXED_SMEM) // 8)})")
+    if b > NMS_GRID_Y_MAX:
+        raise ValueError(f"nms: B={b} images exceed the mask grid's y dimension, "
+                         f"{NMS_GRID_Y_MAX}")
+    return {"nwords": nwords, "tiles": tiles, "mask_blocks": -(-tiles // tiles_per_block) * b,
+            "mask_threads": NMS_MASK_THREADS, "walk_blocks": b, "walk_threads": NMS_WALK_THREADS,
+            "walk_smem": smem}
+
+
+def nms_tile(index: int, nwords: int) -> tuple[int, int]:
+    """(row block, column block) of mask tile ``index`` of an image, as the
+    mask kernels number the upper triangle: from the last tile row up, row
+    rb holding the tiles cb = rb .. nwords - 1."""
+    r = (math.isqrt(8 * index + 1) - 1) // 2
+    rb = nwords - 1 - r
+    return rb, rb + index - r * (r + 1) // 2
+
+
 def _check_inputs(what: str, boxes, scores, width: int) -> None:
     """What a kernel takes: CUDA fp32 contiguous (B, K, width) and (B, K)."""
     if boxes.device.type != "cuda":
@@ -87,6 +132,7 @@ def _launch(entry: str, data, scores, iou_thres: float, conf_thres: float):
     keep = torch.empty((b, k), dtype=torch.bool, device=scores.device)
     if b == 0 or k == 0:
         return keep
+    nms_launch(b, k)
     mask_ws = torch.empty((b, k, -(-k // 64)), dtype=torch.int64, device=scores.device)
     lib = kernels.load("nms")
     fn = getattr(lib, entry)
