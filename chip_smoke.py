@@ -12,7 +12,8 @@ DCN, forward and backward; K4 NMS; K5 rotated NMS; the gather probe)
 against its plain PyTorch version at the shapes of its paths and times
 both; K1 also at the flagship's wider DCN of scales m, l (C = Cout = 256)
 and x (384), where its backward runs in (C-chunk, Cout-chunk) pairs, and
-K2 and K3 at 384. The gather probe's path is ``engine/profile_gather.py``'s
+K2 and K3 at 384, at radius 13 and at radius 31, where their forward reads
+its samples' corners from global memory (its global mode). The gather probe's path is ``engine/profile_gather.py``'s
 run at bench_dcn.py's probe shapes. Then it drives
 the paths through the user's entry points, each with the launch counts set
 to 0 just before it and read just after, each DCN variant under its own
@@ -54,10 +55,15 @@ measurements: ``launches`` from each kernel's main path (``main_path``: the
 training run of its variant; K5: the OBB serving run) with each path's own
 count under ``launches_by_path``; K1 fwd and bwd, K2 and K3 in fp32 with
 their bf16 numbers under ``bfloat16``, each against the bound of its own
-precision (K1's fp32 against its 3xTF32 tensor-core route, with the
-fp32-core bound beside it as ``bound_ms_fp32_cores``); K1's ``ms`` is
-CUDA events around the wrapper's call, as for every kernel, and its
-``device_ms`` the kernel's own device time from torch.profiler; K4's and
+precision (K1's and the K2 / K3 forwards' fp32 against their 3xTF32
+tensor-core route, K3's bf16 forward against bf16 products and K2's
+against three bf16 products, the fastest exact route for its fp32 sample,
+``bound_route``, with the fp32-core bound beside it as
+``bound_ms_fp32_cores`` and K2's own 2xTF32 route as ``bound_ms_2xtf32``);
+``ms`` is CUDA events around the wrapper's
+call, as for every kernel, and K1's and the K2 / K3 forwards'
+``device_ms`` the kernel's own device time from torch.profiler (the K2 /
+K3 forwards in bf16 at batch 16, ``batch``); K4's and
 K5's ``device_ms`` too, split into the mask kernel and the walk under
 ``parts``, and the same on a predict batch's candidates at conf 0.001 and
 0.25 under ``predict_batch``. K4 and K5 are held against their plain
@@ -196,9 +202,13 @@ def phase_k1(dev, gen):
 def products_ms(flops: float, route: str) -> float:
     """ms for GEMM-shaped products of ``flops`` on one route: "fp32" the
     fp32 cores, "bf16" the tensor cores in bf16, "3xtf32" three TF32
-    products on the tensor cores (fp32 accuracy)."""
+    products on the tensor cores (fp32 accuracy); for an fp32 sample against
+    a bf16 weight (K2's bf16 forward), "3xbf16" the sample split into three
+    bf16 parts, which hold its 24 bits exactly (the fastest exact route, its
+    bound), and "2xtf32" two TF32 products (the kernel's route)."""
     return {"fp32": flops / FP32_FLOPS, "bf16": flops / BF16_TC_FLOPS,
-            "3xtf32": 3 * flops / TF32_TC_FLOPS}[route] * 1e3
+            "3xtf32": 3 * flops / TF32_TC_FLOPS, "3xbf16": 3 * flops / BF16_TC_FLOPS,
+            "2xtf32": 2 * flops / TF32_TC_FLOPS}[route] * 1e3
 
 
 def dcn_fwd_bound(b: int, s: int, itemsize: int, route: str = "fp32",
@@ -349,11 +359,17 @@ def bounded_inputs(b: int, s: int, dtype, gen, dev, radius: int, c: int = C):
 def phase_bounded(dev, gen, impl: str):
     """K2 (``mxu``) or K3 (``pallas``), forward and backward, against its
     plain version at the flagship's levels, radius 3, in fp32 and bf16
-    (forward at B=32, backward at B=16), and at radius 13 on the 80² map
-    (B=8), with K1's limits; then timed beside the plain version at those
-    batches. d offset must be 0 on the integral axis and beyond the radius."""
+    (forward at B=32, backward at B=16), at radius 13 on the 80² map (B=8)
+    and at radius 31 on the 40² map (B=8; the forward's global mode), with
+    K1's limits; then timed beside the plain version at those batches, the
+    forward also by its device time (torch.profiler) against the bound of
+    its tensor-core products (3xTF32 in fp32; bf16 for K3's bf16; for K2's
+    bf16 three bf16 products, with the kernel's 2xTF32 beside it) and of the
+    fp32 cores. d offset must be 0 on the integral axis and beyond the
+    radius."""
     import torch
 
+    from yolo_ad_refine_tpu_torch.engine.profile_dcn import device_ms
     from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
 
     mod = deform_mxu if impl == "mxu" else deform_pallas
@@ -373,8 +389,12 @@ def phase_bounded(dev, gen, impl: str):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         atol, rtol = K1_TOL[name]
-        cases = [(s, 3) for s in LEVELS] + [(LEVELS[0], 13)]
+        cases = [(s, 3) for s in LEVELS] + [(LEVELS[0], 13), (LEVELS[1], 31)]
         for s, r in cases:
+            if deform_pallas.window_fwd_launch(r, C, C, dtype, separable=impl == "mxu")[
+                    "global"] != (r == 31):
+                raise AssertionError(f"{fwd_name} {name} r={r}: the plan's mode is not the "
+                                     "expected one (global only past the window, at r=31)")
             b = 32 if r == 3 else 8
             x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
             got = run_fwd(x, off, mask, w, r).permute(0, 2, 3, 1).float()
@@ -402,18 +422,25 @@ def phase_bounded(dev, gen, impl: str):
                 "- plain| / max |plain| " + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
                 + f" (tol {K1_BWD_TOL[name]})")
 
-        # the paths' work, radius 3: forward at B=32, backward at B=16, one launch a level
-        for kind, b in (("fwd", 32), ("bwd", 16)):
-            ms = plain_ms = bound_ms = 0.0
+        # the paths' work, radius 3: forward at B=32 (fp32, a serving batch) or
+        # B=16 (bf16, a train step), backward at B=16, one launch a level
+        for kind, b in (("fwd", 32 if dtype == torch.float32 else 16), ("bwd", 16)):
+            ms = plain_ms = bound_ms = dev_ms = cores_ms = 0.0
             by_ops = True
+            # the forward's products: 3xTF32 in fp32; bf16 x bf16 for K3's bf16
+            # (the sample rounded to bf16); for K2's bf16 (the fp32 sample) the
+            # bound is three bf16 products, the kernel takes 2xTF32
+            route = "3xtf32" if dtype == torch.float32 else "bf16" if impl == "pallas" else "3xbf16"
+            own_ms = 0.0  # K2's bf16: the bound on the kernel's own 2xTF32 route
             for s in LEVELS:
                 x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, 3)
                 if kind == "fwd":
                     ms += cuda_time(lambda: run_fwd(x, off, mask, w, 3), iters=10)
+                    dev_ms += device_ms(lambda: run_fwd(x, off, mask, w, 3), name=fwd_name)
                     plain_ms += cuda_time(lambda: plain(x, off, mask, w, 3), iters=3, warmup=1)
-                    # K3's bf16 forward contracts bf16 x bf16; K2's contracts fp32 samples
-                    t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), "bf16" if (
-                        impl == "pallas" and dtype == torch.bfloat16) else "fp32")
+                    t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), route)
+                    cores_ms += max(dcn_fwd_bound(b, s, x.element_size(), "fp32"))
+                    own_ms += max(dcn_fwd_bound(b, s, x.element_size(), "2xtf32"))
                 else:
                     g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
                     ms += cuda_time(lambda: run_bwd(x, off, mask, w, g, 3), iters=10)
@@ -427,10 +454,17 @@ def phase_bounded(dev, gen, impl: str):
                 bound_ms += max(t_bytes, t_ops)
             times[kind][name] = {"max_abs_err": err[kind][name], "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms,
-                                 "bound_by": "operations" if by_ops else "bytes"}
+                                 "bound_by": "operations" if by_ops else "bytes", "batch": b}
+            if kind == "fwd":
+                times[kind][name].update(device_ms=dev_ms, bound_route=route,
+                                         bound_ms_fp32_cores=cores_ms)
+                if route == "3xbf16":
+                    times[kind][name]["bound_ms_2xtf32"] = own_ms
             log(f"{fwd_name if kind == 'fwd' else bwd_name} {name} B={b} three levels r=3: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                f"({times[kind][name]['bound_by']})")
+                f"{ms:.4f} ms" + (f" (device {dev_ms:.4f} ms)" if kind == "fwd" else "")
+                + f", plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                f"({times[kind][name]['bound_by']}"
+                + (f", {route}; fp32-core bound {cores_ms:.4f} ms)" if kind == "fwd" else ")"))
     return times
 
 
@@ -1447,7 +1481,9 @@ def main() -> int:
         t = bounded[impl]
         bounded_entries += [
             entry(fwd_name, "deform_window.cu", f"{src}:{line[0]}", t["fwd"]["float32"],
-                  f"training_{impl}_run", dtype="float32", bfloat16=t["fwd"]["bfloat16"]),
+                  f"training_{impl}_run", dtype="float32", bfloat16=t["fwd"]["bfloat16"],
+                  **{k: t["fwd"]["float32"][k] for k in ("device_ms", "bound_route",
+                                                         "bound_ms_fp32_cores", "batch")}),
             entry(bwd_name, "deform_window.cu", f"{src}:{line[1]}", t["bwd"]["float32"],
                   f"training_{impl}_run", dtype="float32", bfloat16=t["bwd"]["bfloat16"])]
     kernels_line = {"kernels": [

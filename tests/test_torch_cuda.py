@@ -172,17 +172,42 @@ def test_dcn_backward_repeats_bit_for_bit(dev, c):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kernel,c,cout", [(k, c, co) for k in (0, 1) for c, co in (
+@pytest.mark.parametrize("kernel,c,cout", [(k, c, co) for k in (0, 1, 2) for c, co in (
     (64, 64), (20, 36), (128, 128), (48, 80), (64, 200), (256, 64), (64, 129), (256, 256),
-    (384, 384))])
+    (384, 384))] + [(2, 3, 64), (2, 40, 80), (2, 72, 136)])
 def test_dcn_smem_bytes_match_python(dev, kernel, dtype, c, cout):
     """The kernel's own shared-memory arithmetic is the wrapper's, and so is
-    its choice of the backward's wide path (C or Cout above 128)."""
+    its choice of the backward's wide path (C or Cout above 128). Kernel 2:
+    K2 / K3 fwd (``csrc/deform_window.cu``) against ``window_fwd_launch``'s
+    plan at radius 1, 3, 13, 24, 31 and 60 (the last two in the global
+    mode), both forms, and against ``window_fwd_smem`` at every chunk
+    width, both block widths and both modes."""
     import ctypes
 
     from yolo_ad_refine_tpu_torch.ops.deform import k1_launch
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_fwd_launch, window_fwd_smem
     from yolo_ad_refine_tpu_torch.utils import kernels
 
+    if kernel == 2:
+        lib = kernels.load("deform_window")
+        fn = lib.dcn_window_fwd_smem_bytes
+        fn.restype = ctypes.c_size_t
+        fn.argtypes = [ctypes.c_int] * 6
+        dt = getattr(torch, dtype)
+        bf = int(dtype == "bfloat16")
+        widths = (32, 16, 8, 4) if dtype == "float32" else (64, 32, 16, 8)
+        for radius in (1, 3, 13, 24, 31, 60):
+            for sep in (False, True):
+                plan = window_fwd_launch(radius, c, cout, dt, separable=sep)
+                assert plan["global"] == (radius > 30)
+                assert fn(radius, plan["cc"], plan["nb"], bf, int(sep), int(plan["global"])) == \
+                    plan["smem"]
+                for cc in widths:
+                    for nb in (64, 128):
+                        for gl in (False, True):
+                            assert fn(radius, cc, nb, bf, int(sep), int(gl)) == \
+                                window_fwd_smem(radius, cc, nb, dt, sep, gl)
+        return
     lib = kernels.load("deform_conv")
     lib.dcn_smem_bytes.restype = ctypes.c_size_t
     lib.dcn_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -319,6 +344,128 @@ def test_bounded_dcn_at_scale_x_width(dev, kind, dtype, tol):
 
 
 @pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("c,cout", [(3, 64), (40, 80), (72, 136)])
+@pytest.mark.parametrize("radius", [1, 3, 13])
+def test_bounded_dcn_forward_breaks_the_tiling(dev, kind, dtype, tol, c, cout, radius):
+    """K2 / K3 forward (the tensor-core kernels) where the tiles do not fit:
+    B = 1, a 13 x 21 map (no multiple of 8), C = 3 (no 16-byte copies, a
+    chunk padded past C), 40 (a chunk half past C) and 72, Cout past a
+    block's 64 or 128 channels (the last block's n-tiles cut short), offsets
+    N(0, radius²) past the radius with one axis of every other tap on the
+    integers; the limits above, and a second run equal bit for bit."""
+    fwd, _, plain, _, _ = BOUNDED[kind]
+    dt = getattr(torch, dtype)
+    shape = (1, 13, 21, c, cout)
+    x, off, mask, wt = _bounded_inputs(dev, dt, shape, radius)
+    assert (off.abs() > radius).any()
+    args = (x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+            wt.permute(3, 2, 0, 1), radius)
+    got, again = fwd(*args), fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(),
+                               plain(x, off, mask, wt, radius).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bounded_dcn_forward_block_widths_agree(dev, kind, dtype):
+    """At Cout = 384 the forward takes 128-channel blocks, at Cout = 64
+    64-channel blocks; at one chunk width the two sum every output in the
+    same order, so each 64 output channels of the wide layer equal the
+    narrow layer of their weights bit for bit. (Another chunk width orders
+    the k-blocks otherwise, and rounds otherwise: in fp32 the wider weight
+    tiles of a 128-channel block narrow the chunk from 32 to 16 channels at
+    C = 384, so fp32 is held at C = 16, where both take 16.)"""
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_fwd_launch
+
+    fwd = BOUNDED[kind][0]
+    dt = getattr(torch, dtype)
+    sep = kind == "mxu"
+    c = 16 if dtype == "float32" else 384
+    wide_plan, narrow_plan = (window_fwd_launch(3, c, co, dt, separable=sep) for co in (384, 64))
+    assert (wide_plan["nb"], narrow_plan["nb"]) == (128, 64)
+    assert wide_plan["cc"] == narrow_plan["cc"]
+    x, off, mask, wt = _bounded_inputs(dev, dt, (2, 11, 13, c, 384), 3)
+    args = (x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2))
+    wide = fwd(*args, wt.permute(3, 2, 0, 1), 3)
+    for o in range(0, 384, 64):
+        narrow = fwd(*args, wt[..., o:o + 64].permute(3, 2, 0, 1), 3)
+        torch.cuda.synchronize()
+        assert torch.equal(wide[:, o:o + 64], narrow), o
+
+
+def _forward_in_mode(kind, x, off, mask, wt, radius, global_):
+    """The forward's C entry at ``window_fwd_launch``'s chunk width with
+    64-channel blocks, in the window mode or the global mode (NHWC in and
+    out)."""
+    from yolo_ad_refine_tpu_torch.ops.deform import k1_fwd_weight
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_fwd_launch
+    from yolo_ad_refine_tpu_torch.utils import kernels
+
+    b, h, w, c = x.shape
+    cout = wt.shape[-1]
+    entry = "dcn_separable_forward" if kind == "mxu" else "dcn_window_forward"
+    plan = window_fwd_launch(radius, c, cout, x.dtype, separable=kind == "mxu")
+    wk = k1_fwd_weight(wt.permute(3, 2, 0, 1), plan["cpad"])
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    lib = kernels.load("deform_window")
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    status = fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                b, h, w, c, cout, plan["cpad"], radius, plan["cc"], 64, int(plan["vec16"]),
+                int(global_), 0 if x.dtype == torch.float32 else 1,
+                torch.cuda.current_stream().cuda_stream)
+    kernels.check(lib, status, entry)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,cout", [(3, 64), (64, 64), (40, 136)])
+def test_bounded_dcn_forward_global_mode_equals_window_mode(dev, kind, dtype, c, cout):
+    """The global mode (corners from global memory) and the window mode at
+    one chunk width and block width differ only in where the corners are
+    read: their outputs are equal bit for bit, at radius 3 on a 13 x 21 map
+    whose samples leave it."""
+    dt = getattr(torch, dtype)
+    x, off, mask, wt = _bounded_inputs(dev, dt, (2, 13, 21, c, cout), 3)
+    window = _forward_in_mode(kind, x, off, mask, wt, 3, False)
+    glob = _forward_in_mode(kind, x, off, mask, wt, 3, True)
+    torch.cuda.synchronize()
+    assert torch.equal(window, glob)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("c,cout", [(3, 64), (64, 136)])
+@pytest.mark.parametrize("radius", [31, 60])
+def test_bounded_dcn_forward_past_the_window(dev, kind, dtype, tol, c, cout, radius):
+    """Past the radius whose window fits a block the plan takes the global
+    mode: the forward runs through its wrapper, held against its plain
+    version with the limits above, on a 40 x 70 map with offsets
+    N(0, (radius / 5)²) past the radius; a second run is equal bit for bit."""
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_fwd_launch
+
+    fwd, _, plain, _, _ = BOUNDED[kind]
+    dt = getattr(torch, dtype)
+    assert window_fwd_launch(radius, c, cout, dt, separable=kind == "mxu")["global"]
+    x, off, mask, wt = _bounded_inputs(dev, dt, (2, 40, 70, c, cout), radius)
+    assert (off.abs() > radius).any()
+    args = (x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+            wt.permute(3, 2, 0, 1), radius)
+    launches = fwd.launches
+    got, again = fwd(*args), fwd(*args)
+    torch.cuda.synchronize()
+    assert fwd.launches == launches + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(),
+                               plain(x, off, mask, wt, radius).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
 def test_bounded_dcn_on_cuda_runs_both_kernels(dev, kind):
     fwd, bwd, _, _, fn = BOUNDED[kind]
     x, off, mask, wt = _dcn(dev, torch.float32, 2, 16, 16, 64, 64)
@@ -335,10 +482,14 @@ def test_bounded_dcn_on_cuda_runs_both_kernels(dev, kind):
 
 
 def test_bounded_dcn_raises_beyond_shared_memory(dev):
+    """The backward stages its window in shared memory at every radius and
+    raises where it does not fit; the forward takes its global mode there
+    (``test_bounded_dcn_forward_past_the_window``)."""
     x, off, mask, wt = _dcn(dev, torch.float32, 1, 8, 8, 64, 64)
+    g = torch.randn(1, 64, 8, 8, device=dev).contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="shared memory"):
-        dcn_window_forward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
-                           mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), 200)
+        dcn_window_backward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                            mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), g, 200)
 
 
 def test_dcn_on_cuda_has_grad_fn_and_launches_backward(dev):

@@ -1,28 +1,46 @@
-"""K1 (the flagship's DCNv2, ``csrc/deform_conv.cu``) on the card: the
-kernels of this tree beside those of another source, and where the time of
-that source's backward goes.
+"""The DCN kernels on the card: K1 (the flagship's DCNv2,
+``csrc/deform_conv.cu``) or the bounded K2 / K3 (``csrc/deform_window.cu``)
+of this tree beside those of another source, and where their time goes.
 
-    python -m yolo_ad_refine_tpu_torch.engine.profile_dcn [--baseline OLD.cu] [--split]
+    python -m yolo_ad_refine_tpu_torch.engine.profile_dcn [--kernel k1|separable|window]
+        [--baseline OLD.cu] [--split] [--tree-split] [--out FILE]
 
-Times K1 fwd in fp32 at batch 32 and in bf16 at batch 16, and K1 bwd in
-both at batch 16, each over the flagship's three AYHead levels (80², 40²,
-20², C = Cout = 64, offsets N(0, 4²), radius None), as ``chip_smoke.py``
-times them: CUDA-event means after warm-up, through the wrappers of
-``ops/deform.py`` for this tree. ``--baseline`` names an earlier
-``deform_conv.cu`` with the entry points ``dcn_forward`` / ``dcn_backward``,
-and either the weight laid out (9, C, Cout) (before the tensor-core K1)
-or this tree's C interface (it exports ``dcn_smem_bytes``), which runs
-through this tree's wrappers; it is built with the same flags and timed
-in turns with this tree's (baseline, tree, tree, baseline).
+``--kernel k1`` (the default): times K1 fwd in fp32 at batch 32 and in bf16
+at batch 16, and K1 bwd in both at batch 16, each over the flagship's three
+AYHead levels (80², 40², 20², C = Cout = 64, offsets N(0, 4²), radius
+None), as ``chip_smoke.py`` times them: CUDA-event means after warm-up,
+through the wrappers of ``ops/deform.py`` for this tree. ``--baseline``
+names an earlier ``deform_conv.cu`` with the entry points ``dcn_forward`` /
+``dcn_backward``, and either the weight laid out (9, C, Cout) (before the
+tensor-core K1) or this tree's C interface (it exports ``dcn_smem_bytes``),
+which runs through this tree's wrappers; it is built with the same flags
+and timed in turns with this tree's (baseline, tree, tree, baseline).
 ``--split`` also builds three cut copies of the baseline's backward
 (``SPLITS``) and times them: the two C x Cout products alone, the corner
 work with the dx scatter and the corner work without it; ``--tree-split``
 does the same for this tree's kernels (``TREE_SPLITS``: the forward's
 products alone and gather alone, and the backward's three cuts), timed
-through this tree's wrappers. Every build's
-``-Xptxas -v`` lines (registers, shared memory, spills) are printed. The
-copies and their libraries go to ``csrc/build/profile/``. Nothing here is
-checked: ``chip_smoke.py`` is the pass/fail run.
+through this tree's wrappers.
+
+``--kernel separable`` (K2) or ``window`` (K3): the same at radius 3 with
+offsets N(0, 4²) (most beyond the radius, every other tap's y-offset
+integral): the forward in fp32 at batch 32 and bf16 at batch 16, the
+backward in both at batch 16, the forward at C = Cout = 384, batch 16 (the
+flagship's scale-x width), and the forward at batch 8 at radius 13 (the
+widened reload) and 31 (past the window, the global mode), offsets scaled
+by radius / 3 (``WINDOW_CASES``). ``--baseline`` names an earlier
+``deform_window.cu``: one with this tree's forward interface (it exports
+``dcn_window_fwd_smem_bytes``) runs through this tree's wrappers, an older
+one (the fp32-core forward's, the weight (9, C, Cout)) as its own wrapper
+called it. The baseline's outputs are held against the tree's (the
+forward's max |difference|, the backward's). ``--tree-split`` times cut
+copies of this tree's forward (``WINDOW_TREE_SPLITS``: the products
+alone, the window staging and sampling alone, and 64-channel blocks where
+the plan takes 128).
+
+Every build's ``-Xptxas -v`` lines (registers, shared memory, spills) are
+printed. The copies and their libraries go to ``csrc/build/profile/``.
+Nothing here is checked: ``chip_smoke.py`` is the pass/fail run.
 """
 
 from __future__ import annotations
@@ -74,16 +92,31 @@ TREE_SPLITS["bwd_corners"] = TREE_SPLITS["bwd_corners_scatter"] + [
     ("if (wk[k] != 0.f) atomicAdd(dx + (size_t)idx[k] * C + c0 + c, (double)(wk[k] * mg));",
      ";")]
 
+# cut copies of this tree's K2 / K3 forward (csrc/deform_window.cu, the
+# lines marked "split:")
+WINDOW_TREE_SPLITS = {
+    # no samples are formed (the tiles stay zero): the window copies, the
+    # weight tiles and the products remain
+    "fwd_products": [("sample(0, 0);  // split: sampling", ";"),
+                     ("sample(st + 1, (st + 1) & 1);  // split: sampling", ";")],
+    # no mma: the window copies, the weight tiles and the sampling remain
+    "fwd_sampling": [("if (2 * jp + h < ntw) {  // split: products", "if (false) {"),
+                     ("if (2 * jp + h < ntw)  // split: products", "if (false)")],
+    # 64-channel blocks where the plan takes 128 (C = Cout = 384)
+    "fwd_nb64": [("if (nb == 64)  // split: nb", "if (true)")],
+}
 
-def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
-    """{name: library} for {name: source}, one nvcc each, all started
-    together; prints each build's -Xptxas -v lines."""
+
+def build(sources: dict[str, Path], flags_of: str = "deform_conv") -> dict[str, ctypes.CDLL]:
+    """{name: library} for {name: source}, one nvcc each with the flags of
+    ``flags_of``, all started together; prints each build's -Xptxas -v
+    lines."""
     out_dir = kernels.BUILD / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
         so = out_dir / f"lib{name}.so"
-        cmd = [kernels.nvcc_path(), *kernels._flags("deform_conv"), "-o", str(so), str(src)]
+        cmd = [kernels.nvcc_path(), *kernels._flags(flags_of), "-o", str(so), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
     libs = {}
@@ -115,12 +148,12 @@ def cut_copy(src: Path, split: str, edits, out_dir: Path | None = None) -> Path:
     return out
 
 
-def inputs(b: int, s: int, dtype, gen):
-    x = torch.randn(b, s, s, C, generator=gen).to("cuda", dtype)
+def inputs(b: int, s: int, dtype, gen, c: int = C):
+    x = torch.randn(b, s, s, c, generator=gen).to("cuda", dtype)
     off = (torch.randn(b, s, s, 18, generator=gen) * 4.0).cuda()
     mask = torch.rand(b, s, s, 9, generator=gen).cuda()
-    w = (torch.randn(3, 3, C, C, generator=gen) / math.sqrt(9 * C)).to("cuda", dtype)
-    g = torch.randn(b, s, s, C, generator=gen).to("cuda", dtype)
+    w = (torch.randn(3, 3, c, c, generator=gen) / math.sqrt(9 * c)).to("cuda", dtype)
+    g = torch.randn(b, s, s, c, generator=gen).to("cuda", dtype)
     return x, off, mask, w, g
 
 
@@ -208,6 +241,210 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def window_inputs(b: int, s: int, dtype, gen, c: int = C, radius: int = 3):
+    """K2 / K3 inputs: as ``inputs``, the offsets scaled by radius / 3, with
+    the y-offset of every other tap made integral (the hat derivative's
+    zero)."""
+    x, off, mask, w, g = inputs(b, s, dtype, gen, c)
+    off = (off * (radius / 3)).reshape(b, s, s, 9, 2)
+    off[:, :, :, 0::2, 0] = off[:, :, :, 0::2, 0].round()
+    return x, off.reshape(b, s, s, 18).contiguous(), mask, w, g
+
+
+class WindowTree:
+    """This tree's K2 (``separable``) or K3 through the wrappers of
+    ``ops/deform_pallas.py``, NHWC in and out; with ``lib``, a cut copy (or
+    a source with this tree's interface) put in the wrappers' place."""
+
+    def __init__(self, separable: bool, lib: ctypes.CDLL | None = None):
+        from yolo_ad_refine_tpu_torch.ops import deform_pallas
+
+        self.dp, self.lib = deform_pallas, lib
+        self.fwd = "dcn_separable_forward" if separable else "dcn_window_forward"
+        self.bwd = "dcn_separable_backward" if separable else "dcn_window_backward"
+
+    def _call(self, fn, *args, **kw):
+        saved = kernels._libs.get("deform_window")
+        if self.lib is not None:
+            kernels._libs["deform_window"] = self.lib
+        try:
+            return fn(*args, **kw)
+        finally:
+            if self.lib is not None:
+                kernels._libs["deform_window"] = saved
+
+    def forward(self, x, off, mask, w, r):
+        y = self._call(self.dp._forward, self.fwd, *(t.permute(0, 3, 1, 2) for t in (x, off, mask)),
+                       w.permute(3, 2, 0, 1), r)
+        return y.permute(0, 2, 3, 1)
+
+    def backward(self, x, off, mask, w, g, r):
+        dx, doff, dmask, dw = self._call(
+            self.dp._backward, self.bwd, *(t.permute(0, 3, 1, 2) for t in (x, off, mask)),
+            w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), r)
+        return (dx.permute(0, 2, 3, 1), doff.permute(0, 2, 3, 1), dmask.permute(0, 2, 3, 1),
+                dw.permute(2, 3, 1, 0).reshape(w.shape))
+
+
+class WindowBaseline:
+    """An earlier deform_window.cu (the fp32-core forward's interface: it
+    takes the weight (9, C, Cout) and a chunk its ``dcn_window_smem_bytes``
+    sizes, 3 forward blocks an SM) called as its own wrapper called it,
+    NHWC in and out; its backward entry is this tree's."""
+
+    BLOCKS_PER_SM = {0: 3, 1: 2}
+
+    def __init__(self, lib: ctypes.CDLL, separable: bool):
+        self.lib = lib
+        self.fwd = getattr(lib, "dcn_separable_forward" if separable else "dcn_window_forward")
+        self.bwd = getattr(lib, "dcn_separable_backward" if separable else "dcn_window_backward")
+        lib.dcn_window_smem_bytes.restype = ctypes.c_size_t
+        lib.dcn_window_smem_bytes.argtypes = [ctypes.c_int] * 6
+        self.fwd.restype = self.bwd.restype = ctypes.c_int
+        self.fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        self.bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+    def _plan(self, kind: int, x, cout: int, r: int):
+        c, item = x.shape[-1], x.element_size()
+        vec16 = (c * item) % 16 == 0 and x.data_ptr() % 16 == 0
+        step = 16 // item if vec16 else 1
+        cap = max(step, 1 << (c - 1).bit_length())
+        cands = [cc for cc in (64, 32, 16, 8, 4, 2, 1) if cc % step == 0 and cc <= cap]
+        dt = 0 if x.dtype == torch.float32 else 1
+        sizes = {cc: self.lib.dcn_window_smem_bytes(kind, r, c, cout, cc, dt) for cc in cands}
+        share = deform.SMEM_PER_BLOCK // self.BLOCKS_PER_SM[kind]
+        fit = [cc for cc in cands if sizes[cc] <= share] or \
+            [cc for cc in cands if sizes[cc] <= deform.SMEM_PER_BLOCK]
+        return max(fit), int(vec16), dt
+
+    def forward(self, x, off, mask, w, r):
+        b, h, wd, c = x.shape
+        cout = w.shape[-1]
+        cc, vec16, dt = self._plan(0, x, cout, r)
+        wk = w.reshape(KK, c, cout).contiguous()
+        out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+        st = self.fwd(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                      b, h, wd, c, cout, r, cc, vec16, dt, torch.cuda.current_stream().cuda_stream)
+        kernels.check(self.lib, st, "baseline forward")
+        return out
+
+    def backward(self, x, off, mask, w, g, r):
+        b, h, wd, c = x.shape
+        cout = w.shape[-1]
+        cc, vec16, dt = self._plan(1, x, cout, r)
+        wk = w.reshape(KK, c, cout).contiguous()
+        f64 = dict(dtype=torch.float64, device=x.device)
+        dx, dw = torch.zeros((b, h, wd, c), **f64), torch.zeros((KK, c, cout), **f64)
+        doff, dmask = torch.zeros((b, h, wd, 18), **f64), torch.zeros((b, h, wd, KK), **f64)
+        st = self.bwd(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), g.data_ptr(),
+                      dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
+                      b, h, wd, c, cout, r, cc, vec16, dt, torch.cuda.current_stream().cuda_stream)
+        kernels.check(self.lib, st, "baseline backward")
+        return dx.to(x.dtype), doff.float(), dmask.float(), dw.to(w.dtype).reshape(w.shape)
+
+
+# (kind, dtype, batch, C = Cout, radius): the paths' forward and backward
+# at the flagship's width, the forward at scale x's, at the widened reload's
+# radius and past the window (the global mode)
+WINDOW_CASES = (("fwd", torch.float32, 32, C, 3), ("fwd", torch.bfloat16, 16, C, 3),
+                ("bwd", torch.float32, 16, C, 3), ("bwd", torch.bfloat16, 16, C, 3),
+                ("fwd", torch.float32, 16, 384, 3), ("fwd", torch.bfloat16, 16, 384, 3),
+                ("fwd", torch.float32, 8, C, 13), ("fwd", torch.bfloat16, 8, C, 13),
+                ("fwd", torch.float32, 8, C, 31), ("fwd", torch.bfloat16, 8, C, 31))
+
+
+def case_key(kind, dtype, b, c, r) -> str:
+    return f"{kind} {str(dtype).split('.')[1]} B={b}" + (f" C={c}" if c != C else "") + \
+        (f" r={r}" if r != 3 else "")
+
+
+def time_window(impl, data, name: str, fwd_only: bool) -> dict:
+    """ms (events) and device ms of the three levels for each case, one
+    launch a level."""
+    res = {}
+    for case in WINDOW_CASES:
+        kind, dtype, b, c, r = case
+        if kind == "bwd" and fwd_only:
+            continue
+        ms = dev = 0.0
+        for x, off, mask, w, g in data[case[1:]]:
+            if kind == "fwd":
+                fn = lambda: impl.forward(x, off, mask, w, r)  # noqa: E731
+            else:
+                fn = lambda: impl.backward(x, off, mask, w, g, r)  # noqa: E731
+            iters = 20 if kind == "fwd" and c == C else 5
+            ms += cuda_time(fn, iters=iters)
+            kname = name.replace("forward", "backward") if kind == "bwd" else name
+            dev += device_ms(fn, iters=10 if c == C else 3, name=kname)
+        res[case_key(*case)] = {"ms": ms, "device_ms": dev}
+    return res
+
+
+def compare_window(base, tree, data) -> dict:
+    """max |baseline - tree| of the forward and of each gradient, per case
+    (on the 80² level)."""
+    out = {}
+    for case in WINDOW_CASES:
+        kind, r = case[0], case[4]
+        x, off, mask, w, g = data[case[1:]][0]
+        if kind == "fwd":
+            d = (base.forward(x, off, mask, w, r).float() - tree.forward(x, off, mask, w, r).float())
+            out[case_key(*case)] = {"out": d.abs().max().item()}
+        else:
+            got = zip(("dx", "doffset", "dmask", "dweight"), base.backward(x, off, mask, w, g, r),
+                      tree.backward(x, off, mask, w, g, r))
+            out[case_key(*case)] = {n: (a.float() - e.float()).abs().max().item()
+                                    for n, a, e in got}
+    return out
+
+
+def main_window(args, card: str) -> None:
+    sep = args.kernel == "separable"
+    name = "dcn_separable_forward" if sep else "dcn_window_forward"
+    impls = {}
+    try:
+        report = kernels.build("deform_window")
+    except RuntimeError as err:  # the baseline is still timed; the tree's error is shown
+        print(f"tree: not built\n{err}", flush=True)
+    else:
+        for line in report.get("deform_window", {}).get("log", "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas tree: {line.strip()}", flush=True)
+        impls["tree"] = WindowTree(sep)
+        kernels.load("deform_window")
+    sources = {}
+    if args.tree_split and "tree" in impls:
+        src = kernels.CSRC / "deform_window.cu"
+        sources.update({f"tree_{n}": cut_copy(src, n, e) for n, e in WINDOW_TREE_SPLITS.items()})
+    if args.baseline:
+        sources["baseline"] = args.baseline
+    for lname, lib in build(sources, "deform_window").items():
+        impls[lname] = WindowTree(sep, lib) if lname.startswith("tree_") or hasattr(
+            lib, "dcn_window_fwd_smem_bytes") else WindowBaseline(lib, sep)
+
+    gen = torch.Generator().manual_seed(0)
+    data = {}
+    for _, dtype, b, c, r in WINDOW_CASES:
+        if (dtype, b, c, r) not in data:
+            data[(dtype, b, c, r)] = [window_inputs(b, s, dtype, gen, c, r) for s in LEVELS]
+    order = [n for n in impls if n.startswith("tree_")]
+    order += [n for n in ("baseline", "tree", "tree", "baseline") if n in impls]
+    runs = []
+    for lname in order:
+        res = time_window(impls[lname], data, name, lname.startswith("tree_"))
+        runs.append({"impl": lname, "ms": res})
+        print(f"{lname}: " + ", ".join(f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f})"
+                                       for k, v in res.items()), flush=True)
+    result = {"card": card, "kernel": args.kernel, "runs": runs}
+    if "baseline" in impls and "tree" in impls:
+        result["baseline_vs_tree"] = compare_window(impls["baseline"], impls["tree"], data)
+        print(f"max |baseline - tree|: {json.dumps(result['baseline_vs_tree'])}", flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+
+
 CASES = (("fwd", torch.float32, 32), ("fwd", torch.bfloat16, 16),
          ("bwd", torch.float32, 16), ("bwd", torch.bfloat16, 16))
 
@@ -251,10 +488,13 @@ def time_impl(impl, data, kinds=("fwd", "bwd")) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--baseline", type=Path, help="an earlier csrc/deform_conv.cu to time beside")
+    ap.add_argument("--baseline", type=Path,
+                    help="an earlier deform_conv.cu (k1) or deform_window.cu to time beside")
     ap.add_argument("--split", action="store_true", help="time cut copies of the baseline bwd")
     ap.add_argument("--tree-split", action="store_true", help="time cut copies of this tree's K1")
     ap.add_argument("--out", type=Path, help="write the results as JSON here")
+    ap.add_argument("--kernel", choices=("k1", "separable", "window"), default="k1",
+                    help="K1 (deform_conv.cu), or K2 / K3 (deform_window.cu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_dcn: CUDA is not available; this script runs on the card")
@@ -263,6 +503,9 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.kernel != "k1":
+        main_window(args, card)
+        return
 
     impls = {}
     try:

@@ -20,7 +20,12 @@ sums (:104, :256); the backward is all fp32 (:294-342).
 
 ``ops/deform_mxu.py`` (K2) computes the same function in the separable
 form and shares the helpers here: ``window_taps`` (with ``separable`` for
-K2's coordinates), ``window_forward_plain`` and ``window_grads_plain``.
+K2's coordinates), ``window_forward_plain`` and ``window_grads_plain``,
+and the CUDA wrappers ``_forward`` / ``_backward``. The forward kernel's
+launch plan (channel chunk, shared memory, grid, and the global mode for a
+radius whose window fits no block) is ``window_fwd_launch``; its products
+run on the tensor cores (3xTF32 in fp32, bf16 for K3's bf16, 2xTF32 for
+K2's), ``tests/test_torch_dcn_window_mma.py`` models them on the CPU.
 
 Layouts: the plain versions take NHWC x (B,H,W,C), offset (B,H,W,18) as
 (dy, dx) pairs, mask (B,H,W,9) and an HWIO weight (3,3,C,Cout);
@@ -34,13 +39,80 @@ import ctypes
 
 import torch
 
-from yolo_ad_refine_tpu_torch.ops.deform import KK, SMEM_PER_BLOCK, _check, _nhwc
+from yolo_ad_refine_tpu_torch.ops.deform import KK, SMEM_PER_BLOCK, _check, _nhwc, k1_fwd_weight
 from yolo_ad_refine_tpu_torch.utils import kernels
 
 MXU_CH = 8  # output rows per chunk of deform_mxu.py (its CH): K2's y coordinate is chunk-local
-# blocks of each kernel that should share an SM: a channel chunk is sized to
-# leave each that share of shared memory, and narrowed further only if needed
-BLOCKS_PER_SM = {0: 3, 1: 2}  # 0 forward, 1 backward
+BWD_BLOCKS_PER_SM = 2  # backward blocks that should share an SM: a chunk is sized to leave each
+# its share of shared memory, and narrowed further only if needed
+# csrc/deform_window.cu's forward: a block tiles 8 x 16 output pixels with
+# 512 threads (one block an SM by its registers) and takes 64 or 128 output
+# channels; a chunk's row (a window position, a weight row) holds 16 to 128
+# bytes; each of the 9 x 128 geometry entries takes 6 words (7 in the
+# global mode)
+WIN_FWD_TILE, WIN_FWD_THREADS, WIN_ROW_BYTES = (8, 16), 512, 128
+
+
+def window_fwd_smem(radius: int, cc: int, nb: int, dtype: torch.dtype, separable: bool,
+                    global_: bool) -> int:
+    """Shared bytes of one K2 / K3 fwd block (``csrc/deform_window.cu``'s
+    ``dcn_window_fwd_smem_bytes`` computes the same): two window chunks of
+    (8 + 2(r + 2)) x (16 + 2(r + 2)) positions x ``cc`` (none in the global
+    mode), two sample tiles and two weight tiles of ``nb`` rows, each row ks
+    + 4 words (fp32 weights as hi and lo planes; K2's bf16 tiles are fp32),
+    and the geometry of 9 x 128 samples."""
+    bf = dtype == torch.bfloat16
+    isz = 2 if bf else 4
+    f32 = not bf or separable          # TF32 products on fp32 tiles
+    mk = 8 if f32 else 16              # k of one mma
+    th, tw = WIN_FWD_TILE
+    npos = (th + 2 * (radius + 2)) * (tw + 2 * (radius + 2))
+    rw = max(cc, mk) * (4 if f32 else 2) // 4 + 4
+    window = 0 if global_ else 2 * npos * cc * isz // 4
+    return 4 * (window + 2 * th * tw * rw + 2 * (1 if bf else 2) * nb * rw
+                + KK * th * tw * (7 if global_ else 6))
+
+
+def window_fwd_launch(radius: int, c: int, cout: int, dtype: torch.dtype, aligned: bool = True, *,
+                      separable: bool = False, b: int = 1, h: int = 1, w: int = 1) -> dict:
+    """The launch plan of K2 / K3 fwd (``csrc/deform_window.cu``) at
+    ``radius``, C input and Cout output channels in ``dtype``; ``aligned``:
+    x's pointer is 16-byte aligned; ``separable``: K2. Returns the channel
+    chunk ``cc``, the k of a step ``ks`` (cc, or one mma's k when cc is
+    narrower), output channels a block ``nb``, 16-byte window copies
+    ``vec16``, the mode ``global``, the weight's padded C ``cpad``, shared
+    bytes ``smem`` (``window_fwd_smem``), ``grid`` for a (b, h, w) map and
+    ``block``.
+
+    The launch rule: ``nb`` is 128 past 64 output channels where 16-byte
+    copies are allowed, else 64. ``cc`` is the widest power of two up to
+    128 bytes a row, no wider than C needs, whose block fits. Where not even
+    16 bytes a row fit (from radius 29 or 30 in fp32, 30 or 31 in bf16, by
+    the widths), the global mode takes over: no window is staged, the
+    samples read their corners from global memory, the block takes 64
+    channels and ``cc`` is the widest allowed. Raises ValueError for a negative radius or an empty width."""
+    if radius < 0 or c < 1 or cout < 1:
+        raise ValueError(f"window forward: radius={radius}, C={c}, Cout={cout}: the radius must be "
+                         ">= 0 and the widths >= 1")
+    isz = 2 if dtype == torch.bfloat16 else 4
+    mk = 16 if dtype == torch.bfloat16 and not separable else 8
+    vec16 = bool(aligned) and (c * isz) % 16 == 0
+    nb = 128 if cout > 64 and vec16 else 64
+    widths = [WIN_ROW_BYTES // isz >> i for i in range(4)]  # 128 down to 16 bytes
+    cap = max(widths[-1], 1 << (c - 1).bit_length())  # no chunk wider than C needs
+    cands = [k for k in widths if k <= cap]
+    fit = [k for k in cands if window_fwd_smem(radius, k, nb, dtype, separable, False)
+           <= SMEM_PER_BLOCK]
+    global_ = not fit
+    if global_:
+        nb, fit = 64, cands
+    cc = max(fit)
+    th, tw = WIN_FWD_TILE
+    tiles = b * -(-h // th) * -(-w // tw)
+    return {"cc": cc, "ks": max(cc, mk), "nb": nb, "vec16": vec16, "global": global_,
+            "cpad": -(-c // cc) * cc, "smem": window_fwd_smem(radius, cc, nb, dtype, separable,
+                                                              global_),
+            "grid": (tiles, -(-cout // nb)), "block": WIN_FWD_THREADS}
 
 
 def _hat(u):
@@ -189,10 +261,34 @@ def deform_conv2d_pallas_grads_plain(x, offset, mask, weight, g, radius: int):
     return window_grads_plain(x, offset, mask, weight, g, radius, separable=False)
 
 
-def _prepare(x, offset, mask, weight, radius, kind: int):
-    """Checks and launch arguments shared by the four CUDA wrappers: the
-    NHWC views, the (9, C, Cout) weight, the channel chunk and the cp.async
-    flag. ``kind``: 0 forward, 1 backward."""
+def _forward(entry: str, x, offset, mask, weight, radius):
+    """K2 or K3 fwd (``entry``) on CUDA tensors with ``window_fwd_launch``'s
+    plan, the weight as ``k1_fwd_weight`` lays it out."""
+    if radius is None:
+        raise ValueError("the bounded DCN kernels need an integer radius, got None")
+    b, c, h, w, cout = _check(x, offset, mask, weight, radius)
+    xv, ov, mv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask")
+    plan = window_fwd_launch(int(radius), c, cout, x.dtype, xv.data_ptr() % 16 == 0,
+                             separable=entry == "dcn_separable_forward", b=b, h=h, w=w)
+    wt = k1_fwd_weight(weight, plan["cpad"])
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    lib = kernels.load("deform_window")
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                b, h, w, c, cout, plan["cpad"], int(radius), plan["cc"], plan["nb"],
+                int(plan["vec16"]), int(plan["global"]), 0 if x.dtype == torch.float32 else 1,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(lib, status, entry)
+    return out
+
+
+def _prepare(x, offset, mask, weight, radius):
+    """Checks and launch arguments of the two backward wrappers: the NHWC
+    views, the (9, C, Cout) weight, the channel chunk and the cp.async
+    flag."""
     if radius is None:
         raise ValueError("the bounded DCN kernels need an integer radius, got None")
     b, c, h, w, cout = _check(x, offset, mask, weight, radius)
@@ -203,39 +299,24 @@ def _prepare(x, offset, mask, weight, radius, kind: int):
     vec16 = (c * item) % 16 == 0 and xv.data_ptr() % 16 == 0
     step = 16 // item if vec16 else 1
     lib = kernels.load("deform_window")
-    lib.dcn_window_smem_bytes.restype = ctypes.c_size_t
-    lib.dcn_window_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.dcn_window_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.dcn_window_bwd_smem_bytes.argtypes = [ctypes.c_int] * 5
     cap = max(step, 1 << (c - 1).bit_length())  # no chunk wider than C needs
     cands = [cc for cc in (64, 32, 16, 8, 4, 2, 1) if cc % step == 0 and cc <= cap]
-    sizes = {cc: lib.dcn_window_smem_bytes(kind, int(radius), c, cout, cc, dtype) for cc in cands}
-    fit = [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK // BLOCKS_PER_SM[kind]] or \
+    sizes = {cc: lib.dcn_window_bwd_smem_bytes(int(radius), c, cout, cc, dtype) for cc in cands}
+    fit = [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK // BWD_BLOCKS_PER_SM] or \
           [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK]
     if not fit:
         least = min(sizes.values())
-        raise ValueError(f"{'backward' if kind else 'forward'} at radius {radius}, C={c}, "
-                         f"Cout={cout} needs {least} bytes of shared memory per block, more "
-                         f"than the {SMEM_PER_BLOCK} a block may use")
+        raise ValueError(f"backward at radius {radius}, C={c}, Cout={cout} needs {least} bytes "
+                         f"of shared memory per block, more than the {SMEM_PER_BLOCK} a block "
+                         "may use")
     return lib, (b, c, h, w, cout), (xv, ov, mv, wk), max(fit), int(vec16), dtype
-
-
-def _forward(entry: str, x, offset, mask, weight, radius):
-    lib, (b, c, h, w, cout), (xv, ov, mv, wk), cc, vec16, dtype = _prepare(
-        x, offset, mask, weight, radius, 0)
-    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wk.data_ptr(), out.data_ptr(),
-                b, h, w, c, cout, int(radius), cc, vec16, dtype,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, status, entry)
-    return out
 
 
 def _backward(entry: str, x, offset, mask, weight, g, radius):
     lib, (b, c, h, w, cout), (xv, ov, mv, wk), cc, vec16, dtype = _prepare(
-        x, offset, mask, weight, radius, 1)
+        x, offset, mask, weight, radius)
     if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
                          f"({b}, {cout}, {h}, {w}) on {x.device}")
