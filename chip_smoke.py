@@ -13,7 +13,12 @@ against its plain PyTorch version at the shapes of its paths and times
 both; K1 also at the flagship's wider DCN of scales m, l (C = Cout = 256)
 and x (384), where its backward runs in (C-chunk, Cout-chunk) pairs, and
 K2 and K3 at 384, at radius 13 and at radius 31, where their forward reads
-its samples' corners from global memory (its global mode). The gather probe's path is ``engine/profile_gather.py``'s
+its samples' corners from global memory (its global mode), and their
+backward at radius 3 (its window mode), 13, 31 and 200 (its global mode)
+and at 384 channels at radius 3 and 31, held at the fp32 limit in fp32 and
+bf16 (the backward is all fp32: with bf16 inputs on its fp64 sums, before
+the wrapper rounds dx and dweight to bf16). The gather probe's path is
+``engine/profile_gather.py``'s
 run at bench_dcn.py's probe shapes. Then it drives
 the paths through the user's entry points, each with the launch counts set
 to 0 just before it and read just after, each DCN variant under its own
@@ -60,10 +65,13 @@ tensor-core route, K3's bf16 forward against bf16 products and K2's
 against three bf16 products, the fastest exact route for its fp32 sample,
 ``bound_route``, with the fp32-core bound beside it as
 ``bound_ms_fp32_cores`` and K2's own 2xTF32 route as ``bound_ms_2xtf32``);
-``ms`` is CUDA events around the wrapper's
-call, as for every kernel, and K1's and the K2 / K3 forwards'
-``device_ms`` the kernel's own device time from torch.profiler (the K2 /
-K3 forwards in bf16 at batch 16, ``batch``); K4's and
+the K2 / K3 backwards against the fastest exact route of their products,
+3xTF32 in fp32 and, with bf16 inputs, one bf16 product for g . W_t^T and
+three for the fp32 sample against g (``bound_route`` "bf16+3xbf16"), with
+the fp32-core bound beside it; ``ms`` is CUDA events around the wrapper's
+call, as for every kernel, and K1's and the K2 / K3 forwards' and
+backwards' ``device_ms`` the kernel's own device time from torch.profiler
+(the K2 / K3 forwards in bf16 at batch 16, ``batch``); K4's and
 K5's ``device_ms`` too, split into the mask kernel and the walk under
 ``parts``, and the same on a predict batch's candidates at conf 0.001 and
 0.25 under ``predict_batch``. K4 and K5 are held against their plain
@@ -356,17 +364,60 @@ def bounded_inputs(b: int, s: int, dtype, gen, dev, radius: int, c: int = C):
     return x, off.reshape(b, s, s, 18).contiguous(), mask, w
 
 
+def hold_bounded_bwd(label: str, impl: str, got, x, off, mask, w, g, r: int):
+    """K2 / K3 bwd against its plain version at the fp32 limit (K1_BWD_TOL
+    fp32, 1e-4 of max |plain|) in fp32 and bf16, since both backwards are all
+    fp32: the wrapper's outputs in fp32; with bf16 inputs the kernel's fp64
+    sums (before the wrapper rounds dx and dweight to bf16) against the plain
+    version on the bf16 values in fp32. The comparison's launch is not
+    counted. Raises; returns the relative errors and the largest absolute."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
+
+    mod = deform_mxu if impl == "mxu" else deform_pallas
+    grads_plain = getattr(mod, f"deform_conv2d_{impl}_grads_plain")
+    tol = K1_BWD_TOL["float32"]
+    if x.dtype == torch.float32:
+        return hold_grads(label, got, grads_plain(x, off, mask, w, g, r), tol)
+    sums = grads_nhwc(deform_pallas._backward(BOUNDED[impl][1], nchw(x), nchw(off), nchw(mask),
+                                              w.permute(3, 2, 0, 1), nchw(g), r, rounded=False))
+    return hold_grads(label, sums, grads_plain(x.float(), off, mask, w.float(), g.float(), r), tol)
+
+
+def bwd_bound(b: int, s: int, itemsize: int, c: int = C) -> dict:
+    """K2 / K3 bwd's bound at one level (batch b, C = Cout = c) on each route
+    (ms, operation-bound): the two C x Cout products of ``k1_bwd_work`` on the
+    fastest exact route of the inputs' type, the rest on the fp32 cores:
+    fp32 3xTF32 for both; bf16 inputs one bf16 product for gs = g . W_t^T
+    (bf16 x bf16) and three for dW_t += (m sample)^T g (the fp32 sample
+    split into three bf16 parts, its 24 bits, against g); and all on the
+    fp32 cores, the route the fp32-core backward took."""
+    nbytes, products, other = k1_bwd_work(b, s, itemsize, c)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_other = other / FP32_FLOPS * 1e3
+    fast = (products_ms(products, "3xtf32") if itemsize == 4 else
+            products_ms(products / 2, "bf16") + products_ms(products / 2, "3xbf16"))
+    res = {}
+    cores = products_ms(products, "fp32") + t_other
+    for route, t_ops in (("fast", fast + t_other), ("fp32", cores)):
+        res[route] = (max(t_bytes, t_ops), t_ops >= t_bytes)
+    return res
+
+
 def phase_bounded(dev, gen, impl: str):
     """K2 (``mxu``) or K3 (``pallas``), forward and backward, against its
     plain version at the flagship's levels, radius 3, in fp32 and bf16
-    (forward at B=32, backward at B=16), at radius 13 on the 80² map (B=8)
-    and at radius 31 on the 40² map (B=8; the forward's global mode), with
-    K1's limits; then timed beside the plain version at those batches, the
-    forward also by its device time (torch.profiler) against the bound of
-    its tensor-core products (3xTF32 in fp32; bf16 for K3's bf16; for K2's
-    bf16 three bf16 products, with the kernel's 2xTF32 beside it) and of the
-    fp32 cores. d offset must be 0 on the integral axis and beyond the
-    radius."""
+    (forward at B=32, backward at B=16), at radius 13 on the 80² map (B=8),
+    at radius 31 on the 40² map (B=8; both global modes) and the backward at
+    radius 200 on a 20² map (B=2); the forward with K1's limits, the
+    backward at the fp32 limit in both dtypes (``hold_bounded_bwd``); then
+    timed beside the plain version at those batches, each by its device
+    time (torch.profiler) against the bound of its tensor-core products
+    (forward: 3xTF32 in fp32; bf16 for K3's bf16; for K2's bf16 three bf16
+    products, with the kernel's 2xTF32 beside it; backward: ``bwd_bound``)
+    and of the fp32 cores. d offset must be 0 on the integral axis and
+    beyond the radius."""
     import torch
 
     from yolo_ad_refine_tpu_torch.engine.profile_dcn import device_ms
@@ -389,38 +440,45 @@ def phase_bounded(dev, gen, impl: str):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         atol, rtol = K1_TOL[name]
-        cases = [(s, 3) for s in LEVELS] + [(LEVELS[0], 13), (LEVELS[1], 31)]
+        cases = [(s, 3) for s in LEVELS] + [(LEVELS[0], 13), (LEVELS[1], 31), (LEVELS[2], 200)]
         for s, r in cases:
             if deform_pallas.window_fwd_launch(r, C, C, dtype, separable=impl == "mxu")[
-                    "global"] != (r == 31):
+                    "global"] != (r >= 31):
                 raise AssertionError(f"{fwd_name} {name} r={r}: the plan's mode is not the "
-                                     "expected one (global only past the window, at r=31)")
-            b = 32 if r == 3 else 8
-            x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
-            got = run_fwd(x, off, mask, w, r).permute(0, 2, 3, 1).float()
-            want = plain(x, off, mask, w, r).float()
-            torch.cuda.synchronize()
-            e = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
-                                       msg=lambda m: f"{fwd_name} {name} r={r} {s}x{s}: {m}")
-            err["fwd"][name] = max(err["fwd"].get(name, 0.0), e)
-            b = 16 if r == 3 else 8
+                                     "expected one (global only past the window, from r=31)")
+            if deform_pallas.window_bwd_launch(r, C, C, dtype)["global"] != (r > 3):
+                raise AssertionError(f"{bwd_name} {name} r={r}: the plan's mode is not the "
+                                     "expected one (the window at r=3, global from r=13)")
+            e = None
+            if r != 200:
+                b = 32 if r == 3 else 8
+                x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
+                got = run_fwd(x, off, mask, w, r).permute(0, 2, 3, 1).float()
+                want = plain(x, off, mask, w, r).float()
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                                           msg=lambda m: f"{fwd_name} {name} r={r} {s}x{s}: {m}")
+                err["fwd"][name] = max(err["fwd"].get(name, 0.0), e)
+            b = 16 if r == 3 else 8 if r != 200 else 2
             x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, r)
             g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
             got = grads_nhwc(run_bwd(x, off, mask, w, g, r))
-            want = grads_plain(x, off, mask, w, g, r)
             torch.cuda.synchronize()
             doff = got[1].reshape(b, s, s, 9, 2)
             if doff[:, :, :, 0::2, 0].any() or doff[off.reshape(b, s, s, 9, 2).abs() >= r].any():
                 raise AssertionError(f"{bwd_name} {name} r={r}: d offset not 0 on an integral "
                                      "axis or beyond the radius")
-            rels, worst = hold_grads(f"{bwd_name} {name} r={r} {s}x{s}", got, want,
-                                     K1_BWD_TOL[name])
+            rels, worst = hold_bounded_bwd(f"{bwd_name} {name} r={r} {s}x{s}", impl, got,
+                                           x, off, mask, w, g, r)
             err["bwd"][name] = max(err["bwd"].get(name, 0.0), worst)
-            log(f"{impl} {name:8s} r={r:<2d} {s}x{s}x{C}->{C}: fwd B={32 if r == 3 else 8} "
-                f"max |kernel - plain| {e:.3e} (atol {atol}, rtol {rtol}); bwd B={b} max |kernel "
-                "- plain| / max |plain| " + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
-                + f" (tol {K1_BWD_TOL[name]})")
+            log(f"{impl} {name:8s} r={r:<3d} {s}x{s}x{C}->{C}: "
+                + (f"fwd B={32 if r == 3 else 8} max |kernel - plain| {e:.3e} (atol {atol}, "
+                   f"rtol {rtol}); " if e is not None else "")
+                + f"bwd B={b} max |kernel - plain| / max |plain| "
+                + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
+                + f" (tol {K1_BWD_TOL['float32']}" + (", fp64 sums" if name == "bfloat16" else "")
+                + ")")
 
         # the paths' work, radius 3: forward at B=32 (fp32, a serving batch) or
         # B=16 (bf16, a train step), backward at B=16, one launch a level
@@ -431,6 +489,8 @@ def phase_bounded(dev, gen, impl: str):
             # (the sample rounded to bf16); for K2's bf16 (the fp32 sample) the
             # bound is three bf16 products, the kernel takes 2xTF32
             route = "3xtf32" if dtype == torch.float32 else "bf16" if impl == "pallas" else "3xbf16"
+            if kind == "bwd":
+                route = "3xtf32" if dtype == torch.float32 else "bf16+3xbf16"
             own_ms = 0.0  # K2's bf16: the bound on the kernel's own 2xTF32 route
             for s in LEVELS:
                 x, off, mask, w = bounded_inputs(b, s, dtype, gen, dev, 3)
@@ -441,30 +501,29 @@ def phase_bounded(dev, gen, impl: str):
                     t_bytes, t_ops = dcn_fwd_bound(b, s, x.element_size(), route)
                     cores_ms += max(dcn_fwd_bound(b, s, x.element_size(), "fp32"))
                     own_ms += max(dcn_fwd_bound(b, s, x.element_size(), "2xtf32"))
+                    by_ops = by_ops and t_ops >= t_bytes
+                    bound_ms += max(t_bytes, t_ops)
                 else:
                     g = torch.randn(b, s, s, C, generator=gen).to(dev, dtype)
                     ms += cuda_time(lambda: run_bwd(x, off, mask, w, g, 3), iters=10)
+                    dev_ms += device_ms(lambda: run_bwd(x, off, mask, w, g, 3), name=bwd_name)
                     plain_ms += cuda_time(lambda: grads_plain(x, off, mask, w, g, 3), iters=3,
                                           warmup=1)
-                    # both backwards are all fp32 (deform_mxu.py:343, deform_pallas.py:294)
-                    nbytes, products, other = k1_bwd_work(b, s, x.element_size())
-                    t_ops = (products + other) / FP32_FLOPS * 1e3
-                    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-                by_ops = by_ops and t_ops >= t_bytes
-                bound_ms += max(t_bytes, t_ops)
+                    bnd = bwd_bound(b, s, x.element_size())
+                    bound_ms += bnd["fast"][0]
+                    by_ops = by_ops and bnd["fast"][1]
+                    cores_ms += bnd["fp32"][0]
             times[kind][name] = {"max_abs_err": err[kind][name], "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms,
-                                 "bound_by": "operations" if by_ops else "bytes", "batch": b}
-            if kind == "fwd":
-                times[kind][name].update(device_ms=dev_ms, bound_route=route,
-                                         bound_ms_fp32_cores=cores_ms)
-                if route == "3xbf16":
-                    times[kind][name]["bound_ms_2xtf32"] = own_ms
+                                 "bound_by": "operations" if by_ops else "bytes", "batch": b,
+                                 "device_ms": dev_ms, "bound_route": route,
+                                 "bound_ms_fp32_cores": cores_ms}
+            if route == "3xbf16":
+                times[kind][name]["bound_ms_2xtf32"] = own_ms
             log(f"{fwd_name if kind == 'fwd' else bwd_name} {name} B={b} three levels r=3: kernel "
-                f"{ms:.4f} ms" + (f" (device {dev_ms:.4f} ms)" if kind == "fwd" else "")
-                + f", plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                f"({times[kind][name]['bound_by']}"
-                + (f", {route}; fp32-core bound {cores_ms:.4f} ms)" if kind == "fwd" else ")"))
+                f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({times[kind][name]['bound_by']}, {route}; fp32-core bound "
+                f"{cores_ms:.4f} ms)")
     return times
 
 
@@ -475,7 +534,8 @@ def phase_k1_wide(dev, gen):
     limits (the backward past 128 channels runs its wide path of chunk
     pairs); then both timed at 128 (scale s), 256 and 384 beside their
     bounds; and K2 and K3, forward and backward, at 384 on the 80² map
-    (B=4, radius 3) against their plain versions."""
+    (B=4, radius 3 and 31) against their plain versions, the backward at the
+    fp32 limit in both dtypes (``hold_bounded_bwd``)."""
     import torch
 
     from yolo_ad_refine_tpu_torch.engine.profile_dcn import device_ms
@@ -546,25 +606,33 @@ def phase_k1_wide(dev, gen):
     for impl, mod in (("mxu", deform_mxu), ("pallas", deform_pallas)):
         fwd_name, bwd_name, _ = BOUNDED[impl]
         plain = getattr(mod, f"deform_conv2d_{impl}_plain")
-        grads_plain = getattr(mod, f"deform_conv2d_{impl}_grads_plain")
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             atol, rtol = K1_TOL[name]
-            x, off, mask, w = bounded_inputs(4, LEVELS[0], dtype, gen, dev, 3, 384)
-            g = torch.randn(4, LEVELS[0], LEVELS[0], 384, generator=gen).to(dev, dtype)
-            args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
-            got = getattr(mod, fwd_name)(*args, 3).permute(0, 2, 3, 1).float()
-            want = plain(x, off, mask, w, 3).float()
-            torch.cuda.synchronize()
-            e = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=lambda m: (
-                f"{fwd_name} {name} C=384: {m}"))
-            got = grads_nhwc(getattr(mod, bwd_name)(*args, nchw(g), 3))
-            rels, _ = hold_grads(f"{bwd_name} {name} C=384", got,
-                                 grads_plain(x, off, mask, w, g, 3), K1_BWD_TOL[name])
-            log(f"{impl} {name:8s} C=Cout=384 r=3 B=4 {LEVELS[0]}x{LEVELS[0]}: fwd max |kernel - "
-                f"plain| {e:.3e}; bwd max |kernel - plain| / max |plain| "
-                + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels)))
+            for r in (3, 31):  # the backward's window mode; both global modes
+                x, off, mask, w = bounded_inputs(4, LEVELS[0], dtype, gen, dev, r, 384)
+                g = torch.randn(4, LEVELS[0], LEVELS[0], 384, generator=gen).to(dev, dtype)
+                args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
+                got = getattr(mod, fwd_name)(*args, r).permute(0, 2, 3, 1).float()
+                want = plain(x, off, mask, w, r).float()
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=lambda m: (
+                    f"{fwd_name} {name} C=384 r={r}: {m}"))
+                del got, want
+                got = grads_nhwc(getattr(mod, bwd_name)(*args, nchw(g), r))
+                torch.cuda.synchronize()
+                if got[1].reshape(4, LEVELS[0], LEVELS[0], 9, 2)[:, :, :, 0::2, 0].any():
+                    raise AssertionError(f"{bwd_name} {name} C=384 r={r}: d offset not 0 on an "
+                                         "integral axis")
+                rels, _ = hold_bounded_bwd(f"{bwd_name} {name} C=384 r={r}", impl, got,
+                                           x, off, mask, w, g, r)
+                del got
+                log(f"{impl} {name:8s} C=Cout=384 r={r:<2d} B=4 {LEVELS[0]}x{LEVELS[0]}: fwd max "
+                    f"|kernel - plain| {e:.3e}; bwd max |kernel - plain| / max |plain| "
+                    + ", ".join(f"{n} {v:.2e}" for n, v in zip(GRADS, rels))
+                    + f" (tol {K1_BWD_TOL['float32']})")
+                torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return times
 
@@ -1485,7 +1553,9 @@ def main() -> int:
                   **{k: t["fwd"]["float32"][k] for k in ("device_ms", "bound_route",
                                                          "bound_ms_fp32_cores", "batch")}),
             entry(bwd_name, "deform_window.cu", f"{src}:{line[1]}", t["bwd"]["float32"],
-                  f"training_{impl}_run", dtype="float32", bfloat16=t["bwd"]["bfloat16"])]
+                  f"training_{impl}_run", dtype="float32", bfloat16=t["bwd"]["bfloat16"],
+                  **{k: t["bwd"]["float32"][k] for k in ("device_ms", "bound_route",
+                                                         "bound_ms_fp32_cores", "batch")})]
     kernels_line = {"kernels": [
         entry("dcn_forward", "deform_conv.cu", "ops/deform_mxu2.py:92", k1["float32"],
               "training_run", dtype="float32", bfloat16=k1["bfloat16"],

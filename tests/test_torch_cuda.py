@@ -218,6 +218,36 @@ def test_dcn_smem_bytes_match_python(dev, kernel, dtype, c, cout):
         assert lib.dcn_backward_wide(c, cout) == int(plan["wide"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dcn_window_bwd_smem_and_shape_match_python(dev, dtype):
+    """K2 / K3 bwd: the kernel's shared-memory arithmetic is
+    ``window_bwd_smem``'s in both modes at radius 0 to 60 and 200, its
+    block shape is ``window_bwd_launch``'s, and the plan's mode is the
+    window mode exactly where that block fits."""
+    import ctypes
+
+    from yolo_ad_refine_tpu_torch.ops.deform import SMEM_PER_BLOCK
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import (
+        WIN_FWD_THREADS, WIN_FWD_TILE, window_bwd_launch, window_bwd_smem)
+    from yolo_ad_refine_tpu_torch.utils import kernels
+
+    lib = kernels.load("deform_window")
+    fn = lib.dcn_window_bwd_smem_bytes
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int] * 3
+    dt = getattr(torch, dtype)
+    for radius in (*range(61), 200):
+        for gl in (False, True):
+            assert fn(radius, int(dtype == "bfloat16"), int(gl)) == \
+                window_bwd_smem(radius, dt, gl), (radius, gl)
+        plan = window_bwd_launch(radius, 64, 64, dt)
+        assert plan["global"] == (fn(radius, int(dtype == "bfloat16"), 0) > SMEM_PER_BLOCK)
+        assert plan["smem"] <= SMEM_PER_BLOCK
+    plan = window_bwd_launch(3, 64, 64, dt)
+    assert [lib.dcn_window_bwd_shape(i) for i in range(6)] == [
+        plan["cc"], plan["no"], WIN_FWD_THREADS, *WIN_FWD_TILE, -1]
+
+
 def _assert_grads_close(got, want, tol):
     for name, a, e in zip(("dx", "doffset", "dmask", "dweight"), got, want):
         assert a.shape == e.shape, name
@@ -257,6 +287,28 @@ BOUNDED = {  # kind: (forward wrapper, backward wrapper, plain forward, plain ba
 }
 
 
+def _assert_bwd_close(kind, x, off, mask, wt, g, radius, got):
+    """K2 / K3 bwd's limit, 1e-4 of max |plain| per gradient in fp32 and in
+    bf16 (the backward is all fp32): in fp32 the wrapper's outputs ``got``
+    (NHWC / HWIO); with bf16 inputs the kernel's fp64 sums, before the
+    wrapper rounds dx and dweight to bf16, against the plain version on the
+    bf16 values in fp32."""
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import _backward
+
+    grads_plain = BOUNDED[kind][3]
+    if x.dtype == torch.float32:
+        _assert_grads_close(got, grads_plain(x, off, mask, wt, g, radius), 1e-4)
+        return
+    entry = "dcn_separable_backward" if kind == "mxu" else "dcn_window_backward"
+    sums = _backward(entry, x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                     mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2),
+                     radius, rounded=False)
+    sums = [sums[0].permute(0, 2, 3, 1), sums[1].permute(0, 2, 3, 1), sums[2].permute(0, 2, 3, 1),
+            sums[3].permute(2, 3, 1, 0)]
+    want = grads_plain(x.float(), off, mask, wt.float(), g.float(), radius)
+    _assert_grads_close([s.float() for s in sums], want, 1e-4)
+
+
 def _bounded_inputs(dev, dt, shape, radius, seed=0):
     """Offsets N(0, radius): a share beyond the radius, and one axis of
     every other tap integral."""
@@ -292,14 +344,20 @@ def test_bounded_dcn_forward_kernel_matches_plain(dev, kind, dtype, tol, shape, 
 
 
 @pytest.mark.parametrize("kind", ["mxu", "pallas"])
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-4)])
 @pytest.mark.parametrize("shape,radius", [((2, 40, 40, 64, 64), 3), ((3, 13, 29, 48, 80), 3),
-                                          ((1, 24, 30, 64, 64), 20), ((2, 11, 9, 8, 8), 2)])
+                                          ((1, 24, 30, 64, 64), 20), ((2, 11, 9, 8, 8), 2),
+                                          ((1, 13, 21, 3, 40), 3)])
 def test_bounded_dcn_backward_kernel_matches_plain(dev, kind, dtype, tol, shape, radius):
     """K2 / K3 backward against its plain version, each gradient within
-    ``tol`` of max |plain| (dx and dweight summed in fp64 with atomics).
-    d offset is 0 on the integral axis and beyond the radius in both."""
-    fwd, bwd, _, grads_plain, fn = BOUNDED[kind]
+    ``tol`` of max |plain|: both backwards are all fp32, also for bf16
+    inputs (the sample is never rounded to bf16), so bf16 is held at the
+    fp32 limit on the function's values (``_assert_bwd_close``). d offset
+    is 0 on the integral axis and beyond the radius in both. Radius 20 takes
+    the global mode, C = 8 a single, partial channel chunk, C = 3 the loads
+    without 16-byte copies, Cout = 80 a second, partial block of output
+    channels."""
+    fwd, bwd, _, _, fn = BOUNDED[kind]
     dt = getattr(torch, dtype)
     b, h, w, c, cout = shape
     x, off, mask, wt = _bounded_inputs(dev, dt, shape, radius)
@@ -314,33 +372,137 @@ def test_bounded_dcn_backward_kernel_matches_plain(dev, kind, dtype, tol, shape,
     doff = got[1].reshape(b, h, w, 9, 2)
     assert not doff[:, :, :, 0::2, 0].any()
     assert not doff[off.reshape(b, h, w, 9, 2).abs() >= radius].any()
-    _assert_grads_close(got, grads_plain(x, off, mask, wt, g, radius), tol)
+    assert tol == 1e-4
+    _assert_bwd_close(kind, x, off, mask, wt, g, radius, got)
 
 
 @pytest.mark.parametrize("kind", ["mxu", "pallas"])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
-def test_bounded_dcn_at_scale_x_width(dev, kind, dtype, tol):
+@pytest.mark.parametrize("radius", [3, 31])
+def test_bounded_dcn_at_scale_x_width(dev, kind, dtype, tol, radius):
     """K2 / K3 forward and backward at the flagship's scale-x DCN width, C =
-    Cout = 384, radius 3: the backward takes (C-chunk, Cout-chunk) pairs of
-    at most 128 x 128 (3 x 3 here), which add their parts of doffset and
-    dmask in fp64; within the limits of the tests above."""
-    fwd, bwd, plain, grads_plain, fn = BOUNDED[kind]
+    Cout = 384, at radius 3 (the backward's window mode) and 31 (both global
+    modes): the backward takes 24 channel chunks x 6 output-channel chunks,
+    each adding its parts of dx, doffset and dmask in fp64; the forward
+    within ``tol``, each gradient within 1e-4 of max |plain| (fp32 and
+    bf16: the backward is all fp32)."""
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_bwd_launch
+
+    fwd, bwd, plain, _, fn = BOUNDED[kind]
     dt = getattr(torch, dtype)
     shape = (1, 11, 13, 384, 384)
-    x, off, mask, wt = _bounded_inputs(dev, dt, shape, 3)
+    assert window_bwd_launch(radius, 384, 384, dt)["global"] == (radius == 31)
+    x, off, mask, wt = _bounded_inputs(dev, dt, shape, radius)
     got = fn(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
-             wt.permute(3, 2, 0, 1), 3)
+             wt.permute(3, 2, 0, 1), radius)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.permute(0, 2, 3, 1).float(),
-                               plain(x, off, mask, wt, 3).float(), atol=tol, rtol=tol)
+                               plain(x, off, mask, wt, radius).float(), atol=tol, rtol=tol)
     g = torch.randn(*shape[:3], 384, generator=torch.Generator().manual_seed(1)).to(dev, dt)
     got = bwd(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
-              wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), 3)
+              wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), radius)
     torch.cuda.synchronize()
     got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
            got[3].permute(2, 3, 1, 0)]
     assert not got[1].reshape(*shape[:3], 9, 2)[:, :, :, 0::2, 0].any()
-    _assert_grads_close(got, grads_plain(x, off, mask, wt, g, 3), tol)
+    _assert_bwd_close(kind, x, off, mask, wt, g, radius, got)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius", [3, 13, 31, 200])
+def test_bounded_dcn_backward_across_radii(dev, kind, dtype, radius):
+    """K2 / K3 backward through its wrapper at radius 3 (the window mode),
+    13, 31 and 200 (the global mode: the window fits no block), on a 40 x 70
+    map with offsets N(0, (radius / 5)²) past the radius: each gradient
+    within 1e-4 of max |plain|, d offset 0 on the integral axis and beyond
+    the radius, one launch a call."""
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_bwd_launch
+
+    _, bwd, _, _, _ = BOUNDED[kind]
+    dt = getattr(torch, dtype)
+    b, h, w = 2, 40, 70
+    assert window_bwd_launch(radius, 64, 64, dt, b=b, h=h, w=w)["global"] == (radius > 3)
+    x, off, mask, wt = _bounded_inputs(dev, dt, (b, h, w, 64, 64), radius)
+    assert (off.abs() > radius).any()
+    g = torch.randn(b, h, w, 64, generator=torch.Generator().manual_seed(1)).to(dev, dt)
+    launches = bwd.launches
+    got = bwd(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+              wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), radius)
+    torch.cuda.synchronize()
+    assert bwd.launches == launches + 1
+    got = [got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1), got[2].permute(0, 2, 3, 1),
+           got[3].permute(2, 3, 1, 0)]
+    doff = got[1].reshape(b, h, w, 9, 2)
+    assert not doff[:, :, :, 0::2, 0].any()
+    assert not doff[off.reshape(b, h, w, 9, 2).abs() >= radius].any()
+    _assert_bwd_close(kind, x, off, mask, wt, g, radius, got)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("shape,radius", [((4, 40, 40, 64, 64), 3), ((2, 40, 70, 64, 64), 13),
+                                          ((1, 11, 13, 384, 384), 3)])
+def test_bounded_dcn_backward_repeats_bit_for_bit(dev, kind, shape, radius):
+    """Each gradient is summed in fp32 in a fixed order within a block and
+    added into fp64 by atomics (dx first in the block's window), then
+    rounded once: two fp32 backwards give the same bits, in the window mode
+    (radius 3), the global mode (13) and with 24 x 6 chunks (C = Cout =
+    384). The offsets are N(0, 4²) around radius 3, so many coordinates sit
+    near a rounding boundary of the hat."""
+    _, bwd, _, _, _ = BOUNDED[kind]
+    b, h, w, c, cout = shape
+    x, off, mask, wt = _bounded_inputs(dev, torch.float32, shape, radius)
+    g = torch.randn(b, h, w, cout, generator=torch.Generator().manual_seed(3)).to(dev)
+    args = (x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2),
+            wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), radius)
+    first, second = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    for a, e in zip(first, second):
+        assert torch.equal(a, e)
+
+
+def _backward_in_mode(kind, x, off, mask, wt, g, radius, global_):
+    """The backward's C entry with ``window_bwd_launch``'s plan in the window
+    or the global mode: its fp64 sums (dx, doffset, dmask, dweight), NHWC."""
+    from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_bwd_launch
+    from yolo_ad_refine_tpu_torch.utils import kernels
+
+    b, h, w, c = x.shape
+    cout = wt.shape[-1]
+    entry = "dcn_separable_backward" if kind == "mxu" else "dcn_window_backward"
+    plan = window_bwd_launch(radius, c, cout, x.dtype, b=b, h=h, w=w)
+    wk = wt.reshape(9, c, cout).contiguous()
+    f64 = dict(dtype=torch.float64, device=x.device)
+    outs = (torch.zeros((b, h, w, c), **f64), torch.zeros((b, h, w, 18), **f64),
+            torch.zeros((b, h, w, 9), **f64), torch.zeros((9, c, cout), **f64))
+    lib = kernels.load("deform_window")
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    status = fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), g.data_ptr(),
+                *(o.data_ptr() for o in outs), b, h, w, c, cout, radius, plan["groups"],
+                int(plan["vec16"]), int(global_), 0 if x.dtype == torch.float32 else 1,
+                torch.cuda.current_stream().cuda_stream)
+    kernels.check(lib, status, entry)
+    return outs
+
+
+@pytest.mark.parametrize("kind", ["mxu", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,cout", [(3, 64), (64, 64), (40, 136)])
+def test_bounded_dcn_backward_global_mode_equals_window_mode(dev, kind, dtype, c, cout):
+    """The global mode (corners from global memory, dx added there) and the
+    window mode (dx summed in the block's fp64 window first) add the same
+    fp32 terms: their fp64 sums agree to within fp64 rounding (1e-12 of max
+    |sum|), at radius 3 on a 13 x 21 map whose samples leave it."""
+    dt = getattr(torch, dtype)
+    x, off, mask, wt = _bounded_inputs(dev, dt, (2, 13, 21, c, cout), 3)
+    g = torch.randn(2, 13, 21, cout, generator=torch.Generator().manual_seed(2)).to(dev, dt)
+    window = _backward_in_mode(kind, x, off, mask, wt, g, 3, False)
+    glob = _backward_in_mode(kind, x, off, mask, wt, g, 3, True)
+    torch.cuda.synchronize()
+    for name, a, e in zip(("dx", "doffset", "dmask", "dweight"), window, glob):
+        assert (a - e).abs().max() <= 1e-12 * e.abs().max(), name
 
 
 @pytest.mark.parametrize("kind", ["mxu", "pallas"])
@@ -481,15 +643,19 @@ def test_bounded_dcn_on_cuda_runs_both_kernels(dev, kind):
         assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
 
 
-def test_bounded_dcn_raises_beyond_shared_memory(dev):
-    """The backward stages its window in shared memory at every radius and
-    raises where it does not fit; the forward takes its global mode there
-    (``test_bounded_dcn_forward_past_the_window``)."""
-    x, off, mask, wt = _dcn(dev, torch.float32, 1, 8, 8, 64, 64)
-    g = torch.randn(1, 64, 8, 8, device=dev).contiguous(memory_format=torch.channels_last)
-    with pytest.raises(ValueError, match="shared memory"):
-        dcn_window_backward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
-                            mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), g, 200)
+def test_bounded_dcn_backward_at_radius_200(dev):
+    """Where no window fits a block the backward takes its global mode (as
+    the forward does) and matches its plain version: K3 at radius 200, fp32,
+    offsets N(0, 40²), each gradient within 1e-4 of max |plain|."""
+    x, off, mask, wt = _bounded_inputs(dev, torch.float32, (1, 8, 8, 64, 64), 200)
+    g = torch.randn(1, 8, 8, 64, generator=torch.Generator().manual_seed(1)).to(dev)
+    got = dcn_window_backward(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                              mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1),
+                              g.permute(0, 3, 1, 2), 200)
+    torch.cuda.synchronize()
+    _assert_grads_close([got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
+                         got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)],
+                        deform_conv2d_pallas_grads_plain(x, off, mask, wt, g, 200), 1e-4)
 
 
 def test_dcn_on_cuda_has_grad_fn_and_launches_backward(dev):

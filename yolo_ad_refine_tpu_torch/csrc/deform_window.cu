@@ -83,23 +83,52 @@
 // 64-channel blocks. Nothing else changes, so at one chunk width the
 // outputs equal the window mode's bit for bit.
 //
-// Backward: a block owns one tap and one (C-chunk, Cout-chunk) pair of at
-// most 128 x 128 (grid.z; a single pair up to 128 channels) and walks many
-// 8 x 8 tiles; per tile it forms its pair's part of gs = g . W_t^T in the kernel,
-// accumulates per pixel the four corner dot products gs . x_corner over the
-// window chunks (a warp per pixel, reduced by shuffles), scatters dx with
-// fp64 atomics and keeps its dW_t chunk in shared memory, added into the
-// fp64 dW with atomics at the end. doffset and dmask add each pair's
-// partial into fp64 sums. dx, dW, doffset and dmask are rounded once, by
-// the wrapper: with a single pair doffset and dmask take one add each and
-// equal the fp32 sums exactly; with several (C or Cout above 128) they
-// repeat from run to run like dx.
+// Backward (tensor cores). A block owns BCC = 16 channels and BNO = 64
+// output channels (grid.y, grid.z: the channel and output-channel chunks)
+// and walks a group of 8 x 16 tiles (grid.x, 512 threads), all 9 taps a
+// tile. Per tile it stages the tile's g (128 pixels x its 64 output
+// channels) and its 16-channel window chunk, tabulates the 9 taps'
+// geometry, and lists for each window position the (tap, pixel, corner)
+// samples that reach it with a nonzero weight (counts, a prefix sum,
+// placement by shared int atomics); then per tap, with one barrier a tap:
+// - gs = g . W_t^T (128 x 16, k = the 64 output channels) on mma.sync, the
+//   weight slice of the next tap loaded into registers meanwhile;
+// - each thread samples its 2 pixels x 2 channels from the window in the
+//   plain versions' order (x pass, y combine, __fmul_rn / __fadd_rn), writes
+//   m * sample for the dW product and m * gs for dx, and sums gs . x_corner
+//   over its channels (the four corner dot products, reduced across the
+//   quad by shuffles in a fixed order);
+// - after the barrier, dW_t += (m * sample)^T . g (16 x 64, k = the 128
+//   pixels) on mma.sync into registers that hold dW for all 9 taps across
+//   the block's tiles, and doffset and dmask of the tap from the corner
+//   dot products and the hat's derivative.
+// After the ninth tap each (window position, channel) sums its list's
+// terms w_k * (m * gs) in fp64 and adds the sum into the fp64 dx once (only
+// the halo overlaps a neighbour tile's), and the next tile's window chunk
+// is copied in by cp.async meanwhile. Summing by position instead of
+// adding each term at its four corners takes no shared atomics on fp64
+// (a compare-and-swap loop each): the TPU kernel too sums a dx strip in
+// VMEM and writes it once per (tap, row). The products: fp32 by 3xTF32 as
+// the forward's; with bf16 inputs the function stays fp32: gs is one TF32
+// product (g and W are bf16 values, exact in TF32), dW_t is 2xTF32 (the fp32
+// sample split into two TF32 parts against g, exact), and the sample is
+// never rounded to bf16. The sums: each gradient is summed in fp32 in a
+// fixed order within a block, or (dx) in fp64 in the varying order of a
+// position's list, and added into fp64 in global memory with atomics, so
+// only fp64 additions change order between runs, and the wrapper's
+// rounding to fp32 repeats bit for bit but where an fp64 sum lies within
+// its own rounding of an fp32 boundary. Wider layers take more chunks: the
+// sampling and dx repeat for each 64 output channels. Global mode: where
+// the window mode's block does not fit (from radius 4 in fp32, 8 in bf16;
+// the wrapper's window_bwd_launch chooses it), the same kernel reads the
+// corners from x in global memory (L2) and adds each dx term there by an
+// fp64 atomic.
 //
 // What bounds it: the per-tap (C x Cout) products, 2 * 9 * C * Cout flops a
 // pixel forward and twice that backward, against ~0.6 kB (fp32, C = Cout =
-// 64) that a pixel must move forward: operation-bound. The forward's
-// products run on the tensor cores (3xTF32 in fp32: three TF32 products a
-// product); the backward's still on the fp32 cores (later work).
+// 64) that a pixel must move forward: operation-bound, on the tensor cores
+// (3xTF32 in fp32: three TF32 products a product). Beside the products the
+// backward sums 4 * 9 * C dx terms a pixel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,18 +138,17 @@
 namespace {
 
 constexpr int KK = 9;        // taps
-constexpr int TH = 8;        // the backward's output tile rows
-constexpr int TW = 8;        // and columns
-constexpr int TP = TH * TW;  // output pixels per tile
-constexpr int NT = 256;      // the backward's threads per block
 constexpr int MXU_CH = 8;    // rows per chunk of deform_mxu.py (its CH)
-// the forward's block: an 8 x 16 tile of output pixels, 16 warps
+// the forward's and the backward's block: an 8 x 16 tile of output pixels,
+// 16 warps
 constexpr int FTH = 8;
 constexpr int FTW = 16;
 constexpr int FTP = FTH * FTW;
 constexpr int FNT = 512;
-constexpr int BWD_TILE_GROUPS = 64;  // backward blocks per tap (grid.x upper bound)
-constexpr int BWD_CHUNK = 128;       // channels and out channels a backward block takes
+constexpr int BCC = 16;            // channels a backward block takes (two n-tiles of 8)
+constexpr int BNO = 64;            // output channels a backward block takes
+constexpr int GROW = BNO + 8;      // words of a g or weight row (8 mod 32: no bank conflicts)
+constexpr int MROW = BCC + 8;      // words of a sample row (24 = -8 mod 32)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -142,15 +170,6 @@ __device__ __forceinline__ float hat(float u) { return fmaxf(0.f, 1.f - fabsf(u)
 
 __device__ __forceinline__ float dhat(float u) {
   return fabsf(u) < 1.f ? (u > 0.f ? -1.f : (u < 0.f ? 1.f : 0.f)) : 0.f;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // 16 bytes, zero-filled where !valid (gmem is then any mapped address)
@@ -210,11 +229,11 @@ struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
-// One pixel's sample of one tap: the window-local index of its top-left
-// corner, that corner's map coordinates, the hat weights of its two rows and
-// columns and their derivatives, the mask, and the clip gates.
+// One pixel's sample of one tap: its top-left corner's map coordinates,
+// the hat weights of its two rows and columns and their derivatives, the
+// mask, and the clip gates.
 struct Geo {
-  int pos, y0, x0;
+  int y0, x0;
   float wy[2], wx[2], dwy[2], dwx[2];
   float m, gy, gx;
 };
@@ -222,14 +241,6 @@ struct Geo {
 struct Tile {
   int b, y0, x0;
 };
-
-__device__ __forceinline__ Tile tile_of(int tile, int H, int W) {
-  const int tx = (W + TW - 1) / TW;
-  const int ty = (H + TH - 1) / TH;
-  const int b = tile / (tx * ty);
-  const int rem = tile % (tx * ty);
-  return {b, (rem / tx) * TH, (rem % tx) * TW};
-}
 
 __device__ __forceinline__ Tile fwd_tile(int tile, int H, int W) {
   const int tx = (W + FTW - 1) / FTW;
@@ -245,7 +256,6 @@ template <bool SEP>
 __device__ Geo tap_geometry(const float* __restrict__ offset, const float* __restrict__ mask,
                             const Tile& tl, int y, int x, int t, int H, int W, int r) {
   const int s = r + 2;
-  const int WW = TW + 2 * s;
   const size_t p = ((size_t)tl.b * H + y) * W + x;
   float oy = offset[p * 18 + 2 * t];
   float ox = offset[p * 18 + 2 * t + 1];
@@ -287,7 +297,6 @@ __device__ Geo tap_geometry(const float* __restrict__ offset, const float* __res
     g.dwy[k] = dhat(uy[k]);
     g.dwx[k] = dhat(ux[k]);
   }
-  g.pos = (g.y0 - (tl.y0 - s)) * WW + (g.x0 - (tl.x0 - s));
   g.m = mask[p * KK + t];
   return g;
 }
@@ -295,57 +304,14 @@ __device__ Geo tap_geometry(const float* __restrict__ offset, const float* __res
 // A pixel of the tile that lies outside the map samples nothing.
 __device__ __forceinline__ Geo empty_geometry() {
   Geo g;
-  g.pos = g.y0 = g.x0 = 0;
+  g.y0 = g.x0 = 0;
 #pragma unroll
   for (int k = 0; k < 2; ++k) g.wy[k] = g.wx[k] = g.dwy[k] = g.dwx[k] = 0.f;
   g.m = g.gy = g.gx = 0.f;
   return g;
 }
 
-// Stage channels [c0, c0 + cc) of the tile's window (tile plus a halo of s,
-// zero outside the map) into s_x as [position][channel]. vec16: the rows of
-// x are 16-byte aligned and cc * sizeof(T) is a multiple of 16, so each
-// 16-byte piece is one cp.async. Ends with a barrier.
-template <typename T>
-__device__ void stage_window(T* s_x, const T* __restrict__ x, const Tile& tl, int H, int W,
-                             int C, int c0, int cc, int s, bool vec16) {
-  const int WW = TW + 2 * s;
-  const int npos = (TH + 2 * s) * WW;
-  if (vec16) {
-    constexpr int E = 16 / sizeof(T);
-    const int pieces = cc / E;
-    for (int i = threadIdx.x; i < npos * pieces; i += blockDim.x) {
-      const int q = i / pieces;
-      const int c = c0 + (i % pieces) * E;
-      const int yy = tl.y0 - s + q / WW;
-      const int xx = tl.x0 - s + q % WW;
-      T* dst = s_x + (size_t)q * cc + (c - c0);
-      if (yy >= 0 && yy < H && xx >= 0 && xx < W && c < C)
-        cp_async16(dst, x + (((size_t)tl.b * H + yy) * W + xx) * C + c);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-    cp_async_wait_all();
-  } else {
-    for (int i = threadIdx.x; i < npos * cc; i += blockDim.x) {
-      const int q = i / cc;
-      const int c = c0 + i % cc;
-      const int yy = tl.y0 - s + q / WW;
-      const int xx = tl.x0 - s + q % WW;
-      s_x[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W && c < C)
-                   ? x[(((size_t)tl.b * H + yy) * W + xx) * C + c]
-                   : from_f<T>(0.f);
-    }
-  }
-  __syncthreads();
-}
-
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-__host__ __device__ __forceinline__ size_t window_bytes(int r, int cc, int itemsize) {
-  const int s = r + 2;
-  return align16((size_t)(TH + 2 * s) * (TW + 2 * s) * cc * itemsize);
-}
 
 // The forward's shared memory, in 32-bit words: two window chunk buffers
 // (none in the global mode), two sample tiles (A), two weight tiles (B;
@@ -383,28 +349,37 @@ size_t fwd_smem(int r, int cc, int nb, bool bf, bool sep, bool gl) {
   return 4 * FwdLayout(r, cc, nb, bf, sep, gl).words();
 }
 
-size_t bwd_smem(int r, int C, int Cout, int cc, int itemsize) {
-  C = C < BWD_CHUNK ? C : BWD_CHUNK;  // a block's chunk pair
-  Cout = Cout < BWD_CHUNK ? Cout : BWD_CHUNK;
-  return window_bytes(r, cc, itemsize) +
-         sizeof(float) * ((size_t)C * (Cout + 1) + (size_t)C * Cout + (size_t)TP * Cout +
-                          2 * (size_t)TP * cc + 4 * (size_t)TP) +
-         sizeof(Geo) * TP;
-}
-
-// The bilinear sample of one channel from the window, in the plain
-// versions' order: the x pass over the two rows, then the y combine.
-template <typename T>
-__device__ __forceinline__ float sample(const T* s_x, const Geo& g, float wx0, float wx1, int c,
-                                        int cc, int WW, float* xv) {
-  xv[0] = to_f(s_x[(size_t)g.pos * cc + c]);
-  xv[1] = to_f(s_x[(size_t)(g.pos + 1) * cc + c]);
-  xv[2] = to_f(s_x[(size_t)(g.pos + WW) * cc + c]);
-  xv[3] = to_f(s_x[(size_t)(g.pos + WW + 1) * cc + c]);
-  const float row0 = __fadd_rn(__fmul_rn(wx0, xv[0]), __fmul_rn(wx1, xv[1]));
-  const float row1 = __fadd_rn(__fmul_rn(wx0, xv[2]), __fmul_rn(wx1, xv[3]));
-  return __fadd_rn(__fmul_rn(g.wy[0], row0), __fmul_rn(g.wy[1], row1));
-}
+// The backward's shared memory, in bytes from its start: in the window
+// mode the x window chunk, m * gs of the 9 taps' samples (fp32, the dx
+// terms' factor), and the window positions' lists of the (tap, pixel,
+// corner) samples that reach them (starts, counts, the 16-bit entries);
+// then two weight tiles (rows = channels), the g tile, two sample tiles,
+// two corner-dot tiles (one per channel half) and the geometry of the 9
+// taps (7 words an entry; 8 in the global mode, whose corner is a map row
+// and column). ops/deform_pallas.py window_bwd_smem computes the same.
+struct BwdLayout {
+  int ww, wh, npos;
+  size_t gsm, bstart, bcnt, blist, w, g, ms, cg, gw, gp, gm, gd, bytes;
+  __host__ __device__ BwdLayout(int r, int itemsize, bool gl) {
+    const int s = r + 2;
+    ww = FTW + 2 * s;
+    wh = FTH + 2 * s;
+    npos = ww * wh;
+    gsm = gl ? 0 : align16((size_t)npos * BCC * itemsize);
+    bstart = gsm + (gl ? 0 : 4 * (size_t)KK * FTP * BCC);
+    bcnt = bstart + (gl ? 0 : align16(4 * ((size_t)npos + 1)));
+    blist = bcnt + (gl ? 0 : align16(4 * (size_t)npos));
+    w = blist + (gl ? 0 : 2 * (size_t)KK * FTP * 4);
+    g = w + 4 * (size_t)2 * BCC * GROW;
+    ms = g + 4 * (size_t)FTP * GROW;
+    cg = ms + 4 * (size_t)2 * FTP * MROW;
+    gw = cg + 4 * (size_t)2 * 2 * FTP * 4;
+    gp = gw + 16 * (size_t)KK * FTP;
+    gm = gp + 4 * (size_t)KK * FTP * (gl ? 2 : 1);
+    gd = gm + 4 * (size_t)KK * FTP;
+    bytes = gd + 4 * (size_t)KK * FTP;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Forward on the tensor cores (see the design note at the top). grid (tiles,
@@ -667,9 +642,8 @@ __device__ __forceinline__ void fwd_body(const T* __restrict__ x, const float* _
       wx1 = round_bf16(wx1);
     }
     s_gw[i] = make_float4(wx0, wx1, gg.wy[0], gg.wy[1]);
-    // the top-left corner in this block's window (tap_geometry's pos is the
-    // backward's, of an 8 x 8 tile); GL: in the map, and for a pixel past
-    // the map one whose four corners lie outside it
+    // the top-left corner in this block's window; GL: in the map, and for
+    // a pixel past the map one whose four corners lie outside it
     if constexpr (GL)
       reinterpret_cast<int2*>(s_gp)[i] = (y < H && xx < W) ? make_int2(gg.y0, gg.x0)
                                                              : make_int2(-2, -2);
@@ -751,195 +725,533 @@ dcn_separable_forward_kernel(const T* __restrict__ x, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// Backward. grid (tile groups, 9 taps, chunk pairs), NT threads. dx
-// (B, H, W, C), dweight (9, C, Cout), doffset and dmask are fp64 sums the
-// caller zeroes.
+// Backward on the tensor cores (see the design note at the top). grid (tile
+// groups, ceil(C / BCC), ceil(Cout / BNO)), FNT threads. weight is
+// (9, C, Cout) in the working type; dx (B, H, W, C), dweight (9, C, Cout),
+// doffset and dmask are fp64 sums the caller zeroes. vec16: x and g allow
+// 16-byte loads (C and Cout times the item size multiples of 16, both
+// pointers 16-byte aligned). GL: the global mode, for a radius whose window
+// does not fit (window_bwd_launch chooses it): no window, the corners read
+// from x in global memory and dx added there, the rest as the window mode.
+// The cut copies of engine/profile_dcn.py (WINDOW_TREE_SPLITS) edit the
+// lines marked "split:".
 
-template <typename T, bool SEP>
-__device__ __forceinline__ void bwd_body(unsigned char* smem, const T* __restrict__ x,
-                                         const float* __restrict__ offset,
+// The flags of one (pixel, tap) entry that the doffset and dmask step reads:
+// the hat derivatives of the two rows and the two columns (2 bits each: 1
+// for +1, 2 for -1) and the clip gates of y and x.
+__device__ __forceinline__ int geo_flags(const Geo& g) {
+  auto code = [](float d) { return d > 0.f ? 1 : (d < 0.f ? 2 : 0); };
+  return code(g.dwy[0]) | code(g.dwy[1]) << 2 | code(g.dwx[0]) << 4 | code(g.dwx[1]) << 6 |
+         (g.gy != 0.f) << 8 | (g.gx != 0.f) << 9;
+}
+
+__device__ __forceinline__ float flag_sign(int f, int shift) {
+  const int c = (f >> shift) & 3;
+  return c == 1 ? 1.f : (c == 2 ? -1.f : 0.f);
+}
+
+__device__ __forceinline__ uint32_t fbits(float v) { return __float_as_uint(v); }
+
+template <typename T, bool SEP, bool GL>
+__device__ __forceinline__ void bwd_body(const T* __restrict__ x, const float* __restrict__ offset,
                                          const float* __restrict__ mask,
                                          const T* __restrict__ weight, const T* __restrict__ g,
                                          double* __restrict__ dx, double* __restrict__ doffset,
                                          double* __restrict__ dmask, double* __restrict__ dweight,
-                                         int B, int H, int W, int C, int Cout, int r, int cc,
-                                         bool vec16) {
-  const int s = r + 2;
-  const int WW = TW + 2 * s;
-  // the block's channels cb0 .. cb0 + Cb - 1 and out channels ob0 .. ob0 + Ob - 1
-  const int nob = (Cout + BWD_CHUNK - 1) / BWD_CHUNK;
-  const int cb0 = (int)(blockIdx.z / nob) * BWD_CHUNK;
-  const int ob0 = (int)(blockIdx.z % nob) * BWD_CHUNK;
-  const int Cb = min(BWD_CHUNK, C - cb0);
-  const int Ob = min(BWD_CHUNK, Cout - ob0);
-  T* s_x = reinterpret_cast<T*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + window_bytes(r, cc, sizeof(T)));  // Cb x (Ob+1)
-  float* s_dw = s_w + Cb * (Ob + 1);    // Cb x Ob, this block's dW_t chunk
-  float* s_g = s_dw + Cb * Ob;          // TP x Ob
-  float* s_gs = s_g + TP * Ob;          // TP x cc, g . W_t^T of the chunk
-  float* s_ms = s_gs + TP * cc;         // TP x cc, mask * sample
-  float* s_cg = s_ms + TP * cc;         // TP x 4, gs . x_corner over the chunks so far
-  Geo* s_geo = reinterpret_cast<Geo*>(s_cg + 4 * TP);
+                                         int B, int H, int W, int C, int Cout, int r, bool vec16) {
+  constexpr bool BF = sizeof(T) == 2;
+  const BwdLayout L(r, sizeof(T), GL);
+  extern __shared__ __align__(16) unsigned char bwd_smem_bytes[];
+  T* s_x = reinterpret_cast<T*>(bwd_smem_bytes);                     // [npos][BCC] x window
+  float* s_gsm = reinterpret_cast<float*>(bwd_smem_bytes + L.gsm);   // [KK][FTP][BCC] m * gs
+  int* s_bstart = reinterpret_cast<int*>(bwd_smem_bytes + L.bstart); // [npos + 1] list starts
+  int* s_bcnt = reinterpret_cast<int*>(bwd_smem_bytes + L.bcnt);     // [npos] counts, cursors
+  unsigned short* s_blist =
+      reinterpret_cast<unsigned short*>(bwd_smem_bytes + L.blist);   // (t * FTP + p) * 4 + k
+  float* s_w = reinterpret_cast<float*>(bwd_smem_bytes + L.w);       // [2][BCC][GROW] W_t rows
+  float* s_g = reinterpret_cast<float*>(bwd_smem_bytes + L.g);       // [FTP][GROW] g of the tile
+  float* s_ms = reinterpret_cast<float*>(bwd_smem_bytes + L.ms);     // [2][FTP][MROW] m sample
+  float* s_cg = reinterpret_cast<float*>(bwd_smem_bytes + L.cg);     // [2][2][FTP][4] corner dots
+  float4* s_gw = reinterpret_cast<float4*>(bwd_smem_bytes + L.gw);   // [KK][FTP] wx0 wx1 wy0 wy1
+  int* s_gp = reinterpret_cast<int*>(bwd_smem_bytes + L.gp);         // [KK][FTP] corner (int2: GL)
+  float* s_gm = reinterpret_cast<float*>(bwd_smem_bytes + L.gm);     // [KK][FTP] mask
+  int* s_gd = reinterpret_cast<int*>(bwd_smem_bytes + L.gd);         // [KK][FTP] geo_flags
 
-  const int t = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ntiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tg = lane & 3;
+  const int c0 = blockIdx.y * BCC, o0 = blockIdx.z * BNO;
+  const int no = min(BNO, Cout - o0);
+  const int kgs = (no + 7) & ~7;  // k of the gs product: the block's out channels, padded to 8
+  const int s = r + 2;
+  const int ntiles = B * ((H + FTH - 1) / FTH) * ((W + FTW - 1) / FTW);
+  // gs: the warp's 16 pixels (a tile row) x 8 channels; ch: this thread's two
+  const int am0 = (warp & 7) * 16, an0 = (warp >> 3) * 8;
+  const int ch = an0 + 2 * tg;
+  // dW_t: the warp's 8 output channels x half of the tile's pixels
+  const int dn0 = (warp & 7) * 8, dk0 = (warp >> 3) * (FTP / 2);
+  const bool dlive = dn0 < no;
 
-  for (int i = tid; i < Cb * Ob; i += NT) {
-    s_w[(i / Ob) * (Ob + 1) + i % Ob] =
-        to_f(weight[((size_t)t * C + cb0 + i / Ob) * Cout + ob0 + i % Ob]);
-    s_dw[i] = 0.f;
-  }
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const Tile tl = tile_of(tile, H, W);
-    __syncthreads();  // the previous tile's readers of s_g, s_geo and s_cg are done
-    for (int i = tid; i < TP * Ob; i += NT) {
-      const int p = i / Ob;
-      const int y = tl.y0 + p / TW;
-      const int xx = tl.x0 + p % TW;
-      s_g[i] = (y < H && xx < W)
-                   ? to_f(g[(((size_t)tl.b * H + y) * W + xx) * Cout + ob0 + i % Ob])
-                   : 0.f;
-    }
-    if (tid < TP) {
-      const int y = tl.y0 + tid / TW;
-      const int xx = tl.x0 + tid % TW;
-      s_geo[tid] = (y < H && xx < W) ? tap_geometry<SEP>(offset, mask, tl, y, xx, t, H, W, r)
-                                     : empty_geometry();
-#pragma unroll
-      for (int k = 0; k < 4; ++k) s_cg[tid * 4 + k] = 0.f;
-    }
-    // window chunks of cc channels (a power of two of at most 64, so none
-    // straddles two blocks' chunks)
-    for (int c0 = cb0; c0 < cb0 + Cb; c0 += cc) {
-      stage_window(s_x, x, tl, H, W, C, c0, cc, s, vec16);  // ends with a barrier
-      // the block's part of gs = g . W_t^T for the chunk's channels
-      for (int i = tid; i < TP * cc; i += NT) {
-        const int c = c0 + i % cc;
-        float acc = 0.f;
-        if (c < C) {
-          const float* gr = s_g + (i / cc) * Ob;
-          const float* wr = s_w + (c - cb0) * (Ob + 1);
-          for (int o = 0; o < Ob; ++o) acc = fmaf(gr[o], wr[o], acc);
-        }
-        s_gs[i] = acc;
+  // the window chunk of tile tl into s_x, zero outside the map and past C:
+  // cp.async (one commit group) or plain loads and stores
+  auto stage = [&](const Tile& tl) {
+    if constexpr (GL) return;
+    if (vec16) {
+      constexpr int E = 16 / (int)sizeof(T);  // elements a copy takes
+      constexpr int PP = BCC / E;             // copies a position
+      for (int i = tid; i < L.npos * PP; i += FNT) {
+        const int q = i / PP, c = c0 + (i % PP) * E;
+        const int yy = tl.y0 - s + q / L.ww, xx = tl.x0 - s + q % L.ww;
+        const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+        const T* src = x + (((size_t)tl.b * H + yy) * W + xx) * C + c;
+        cp_async16z(s_x + (size_t)q * BCC + (c - c0), valid ? src : x, valid);
       }
-      __syncthreads();
+      cp_async_commit();
+    } else {
+      for (int i = tid; i < L.npos * BCC; i += FNT) {
+        const int q = i / BCC, c = c0 + i % BCC;
+        const int yy = tl.y0 - s + q / L.ww, xx = tl.x0 - s + q % L.ww;
+        const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+        s_x[i] = valid ? x[(((size_t)tl.b * H + yy) * W + xx) * C + c] : from_f<T>(0.f);
+      }
+    }
+  };
 
-      // a warp per pixel, lanes over the chunk's channels
-      for (int pi = warp; pi < TP; pi += NT / 32) {
-        const int y = tl.y0 + pi / TW;
-        const int xx = tl.x0 + pi % TW;
-        if (y >= H || xx >= W) {
-          for (int c = lane; c < cc; c += 32) s_ms[pi * cc + c] = 0.f;
-          continue;
-        }
-        const Geo gg = s_geo[pi];
-        float cg[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int c = lane; c < cc; c += 32) {
-          const float gsv = s_gs[pi * cc + c];
-          float xv[4];
-          const float samp = sample(s_x, gg, gg.wx[0], gg.wx[1], c, cc, WW, xv);
-          s_ms[pi * cc + c] = samp * gg.m;
+  // per window position q, the list of the samples (tap t, pixel p, corner
+  // k) whose corner k lands on q with a nonzero weight: counted while the
+  // geometry is tabulated, starts by a prefix sum (one warp), then placed
+  // (shared int atomics: the order within a list varies from run to run)
+  auto corner_pos = [&](int q, int k) { return q + (k >> 1) * L.ww + (k & 1); };
+  auto wk_of = [](const float4& gw, int k) {  // w_k = wy[k >> 1] * wx[k & 1]
+    return __fmul_rn(k < 2 ? gw.z : gw.w, (k & 1) ? gw.y : gw.x);
+  };
+  auto scan = [&]() {
+    if (warp != 0) return;
+    const int per = (L.npos + 31) / 32, q0 = lane * per;
+    int sum = 0;
+    for (int i = 0; i < per; ++i)
+      if (q0 + i < L.npos) sum += s_bcnt[q0 + i];
+    int incl = sum;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) cg[k] = fmaf(gsv, xv[k], cg[k]);
-          if (c0 + c >= C) continue;
-          const float gsm = gsv * gg.m;
+    for (int sh = 1; sh < 32; sh <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, sh);
+      if (lane >= sh) incl += v;
+    }
+    int run = incl - sum;
+    for (int i = 0; i < per; ++i) {
+      if (q0 + i >= L.npos) break;
+      const int n = s_bcnt[q0 + i];
+      s_bstart[q0 + i] = s_bcnt[q0 + i] = run;
+      run += n;
+    }
+    if (lane == 31) s_bstart[L.npos] = incl;
+  };
+  auto place = [&]() {
+    for (int i = tid; i < KK * FTP; i += FNT) {
+      const float4 gw = s_gw[i];
+      const int q = s_gp[i];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int yy = gg.y0 + (k >> 1);
-            const int xc = gg.x0 + (k & 1);
-            const float wk = gg.wy[k >> 1] * gg.wx[k & 1];
-            if (yy >= 0 && yy < H && xc >= 0 && xc < W && wk != 0.f)
-              atomicAdd(dx + (((size_t)tl.b * H + yy) * W + xc) * C + c0 + c,
-                        (double)(wk * gsm));
+      for (int k = 0; k < 4; ++k)
+        if (wk_of(gw, k) != 0.f)
+          s_blist[atomicAdd(s_bcnt + corner_pos(q, k), 1)] = (unsigned short)(i * 4 + k);
+    }
+  };
+
+  // dx of the tile's window: per position and channel the fp64 sum of its
+  // list's terms w_k * (m * gs), added into the fp64 dx (the values past
+  // the map or C dropped); a thread takes 4 channels of a position, so that
+  // each list entry feeds 4 independent sums. The counts back to zero for
+  // the next tile
+  auto gather = [&](const Tile& tl) {
+    for (int i = tid; i < L.npos * (BCC / 4); i += FNT) {
+      const int q = i / (BCC / 4), c = (i % (BCC / 4)) * 4;
+      double acc[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 2
+      for (int e = s_bstart[q], e1 = s_bstart[q + 1]; e < e1; ++e) {  // split: gather
+        const int id = s_blist[e];
+        const float wk = wk_of(s_gw[id >> 2], id & 3);
+        const float4 v = *reinterpret_cast<const float4*>(s_gsm + (id >> 2) * BCC + c);
+        acc[0] += (double)__fmul_rn(wk, v.x);
+        acc[1] += (double)__fmul_rn(wk, v.y);
+        acc[2] += (double)__fmul_rn(wk, v.z);
+        acc[3] += (double)__fmul_rn(wk, v.w);
+      }
+      if (c == 0) s_bcnt[q] = 0;
+      const int yy = tl.y0 - s + q / L.ww, xx = tl.x0 - s + q % L.ww;
+      if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
+      double* d = dx + (((size_t)tl.b * H + yy) * W + xx) * C + c0 + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (acc[j] == 0.0) continue;  // split: gather zeros
+        if (c0 + c + j < C) atomicAdd(d + j, acc[j]);  // split: store
+      }
+    }
+  };
+
+  // two elements of row c of W_t^T (the block's 16 x 64 slice of tap t):
+  // loaded a tap ahead into registers, stored into weight tile buf
+  auto load_w = [&](int t, float (&w)[2]) {
+    const int c = c0 + (tid >> 5), o = (tid & 31) * 2;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      w[e] = (c < C && o + e < no) ? to_f(weight[((size_t)t * C + c) * Cout + o0 + o + e]) : 0.f;
+  };
+  auto store_w = [&](const float (&w)[2], int buf) {
+    *reinterpret_cast<float2*>(s_w + (buf * BCC + (tid >> 5)) * GROW + (tid & 31) * 2) =
+        make_float2(w[0], w[1]);
+  };
+
+  // 16 output channels of one pixel of the tile's g, as fp32
+  auto load_g = [&](const Tile& tl, float (&v)[16]) {
+    const int p = tid >> 2, ob = (tid & 3) * 16;
+    const int y = tl.y0 + p / FTW, xx = tl.x0 + p % FTW;
+    const bool in = y < H && xx < W;
+    const T* src = g + (((size_t)tl.b * H + y) * W + xx) * Cout + o0 + ob;
+    if (vec16) {
+      constexpr int E = 16 / (int)sizeof(T);
+#pragma unroll
+      for (int j = 0; j < 16; j += E) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (in && ob + j < no) u = __ldg(reinterpret_cast<const uint4*>(src + j));
+        const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (BF) {
+            v[j + 2 * e] = __uint_as_float(w4[e] << 16);
+            v[j + 2 * e + 1] = __uint_as_float(w4[e] & 0xffff0000u);
+          } else {
+            v[j + e] = __uint_as_float(w4[e]);
           }
         }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v[j] = (in && ob + j < no) ? to_f(src[j]) : 0.f;
+    }
+  };
+  auto store_g = [&](const float (&v)[16]) {
+    float* row = s_g + (tid >> 2) * GROW + (tid & 3) * 16;
+#pragma unroll
+    for (int j = 0; j < 16; j += 4)
+      *reinterpret_cast<float4*>(row + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  };
+
+  // the 9 taps' geometry of the tile's 128 pixels
+  auto geometry = [&](const Tile& tl) {
+    for (int i = tid; i < KK * FTP; i += FNT) {
+      const int t = i / FTP, p = i % FTP;
+      const int y = tl.y0 + p / FTW, xx = tl.x0 + p % FTW;
+      const bool in = y < H && xx < W;
+      const Geo gg = in ? tap_geometry<SEP>(offset, mask, tl, y, xx, t, H, W, r)
+                        : empty_geometry();
+      s_gw[i] = make_float4(gg.wx[0], gg.wx[1], gg.wy[0], gg.wy[1]);
+      if constexpr (GL)
+        reinterpret_cast<int2*>(s_gp)[i] = in ? make_int2(gg.y0, gg.x0) : make_int2(-2, -2);
+      else
+        s_gp[i] = in ? (gg.y0 - (tl.y0 - s)) * L.ww + (gg.x0 - (tl.x0 - s)) : 0;
+      s_gm[i] = gg.m;
+      s_gd[i] = geo_flags(gg);
+      if constexpr (!GL) {  // count the samples that reach each window position
+        const float4 gw = s_gw[i];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-#pragma unroll
-          for (int sh = 16; sh > 0; sh >>= 1) cg[k] += __shfl_xor_sync(0xffffffffu, cg[k], sh);
-        if (lane == 0)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) s_cg[pi * 4 + k] += cg[k];
+          if (wk_of(gw, k) != 0.f) atomicAdd(s_bcnt + corner_pos(s_gp[i], k), 1);
       }
-      __syncthreads();
+    }
+  };
 
-      // dW_t += (m sample)^T g for the chunk's channels
-      for (int i = tid; i < cc * Ob; i += NT) {
-        const int c = c0 + i / Ob;
-        if (c >= C) continue;
-        const int o = i % Ob;
-        float acc = s_dw[(c - cb0) * Ob + o];
-        for (int p = 0; p < TP; ++p) acc = fmaf(s_ms[p * cc + i / Ob], s_g[p * Ob + o], acc);
-        s_dw[(c - cb0) * Ob + o] = acc;
-      }
-      __syncthreads();  // s_x, s_gs and s_ms are free for the next chunk
+  // channels ch, ch + 1 of the chunk at a corner: window position q, or
+  // (GL) map row yy, column xx (zero outside the map and past C)
+  auto corner_w = [&](int q) -> float2 {
+    if constexpr (BF)
+      return __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(s_x + (size_t)q * BCC + ch));
+    else
+      return *reinterpret_cast<const float2*>(s_x + (size_t)q * BCC + ch);
+  };
+  auto corner_g = [&](int b, int yy, int xx) -> float2 {
+    float2 v = make_float2(0.f, 0.f);
+    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+      const T* q = x + (((size_t)b * H + yy) * W + xx) * C + c0 + ch;
+      if (c0 + ch < C) v.x = to_f(q[0]);
+      if (c0 + ch + 1 < C) v.y = to_f(q[1]);
+    }
+    return v;
+  };
+
+  float dw[KK][4];  // dW_t of the warp's (16 channels x 8 out channels) over the block's tiles
+#pragma unroll
+  for (int t = 0; t < KK; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dw[t][i] = 0.f;
+
+  if constexpr (!GL) {
+    for (int i = tid; i < L.npos; i += FNT) s_bcnt[i] = 0;
+    if ((int)blockIdx.x < ntiles) stage(fwd_tile(blockIdx.x, H, W));
+    __syncthreads();  // the zeroed counts
+  }
+  {
+    float w0[2];
+    load_w(0, w0);
+    store_w(w0, 0);
+  }
+
+  int par = 0;  // the weight, sample and corner-dot buffer of the tile's tap 0
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const Tile tl = fwd_tile(tile, H, W);
+    const bool last_tile = tile + (int)gridDim.x >= ntiles;
+    {
+      float gv[16];
+      load_g(tl, gv);
+      geometry(tl);
+      store_g(gv);
+    }
+    if constexpr (!GL)
+      if (vec16) cp_async_wait0();
+    __syncthreads();  // window chunk, g, geometry and the counts, W_0
+    if constexpr (!GL) {
+      scan();
+      __syncthreads();
+      place();  // read after the ninth tap's barrier
     }
 
-    // dmask and doffset of the tile's pixels from the hat and its derivative
-    if (tid < TP) {
-      const int y = tl.y0 + tid / TW;
-      const int xx = tl.x0 + tid % TW;
-      if (y < H && xx < W) {
-        const Geo gg = s_geo[tid];
-        const float* cg = s_cg + tid * 4;  // index 2a + b: row a, column b
-        float dm = 0.f, doy = 0.f, dox = 0.f;
-        if (SEP) {  // deform_mxu.py: doffy over the x-passed rows, doffx via dWx per column
-          for (int a = 0; a < 2; ++a) {
-            const float u = gg.wx[0] * cg[2 * a] + gg.wx[1] * cg[2 * a + 1];
-            doy += gg.dwy[a] * u;
-            dm += gg.wy[a] * u;
-          }
-          for (int bx = 0; bx < 2; ++bx)
-            dox += gg.dwx[bx] * (gg.wy[0] * cg[bx] + gg.wy[1] * cg[2 + bx]);
-        } else {  // deform_pallas.py: both over the four window terms
-          for (int k = 0; k < 4; ++k) {
-            const int a = k >> 1, bx = k & 1;
-            dm += gg.wy[a] * gg.wx[bx] * cg[k];
-            doy += gg.dwy[a] * gg.wx[bx] * cg[k];
-            dox += gg.wy[a] * gg.dwx[bx] * cg[k];
+#pragma unroll
+    for (int t = 0; t < KK; ++t) {
+      const int buf = (par + t) & 1;
+      float wn[2];
+      const bool more = t + 1 < KK || !last_tile;
+      if (more) load_w((t + 1) % KK, wn);
+
+      // gs = g . W_t^T: rows am0 + gq (+8), columns ch, ch + 1. k runs over
+      // the out channels in an order of its own (logical k tg and tg + 4 at
+      // 2 tg and 2 tg + 1), the same for both operands, so that each
+      // fragment is one 8-byte load
+      float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc2[4] = {0.f, 0.f, 0.f, 0.f};
+      {
+        const float* ga = s_g + (am0 + gq) * GROW + 2 * tg;
+        const float* wb = s_w + (buf * BCC + an0 + gq) * GROW + 2 * tg;
+        for (int k = 0; k < kgs; k += 8) {  // split: products
+          const float2 a01 = *reinterpret_cast<const float2*>(ga + k);
+          const float2 a23 = *reinterpret_cast<const float2*>(ga + 8 * GROW + k);
+          const float2 bb = *reinterpret_cast<const float2*>(wb + k);
+          const uint32_t a[4] = {fbits(a01.x), fbits(a23.x), fbits(a01.y), fbits(a23.y)};
+          if constexpr (BF) {  // bf16 values: exact in TF32
+            mma_tf32(acc, a, fbits(bb.x), fbits(bb.y));
+          } else {
+            uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+            split_tf32(fbits(bb.x), bh0, bl0);
+            split_tf32(fbits(bb.y), bh1, bl1);
+            mma_tf32(acc2, al, bh0, bh1);
+            mma_tf32(acc2, ah, bl0, bl1);
+            mma_tf32(acc, ah, bh0, bh1);
           }
         }
-        const size_t p = ((size_t)tl.b * H + y) * W + xx;
-        atomicAdd(dmask + p * KK + t, (double)dm);
-        atomicAdd(doffset + p * 18 + 2 * t, (double)(gg.gy * (gg.m * doy)));
-        atomicAdd(doffset + p * 18 + 2 * t + 1, (double)(gg.gx * (gg.m * dox)));
+      }
+
+      // sampling, corner dots and the dx terms for pixels am0 + gq + 8 h
+      float cg[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // split: sampling
+        const int p = am0 + gq + 8 * h;
+        const int e0 = t * FTP + p;
+        const float4 gw = s_gw[e0];
+        const float m = s_gm[e0];
+        float2 v[4];
+        int q = 0, yy = 0, xx = 0;
+        if constexpr (GL) {
+          const int2 yx = reinterpret_cast<const int2*>(s_gp)[e0];
+          yy = yx.x, xx = yx.y;
+          v[0] = corner_g(tl.b, yy, xx);
+          v[1] = corner_g(tl.b, yy, xx + 1);
+          v[2] = corner_g(tl.b, yy + 1, xx);
+          v[3] = corner_g(tl.b, yy + 1, xx + 1);
+        } else {
+          q = s_gp[e0];
+          v[0] = corner_w(q);
+          v[1] = corner_w(q + 1);
+          v[2] = corner_w(q + L.ww);
+          v[3] = corner_w(q + L.ww + 1);
+        }
+        const float gs[2] = {acc[2 * h] + acc2[2 * h], acc[2 * h + 1] + acc2[2 * h + 1]};
+        const float vx[4][2] = {{v[0].x, v[0].y}, {v[1].x, v[1].y}, {v[2].x, v[2].y},
+                                {v[3].x, v[3].y}};
+        float ms[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float row0 = __fadd_rn(__fmul_rn(gw.x, vx[0][e]), __fmul_rn(gw.y, vx[1][e]));
+          const float row1 = __fadd_rn(__fmul_rn(gw.x, vx[2][e]), __fmul_rn(gw.y, vx[3][e]));
+          ms[e] = __fmul_rn(__fadd_rn(__fmul_rn(gw.z, row0), __fmul_rn(gw.w, row1)), m);
+        }
+        *reinterpret_cast<float2*>(s_ms + (buf * FTP + p) * MROW + ch) = make_float2(ms[0], ms[1]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cg[4 * h + k] = fmaf(gs[1], vx[k][1], gs[0] * vx[k][0]);
+        const float gsm[2] = {__fmul_rn(gs[0], m), __fmul_rn(gs[1], m)};
+        if constexpr (GL) {  // dx: each term added into the fp64 dx
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float wk = wk_of(gw, k);
+            const int cy = yy + (k >> 1), cx = xx + (k & 1);
+            if (wk == 0.f || cy < 0 || cy >= H || cx < 0 || cx >= W) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (c0 + ch + e < C)
+                atomicAdd(dx + (((size_t)tl.b * H + cy) * W + cx) * C + c0 + ch + e,
+                          (double)__fmul_rn(wk, gsm[e]));
+          }
+        } else {  // dx: the factor m * gs, summed per window position after the ninth tap
+          *reinterpret_cast<float2*>(s_gsm + (size_t)e0 * BCC + ch) = make_float2(gsm[0], gsm[1]);
+        }
+      }
+      // the quad's corner dots, reduced in a fixed order: lane tg keeps
+      // pixel am0 + gq + 8 (tg >> 1), corners 2 (tg & 1) and 2 (tg & 1) + 1
+      {
+        const int hb = tg >> 1, kb = tg & 1;
+        float r1[4], r2[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float other = __shfl_xor_sync(0xffffffffu, hb ? cg[i] : cg[4 + i], 2);
+          r1[i] = (hb ? cg[4 + i] : cg[i]) + other;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float other = __shfl_xor_sync(0xffffffffu, kb ? r1[i] : r1[2 + i], 1);
+          r2[i] = (kb ? r1[2 + i] : r1[i]) + other;
+        }
+        *reinterpret_cast<float2*>(
+            s_cg + ((buf * 2 + (warp >> 3)) * FTP + am0 + gq + 8 * hb) * 4 + 2 * kb) =
+            make_float2(r2[0], r2[1]);
+      }
+      if (more) store_w(wn, buf ^ 1);
+      __syncthreads();  // the tap's samples, corner dots and dx; the next tap's weight
+
+      // dW_t += (m sample)^T g: rows (channels) gq, gq + 8, columns (out
+      // channels) dn0 + 2 tg, + 1, k over the warp's 64 pixels
+      if (dlive) {  // split: products
+        const float* ma = s_ms + (buf * FTP + dk0 + tg) * MROW + gq;
+        const float* gb = s_g + (dk0 + tg) * GROW + dn0 + gq;
+#pragma unroll 4
+        for (int k = 0; k < FTP / 2; k += 8) {
+          const uint32_t a[4] = {fbits(ma[k * MROW]), fbits(ma[k * MROW + 8]),
+                                 fbits(ma[(k + 4) * MROW]), fbits(ma[(k + 4) * MROW + 8])};
+          const uint32_t b0 = fbits(gb[k * GROW]), b1 = fbits(gb[(k + 4) * GROW]);
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+          if constexpr (BF) {  // g exact in TF32: 2xTF32
+            mma_tf32(dw[t], al, b0, b1);
+            mma_tf32(dw[t], ah, b0, b1);
+          } else {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(b0, bh0, bl0);
+            split_tf32(b1, bh1, bl1);
+            mma_tf32(dw[t], al, bh0, bh1);
+            mma_tf32(dw[t], ah, bl0, bl1);
+            mma_tf32(dw[t], ah, bh0, bh1);
+          }
+        }
+      }
+
+      // dmask and doffset of the tap from the corner dots (index 2a + b:
+      // row a, column b) and the hat's derivative: a lane in four, so that
+      // every warp takes 8 pixels
+      if ((tid & 3) == 0) {
+        const int p = tid >> 2;
+        const int y = tl.y0 + p / FTW, xx = tl.x0 + p % FTW;
+        if (y < H && xx < W) {
+          const int e0 = t * FTP + p;
+          const float4 gw = s_gw[e0];
+          const float m = s_gm[e0];
+          const int f = s_gd[e0];
+          const float wx[2] = {gw.x, gw.y}, wy[2] = {gw.z, gw.w};
+          const float dwy[2] = {flag_sign(f, 0), flag_sign(f, 2)};
+          const float dwx[2] = {flag_sign(f, 4), flag_sign(f, 6)};
+          const float* cp0 = s_cg + ((buf * 2) * FTP + p) * 4;
+          const float* cp1 = s_cg + ((buf * 2 + 1) * FTP + p) * 4;
+          float cgv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) cgv[k] = cp0[k] + cp1[k];
+          float dm = 0.f, doy = 0.f, dox = 0.f;
+          if (SEP) {  // deform_mxu.py: doffy over the x-passed rows, doffx via dWx per column
+#pragma unroll
+            for (int a = 0; a < 2; ++a) {
+              const float u = wx[0] * cgv[2 * a] + wx[1] * cgv[2 * a + 1];
+              doy += dwy[a] * u;
+              dm += wy[a] * u;
+            }
+#pragma unroll
+            for (int bx = 0; bx < 2; ++bx) dox += dwx[bx] * (wy[0] * cgv[bx] + wy[1] * cgv[2 + bx]);
+          } else {  // deform_pallas.py: both over the four window terms
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int a = k >> 1, bx = k & 1;
+              dm += wy[a] * wx[bx] * cgv[k];
+              doy += dwy[a] * wx[bx] * cgv[k];
+              dox += wy[a] * dwx[bx] * cgv[k];
+            }
+          }
+          const size_t pg = ((size_t)tl.b * H + y) * W + xx;
+          const float ody = (f >> 8 & 1) ? m * doy : 0.f;
+          const float odx = (f >> 9 & 1) ? m * dox : 0.f;
+          if (dm != 0.f) atomicAdd(dmask + pg * KK + t, (double)dm);
+          if (ody != 0.f) atomicAdd(doffset + pg * 18 + 2 * t, (double)ody);
+          if (odx != 0.f) atomicAdd(doffset + pg * 18 + 2 * t + 1, (double)odx);
+        }
       }
     }
+    par ^= 1;  // 9 taps: the next tile's tap 0 takes the other buffers
+
+    if constexpr (!GL) {
+      // every sample of the tile was taken before the last barrier
+      if (!last_tile) stage(fwd_tile(tile + gridDim.x, H, W));
+      gather(tl);
+    }
+    __syncthreads();  // g, the geometry, the lists and m * gs are free for the next tile
   }
+
+  // dW: the two pixel halves added in a fixed order, then into the fp64 sums
+  float* s_fold = s_g;  // 36 values x 256 threads: FTP * GROW words
+  if (warp >= 8 && dlive)
+#pragma unroll
+    for (int t = 0; t < KK; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s_fold[(t * 4 + i) * 256 + (tid - 256)] = dw[t][i];
   __syncthreads();
-  for (int i = tid; i < Cb * Ob; i += NT)
-    atomicAdd(dweight + ((size_t)t * C + cb0 + i / Ob) * Cout + ob0 + i % Ob, (double)s_dw[i]);
+  if (warp < 8 && dlive) {
+#pragma unroll
+    for (int t = 0; t < KK; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = c0 + gq + 8 * (i >> 1), o = dn0 + 2 * tg + (i & 1);
+        const float v = dw[t][i] + s_fold[(t * 4 + i) * 256 + tid];
+        if (c < C && o < no) atomicAdd(dweight + ((size_t)t * C + c) * Cout + o0 + o, (double)v);
+      }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
+template <typename T, bool GL>
+__global__ void __launch_bounds__(FNT, 1)
 dcn_window_backward_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                            const float* __restrict__ mask, const T* __restrict__ weight,
                            const T* __restrict__ g, double* __restrict__ dx,
                            double* __restrict__ doffset, double* __restrict__ dmask,
                            double* __restrict__ dweight, int B, int H, int W, int C, int Cout,
-                           int r, int cc, int vec16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bwd_body<T, false>(smem, x, offset, mask, weight, g, dx, doffset, dmask, dweight, B, H, W, C,
-                     Cout, r, cc, vec16 != 0);
+                           int r, int vec16) {
+  bwd_body<T, false, GL>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B, H, W, C,
+                         Cout, r, vec16 != 0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
+template <typename T, bool GL>
+__global__ void __launch_bounds__(FNT, 1)
 dcn_separable_backward_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                               const float* __restrict__ mask, const T* __restrict__ weight,
                               const T* __restrict__ g, double* __restrict__ dx,
                               double* __restrict__ doffset, double* __restrict__ dmask,
                               double* __restrict__ dweight, int B, int H, int W, int C, int Cout,
-                              int r, int cc, int vec16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bwd_body<T, true>(smem, x, offset, mask, weight, g, dx, doffset, dmask, dweight, B, H, W, C,
-                    Cout, r, cc, vec16 != 0);
+                              int r, int vec16) {
+  bwd_body<T, true, GL>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B, H, W, C,
+                        Cout, r, vec16 != 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -991,28 +1303,42 @@ int dispatch_fwd(const void* x, const void* offset, const void* mask, const void
                                            cc, st);
 }
 
-template <typename T>
-using BwdKernel = void (*)(const T*, const float*, const float*, const T*, const T*, double*,
-                           double*, double*, double*, int, int, int, int, int, int, int, int);
-
-template <typename T>
-int launch_bwd(BwdKernel<T> kernel, const void* x, const void* offset, const void* mask,
-               const void* weight, const void* g, void* dx, void* doffset, void* dmask,
-               void* dweight, int B, int H, int W, int C, int Cout, int r, int cc, int vec16,
-               cudaStream_t st) {
-  const size_t smem = bwd_smem(r, C, Cout, cc, sizeof(T));
+template <typename T, bool SEP, bool GL>
+int launch_bwd(const void* x, const void* offset, const void* mask, const void* weight,
+               const void* g, void* dx, void* doffset, void* dmask, void* dweight, int B, int H,
+               int W, int C, int Cout, int r, int groups, int vec16, cudaStream_t st) {
+  void (*kernel)(const T*, const float*, const float*, const T*, const T*, double*, double*,
+                 double*, double*, int, int, int, int, int, int, int) =
+      SEP ? dcn_separable_backward_kernel<T, GL> : dcn_window_backward_kernel<T, GL>;
+  const size_t smem = BwdLayout(r, sizeof(T), GL).bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int ntiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  const int pairs = ((C + BWD_CHUNK - 1) / BWD_CHUNK) * ((Cout + BWD_CHUNK - 1) / BWD_CHUNK);
-  const dim3 grid(ntiles < BWD_TILE_GROUPS ? ntiles : BWD_TILE_GROUPS, KK, pairs);
-  kernel<<<grid, NT, smem, st>>>(
+  const int ntiles = B * ((H + FTH - 1) / FTH) * ((W + FTW - 1) / FTW);
+  const dim3 grid(groups < ntiles ? groups : ntiles, (C + BCC - 1) / BCC, (Cout + BNO - 1) / BNO);
+  kernel<<<grid, FNT, smem, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(offset),
       static_cast<const float*>(mask), static_cast<const T*>(weight), static_cast<const T*>(g),
       static_cast<double*>(dx), static_cast<double*>(doffset), static_cast<double*>(dmask),
-      static_cast<double*>(dweight), B, H, W, C, Cout, r, cc, vec16);
+      static_cast<double*>(dweight), B, H, W, C, Cout, r, vec16);
   return (int)cudaGetLastError();
+}
+
+// the backward's checks and its choice of instantiation
+template <typename T, bool SEP>
+int dispatch_bwd(const void* x, const void* offset, const void* mask, const void* weight,
+                 const void* g, void* dx, void* doffset, void* dmask, void* dweight, int B, int H,
+                 int W, int C, int Cout, int r, int groups, int vec16, int gl, cudaStream_t st) {
+  if (B * H * W == 0) return 0;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(g) & 15) == 0 &&
+                       (C * sizeof(T)) % 16 == 0 && (Cout * sizeof(T)) % 16 == 0;
+  if (C < 1 || Cout < 1 || r < 0 || groups < 1 || (gl != 0 && gl != 1) || (vec16 && !aligned))
+    return (int)cudaErrorInvalidValue;
+  return gl ? launch_bwd<T, SEP, true>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B,
+                                       H, W, C, Cout, r, groups, vec16, st)
+            : launch_bwd<T, SEP, false>(x, offset, mask, weight, g, dx, doffset, dmask, dweight,
+                                        B, H, W, C, Cout, r, groups, vec16, st);
 }
 
 using bf16 = __nv_bfloat16;
@@ -1030,9 +1356,19 @@ size_t dcn_window_fwd_smem_bytes(int radius, int cc, int nb, int dtype, int sepa
   return fwd_smem(radius, cc, nb, dtype == 1, separable != 0, global != 0);
 }
 
-// Shared memory (bytes) of one backward block; cc = channels per chunk.
-size_t dcn_window_bwd_smem_bytes(int radius, int C, int Cout, int cc, int dtype) {
-  return bwd_smem(radius, C, Cout, cc, dtype == 0 ? 4 : 2);
+// Shared memory (bytes) of one backward block: dtype 0 = fp32, 1 = bf16;
+// global 1 = the global mode. ops/deform_pallas.py window_bwd_smem computes
+// the same.
+size_t dcn_window_bwd_smem_bytes(int radius, int dtype, int global) {
+  return BwdLayout(radius, dtype == 1 ? 2 : 4, global != 0).bytes;
+}
+
+// The backward block's fixed shape, as ops/deform_pallas.py
+// window_bwd_launch takes it: which 0 = channels a block, 1 = output
+// channels a block, 2 = threads, 3 = tile rows, 4 = tile columns; -1 else.
+int dcn_window_bwd_shape(int which) {
+  const int shape[5] = {BCC, BNO, FNT, FTH, FTW};
+  return which >= 0 && which < 5 ? shape[which] : -1;
 }
 
 // Forward entries: wt (9, Cout, Cpad) in the working type as
@@ -1068,36 +1404,39 @@ int dcn_separable_forward(const void* x, const void* offset, const void* mask, c
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward entries: dx (B, H, W, C), dweight (9, C, Cout), doffset
-// (B, H, W, 18) and dmask (B, H, W, 9) are fp64 and zeroed by the caller
-// (the kernel adds into them). g (B, H, W, Cout) in the working type.
+// Backward entries: weight (9, C, Cout) and g (B, H, W, Cout) in the
+// working type; dx (B, H, W, C), dweight (9, C, Cout), doffset (B, H, W, 18)
+// and dmask (B, H, W, 9) are fp64 and zeroed by the caller (the kernel adds
+// into them). groups (tile groups, grid.x), vec16 (16-byte loads of x and
+// g) and global (the global mode) as window_bwd_launch chooses them;
+// dtype 0 = fp32, 1 = bf16. Return cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 int dcn_window_backward(const void* x, const void* offset, const void* mask, const void* weight,
                         const void* g, void* dx, void* doffset, void* dmask, void* dweight, int B,
-                        int H, int W, int C, int Cout, int radius, int cc, int vec16, int dtype,
-                        void* stream) {
-  if (B * H * W == 0) return 0;
+                        int H, int W, int C, int Cout, int radius, int groups, int vec16,
+                        int global, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(dcn_window_backward_kernel<float>, x, offset, mask, weight, g, dx,
-                             doffset, dmask, dweight, B, H, W, C, Cout, radius, cc, vec16, st);
+    return dispatch_bwd<float, false>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B,
+                                      H, W, C, Cout, radius, groups, vec16, global, st);
   if (dtype == 1)
-    return launch_bwd<bf16>(dcn_window_backward_kernel<bf16>, x, offset, mask, weight, g, dx,
-                            doffset, dmask, dweight, B, H, W, C, Cout, radius, cc, vec16, st);
+    return dispatch_bwd<bf16, false>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B,
+                                     H, W, C, Cout, radius, groups, vec16, global, st);
   return (int)cudaErrorInvalidValue;
 }
 
 int dcn_separable_backward(const void* x, const void* offset, const void* mask,
                            const void* weight, const void* g, void* dx, void* doffset,
                            void* dmask, void* dweight, int B, int H, int W, int C, int Cout,
-                           int radius, int cc, int vec16, int dtype, void* stream) {
-  if (B * H * W == 0) return 0;
+                           int radius, int groups, int vec16, int global, int dtype,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(dcn_separable_backward_kernel<float>, x, offset, mask, weight, g, dx,
-                             doffset, dmask, dweight, B, H, W, C, Cout, radius, cc, vec16, st);
+    return dispatch_bwd<float, true>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B,
+                                     H, W, C, Cout, radius, groups, vec16, global, st);
   if (dtype == 1)
-    return launch_bwd<bf16>(dcn_separable_backward_kernel<bf16>, x, offset, mask, weight, g, dx,
-                            doffset, dmask, dweight, B, H, W, C, Cout, radius, cc, vec16, st);
+    return dispatch_bwd<bf16, true>(x, offset, mask, weight, g, dx, doffset, dmask, dweight, B,
+                                    H, W, C, Cout, radius, groups, vec16, global, st);
   return (int)cudaErrorInvalidValue;
 }
 

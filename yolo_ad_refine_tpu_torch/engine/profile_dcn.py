@@ -25,18 +25,25 @@ through this tree's wrappers.
 ``--kernel separable`` (K2) or ``window`` (K3): the same at radius 3 with
 offsets N(0, 4²) (most beyond the radius, every other tap's y-offset
 integral): the forward in fp32 at batch 32 and bf16 at batch 16, the
-backward in both at batch 16, the forward at C = Cout = 384, batch 16 (the
-flagship's scale-x width), and the forward at batch 8 at radius 13 (the
-widened reload) and 31 (past the window, the global mode), offsets scaled
-by radius / 3 (``WINDOW_CASES``). ``--baseline`` names an earlier
-``deform_window.cu``: one with this tree's forward interface (it exports
-``dcn_window_fwd_smem_bytes``) runs through this tree's wrappers, an older
-one (the fp32-core forward's, the weight (9, C, Cout)) as its own wrapper
-called it. The baseline's outputs are held against the tree's (the
-forward's max |difference|, the backward's). ``--tree-split`` times cut
-copies of this tree's forward (``WINDOW_TREE_SPLITS``: the products
-alone, the window staging and sampling alone, and 64-channel blocks where
-the plan takes 128).
+backward in both at batch 16, both at C = Cout = 384, batch 16 (the
+flagship's scale-x width), and both at batch 8 at radius 13 (the widened
+reload) and 31 (past the window, the global modes), offsets scaled by
+radius / 3 (``WINDOW_CASES``). ``--baseline`` names an earlier
+``deform_window.cu`` with this tree's forward interface (it exports
+``dcn_window_fwd_smem_bytes``): one that also has this tree's backward
+interface (it exports ``dcn_window_bwd_shape``) runs through this tree's
+wrappers, one with the earlier fp32-core backward (a chunk its
+``dcn_window_bwd_smem_bytes(radius, C, Cout, cc, dtype)`` sizes) runs its
+backward as its own wrapper called it. The baseline's outputs are held
+against the tree's (the forward's max |difference|, the backward's), and
+each backward of the C = Cout = 64 cases against the plain version (max
+|kernel - plain| / max |plain| per gradient, on the 80² level); a case
+the baseline does not launch is recorded with its error. ``--tree-split``
+times cut copies of this tree's kernels (``WINDOW_TREE_SPLITS``: the
+forward's products alone, its window staging and sampling alone and
+64-channel blocks where the plan takes 128; the backward's products alone,
+its sampling alone, its dx lists' sums alone, what all of these keep, and
+the whole backward with dx stored instead of added by atomics).
 
 Every build's ``-Xptxas -v`` lines (registers, shared memory, spills) are
 printed. The copies and their libraries go to ``csrc/build/profile/``.
@@ -49,7 +56,9 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -60,6 +69,7 @@ from yolo_ad_refine_tpu_torch.utils import kernels
 LEVELS = (80, 40, 20)
 C = 64
 KK = 9
+GRADS = ("dx", "doffset", "dmask", "dweight")
 
 # cut copies of the earlier backward (fp32 FMAs, before the tensor-core
 # design): (text in the source, its replacement)
@@ -92,7 +102,7 @@ TREE_SPLITS["bwd_corners"] = TREE_SPLITS["bwd_corners_scatter"] + [
     ("if (wk[k] != 0.f) atomicAdd(dx + (size_t)idx[k] * C + c0 + c, (double)(wk[k] * mg));",
      ";")]
 
-# cut copies of this tree's K2 / K3 forward (csrc/deform_window.cu, the
+# cut copies of this tree's K2 / K3 kernels (csrc/deform_window.cu, the
 # lines marked "split:")
 WINDOW_TREE_SPLITS = {
     # no samples are formed (the tiles stay zero): the window copies, the
@@ -104,7 +114,34 @@ WINDOW_TREE_SPLITS = {
                      ("if (2 * jp + h < ntw)  // split: products", "if (false)")],
     # 64-channel blocks where the plan takes 128 (C = Cout = 384)
     "fwd_nb64": [("if (nb == 64)  // split: nb", "if (true)")],
+    # backward: no sampling and no dx lists summed: the staging, the lists'
+    # build, the two products, doffset / dmask of zero sums and the barriers
+    # remain
+    "bwd_products": [("for (int h = 0; h < 2; ++h) {  // split: sampling",
+                      "for (int h = 0; h < 0; ++h) {"),
+                     ("for (int e = s_bstart[q], e1 = s_bstart[q + 1]; e < e1; ++e) {  "
+                      "// split: gather", "for (int e = 0; e < 0; ++e) {")],
+    # backward: no mma (gs stays zero): the staging, the sampling, the
+    # corner dots, the lists' build and their sums (of zeros, so nothing is
+    # added into dx) remain
+    "bwd_sampling": [("for (int k = 0; k < kgs; k += 8) {  // split: products",
+                      "for (int k = 0; k < 0; k += 8) {"),
+                     ("if (dlive) {  // split: products", "if (false) {")],
 }
+# backward: the dx lists' sums and their additions into dx alone (no
+# products, no sampling), with the staging, the lists' build and the barriers
+WINDOW_TREE_SPLITS["bwd_gather"] = [
+    WINDOW_TREE_SPLITS["bwd_products"][0], *WINDOW_TREE_SPLITS["bwd_sampling"],
+    ("if (acc[j] == 0.0) continue;  // split: gather zeros", ";")]
+# backward: what every cut keeps (the staging, the geometry and the lists'
+# build, the weight and g loads, the barriers, doffset / dmask of zero sums)
+WINDOW_TREE_SPLITS["bwd_frame"] = (WINDOW_TREE_SPLITS["bwd_products"]
+                                   + WINDOW_TREE_SPLITS["bwd_sampling"])
+# backward: the whole kernel with dx stored instead of added atomically
+# (wrong sums; the atomics' cost)
+WINDOW_TREE_SPLITS["bwd_store"] = [
+    ("if (c0 + c + j < C) atomicAdd(d + j, acc[j]);  // split: store",
+     "if (c0 + c + j < C) d[j] = acc[j];")]
 
 
 def build(sources: dict[str, Path], flags_of: str = "deform_conv") -> dict[str, ctypes.CDLL]:
@@ -278,79 +315,70 @@ class WindowTree:
                        w.permute(3, 2, 0, 1), r)
         return y.permute(0, 2, 3, 1)
 
-    def backward(self, x, off, mask, w, g, r):
+    def backward(self, x, off, mask, w, g, r, rounded=True):
         dx, doff, dmask, dw = self._call(
             self.dp._backward, self.bwd, *(t.permute(0, 3, 1, 2) for t in (x, off, mask)),
-            w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), r)
+            w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), r, rounded=rounded)
         return (dx.permute(0, 2, 3, 1), doff.permute(0, 2, 3, 1), dmask.permute(0, 2, 3, 1),
                 dw.permute(2, 3, 1, 0).reshape(w.shape))
 
 
-class WindowBaseline:
-    """An earlier deform_window.cu (the fp32-core forward's interface: it
-    takes the weight (9, C, Cout) and a chunk its ``dcn_window_smem_bytes``
-    sizes, 3 forward blocks an SM) called as its own wrapper called it,
-    NHWC in and out; its backward entry is this tree's."""
+class WindowFmaBackward(WindowTree):
+    """A deform_window.cu with this tree's forward interface and the earlier
+    fp32-core backward's (it exports ``dcn_window_fwd_smem_bytes`` but not
+    ``dcn_window_bwd_shape``): the forward through this tree's wrapper, the
+    backward as its own wrapper called it, NHWC in and out: the widest
+    channel chunk its ``dcn_window_bwd_smem_bytes`` fits into half a
+    block's shared memory (two blocks an SM), else into a block's, else
+    ValueError."""
 
-    BLOCKS_PER_SM = {0: 3, 1: 2}
-
-    def __init__(self, lib: ctypes.CDLL, separable: bool):
-        self.lib = lib
-        self.fwd = getattr(lib, "dcn_separable_forward" if separable else "dcn_window_forward")
-        self.bwd = getattr(lib, "dcn_separable_backward" if separable else "dcn_window_backward")
-        lib.dcn_window_smem_bytes.restype = ctypes.c_size_t
-        lib.dcn_window_smem_bytes.argtypes = [ctypes.c_int] * 6
-        self.fwd.restype = self.bwd.restype = ctypes.c_int
-        self.fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        self.bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-
-    def _plan(self, kind: int, x, cout: int, r: int):
-        c, item = x.shape[-1], x.element_size()
+    def backward(self, x, off, mask, w, g, r, rounded=True):
+        lib = self.lib
+        b, h, wd, c = x.shape
+        cout = w.shape[-1]
+        lib.dcn_window_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.dcn_window_bwd_smem_bytes.argtypes = [ctypes.c_int] * 5
+        item = x.element_size()
         vec16 = (c * item) % 16 == 0 and x.data_ptr() % 16 == 0
         step = 16 // item if vec16 else 1
         cap = max(step, 1 << (c - 1).bit_length())
         cands = [cc for cc in (64, 32, 16, 8, 4, 2, 1) if cc % step == 0 and cc <= cap]
         dt = 0 if x.dtype == torch.float32 else 1
-        sizes = {cc: self.lib.dcn_window_smem_bytes(kind, r, c, cout, cc, dt) for cc in cands}
-        share = deform.SMEM_PER_BLOCK // self.BLOCKS_PER_SM[kind]
-        fit = [cc for cc in cands if sizes[cc] <= share] or \
+        sizes = {cc: lib.dcn_window_bwd_smem_bytes(r, c, cout, cc, dt) for cc in cands}
+        fit = [cc for cc in cands if sizes[cc] <= deform.SMEM_PER_BLOCK // 2] or \
             [cc for cc in cands if sizes[cc] <= deform.SMEM_PER_BLOCK]
-        return max(fit), int(vec16), dt
-
-    def forward(self, x, off, mask, w, r):
-        b, h, wd, c = x.shape
-        cout = w.shape[-1]
-        cc, vec16, dt = self._plan(0, x, cout, r)
-        wk = w.reshape(KK, c, cout).contiguous()
-        out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-        st = self.fwd(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), out.data_ptr(),
-                      b, h, wd, c, cout, r, cc, vec16, dt, torch.cuda.current_stream().cuda_stream)
-        kernels.check(self.lib, st, "baseline forward")
-        return out
-
-    def backward(self, x, off, mask, w, g, r):
-        b, h, wd, c = x.shape
-        cout = w.shape[-1]
-        cc, vec16, dt = self._plan(1, x, cout, r)
+        if not fit:
+            raise ValueError(f"the fp32-core backward does not launch at radius {r}, C={c}, "
+                             f"Cout={cout}: {min(sizes.values())} bytes of shared memory")
         wk = w.reshape(KK, c, cout).contiguous()
         f64 = dict(dtype=torch.float64, device=x.device)
         dx, dw = torch.zeros((b, h, wd, c), **f64), torch.zeros((KK, c, cout), **f64)
         doff, dmask = torch.zeros((b, h, wd, 18), **f64), torch.zeros((b, h, wd, KK), **f64)
-        st = self.bwd(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), g.data_ptr(),
-                      dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
-                      b, h, wd, c, cout, r, cc, vec16, dt, torch.cuda.current_stream().cuda_stream)
-        kernels.check(self.lib, st, "baseline backward")
+        fn = getattr(lib, self.bwd)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        st = fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wk.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
+                b, h, wd, c, cout, r, max(fit), int(vec16), dt,
+                torch.cuda.current_stream().cuda_stream)
+        kernels.check(lib, st, "baseline backward")
+        if not rounded:
+            return dx, doff, dmask, dw.reshape(w.shape)
         return dx.to(x.dtype), doff.float(), dmask.float(), dw.to(w.dtype).reshape(w.shape)
 
 
 # (kind, dtype, batch, C = Cout, radius): the paths' forward and backward
-# at the flagship's width, the forward at scale x's, at the widened reload's
-# radius and past the window (the global mode)
-WINDOW_CASES = (("fwd", torch.float32, 32, C, 3), ("fwd", torch.bfloat16, 16, C, 3),
-                ("bwd", torch.float32, 16, C, 3), ("bwd", torch.bfloat16, 16, C, 3),
-                ("fwd", torch.float32, 16, 384, 3), ("fwd", torch.bfloat16, 16, 384, 3),
-                ("fwd", torch.float32, 8, C, 13), ("fwd", torch.bfloat16, 8, C, 13),
-                ("fwd", torch.float32, 8, C, 31), ("fwd", torch.bfloat16, 8, C, 31))
+# at the flagship's width and at scale x's, at the widened reload's radius
+# and past the window (the global modes)
+F32, BF16 = torch.float32, torch.bfloat16
+WINDOW_CASES = (("fwd", F32, 32, C, 3), ("fwd", BF16, 16, C, 3),
+                ("bwd", F32, 16, C, 3), ("bwd", BF16, 16, C, 3),
+                ("fwd", F32, 16, 384, 3), ("fwd", BF16, 16, 384, 3),
+                ("bwd", F32, 16, 384, 3), ("bwd", BF16, 16, 384, 3),
+                ("fwd", F32, 8, C, 13), ("fwd", BF16, 8, C, 13),
+                ("bwd", F32, 8, C, 13), ("bwd", BF16, 8, C, 13),
+                ("fwd", F32, 8, C, 31), ("fwd", BF16, 8, C, 31),
+                ("bwd", F32, 8, C, 31), ("bwd", BF16, 8, C, 31))
 
 
 def case_key(kind, dtype, b, c, r) -> str:
@@ -358,43 +386,65 @@ def case_key(kind, dtype, b, c, r) -> str:
         (f" r={r}" if r != 3 else "")
 
 
-def time_window(impl, data, name: str, fwd_only: bool) -> dict:
-    """ms (events) and device ms of the three levels for each case, one
-    launch a level."""
+def time_window(impl, data, name: str, kinds=("fwd", "bwd")) -> dict:
+    """ms (events) and device ms of the three levels for each case of
+    ``kinds``, one launch a level; a case the implementation does not launch
+    (ValueError) is recorded with its error."""
     res = {}
     for case in WINDOW_CASES:
         kind, dtype, b, c, r = case
-        if kind == "bwd" and fwd_only:
+        if kind not in kinds:
             continue
         ms = dev = 0.0
-        for x, off, mask, w, g in data[case[1:]]:
-            if kind == "fwd":
-                fn = lambda: impl.forward(x, off, mask, w, r)  # noqa: E731
-            else:
-                fn = lambda: impl.backward(x, off, mask, w, g, r)  # noqa: E731
-            iters = 20 if kind == "fwd" and c == C else 5
-            ms += cuda_time(fn, iters=iters)
-            kname = name.replace("forward", "backward") if kind == "bwd" else name
-            dev += device_ms(fn, iters=10 if c == C else 3, name=kname)
+        try:
+            for x, off, mask, w, g in data[case[1:]]:
+                if kind == "fwd":
+                    fn = lambda: impl.forward(x, off, mask, w, r)  # noqa: E731
+                else:
+                    fn = lambda: impl.backward(x, off, mask, w, g, r)  # noqa: E731
+                iters = 20 if kind == "fwd" and c == C else 5
+                ms += cuda_time(fn, iters=iters)
+                kname = name.replace("forward", "backward") if kind == "bwd" else name
+                dev += device_ms(fn, iters=10 if c == C else 3, name=kname)
+        except ValueError as err:
+            res[case_key(*case)] = {"error": str(err)}
+            continue
         res[case_key(*case)] = {"ms": ms, "device_ms": dev}
     return res
 
 
-def compare_window(base, tree, data) -> dict:
-    """max |baseline - tree| of the forward and of each gradient, per case
-    (on the 80² level)."""
+def compare_window(base, tree, data, plain) -> dict:
+    """Per case, on the 80² level: max |baseline - tree| of the forward and
+    of each gradient's fp64 sums; for the backward at C = Cout = 64 also
+    each one's max |kernel - plain| / max |plain| per gradient (``plain``:
+    the form's plain backward, on the inputs' values in fp32: the function
+    both backwards compute, also for bf16 inputs, before the wrappers round
+    dx and dweight). A case the baseline does not launch is recorded with
+    its error."""
     out = {}
     for case in WINDOW_CASES:
         kind, r = case[0], case[4]
         x, off, mask, w, g = data[case[1:]][0]
-        if kind == "fwd":
-            d = (base.forward(x, off, mask, w, r).float() - tree.forward(x, off, mask, w, r).float())
-            out[case_key(*case)] = {"out": d.abs().max().item()}
-        else:
-            got = zip(("dx", "doffset", "dmask", "dweight"), base.backward(x, off, mask, w, g, r),
-                      tree.backward(x, off, mask, w, g, r))
-            out[case_key(*case)] = {n: (a.float() - e.float()).abs().max().item()
-                                    for n, a, e in got}
+        try:
+            if kind == "fwd":
+                d = (base.forward(x, off, mask, w, r).float()
+                     - tree.forward(x, off, mask, w, r).float())
+                out[case_key(*case)] = {"out": d.abs().max().item()}
+                continue
+            got = {"baseline": base.backward(x, off, mask, w, g, r, rounded=False)}
+        except ValueError as err:
+            out[case_key(*case)] = {"error": str(err)}
+            continue
+        got["tree"] = tree.backward(x, off, mask, w, g, r, rounded=False)
+        res = {n: (a - e).abs().max().item()
+               for n, a, e in zip(GRADS, got["baseline"], got["tree"])}
+        if case[3] == C:
+            want = plain(x.float(), off, mask, w.float(), g.float(), r)
+            for impl, grads in got.items():
+                res[f"{impl}_vs_plain"] = {
+                    n: ((a.float() - e.float()).abs().max() / e.float().abs().max()).item()
+                    for n, a, e in zip(GRADS, grads, want)}
+        out[case_key(*case)] = res
     return out
 
 
@@ -419,26 +469,34 @@ def main_window(args, card: str) -> None:
     if args.baseline:
         sources["baseline"] = args.baseline
     for lname, lib in build(sources, "deform_window").items():
-        impls[lname] = WindowTree(sep, lib) if lname.startswith("tree_") or hasattr(
-            lib, "dcn_window_fwd_smem_bytes") else WindowBaseline(lib, sep)
+        if not hasattr(lib, "dcn_window_fwd_smem_bytes"):
+            raise SystemExit(f"{sources[lname]}: not this tree's forward interface")
+        impls[lname] = WindowTree(sep, lib) if hasattr(lib, "dcn_window_bwd_shape") \
+            else WindowFmaBackward(sep, lib)
 
     gen = torch.Generator().manual_seed(0)
     data = {}
     for _, dtype, b, c, r in WINDOW_CASES:
         if (dtype, b, c, r) not in data:
             data[(dtype, b, c, r)] = [window_inputs(b, s, dtype, gen, c, r) for s in LEVELS]
+    result = {"card": card, "kernel": args.kernel}
+    if "baseline" in impls and "tree" in impls:  # held before anything is timed
+        from yolo_ad_refine_tpu_torch.ops.deform_pallas import window_grads_plain
+
+        result["baseline_vs_tree"] = compare_window(
+            impls["baseline"], impls["tree"], data,
+            lambda *a: window_grads_plain(*a, separable=sep))
+        print(f"max |baseline - tree|: {json.dumps(result['baseline_vs_tree'])}", flush=True)
     order = [n for n in impls if n.startswith("tree_")]
     order += [n for n in ("baseline", "tree", "tree", "baseline") if n in impls]
-    runs = []
+    runs = result["runs"] = []
     for lname in order:
-        res = time_window(impls[lname], data, name, lname.startswith("tree_"))
+        cut = lname.split("_", 2)[1] if lname.startswith("tree_") else ""
+        res = time_window(impls[lname], data, name, (cut,) if cut else ("fwd", "bwd"))
         runs.append({"impl": lname, "ms": res})
-        print(f"{lname}: " + ", ".join(f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f})"
-                                       for k, v in res.items()), flush=True)
-    result = {"card": card, "kernel": args.kernel, "runs": runs}
-    if "baseline" in impls and "tree" in impls:
-        result["baseline_vs_tree"] = compare_window(impls["baseline"], impls["tree"], data)
-        print(f"max |baseline - tree|: {json.dumps(result['baseline_vs_tree'])}", flush=True)
+        print(f"{lname}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f})" if "ms" in v else
+            f"{k} not launched ({v['error']})" for k, v in res.items()), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
@@ -449,21 +507,46 @@ CASES = (("fwd", torch.float32, 32), ("fwd", torch.bfloat16, 16),
          ("bwd", torch.float32, 16), ("bwd", torch.bfloat16, 16))
 
 
-def device_ms(fn, iters: int = 10, name: str = "dcn_") -> float:
+def device_ms(fn, iters: int = 10, name: str = "dcn_", per_call: int = 1,
+              attempts: int = 5) -> float:
     """Mean device time a call of the kernels whose names hold ``name`` (K1's
     ``dcn_*`` by default) take, from torch.profiler: the kernels alone,
     without the wrapper's host work or its other launches, which CUDA events
-    around the call also count."""
-    from torch.profiler import ProfilerActivity, profile
+    around the call also count. The profiler runs a warm-up cycle of
+    ``iters`` calls, then records a second one, idle for 20 ms on either
+    side of it (the profiler keeps only records inside its window, on a
+    clock of its own); the kernels are read from its trace (the ``kernel``
+    events of its Chrome export). The records are counted and must be the
+    ``iters * per_call`` launches made (a profiler that drops records would
+    read low); the mean is taken over the records. A cycle that lost records
+    is profiled again, up to ``attempts`` times, then RuntimeError. The trace
+    file is written under ``csrc/build/profile/`` and removed."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
-    return us / iters / 1e3
+    path = kernels.BUILD / "profile" / f"device_ms_{os.getpid()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    count = 0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(0.02)
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                prof.step()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        path.unlink()
+        durs = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+        count = len(durs)
+        if count == iters * per_call:
+            return sum(durs) / count * per_call / 1e3
+    raise RuntimeError(f"device_ms: the profiler kept {count} records of kernels named "
+                       f"{name!r}, not the {iters * per_call} launched")
 
 
 def time_impl(impl, data, kinds=("fwd", "bwd")) -> dict:

@@ -25,7 +25,12 @@ and the CUDA wrappers ``_forward`` / ``_backward``. The forward kernel's
 launch plan (channel chunk, shared memory, grid, and the global mode for a
 radius whose window fits no block) is ``window_fwd_launch``; its products
 run on the tensor cores (3xTF32 in fp32, bf16 for K3's bf16, 2xTF32 for
-K2's), ``tests/test_torch_dcn_window_mma.py`` models them on the CPU.
+K2's). The backward kernel's plan is ``window_bwd_launch`` (16 channels x
+64 output channels a block, tile groups, the global mode past radius 3 in
+fp32 and 7 in bf16); its products run on the tensor cores too (3xTF32 in
+fp32; with bf16 inputs one TF32 product for g . W_t^T and 2xTF32 for the
+fp32 sample against g). ``tests/test_torch_dcn_window_mma.py`` models both
+kernels' products on the CPU.
 
 Layouts: the plain versions take NHWC x (B,H,W,C), offset (B,H,W,18) as
 (dy, dx) pairs, mask (B,H,W,9) and an HWIO weight (3,3,C,Cout);
@@ -36,6 +41,7 @@ Layouts: the plain versions take NHWC x (B,H,W,C), offset (B,H,W,18) as
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,14 +49,17 @@ from yolo_ad_refine_tpu_torch.ops.deform import KK, SMEM_PER_BLOCK, _check, _nhw
 from yolo_ad_refine_tpu_torch.utils import kernels
 
 MXU_CH = 8  # output rows per chunk of deform_mxu.py (its CH): K2's y coordinate is chunk-local
-BWD_BLOCKS_PER_SM = 2  # backward blocks that should share an SM: a chunk is sized to leave each
-# its share of shared memory, and narrowed further only if needed
 # csrc/deform_window.cu's forward: a block tiles 8 x 16 output pixels with
 # 512 threads (one block an SM by its registers) and takes 64 or 128 output
 # channels; a chunk's row (a window position, a weight row) holds 16 to 128
 # bytes; each of the 9 x 128 geometry entries takes 6 words (7 in the
 # global mode)
 WIN_FWD_TILE, WIN_FWD_THREADS, WIN_ROW_BYTES = (8, 16), 512, 128
+# its backward: the same tiles and threads, 16 channels and 64 output
+# channels a block (two mma n-tiles of channels; g and weight rows padded by
+# 8 words, sample rows by 8), one block an SM; H100_SMS sizes the tile
+# groups when the card is not asked (the CPU tests)
+WIN_BWD_CC, WIN_BWD_NO, H100_SMS = 16, 64, 132
 
 
 def window_fwd_smem(radius: int, cc: int, nb: int, dtype: torch.dtype, separable: bool,
@@ -113,6 +122,73 @@ def window_fwd_launch(radius: int, c: int, cout: int, dtype: torch.dtype, aligne
             "cpad": -(-c // cc) * cc, "smem": window_fwd_smem(radius, cc, nb, dtype, separable,
                                                               global_),
             "grid": (tiles, -(-cout // nb)), "block": WIN_FWD_THREADS}
+
+
+def window_bwd_smem(radius: int, dtype: torch.dtype, global_: bool) -> int:
+    """Shared bytes of one K2 / K3 bwd block (``csrc/deform_window.cu``'s
+    ``dcn_window_bwd_smem_bytes`` computes the same). The window mode's
+    own: the x window chunk of (8 + 2(r + 2)) x (16 + 2(r + 2)) positions x
+    16 channels, m * gs of the 9 x 128 samples x 16 channels in fp32, and
+    each position's list of the samples that reach it (a start and a count
+    a position, a 16-bit entry a (tap, pixel, corner)). Both modes: two
+    weight tiles of 16 rows and the g tile of 128 rows, each row 64 + 8
+    words, two sample tiles of 128 rows of 16 + 8 words, two corner-dot
+    tiles of 2 x 128 x 4 words, and the geometry of 9 x 128 samples at 7
+    words (8 in the global mode)."""
+    isz = 2 if dtype == torch.bfloat16 else 4
+    th, tw = WIN_FWD_TILE
+    tp = th * tw
+    npos = (th + 2 * (radius + 2)) * (tw + 2 * (radius + 2))
+
+    def align16(n):
+        return -(-n // 16) * 16
+
+    window = 0 if global_ else (align16(npos * WIN_BWD_CC * isz) + 4 * KK * tp * WIN_BWD_CC
+                                + align16(4 * (npos + 1)) + align16(4 * npos) + 2 * KK * tp * 4)
+    row, mrow = WIN_BWD_NO + 8, WIN_BWD_CC + 8
+    return window + 4 * (2 * WIN_BWD_CC * row + tp * row + 2 * tp * mrow + 2 * 2 * tp * 4
+                         + KK * tp * (8 if global_ else 7))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_groups(tiles: int, chunks: int, sms: int) -> int:
+    """Tile groups of the backward: the fewest that minimise the waves of
+    ``groups * chunks`` one-block-an-SM blocks times the tiles a block walks
+    plus one (a block's set-up and its dW sums cost about a tile)."""
+    return min(range(1, min(tiles, 4 * sms) + 1),
+               key=lambda n: (-(-n * chunks // sms) * (-(-tiles // n) + 1), n))
+
+
+def window_bwd_launch(radius: int, c: int, cout: int, dtype: torch.dtype, aligned: bool = True,
+                      *, b: int = 1, h: int = 1, w: int = 1, sms: int = H100_SMS) -> dict:
+    """The launch plan of K2 / K3 bwd (``csrc/deform_window.cu``) at
+    ``radius``, C input and Cout output channels in ``dtype``; ``aligned``:
+    x's and g's pointers are 16-byte aligned; ``sms``: the card's SMs.
+    Returns the channels ``cc`` and output channels ``no`` a block takes,
+    16-byte loads ``vec16``, the mode ``global``, shared bytes ``smem``
+    (``window_bwd_smem``), the tile groups ``groups``, ``grid`` for a
+    (b, h, w) map and ``block``.
+
+    The launch rule: a block takes 16 channels and 64 output channels and
+    walks a group of 8 x 16 tiles; the window mode wherever its block fits
+    (to radius 3 in fp32, 7 in bf16), the global mode (corners from global
+    memory, dx added there) from the next radius on. ``groups`` minimises
+    the waves of one-block-an-SM blocks times the tiles a block walks (plus
+    one for its set-up), the fewest groups among equals. Raises ValueError
+    for a negative radius or an empty width."""
+    if radius < 0 or c < 1 or cout < 1:
+        raise ValueError(f"window backward: radius={radius}, C={c}, Cout={cout}: the radius must "
+                         "be >= 0 and the widths >= 1")
+    isz = 2 if dtype == torch.bfloat16 else 4
+    vec16 = bool(aligned) and (c * isz) % 16 == 0 and (cout * isz) % 16 == 0
+    global_ = window_bwd_smem(radius, dtype, False) > SMEM_PER_BLOCK
+    th, tw = WIN_FWD_TILE
+    tiles = b * -(-h // th) * -(-w // tw)
+    groups = _bwd_groups(tiles, -(-c // WIN_BWD_CC) * -(-cout // WIN_BWD_NO), sms)
+    return {"cc": WIN_BWD_CC, "no": WIN_BWD_NO, "vec16": vec16, "global": global_,
+            "smem": window_bwd_smem(radius, dtype, global_), "groups": groups,
+            "grid": (groups, -(-c // WIN_BWD_CC), -(-cout // WIN_BWD_NO)),
+            "block": WIN_FWD_THREADS}
 
 
 def _hat(u):
@@ -285,57 +361,44 @@ def _forward(entry: str, x, offset, mask, weight, radius):
     return out
 
 
-def _prepare(x, offset, mask, weight, radius):
-    """Checks and launch arguments of the two backward wrappers: the NHWC
-    views, the (9, C, Cout) weight, the channel chunk and the cp.async
-    flag."""
+def _backward(entry: str, x, offset, mask, weight, g, radius, rounded: bool = True):
+    """K2 or K3 bwd (``entry``) on CUDA tensors with ``window_bwd_launch``'s
+    plan: (dx, doffset, dmask, dweight), summed in fp64 by the kernel and
+    rounded once here to the types of x, offset, mask and weight; with
+    ``rounded=False`` the fp64 sums themselves (the function's values, which
+    a bf16 x or weight would round)."""
     if radius is None:
         raise ValueError("the bounded DCN kernels need an integer radius, got None")
     b, c, h, w, cout = _check(x, offset, mask, weight, radius)
-    xv, ov, mv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask")
-    wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
-    dtype = 0 if x.dtype == torch.float32 else 1
-    item = x.element_size()
-    vec16 = (c * item) % 16 == 0 and xv.data_ptr() % 16 == 0
-    step = 16 // item if vec16 else 1
-    lib = kernels.load("deform_window")
-    lib.dcn_window_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.dcn_window_bwd_smem_bytes.argtypes = [ctypes.c_int] * 5
-    cap = max(step, 1 << (c - 1).bit_length())  # no chunk wider than C needs
-    cands = [cc for cc in (64, 32, 16, 8, 4, 2, 1) if cc % step == 0 and cc <= cap]
-    sizes = {cc: lib.dcn_window_bwd_smem_bytes(int(radius), c, cout, cc, dtype) for cc in cands}
-    fit = [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK // BWD_BLOCKS_PER_SM] or \
-          [cc for cc in cands if sizes[cc] <= SMEM_PER_BLOCK]
-    if not fit:
-        least = min(sizes.values())
-        raise ValueError(f"backward at radius {radius}, C={c}, Cout={cout} needs {least} bytes "
-                         f"of shared memory per block, more than the {SMEM_PER_BLOCK} a block "
-                         "may use")
-    return lib, (b, c, h, w, cout), (xv, ov, mv, wk), max(fit), int(vec16), dtype
-
-
-def _backward(entry: str, x, offset, mask, weight, g, radius):
-    lib, (b, c, h, w, cout), (xv, ov, mv, wk), cc, vec16, dtype = _prepare(
-        x, offset, mask, weight, radius)
     if tuple(g.shape) != (b, cout, h, w) or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match the output "
                          f"({b}, {cout}, {h}, {w}) on {x.device}")
+    xv, ov, mv = _nhwc(x, "x"), _nhwc(offset, "offset"), _nhwc(mask, "mask")
     gv = _nhwc(g.to(x.dtype).contiguous(memory_format=torch.channels_last), "g")
+    wk = weight.permute(2, 3, 1, 0).reshape(KK, c, cout).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = window_bwd_launch(int(radius), c, cout, x.dtype,
+                             xv.data_ptr() % 16 == 0 and gv.data_ptr() % 16 == 0,
+                             b=b, h=h, w=w, sms=sms)
     f64 = dict(dtype=torch.float64, device=x.device)
-    # the kernel adds into all four: each (C-chunk, Cout-chunk) pair its part
+    # the kernel adds into all four
     dx, dw = torch.zeros((b, h, w, c), **f64), torch.zeros((KK, c, cout), **f64)
     doff, dmask = torch.zeros((b, h, w, 2 * KK), **f64), torch.zeros((b, h, w, KK), **f64)
+    lib = kernels.load("deform_window")
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     status = fn(xv.data_ptr(), ov.data_ptr(), mv.data_ptr(), wk.data_ptr(), gv.data_ptr(),
                 dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
-                b, h, w, c, cout, int(radius), cc, vec16, dtype,
+                b, h, w, c, cout, int(radius), plan["groups"], int(plan["vec16"]),
+                int(plan["global"]), 0 if x.dtype == torch.float32 else 1,
                 torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(lib, status, entry)
-    dweight = dw.reshape(3, 3, c, cout).permute(3, 2, 0, 1).to(weight.dtype)
-    return (dx.permute(0, 3, 1, 2).to(x.dtype), doff.permute(0, 3, 1, 2).float(),
-            dmask.permute(0, 3, 1, 2).float(), dweight)
+    dx, doff, dmask = (t.permute(0, 3, 1, 2) for t in (dx, doff, dmask))
+    dweight = dw.reshape(3, 3, c, cout).permute(3, 2, 0, 1)
+    if not rounded:
+        return dx, doff, dmask, dweight
+    return dx.to(x.dtype), doff.float(), dmask.float(), dweight.to(weight.dtype)
 
 
 def dcn_window_forward(x, offset, mask, weight, radius: int):
@@ -350,10 +413,10 @@ def dcn_window_forward(x, offset, mask, weight, radius: int):
 def dcn_window_backward(x, offset, mask, weight, g, radius: int):
     """K3 bwd on CUDA tensors: (dx, doffset, dmask, dweight) for the
     incoming gradient g (B,Cout,H,W), taken in x's type. All four are
-    summed in fp64 by the kernel (atomics, in an order that changes from run
-    to run; past 128 channels doffset and dmask add one partial per
-    (C-chunk, Cout-chunk) pair) and rounded once here. Launches
-    ``csrc/deform_window.cu`` or raises."""
+    summed in fp32 in a fixed order within a block and added into fp64 sums
+    by atomics (an order that changes from run to run), and rounded once
+    here. Launches ``csrc/deform_window.cu`` at any radius (the global mode
+    past the window) or raises."""
     grads = _backward("dcn_window_backward", x, offset, mask, weight, g, radius)
     dcn_window_backward.launches += 1
     return grads
