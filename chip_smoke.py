@@ -51,6 +51,16 @@ to 0 just before it and read just after, each DCN variant under its own
 - OBB validation: ``.val`` of that model on a seeded DOTA-format set
   written to a temporary directory (16 tiles of 1024², 15 classes),
   checked against the same validation on the CPU;
+- the training options of a user's yaml (``phase_training_options``):
+  the flagship trained with ``multi_scale``, ``cache="ram"`` and the
+  default ``plots`` (each step's drawn size, ms and K1 launches; the plot
+  files), ``best`` validated with ``rect``, ``save_json`` and ``plots``
+  on the card and on the CPU (the metrics and predictions.json held
+  against each other), ``batch=-1`` (autobatch's probe peaks and pick, and
+  a step at the picked batch within the memory budget), and the run's
+  ``last`` written in the JAX package's layout and resumed from it for one
+  more epoch (the restored state as written, the first step's fp32 loss
+  against the same resume from the port's ``train.pt``);
 
 and holds one fp32 train step on the card against the same step on the
 CPU. Any failed phase raises and the script exits non-zero. The last line is
@@ -1479,6 +1489,388 @@ def phase_step_card_vs_cpu(dev):
     torch.backends.cudnn.deterministic = False
 
 
+OPTIONS_FRACTION = 0.60  # autobatch_fraction, the default.yaml value
+JSON_BOX_TOL, JSON_SCORE_TOL = 5e-2, 1e-3  # the serving limits, card vs CPU
+
+
+class log_records:
+    """Collect the port LOGGER's messages within a ``with`` block."""
+
+    def __enter__(self):
+        import logging
+
+        from yolo_ad_refine_tpu_torch.utils import LOGGER
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                messages.append(record.getMessage())
+
+        messages: list[str] = []
+        self.messages, self.handler, self.logger = messages, Handler(), LOGGER
+        LOGGER.addHandler(self.handler)
+        return messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def match_predictions(got: list, want: list) -> dict:
+    """predictions.json of the card against the CPU's, image by image, each
+    side's entries in their rank order. Held: the same images and the same
+    number of entries an image, and rank by rank the whole entry (class,
+    bbox within JSON_BOX_TOL, score within JSON_SCORE_TOL) down to the
+    image's first tie, the first rank whose CPU score equals a neighbour's
+    in the file's 5 decimals. Past a tie the two sides' NMS may keep
+    different members of a group of equal candidates (a flat letterbox
+    band gives many), and what it keeps then suppresses different others:
+    there the entries are matched one to one by class, bbox and score
+    within the limits, nearest rank first, and the count left without a
+    match and the largest score difference by rank are returned, not
+    held."""
+    from collections import defaultdict
+
+    def by_image(entries):
+        out = defaultdict(list)
+        for e in entries:
+            out[e["image_id"]].append(e)
+        return out
+
+    def close(a, b):
+        return (a["category_id"] == b["category_id"] and abs(a["score"] - b["score"]) <= JSON_SCORE_TOL
+                and max(abs(x - y) for x, y in zip(a["bbox"], b["bbox"])) <= JSON_BOX_TOL)
+
+    got, want = by_image(got), by_image(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"predictions.json: images {sorted(got)} vs {sorted(want)}")
+    r = {"entries": 0, "held_by_rank": 0, "unmatched": 0, "max_bbox_diff": 0.0,
+         "max_score_diff": 0.0, "tail_score_diff": 0.0}
+    for image_id, ws in want.items():
+        gs = got[image_id]
+        if len(gs) != len(ws):
+            raise AssertionError(f"predictions.json image {image_id}: {len(gs)} entries on the "
+                                 f"card, {len(ws)} on the CPU")
+        tie = next((i for i in range(len(ws)) if any(
+            0 <= j < len(ws) and ws[j]["score"] == ws[i]["score"] for j in (i - 1, i + 1))),
+            len(ws))
+        used = set()
+        for i, (g, w) in enumerate(zip(gs, ws)):
+            if i < tie:
+                if not close(g, w):
+                    raise AssertionError(f"predictions.json image {image_id} rank {i}: card {g}, "
+                                         f"CPU {w}")
+                r["max_bbox_diff"] = max(r["max_bbox_diff"], max(
+                    abs(x - y) for x, y in zip(g["bbox"], w["bbox"])))
+                r["max_score_diff"] = max(r["max_score_diff"], abs(g["score"] - w["score"]))
+                used.add(i)
+                r["held_by_rank"] += 1
+                continue
+            r["tail_score_diff"] = max(r["tail_score_diff"], abs(g["score"] - w["score"]))
+            j = next((j for j in sorted(range(tie, len(ws)), key=lambda j: abs(j - i))
+                      if j not in used and close(g, ws[j])), None)
+            if j is None:
+                r["unmatched"] += 1
+            else:
+                used.add(j)
+        r["entries"] += len(ws)
+    return r
+
+
+def phase_training_options(dev) -> dict:
+    """A TPU user's training command on the card: the flagship at scale n
+    (imgsz 640, synthetic shapes set, 128 train and 16 val images with
+    height / width from 0.5 to 2) through the options of its yaml.
+
+    1. ``YOLO(FLAGSHIP).train(epochs=1, batch=16, imgsz=640, amp=True,
+       multi_scale=True, cache="ram")`` with the default ``plots``: each
+       step's drawn size, ms and K1 launches; the plot files (or, without
+       matplotlib, each plot's TryExcept warning).
+    2. ``YOLO(best).val(rect=True, rect_buckets=4, save_json=True,
+       plots=True, batch=8)`` in fp32 on the card and on the CPU, each val
+       image labelled with best's own 3 best detections so that mAP is not
+       0: mAP50 and mAP50-95 within 1e-3, predictions.json held by image
+       and rank within JSON_BOX_TOL px and JSON_SCORE_TOL as far as its
+       ties allow (``match_predictions``).
+    3. ``batch=-1``: the trainer's autobatch on the card, then one train
+       step at the batch it picked, whose peak must stay within the
+       fraction of the card's memory.
+    4. Phase 1's ``last`` written in the JAX package's layout
+       (``tests/torch_jax_checkpoint.py``) and resumed with ``resume=``
+       for one more epoch: start epoch, batch and EMA counts and every
+       optimizer buffer as written, and the first resumed step's fp32 loss
+       (deterministic algorithms) within 1e-4 relative of the same state
+       resumed from the port's own ``train.pt``.
+    Returns {path name: launches} for the kernels line and the numbers."""
+    import gc
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_jax_checkpoint import write_jax_last
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+    from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
+    from yolo_ad_refine_tpu_torch.utils.autobatch import step_peak_bytes
+
+    counters = kernel_counters()
+
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    out: dict = {"paths": {}}
+    t_phase = time.perf_counter()
+    with dcn_env(None), tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        tmp = Path(tmp)
+        data = make_shapes_dataset(tmp / "shapes", n_train=128, n_val=16, imgsz=640, seed=1,
+                                   aspect_range=(0.5, 2.0))
+        # 1. training with the options -------------------------------------------------
+        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+        steps, mark = [], {}
+
+        def on_batch_start(tr):
+            torch.cuda.synchronize()
+            mark.update(counts=counts(), t=time.perf_counter(), size=tr.batch["img"].shape[1])
+
+        def on_batch_end(tr):
+            torch.cuda.synchronize()
+            now = counts()
+            steps.append({"size": mark["size"], "ms": (time.perf_counter() - mark["t"]) * 1e3,
+                          "first": all(st["size"] != mark["size"] for st in steps),
+                          "fwd": now["dcn_forward"] - mark["counts"]["dcn_forward"],
+                          "bwd": now["dcn_backward"] - mark["counts"]["dcn_backward"]})
+            mark["after_steps"] = now
+
+        model.add_callback("on_train_batch_start", on_batch_start)
+        model.add_callback("on_train_batch_end", on_batch_end)
+        zero()
+        t0 = time.perf_counter()
+        with log_records() as messages:
+            results = model.train(data=data, epochs=1, batch=16, imgsz=640, amp=True,
+                                  multi_scale=True, cache="ram", project=str(tmp / "runs"),
+                                  workers=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = counts()
+        trainer = model.trainer
+        save_dir = Path(results["save_dir"])
+        by_size: dict = {}
+        for i, st in enumerate(steps):
+            log(f"options, train: step {i + 1}: drawn size {st['size']}"
+                f"{' (its first step)' if st['first'] else ''}, {st['ms']:.1f} ms, K1 fwd / bwd "
+                f"launches {st['fwd']} / {st['bwd']}")
+            k = by_size.setdefault(st["size"], {"steps": 0, "dcn_forward": 0, "dcn_backward": 0})
+            k["steps"] += 1
+            k["dcn_forward"] += st["fwd"]
+            k["dcn_backward"] += st["bwd"]
+        log(f"options, train: {len(steps)} steps + validation in {wall:.1f} s (bf16 autocast: "
+            f"{trainer.amp_dtype is not None}); K1 launches by drawn size {by_size}; "
+            f"launches in the run {run}")
+        if len(steps) != 8 or any((st["fwd"], st["bwd"]) != (3, 3) for st in steps):
+            raise AssertionError(f"expected 8 steps of 3 K1 fwd and 3 K1 bwd launches: {steps}")
+        if any(st["size"] % 64 or not 320 <= st["size"] <= 960 for st in steps):
+            raise AssertionError(f"multi_scale drew a size outside 320-960: {steps}")
+        val = {k: run[k] - mark["after_steps"][k] for k in run}
+        if val["dcn_forward"] == 0 or val["nms_suppress"] == 0:
+            raise AssertionError(f"the EMA validation launched no K1 fwd or K4: {val}")
+        missing = [f for f in ("train_batch0.jpg", "train_batch1.jpg", "train_batch2.jpg")
+                   if not (save_dir / f).exists()]
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        figures = ("results.png", "confusion_matrix.png", "PR_curve.png")
+        if has_mpl:
+            missing += [f for f in figures if not (save_dir / f).exists()]
+        else:
+            for name in ("plot_results", "plot_confusion_matrix", "plot_pr_curve"):
+                if not any(m.startswith(f"{name} failed") for m in messages):
+                    missing.append(f"{name}'s TryExcept warning")
+        log(f"options, train: matplotlib imports: {has_mpl}; files in the run: "
+            f"{sorted(p.name for p in save_dir.iterdir())}")
+        if missing:
+            raise AssertionError(f"plots missing: {missing}")
+        out["paths"]["training_options_run"] = run
+        out["step_ms_by_size"] = {s: [(round(st["ms"], 1), st["first"]) for st in steps
+                                      if st["size"] == s] for s in sorted(by_size)}
+        written = {"batches": trainer.optimizer.batches, "steps": trainer.optimizer.steps,
+                   "ema_updates": trainer.ema.updates,
+                   "state": {n: {k: v.detach().clone() for k, v in
+                                 trainer.optimizer.opt.state[p].items()}
+                             for n, p in trainer.model.named_parameters()}}
+        jax_last = write_jax_last(tmp / "jax_last", model=trainer.model, ema=trainer.ema,
+                                  optimizer=trainer.optimizer, epoch=0,
+                                  best_fitness=trainer.best_fitness, names=trainer.data["names"],
+                                  dcn_offset_max=trainer.dcn_offset_max_run,
+                                  train_args=trainer.args)
+        best = save_dir / "weights" / "best"
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. rect validation with save_json, card against CPU ---------------------------
+        import cv2
+
+        best_model = YOLO(str(best), device=dev)
+        val_dir = tmp / "shapes" / "val"
+        files = sorted((val_dir / "images").glob("*.jpg"))
+        imgs = [cv2.imread(str(f)) for f in files]
+        for f, im, r in zip(files, imgs, best_model.predict(imgs, imgsz=640, conf=0.001, batch=8)):
+            h, w = im.shape[:2]
+            (val_dir / "labels" / f"{f.stem}.txt").write_text("".join(
+                f"{int(c)} {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} "
+                f"{(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f}\n"
+                for x1, y1, x2, y2, _, c in r.boxes.data[:3]))
+        ds = YOLODataset(val_dir / "images", imgsz=640)
+        plan = ds.set_rectangle(8, 4)
+        buckets = sorted({tuple(int(v) for v in s) for s in ds.rect_shapes})
+        log(f"options, rect val: 16 val images in {len(plan)} batches of buckets (h, w) "
+            f"{buckets}, short sides {min(min(b) for b in buckets)} px and up")
+        if min(min(b) for b in buckets) < 256 or len(buckets) < 2:
+            raise AssertionError(f"the val buckets {buckets} are not rect or too narrow")
+        args = dict(data=data, imgsz=640, batch=8, rect=True, rect_buckets=4, save_json=True,
+                    plots=True)
+        best_model.val(**{**args, "project": str(tmp / "warm")})  # cuDNN plans of the buckets
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        got = best_model.val(**{**args, "project": str(tmp / "val_card")})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rect_run = counts()
+        cpu = YOLO(str(best), device="cpu")
+        t1 = time.perf_counter()
+        want = cpu.val(**{**args, "project": str(tmp / "val_cpu")})
+        cpu_s = time.perf_counter() - t1
+        keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+                "metrics/mAP50-95(B)")
+        log(f"options, rect val: card {wall:.2f} s, {wall / 16 * 1e3:.1f} ms an image (host "
+            f"clock, loader to metrics; the validator's own {got['speed_ms_per_image']:.1f} ms, "
+            f"of it inference + NMS {got['inference_ms_per_image']:.1f} ms); launches {rect_run}")
+        log("options, rect val: card " + ", ".join(f"{k} {got[k]:.6f}" for k in keys))
+        log(f"options, rect val: CPU ({cpu_s:.1f} s) " + ", ".join(f"{k} {want[k]:.6f}"
+                                                                for k in keys) + " (tol 1e-3)")
+        n_batches = len(plan)
+        if rect_run["dcn_forward"] != 3 * n_batches or rect_run["nms_suppress"] != n_batches:
+            raise AssertionError(f"rect val: expected {3 * n_batches} K1 fwd and {n_batches} K4 "
+                                 f"launches: {rect_run}")
+        if got["metrics/mAP50(B)"] <= 0.05 or any(abs(got[k] - want[k]) > 1e-3
+                                                   for k in keys[2:]):
+            raise AssertionError("rect val: the card's mAP is vacuous or disagrees with the CPU's")
+        card_dir, cpu_dir = (next(d.iterdir()) for d in (tmp / "val_card", tmp / "val_cpu"))
+        for f in ("predictions.json", "confusion_matrix.png", "PR_curve.png")[:1 + 2 * has_mpl]:
+            if not (card_dir / f).exists():
+                raise AssertionError(f"rect val wrote no {f}")
+        m = match_predictions(json.loads((card_dir / "predictions.json").read_text()),
+                              json.loads((cpu_dir / "predictions.json").read_text()))
+        log(f"options, rect val: predictions.json, {m['entries']} entries; the "
+            f"{m['held_by_rank']} before each image's first score tie held by rank: max |bbox "
+            f"diff| {m['max_bbox_diff']:.3e} px (tol {JSON_BOX_TOL}), max |score diff| "
+            f"{m['max_score_diff']:.3e} (tol {JSON_SCORE_TOL}); past the ties, not held: "
+            f"{m['unmatched']} entries with no CPU entry within the limits, scores by rank "
+            f"within {m['tail_score_diff']:.3e}")
+        out["paths"]["rect_val_run"] = rect_run
+        out["rect_val"] = {"buckets": buckets, "ms_per_image": wall / 16 * 1e3, **m}
+        del best_model, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. autobatch ------------------------------------------------------------------
+        ab = DetectionTrainer({"model": FLAGSHIP, "data": data, "batch": -1, "imgsz": 640,
+                               "epochs": 1, "plots": False, "project": str(tmp / "ab")})
+        ab._setup()
+        a = ab.autobatch
+        total = torch.cuda.get_device_properties(0).total_memory
+        log("options, autobatch: probe peaks " + ", ".join(
+            f"batch {b} {p / 2**30:.3f} GiB" for b, p in a["peaks"].items())
+            + f"; base {a['base'] / 2**30:.3f} GiB, slope {a['slope'] / 2**20:.1f} MiB an image; "
+            f"total_memory {total / 2**30:.2f} GiB x {a['fraction']} -> batch {a['batch']}")
+        if ab.batch_size != a["batch"] or a["batch"] & (a["batch"] - 1) or a["limit"] != total:
+            raise AssertionError(f"autobatch resolved batch {ab.batch_size} from {a}")
+        peak = step_peak_bytes(ab.probe_step, a["batch"], torch.device(dev))
+        log(f"options, autobatch: one train step at batch {a['batch']}: peak {peak / 2**30:.3f} "
+            f"GiB, the fit {(a['base'] + a['slope'] * a['batch']) / 2**30:.3f} GiB, the budget "
+            f"{a['fraction'] * total / 2**30:.3f} GiB")
+        if peak > a["fraction"] * total:
+            raise AssertionError("the autobatch batch's train step passes the memory budget")
+        out["autobatch"] = {**{k: a[k] for k in ("batch", "base", "slope", "fraction")},
+                            "peaks": {str(b): p for b, p in a["peaks"].items()},
+                            "total_memory": total, "peak_at_batch": peak}
+        del ab
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. resume from the JAX layout, and from train.pt ------------------------------
+        def resume(src: Path, tag: str) -> dict:
+            m = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=5)  # other weights: resume replaces
+            seen: dict = {}
+
+            def on_start(tr):
+                opt = tr.optimizer
+                seen.update(start_epoch=tr.start_epoch, batches=opt.batches, steps=opt.steps,
+                            ema_updates=tr.ema.updates,
+                            state={n: {k: v.detach().clone() for k, v in opt.opt.state[p].items()}
+                                   for n, p in tr.model.named_parameters()}, losses=[])
+                step = tr.train_step
+
+                def recorded(batch):
+                    r = step(batch)
+                    seen["losses"].append(r["loss"].item())
+                    return r
+
+                tr.train_step = recorded
+
+            m.add_callback("on_train_start", on_start)
+            zero()
+            m.train(data=data, epochs=2, batch=16, imgsz=640, amp=False, resume=str(src),
+                    val=False, project=str(tmp / f"resume_{tag}"), workers=8)
+            torch.cuda.synchronize()
+            seen["run"] = counts()
+            return seen
+
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                from_jax = resume(jax_last, "jax")
+                from_pt = resume(save_dir / "weights" / "last", "pt")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        def restored(st: dict, got: dict) -> bool:
+            """As written; a parameter that had no gradient (torch keeps no
+            state for it) gets zero moments beside the step count."""
+            if not st:
+                return all(not bool(v.any()) for k, v in got.items() if k != "step")
+            return set(st) == set(got) and all(torch.equal(v, got[k]) for k, v in st.items())
+
+        diffs = [name for name, st in written["state"].items()
+                 if not restored(st, from_jax["state"][name])]
+        rel = abs(from_jax["losses"][0] - from_pt["losses"][0]) / abs(from_pt["losses"][0])
+        log(f"options, resume: from the JAX layout at epoch {from_jax['start_epoch']}, "
+            f"{from_jax['batches']} batches, {from_jax['steps']} optimizer steps, EMA updates "
+            f"{from_jax['ema_updates']} (written: {written['batches']}, {written['steps']}, "
+            f"{written['ema_updates']}); {len(written['state'])} parameters' optimizer buffers "
+            f"({sorted(next(iter(written['state'].values())))}), {len(diffs)} not restored")
+        log(f"options, resume: first step's fp32 loss from the JAX layout "
+            f"{from_jax['losses'][0]:.8f}, from train.pt {from_pt['losses'][0]:.8f} (rel "
+            f"{rel:.2e}, tol 1e-4); {len(from_jax['losses'])} steps; launches {from_jax['run']}")
+        if (from_jax["start_epoch"], from_jax["batches"], from_jax["steps"],
+                from_jax["ema_updates"]) != (1, written["batches"], written["steps"],
+                                             written["ema_updates"]) or diffs:
+            raise AssertionError(f"the JAX-layout resume did not restore what was written: "
+                                 f"{diffs[:5]}")
+        if rel > 1e-4 or len(from_jax["losses"]) != 8:
+            raise AssertionError("the first resumed steps disagree between the two resumes")
+        out["paths"]["resume_jax_run"] = from_jax["run"]
+        out["resume_loss_rel"] = rel
+    log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     # cuBLAS's fixed-workspace mode, under which its results repeat from run
     # to run, as the deterministic card step (phase_step_card_vs_cpu) asks
@@ -1527,6 +1919,7 @@ def main() -> int:
         run, step, _ = phase_training(dev, None, FLAGSHIP_X)
         paths.update({"training_x_run": run, "training_x_step": step})
         phase_step_card_vs_cpu(dev)
+        paths.update(phase_training_options(dev)["paths"])
         obb = obb_model(dev)
         k5 = phase_k5(dev, gen, obb)
         paths["obb_serving_run"] = phase_obb_serving(obb, dev)

@@ -99,6 +99,32 @@ def test_dcn_backward_kernel_matches_plain(dev, dtype, tol, radius, shape, sigma
     _assert_grads_close(got, want, tol)
 
 
+# multi_scale at imgsz 640 draws 320 to 960 px: the flagship's three DCN
+# levels (strides 8, 16, 32; C = Cout = 64) at the two extremes
+MULTI_SCALE_LEVELS = [(s // stride, s) for s in (320, 960) for stride in (8, 16, 32)]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("hw,imgsz", MULTI_SCALE_LEVELS)
+def test_dcn_at_the_multi_scale_extremes(dev, dtype, tol, hw, imgsz):
+    """K1 fwd and bwd at the levels multi_scale trains at, 40² to 120² at
+    batch 2, each against its plain version at the limits above."""
+    dt = getattr(torch, dtype)
+    x, off, mask, wt = _dcn(dev, dt, 2, hw, hw, 64, 64, seed=imgsz + hw)
+    g = torch.randn(2, hw, hw, 64, generator=torch.Generator().manual_seed(hw)).to(dev, dt)
+    nchw = [t.permute(0, 3, 1, 2) for t in (x, off, mask)]
+    fwd, bwd = modulated_deform_conv2d.launches, dcn_backward.launches
+    got = modulated_deform_conv2d(*nchw, wt.permute(3, 2, 0, 1), None)
+    grads = dcn_backward(*nchw, wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), None)
+    torch.cuda.synchronize()
+    assert (modulated_deform_conv2d.launches, dcn_backward.launches) == (fwd + 1, bwd + 1)
+    want = deform_conv2d_plain(x, off, mask, wt, None).float()
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(), want, atol=tol, rtol=tol)
+    got = [grads[0].permute(0, 2, 3, 1), grads[1].permute(0, 2, 3, 1),
+           grads[2].permute(0, 2, 3, 1), grads[3].permute(2, 3, 1, 0)]
+    _assert_grads_close(got, deform_conv2d_grads_plain(x, off, mask, wt, g, None), tol)
+
+
 K1_SHAPES = [(2, 9, 11, 20, 36), (1, 12, 10, 128, 128), (2, 1, 1, 64, 64), (3, 3, 5, 48, 80),
              (1, 6, 7, 64, 200), (1, 12, 10, 256, 256), (1, 6, 7, 384, 384)]
 

@@ -29,19 +29,21 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # its own imports; the port's are inside its phases
+sys.path.insert(0, "tests")
+import torch_jax_checkpoint  # chip_smoke's JAX-layout writer: the card has no JAX
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the train slice's and the bounded-DCN slice's modules, each imported under
-# the blocker above
+# the train slice's, the bounded-DCN slice's and the training options'
+# modules, each imported under the blocker above
 TRAIN_SLICE_MODULES = (
     "cfg.config", "data.augment", "data.build", "data.dataset", "data.synthetic",
     "engine.checkpoint", "engine.validator", "ops.anchors", "ops.deform", "ops.deform_mxu",
     "ops.deform_pallas", "ops.iou",
     "train.loss", "train.optim", "train.step", "train.tal", "train.trainer",
-    "utils.callbacks", "utils.checks", "utils.metrics",
+    "utils.autobatch", "utils.callbacks", "utils.checks", "utils.metrics", "utils.plotting",
 )
 
 
@@ -85,8 +87,7 @@ def test_trainer_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_path
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"plots": True}, "plotting"), ({"multi_scale": True}, "multi_scale"),
-    ({"batch": -1}, "autobatch"), ({"fsdp": True}, "DDP/FSDP"), ({"task": "segment"}, "tasks"),
+    ({"fsdp": True}, "DDP/FSDP"), ({"task": "segment"}, "tasks"),
 ])
 def test_trainer_raises_on_options_not_ported(override, item, tmp_path):
     from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
@@ -97,7 +98,6 @@ def test_trainer_raises_on_options_not_ported(override, item, tmp_path):
 
 
 @pytest.mark.parametrize("args,call", [
-    ({"plots": True}, {}), ({"save_json": True}, {}), ({"rect": True}, {}),
     ({"task": "pose"}, {}), ({}, {"backend": object()}),
 ])
 def test_validator_raises_on_options_not_ported(args, call):

@@ -30,7 +30,7 @@ CFG_BOOL_KEYS = {
 }
 # keys accepted besides default.yaml's (runtime/meta, not hyperparameters)
 EXTRA_KEYS = {"model", "data", "mode", "task", "resume", "save_dir", "tracker",
-              "kpt_shape", "flip_idx", "space", "autobatch_fraction"}
+              "kpt_shape", "flip_idx", "space", "autobatch_fraction", "rect_buckets"}
 
 DEPRECATED = {  # old key -> (new key, value transform)
     "boxes": ("show_boxes", lambda v: v),

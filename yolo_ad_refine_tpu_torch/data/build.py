@@ -5,7 +5,9 @@ ultralytics/data/build.py:28-147): a thread pool (cv2 and numpy release the
 GIL) fills a bounded prefetch queue; the epoch order is a permutation drawn
 from ``seed + epoch`` and every sample gets its own generator seeded from
 (seed + epoch, index), so a run's batches do not depend on the number of
-workers; labels are padded to (B, max_boxes) with a validity mask.
+workers; labels are padded to (B, max_boxes) with a validity mask. A
+``batch_plan`` (rect validation's buckets) replaces the epoch order with
+its own list of batches.
 """
 
 from __future__ import annotations
@@ -56,8 +58,10 @@ class DataLoader:
 
     def __init__(self, dataset: YOLODataset, batch_size: int = 16, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = False, workers: int | None = None,
-                 prefetch: int = 4, max_boxes: int | None = None):
+                 prefetch: int = 4, max_boxes: int | None = None,
+                 batch_plan: list | None = None):
         self.dataset = dataset
+        self.batch_plan = batch_plan  # explicit batches of indices, e.g. rect buckets
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -68,6 +72,8 @@ class DataLoader:
         self.epoch = 0
 
     def __len__(self):
+        if self.batch_plan is not None:
+            return len(self.batch_plan)
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
@@ -89,8 +95,11 @@ class DataLoader:
         return idx
 
     def __iter__(self):
-        idx = self.indices()
-        batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        if self.batch_plan is not None:
+            batches = self.batch_plan
+        else:
+            idx = self.indices()
+            batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

@@ -9,12 +9,17 @@ perspective, mixup, extras, HSV, flips) or the val letterbox, drawing from
 the given generator in the JAX package's order. Samples: img uint8 HWC
 BGR, bboxes (n, 4) xyxy px (OBB: (n, 5) xywhr px from DOTA-style corner
 rows), cls (n,), ori_shape, ratio_pad, im_file. OBB runs the val case
-only: its augments wait for OBB training.
+only: its augments wait for OBB training. ``cache_images`` keeps the
+resized decodes in memory (``"ram"`` or True) or in ``.yat<imgsz>.npz``
+sidecars beside the images (``"disk"``); ``set_rectangle`` gives rect
+validation its static aspect-ratio buckets.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import threading
 from pathlib import Path
 
 import cv2
@@ -86,8 +91,6 @@ class YOLODataset:
             not_ported(f"the {task!r} dataset", "ROADMAP Queue 1 item 12, the other tasks")
         if task == "obb" and augment:
             not_ported("OBB augmentation", "ROADMAP Queue 1 item 12, OBB training")
-        if cache_images:
-            not_ported("image caching (cache=ram/disk)", "ROADMAP Queue 1 item 9, data")
         self.imgsz = imgsz
         self.augment = augment
         self.hyp = hyp or {}
@@ -100,6 +103,42 @@ class YOLODataset:
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = self._load_labels()
         self.mosaic_enabled = self.augment and self.hyp.get("mosaic", 1.0) > 0
+        # image cache (reference base.py:189-259): "ram" keeps each resized
+        # decode in memory, "disk" writes it once to an npz sidecar
+        self.cache_images = {True: "ram"}.get(cache_images, cache_images)
+        if self.cache_images not in (False, None, "ram", "disk"):
+            raise ValueError(f"cache={cache_images!r}: use False, True, 'ram' or 'disk'")
+        self._ram: list = [None] * len(self.im_files)
+        # rect validation: each image's letterbox target (h, w), from
+        # set_rectangle; None letterboxes to the square imgsz
+        self.rect_shapes: np.ndarray | None = None
+
+    def set_rectangle(self, batch_size: int, nbuckets: int = 4, stride: int = 32,
+                      pad: float = 0.5) -> list[np.ndarray]:
+        """Rect validation in ``nbuckets`` static aspect-ratio buckets, as the
+        JAX package batches it (its data/dataset.py set_rectangle): images
+        sorted by h / w and split into contiguous groups, each letterboxed
+        to one stride-aligned shape that covers its extreme ratio (the
+        reference's ceil(shape * imgsz / stride + pad) * stride, base.py:
+        261-284). Sets ``rect_shapes`` and returns the batch plan, whose
+        batches never straddle a bucket."""
+        n = len(self.im_files)
+        ars = np.empty(n, np.float64)
+        for i in range(n):
+            _, (h0, w0) = self.load_image(i)
+            ars[i] = h0 / w0
+        order = np.argsort(ars)
+        self.rect_shapes = np.full((n, 2), self.imgsz, np.int32)
+        groups = np.array_split(order, max(1, min(nbuckets, n)))
+        for g in groups:
+            if not len(g):
+                continue
+            mini, maxi = float(ars[g].min()), float(ars[g].max())
+            shape = [maxi, 1.0] if maxi < 1 else [1.0, 1.0 / mini] if mini > 1 else [1.0, 1.0]
+            hw = np.ceil(np.array(shape) * self.imgsz / stride + pad).astype(int) * stride
+            self.rect_shapes[g] = np.minimum(hw, self.imgsz)
+        return [np.asarray(g[k:k + batch_size]) for g in groups
+                for k in range(0, len(g), batch_size)]
 
     @staticmethod
     def _glob_images(img_path) -> list[str]:
@@ -159,7 +198,22 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_image(self, i: int):
-        """BGR image with its long side resized to imgsz, and (h0, w0)."""
+        """BGR image with its long side resized to imgsz, and (h0, w0); from
+        the cache when ``cache_images`` is set, always a fresh array."""
+        if self.cache_images == "ram" and self._ram[i] is not None:
+            im, shape0 = self._ram[i]
+            return im.copy(), shape0
+        npy = None
+        if self.cache_images == "disk":
+            # imgsz is in the name: a sidecar written at another imgsz holds
+            # another resize and must not be served
+            npy = Path(self.im_files[i]).with_suffix(f".yat{self.imgsz}.npz")
+            if npy.exists():
+                try:
+                    z = np.load(npy)
+                    return z["img"], tuple(int(v) for v in z["shape0"])
+                except Exception:  # noqa: BLE001 - a stale or torn sidecar is decoded again
+                    pass
         im = cv2.imread(self.im_files[i])
         if im is None:
             raise FileNotFoundError(f"image not found: {self.im_files[i]}")
@@ -169,6 +223,13 @@ class YOLODataset:
             im = cv2.resize(
                 im, (min(math.ceil(w0 * r), self.imgsz), min(math.ceil(h0 * r), self.imgsz)),
                 interpolation=cv2.INTER_LINEAR)
+        if self.cache_images == "ram":
+            self._ram[i] = (im.copy(), (h0, w0))
+        elif npy is not None:  # written whole, then renamed: loader threads share sidecars
+            tmp = npy.with_name(f"{npy.name}.{os.getpid()}.{threading.get_ident()}")
+            with open(tmp, "wb") as f:
+                np.savez(f, img=im, shape0=np.asarray([h0, w0]))
+            os.replace(tmp, npy)
         return im, (h0, w0)
 
     def load_item(self, i: int, with_shape: bool = False):
@@ -217,7 +278,9 @@ class YOLODataset:
         else:
             img, boxes, cls, (h0, w0) = self.load_item(i, with_shape=True)
             r1 = img.shape[0] / h0  # long-side pre-resize factor
-            img, ratio, pad = A.letterbox_np(img, self.imgsz, scaleup=self.augment)
+            target = (tuple(int(v) for v in self.rect_shapes[i])
+                      if self.rect_shapes is not None else self.imgsz)
+            img, ratio, pad = A.letterbox_np(img, target, scaleup=self.augment)
             boxes = A.apply_letterbox_to_boxes(boxes, ratio, pad) if len(boxes) else boxes
             if self.augment:
                 img, boxes, cls = self._perspective(img, boxes, cls, rng, (0, 0))

@@ -7,7 +7,8 @@ directory:
 - ``weights.pt``: the EMA ``state_dict``, which is the model (the
   reference's best.pt holds the EMA too);
 - ``train.pt`` (``last``): the raw ``state_dict``, the optimizer state with
-  its batch and step counts, and the EMA update count, for resume;
+  its batch and step counts and the gradients summed towards its next
+  step, and the EMA update count, for resume;
 - ``meta.yaml``: the JAX package's keys (model_yaml, nc,
   dcn_offset_max, names, epoch, best_fitness, train_args, date, version).
 
@@ -16,6 +17,8 @@ directory the JAX package wrote (``weights.msgpack`` in flax's msgpack
 format, decoded with ``msgpack`` alone, and the same ``meta.yaml``), and in
 both cases widens the DCN clip radius to cover the checkpoint's
 ``dcn_offset_max`` as the JAX package does (its engine/checkpoint.py:85-104).
+``load_train_state`` resumes from either kind of ``last``: the port's
+``train.pt`` or the JAX package's ``train.msgpack`` with its optax state.
 """
 
 from __future__ import annotations
@@ -162,14 +165,52 @@ def load_checkpoint(path: str | Path, device: str | torch.device = "cuda"):
 
 def load_train_state(path: str | Path, model, ema, optimizer):
     """Restore raw weights, EMA, optimizer and counters from a ``last``
-    checkpoint in place. Returns (start_epoch, best_fitness, dcn_offset_max)."""
+    checkpoint in place: the port's ``train.pt`` where there is one, else
+    the JAX package's ``train.msgpack`` (``_load_jax_train_state``).
+    Returns (start_epoch, best_fitness, dcn_offset_max), the last from
+    meta.yaml, where the JAX package's own resume leaves it at 0."""
     path = Path(path)
     meta = yaml_load(path / "meta.yaml")
     dev = next(model.parameters()).device
-    blob = torch.load(path / "train.pt", map_location=dev)
-    model.load_state_dict(blob["model"])
-    ema.ema.load_state_dict(torch.load(path / "weights.pt", map_location=dev))
-    ema.updates = int(blob["ema_updates"])
-    optimizer.load_state_dict(blob["optimizer"])
+    if (path / "train.pt").exists():
+        blob = torch.load(path / "train.pt", map_location=dev)
+        model.load_state_dict(blob["model"])
+        ema.ema.load_state_dict(torch.load(path / "weights.pt", map_location=dev))
+        ema.updates = int(blob["ema_updates"])
+        optimizer.load_state_dict(blob["optimizer"])
+    elif (path / "train.msgpack").exists():
+        _load_jax_train_state(path, model, ema, optimizer)
+    else:
+        raise FileNotFoundError(f"resume checkpoint not found at {path} "
+                                "(neither train.pt nor train.msgpack)")
     return (int(meta.get("epoch", -1)) + 1, float(meta.get("best_fitness", 0.0)),
             float(meta.get("dcn_offset_max") or 0.0))
+
+
+def _load_jax_train_state(path: Path, model, ema, optimizer) -> None:
+    """A JAX ``last`` (its engine/checkpoint.py save_checkpoint and
+    load_train_state): the raw variables into ``model`` and the EMA's
+    ``weights.msgpack`` into ``ema.ema``, both strictly through
+    ``load_jax_variables``; ``step`` (batches seen) and ``ema_updates``
+    into the counters; ``opt_state`` through ``load_jax_opt_state``. As in
+    the JAX package, a blob without ``step`` (a ``best``) keeps the fresh
+    counters, and one without ``opt_state`` or whose state does not fit
+    this optimizer warns and starts the optimizer fresh."""
+    from yolo_ad_refine_tpu_torch.train.optim import load_jax_opt_state
+    from yolo_ad_refine_tpu_torch.utils.jax_weights import flatten_tree, load_jax_variables
+
+    blob = read_flax_msgpack(path / "train.msgpack")
+    for target, variables in ((model, blob["variables"]),
+                              (ema.ema, read_flax_msgpack(path / "weights.msgpack"))):
+        load_jax_variables(target, flatten_tree(variables["params"]),
+                           flatten_tree(variables.get("batch_stats", {})))
+    if "step" in blob:
+        optimizer.batches = int(blob["step"])
+        ema.updates = int(round(float(blob["ema_updates"])))
+    if "opt_state" not in blob:
+        LOGGER.warning(f"{path}/train.msgpack has no optimizer state; the optimizer starts fresh")
+        return
+    try:
+        load_jax_opt_state(optimizer, blob["opt_state"], model)
+    except (KeyError, ValueError) as e:
+        LOGGER.warning(f"optimizer state restore failed ({e}); the optimizer starts fresh")

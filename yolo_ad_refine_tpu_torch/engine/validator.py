@@ -10,14 +10,20 @@ and GT are rescaled to each image's native pixels and matched at IoU
 (an OBB model) takes the rotated NMS (K5 on the card), rescales xywhr
 predictions and GT with ``scale_rboxes``, matches them by ``probiou_np``
 and leaves the confusion matrix alone, as the JAX validator does; its val
-loss waits for OBB training. Other tasks, exported backends,
-``save_json``, plots and rect batches are not ported.
+loss waits for OBB training. ``rect`` (detect only) letterboxes the val
+set into ``rect_buckets`` static aspect-ratio buckets (the dataset's
+``set_rectangle``), ``save_json`` writes ``predictions.json`` (COCO-style
+entries in native pixels) and ``plots`` writes ``confusion_matrix.png``
+and ``PR_curve.png``, both into ``save_dir``. Other tasks and exported
+backends are not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,17 +42,14 @@ class DetectionValidator:
     """Runs a model over a val split and computes detection metrics.
     ``args``: imgsz, batch, conf (0.001), iou (0.7), max_det (300),
     max_nms (2048), max_boxes, split, data, task ("detect" or "obb"), amp
-    (bf16 autocast on the card)."""
+    (bf16 autocast on the card), rect and rect_buckets (4), save_json,
+    plots and save_dir (".")."""
 
     def __init__(self, args: dict | None = None, dataloader: DataLoader | None = None):
         self.args = dict(args or {})
         self.dataloader = dataloader
         self.names = None
-        for key, item in (("save_json", "ROADMAP Queue 1 item 9, data"),
-                          ("rect", "ROADMAP Queue 1 item 9, data"),
-                          ("plots", "ROADMAP Queue 1 item 13, plotting")):
-            if self.args.get(key):
-                not_ported(f"{key}=True in validation", item)
+        self.jdict = None
         self.task = self.args.get("task") or "detect"
         if self.task not in ("detect", "obb"):
             not_ported(f"validating task {self.task!r}",
@@ -59,7 +62,11 @@ class DetectionValidator:
         ds = YOLODataset(path, imgsz=imgsz, augment=False, nc=info["nc"],
                          max_boxes=int(self.args.get("max_boxes", 128)), task=self.task)
         self.names = info["names"]
-        return DataLoader(ds, batch_size=batch, shuffle=False)
+        plan = None
+        if self.args.get("rect") and self.task == "detect":
+            # K static aspect-ratio buckets; a batch never straddles two
+            plan = ds.set_rectangle(batch, nbuckets=int(self.args.get("rect_buckets") or 4))
+        return DataLoader(ds, batch_size=batch, shuffle=False, batch_plan=plan)
 
     @torch.no_grad()
     def __call__(self, model=None, dataloader=None, loss_fn=None, backend=None) -> dict:
@@ -92,6 +99,7 @@ class DetectionValidator:
 
         metrics = DetMetrics(names)
         confusion = ConfusionMatrix(nc)
+        self.jdict = [] if args.get("save_json") else None
         loss_sum = torch.zeros(3, device=dev)
         n_batches = seen = 0
         t_inference = 0.0
@@ -111,7 +119,7 @@ class DetectionValidator:
             angles = extras[..., 0].cpu().numpy() if rotated else None
             t_inference += time.perf_counter() - t1
             self._update_metrics(det, cnt, batch, metrics, confusion, batch["img"].shape[1:3],
-                                 angles)
+                                 angles, self.jdict)
             seen += len(batch["im_file"])
         model.train(training)
 
@@ -126,15 +134,39 @@ class DetectionValidator:
         LOGGER.info(f"{'all':>10}{seen:>8} P {r['metrics/precision(B)']:.3f} "
                     f"R {r['metrics/recall(B)']:.3f} mAP50 {r['metrics/mAP50(B)']:.3f} "
                     f"mAP50-95 {r['metrics/mAP50-95(B)']:.3f}")
+        save_dir = Path(args.get("save_dir") or ".")
+        if self.jdict is not None:
+            out = save_dir / "predictions.json"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(self.jdict))
+            LOGGER.info(f"save_json: {len(self.jdict)} predictions -> {out}")
+        if args.get("plots") and args.get("save_dir"):
+            self._plot(metrics, confusion, names, save_dir)
         return results
 
     @staticmethod
+    def _plot(metrics: DetMetrics, confusion: ConfusionMatrix, names: dict, save_dir: Path):
+        """confusion_matrix.png and, when there is an AP, PR_curve.png: each
+        class's precision over the recall grid at IoU 0.5."""
+        from yolo_ad_refine_tpu_torch.utils.plotting import plot_confusion_matrix, plot_pr_curve
+
+        save_dir.mkdir(parents=True, exist_ok=True)
+        plot_confusion_matrix(confusion.matrix, names, save_dir / "confusion_matrix.png")
+        box = metrics.box
+        if len(box.all_ap) and getattr(box, "prec_values", None) is not None:
+            plot_pr_curve(box.px, box.prec_values, box.all_ap, save_dir / "PR_curve.png", names)
+
+    @staticmethod
     def _update_metrics(det, cnt, batch, metrics: DetMetrics, confusion: ConfusionMatrix,
-                        imgsz, angles=None):
+                        imgsz, angles=None, jdict: list | None = None):
         """Rescale both sides to native pixels (reference _prepare_batch /
         _prepare_pred) and match at the 10 IoU thresholds. With ``angles``
         (B, max_det), OBB: det rows are xywh, GT (n, 5) xywhr, matched by
-        probiou; the confusion matrix stays axis-aligned only."""
+        probiou; the confusion matrix stays axis-aligned only. ``jdict``
+        gathers the save_json entries of the JAX validator (reference
+        detect/val.py pred_to_json): image_id the file's stem (an int when
+        numeric), category_id, bbox [x1, y1, w, h] in native pixels to 3
+        places and score to 5, from the rows as they are (OBB: xywh)."""
         imgsz = tuple(int(v) for v in imgsz)
         rotated = angles is not None
 
@@ -156,6 +188,14 @@ class DetectionValidator:
                 d[:, :4] = pred[:, :4]
             if len(gt_boxes):
                 gt_boxes = native(gt_boxes, i)
+            if jdict is not None and n:
+                stem = Path(batch["im_file"][i]).stem
+                image_id = int(stem) if stem.isnumeric() else stem
+                for x1, y1, x2, y2, sc, c in d[:, :6]:
+                    jdict.append({"image_id": image_id, "category_id": int(c),
+                                  "bbox": [round(float(x1), 3), round(float(y1), 3),
+                                           round(float(x2 - x1), 3), round(float(y2 - y1), 3)],
+                                  "score": round(float(sc), 5)})
             if n == 0:
                 if len(gt_cls):
                     metrics.update_stats(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)

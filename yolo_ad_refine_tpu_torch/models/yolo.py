@@ -13,12 +13,14 @@ raises until it is ported.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
 from yolo_ad_refine_tpu_torch.engine.checkpoint import load_checkpoint
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
 from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
-from yolo_ad_refine_tpu_torch.utils import not_ported, select_device
+from yolo_ad_refine_tpu_torch.utils import increment_path, not_ported, select_device
 from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
 
 
@@ -59,8 +61,10 @@ class YOLO:
 
     def train(self, **kwargs) -> dict:
         """Train this model with default.yaml merged with ``kwargs`` (data=,
-        epochs=, batch=, imgsz=, plots=False, ...); afterwards ``self.model``
-        is the best checkpoint's model."""
+        epochs=, batch= (-1: autobatch on the card), imgsz=, multi_scale=,
+        cache=, resume= (a ``last`` directory of the port's or of the JAX
+        package's), ...); afterwards ``self.model`` is the best checkpoint's
+        model."""
         from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
 
         overrides = {**self.overrides, **kwargs, "mode": "train"}
@@ -76,13 +80,22 @@ class YOLO:
     def val(self, **kwargs) -> dict:
         """Validate on ``data=`` (its val split) and return the metrics. The
         model runs in its own type; ``amp=True`` runs it under bf16 autocast
-        on the card, as the trainer's validation does."""
+        on the card, as the trainer's validation does. ``rect=True`` (with
+        ``rect_buckets``, 4) letterboxes into static aspect-ratio buckets.
+        ``plots`` stays off unless asked; ``plots=True`` and
+        ``save_json=True`` write into ``save_dir``, by default a new
+        ``<project>/<name>`` (runs/val, runs/val2, ...)."""
         from yolo_ad_refine_tpu_torch.cfg.config import get_cfg
         from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
 
         args = get_cfg({**self.overrides, **kwargs, "mode": "val"})
         args.update(plots=bool(kwargs.get("plots", False)), amp=bool(kwargs.get("amp", False)))
-        return DetectionValidator(args=args)(model=self.model)
+        if (args["plots"] or args.get("save_json")) and not args.get("save_dir"):
+            args["save_dir"] = str(increment_path(
+                Path(args.get("project") or "runs") / (args.get("name") or "val"),
+                exist_ok=bool(args.get("exist_ok")), mkdir=True))
+        self.validator = DetectionValidator(args=args)
+        return self.validator(model=self.model)
 
     def track(self, source=None, **kwargs):
         not_ported("track", "ROADMAP Queue 1 item 15, trackers")

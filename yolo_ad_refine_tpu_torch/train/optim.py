@@ -21,6 +21,9 @@ engine/trainer.py:753-813 build_optimizer, :209-215 and :369-380 schedules,
   schedules at batch k * accumulate;
 - EMA of params and BN running stats, d = 0.9999 * (1 - exp(-updates / 2000)),
   counted in optimizer steps.
+
+``load_jax_opt_state`` carries the JAX package's optax state into the
+torch optimizer for a resume (see its docstring for the map).
 """
 
 from __future__ import annotations
@@ -32,11 +35,19 @@ import torch
 from torch import nn
 
 
+# parameters the port holds in another shape than their flax leaf, by the
+# leaf's number of dimensions (AdaptiveDynamicTanh alphas: (ns,) in flax,
+# (1, ns, 1, 1) here)
+FLAX_NDIM = {"alphas": 1}
+
+
 def param_group_label(name: str, p: torch.Tensor) -> str:
-    """The group of one parameter, as ``optim.py:26-34`` labels flax leaves."""
-    if name.split(".")[-1].endswith("bias"):
+    """The group of one parameter, as ``optim.py:26-34`` labels its flax
+    leaf: by the leaf's name and number of dimensions."""
+    last = name.split(".")[-1]
+    if last.endswith("bias"):
         return "bias"
-    return "nodecay" if p.ndim <= 1 else "decay"
+    return "nodecay" if FLAX_NDIM.get(last, p.ndim) <= 1 else "decay"
 
 
 def make_lr_fn(lr0: float, lrf: float, epochs: int, nb: int, warmup_epochs: float = 3.0,
@@ -108,12 +119,21 @@ class Optimizer:
         self.steps += 1
         return True
 
+    def params(self) -> list[torch.Tensor]:
+        return [p for g in self.opt.param_groups for p in g["params"]]
+
     def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "batches": self.batches, "steps": self.steps}
+        """The torch optimizer's state, the counts, and the gradients summed
+        so far towards the next step (None where a parameter has none)."""
+        return {"opt": self.opt.state_dict(), "batches": self.batches, "steps": self.steps,
+                "acc_grads": [None if p.grad is None else p.grad.detach().clone()
+                              for p in self.params()]}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
         self.batches, self.steps = int(state["batches"]), int(state["steps"])
+        for p, g in zip(self.params(), state.get("acc_grads") or []):
+            p.grad = None if g is None else g.to(p.device, p.dtype)
 
 
 def build_optimizer(named_params, *, optimizer: str = "auto", lr0: float = 0.01,
@@ -153,6 +173,80 @@ def build_optimizer(named_params, *, optimizer: str = "auto", lr0: float = 0.01,
     lr_fns = {"pg0": lr_by_group["decay"], "pg1": lr_by_group["nodecay"],
               "pg2": lr_by_group["bias"]}
     return Optimizer(opt, accumulate, lr_by_group, mom_fn, grad_clip), accumulate, lr_fns
+
+
+def _last(chain: dict) -> dict:
+    """The last transform's state of a serialised optax chain {"0": ..., "1": ...}."""
+    return chain[str(max(int(k) for k in chain))]
+
+
+@torch.no_grad()
+def load_jax_opt_state(optimizer: Optimizer, opt_state: dict, model: nn.Module) -> None:
+    """Load the JAX package's serialised optax state (``train.msgpack``'s
+    ``opt_state``, its train/optim.py build_optimizer tree) into
+    ``optimizer``, whose parameters are ``model``'s. From the outside in:
+    ``chain(clip_by_global_norm, ...)``; with accumulate > 1,
+    ``chain(scale(accumulate), MultiSteps)``, whose ``acc_grads`` hold the
+    running mean of ``accumulate`` x the gradients over ``mini_step``
+    batches; ``multi_transform`` over the groups bias / nodecay / decay;
+    ``inject_hyperparams`` (``count``: optimizer steps); then the optimizer
+    last in each group's chain. SGD's ``trace`` is torch SGD's
+    ``momentum_buffer`` (both buf = mu * buf + g, dampening 0); Adam's
+    ``mu`` / ``nu`` / ``count`` are ``exp_avg`` / ``exp_avg_sq`` / ``step``.
+    Each leaf takes its weight's layout change (``jax_to_port``). A
+    non-zero ``mini_step`` puts the summed gradients (acc_grads x
+    mini_step / accumulate) into ``.grad``, where the port accumulates.
+    Raises KeyError or ValueError where the tree does not fit the
+    optimizer; nothing is changed then."""
+    from yolo_ad_refine_tpu_torch.utils.jax_weights import flatten_tree, jax_to_port
+
+    sgd = isinstance(optimizer.opt, torch.optim.SGD)
+    top, acc_grads, mini_step = _last(opt_state), None, 0
+    if optimizer.accumulate > 1:
+        if "mini_step" not in top:
+            raise KeyError(f"accumulate {optimizer.accumulate} but the state has no MultiSteps")
+        mini_step, acc_grads = int(top["mini_step"]), top["acc_grads"]
+        steps = int(top["gradient_step"])
+        top = _last(top["inner_opt_state"])
+    kinds = ("trace",) if sgd else ("mu", "nu")
+    leaves = {k: {} for k in kinds}
+    counts, adam_counts = set(), set()
+    for label, group in top["inner_states"].items():
+        inject = group["inner_state"]
+        counts.add(int(inject["count"]))
+        inner = _last(inject["inner_state"])["0"]  # the optimizer's chain, its first state
+        for k in kinds:
+            if k not in inner:
+                raise KeyError(f"group {label}: the state holds {sorted(inner)}, not {k} "
+                               f"({'SGD' if sgd else 'Adam'} in the port)")
+            leaves[k].update(flatten_tree(inner[k]))
+        if not sgd:
+            adam_counts.add(int(inner["count"]))
+    if len(counts) != 1 or len(adam_counts) > 1:
+        raise ValueError(f"the groups' step counts differ: {counts} {adam_counts}")
+    if optimizer.accumulate == 1:
+        steps = counts.pop()
+    adam_step = float(adam_counts.pop()) if adam_counts else 0.0
+    arrays = {k: jax_to_port(model, v, collections=("params",)) for k, v in leaves.items()}
+    grads = (jax_to_port(model, flatten_tree(acc_grads), collections=("params",))
+             if mini_step else {})
+    named = dict(model.named_parameters())
+    ids = {id(p) for p in optimizer.params()}
+    if {id(named[n]) for n in arrays[kinds[0]]} != ids:
+        raise KeyError("the state's parameters are not the optimizer's")
+
+    def t(a, p):
+        return torch.from_numpy(a).to(p.device, p.dtype)
+
+    for name, p in named.items():
+        if sgd:
+            optimizer.opt.state[p] = {"momentum_buffer": t(arrays["trace"][name], p)}
+        else:
+            optimizer.opt.state[p] = {"step": torch.tensor(adam_step),
+                                      "exp_avg": t(arrays["mu"][name], p),
+                                      "exp_avg_sq": t(arrays["nu"][name], p)}
+        p.grad = (t(grads[name], p) * (mini_step / optimizer.accumulate)) if mini_step else None
+    optimizer.steps = steps
 
 
 def ema_decay(updates: int, decay: float = 0.9999, tau: float = 2000.0) -> torch.Tensor:

@@ -7,11 +7,19 @@ train loader, a train step per batch (bf16 autocast on the card when
 ``amp``, fp32 on the CPU), EMA validation every epoch and always at the
 last, ``results.csv`` with the JAX package's 16 columns, ``last`` and
 ``best`` checkpoints (best by the fork's fitness 0.9 mAP50 + 0.1 mAP50-95),
-early stopping, close_mosaic, resume, and a final validation of ``best``.
+early stopping, close_mosaic, resume (from the port's ``last`` or the JAX
+package's), and a final validation of ``best``. The options of a user's
+yaml run as in the JAX package: ``plots`` (the first three batches of
+epoch 0 as ``train_batch{0,1,2}.jpg``, ``results.png``, and the
+validator's confusion matrix and PR curve), ``multi_scale`` (each batch
+resized on the host to one of the stride-64 sizes from 0.5 to 1.5 imgsz,
+drawn from ``seed + epoch``), ``cache`` (ram / disk) and ``batch=-1``
+(autobatch from the card's memory, ``utils/autobatch.py``).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from pathlib import Path
 
@@ -31,6 +39,7 @@ from yolo_ad_refine_tpu_torch.train.step import TrainStep
 from yolo_ad_refine_tpu_torch.utils import (
     LOGGER, colorstr, increment_path, not_ported, select_device, yaml_save)
 from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
+from yolo_ad_refine_tpu_torch.utils.plotting import plot_images, plot_results
 
 CSV_KEYS = ("epoch", "time", "train/box_loss", "train/cls_loss", "train/dfl_loss",
             "metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
@@ -38,11 +47,44 @@ CSV_KEYS = ("epoch", "time", "train/box_loss", "train/cls_loss", "train/dfl_loss
             "lr/pg0", "lr/pg1", "lr/pg2", "train/dcn_offset_max")
 
 # options the port does not run yet, with the ROADMAP item that brings them
-NOT_PORTED = {
-    "plots": "ROADMAP Queue 1 item 13, plotting",
-    "multi_scale": "ROADMAP Queue 1 item 9, multi_scale",
-    "fsdp": "ROADMAP Queue 1 item 10, DDP/FSDP",
-}
+NOT_PORTED = {"fsdp": "ROADMAP Queue 1 item 10, DDP/FSDP"}
+
+
+def multi_scale_batch(batch: dict, imgsz: int, rng: np.random.Generator) -> dict:
+    """The JAX package's multi_scale (its train/trainer.py multi_scale_batch,
+    reference detect/train.py:60-75) for detect batches: one size drawn
+    from the multiples of 64 in [0.5, 1.5] imgsz, every image resized to it
+    on the host with cv2's INTER_LINEAR and the boxes' first four columns
+    scaled; a batch already at the drawn size passes unchanged."""
+    import cv2
+
+    lo, hi = (int(imgsz * 0.5) // 64) * 64, (int(imgsz * 1.5) // 64) * 64
+    sizes = list(range(max(lo, 64), hi + 1, 64))
+    sz = int(sizes[rng.integers(0, len(sizes))])
+    if sz == batch["img"].shape[1]:
+        return batch
+    out = dict(batch)
+    out["img"] = np.stack([cv2.resize(im, (sz, sz), interpolation=cv2.INTER_LINEAR)
+                           for im in batch["img"]])
+    out["bboxes"] = batch["bboxes"].copy()
+    out["bboxes"][..., :4] *= sz / batch["img"].shape[1]  # column 4 (an OBB angle) keeps
+    return out
+
+
+def synthetic_batch(b: int, imgsz: int, max_boxes: int, nc: int, seed: int = 0) -> dict:
+    """A seeded host batch in the collate's layout, 8 boxes an image (at
+    most max_boxes), for measuring a train step without a dataset."""
+    r = np.random.default_rng(seed)
+    n = min(8, max_boxes)
+    xy = r.uniform(0, imgsz * 0.7, (b, n, 2))
+    boxes = np.zeros((b, max_boxes, 4), np.float32)
+    boxes[:, :n] = np.concatenate([xy, xy + r.uniform(8, imgsz * 0.3, (b, n, 2))], -1)
+    cls = np.zeros((b, max_boxes, 1), np.float32)
+    cls[:, :n] = r.integers(0, nc, (b, n, 1))
+    mask = np.zeros((b, max_boxes, 1), np.float32)
+    mask[:, :n] = 1.0
+    return {"img": r.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8), "cls": cls,
+            "bboxes": boxes, "mask": mask}
 
 
 class EarlyStopping:
@@ -76,14 +118,15 @@ class DetectionTrainer:
         for key, item in NOT_PORTED.items():
             if self.args.get(key):
                 not_ported(f"{key}=True in training", item)
-        if int(self.args["batch"]) == -1:
-            not_ported("batch=-1 (autobatch)", "ROADMAP Queue 1 item 9, autobatch")
         if self.args.get("task", "detect") != "detect":
             not_ported(f"training task {self.args['task']!r}",
                         "ROADMAP Queue 1 item 12, the other tasks")
         self.model = model
         self.device = (next(model.parameters()).device if model is not None
                        else select_device(self.args.get("device") or "cuda"))
+        if int(self.args["batch"]) == -1 and self.device.type != "cuda":
+            raise RuntimeError("batch=-1 (autobatch) measures the card's memory and runs on "
+                               f"CUDA only; on {self.device.type} pass a batch size")
         self.epochs = int(self.args["epochs"])
         self.batch_size = int(self.args["batch"])
         self.imgsz = int(self.args["imgsz"])
@@ -100,6 +143,7 @@ class DetectionTrainer:
         self.callbacks = callbacks or Callbacks()
         self.current_epoch = 0
         self.last_epoch_scalars: dict = {}
+        self.autobatch: dict | None = None  # the batch=-1 measurement, when it ran
 
     # -- setup ------------------------------------------------------------
     def _setup(self):
@@ -110,15 +154,6 @@ class DetectionTrainer:
                                     "shear", "perspective", "flipud", "fliplr", "mosaic",
                                     "mixup", "copy_paste")}
         max_boxes = int(args.get("max_boxes", 128))
-        train_ds = YOLODataset(data["train"], imgsz=self.imgsz, augment=True, hyp=hyp,
-                               nc=data["nc"], max_boxes=max_boxes,
-                               fraction=float(args.get("fraction", 1.0)),
-                               cache_images=args.get("cache", False))
-        self.train_loader = DataLoader(train_ds, batch_size=self.batch_size, shuffle=True,
-                                       seed=int(args.get("seed", 0)), drop_last=True,
-                                       workers=args.get("workers"))
-        self.nb = max(len(self.train_loader), 1)
-
         if self.model is None or self.model.nc != data["nc"]:
             cfg = self.model.yaml if self.model is not None else args["model"]
             self.model = build_detection_model(cfg, nc=data["nc"], device=self.device,
@@ -129,10 +164,21 @@ class DetectionTrainer:
             from yolo_ad_refine_tpu_torch.utils.checks import check_amp
 
             self.amp_dtype = torch.bfloat16 if check_amp(self.model) else None
-
         self.loss_fn = DetectionLoss(nc=data["nc"], strides=self.model.strides,
                                      box_gain=float(args["box"]), cls_gain=float(args["cls"]),
                                      dfl_gain=float(args["dfl"]))
+        if self.batch_size == -1:
+            self.autobatch = self._autobatch()
+            self.batch_size = self.args["batch"] = self.autobatch["batch"]
+
+        train_ds = YOLODataset(data["train"], imgsz=self.imgsz, augment=True, hyp=hyp,
+                               nc=data["nc"], max_boxes=max_boxes,
+                               fraction=float(args.get("fraction", 1.0)),
+                               cache_images=args.get("cache", False))
+        self.train_loader = DataLoader(train_ds, batch_size=self.batch_size, shuffle=True,
+                                       seed=int(args.get("seed", 0)), drop_last=True,
+                                       workers=args.get("workers"))
+        self.nb = max(len(self.train_loader), 1)
         self.optimizer, self.accumulate, self.lr_fns = build_optimizer(
             self.model.named_parameters(), optimizer=args.get("optimizer", "auto"),
             lr0=float(args["lr0"]), lrf=float(args["lrf"]), momentum=float(args["momentum"]),
@@ -145,9 +191,9 @@ class DetectionTrainer:
         self.ema = ModelEMA(self.model)
 
         resume = args.get("resume")
-        if resume:
+        if resume:  # the port's last (train.pt) or the JAX package's (train.msgpack)
             ckpt = Path(str(resume)) if Path(str(resume)).exists() else self.wdir / "last"
-            if not (ckpt / "train.pt").exists():
+            if not any((ckpt / f).exists() for f in ("train.pt", "train.msgpack")):
                 raise FileNotFoundError(f"resume checkpoint not found at {ckpt}")
             self.start_epoch, self.best_fitness, self.dcn_offset_max_run = load_train_state(
                 ckpt, self.model, self.ema, self.optimizer)
@@ -159,7 +205,8 @@ class DetectionTrainer:
         self.validator = DetectionValidator(args={
             **{k: args[k] for k in ("imgsz", "iou", "max_det", "max_boxes")},
             "batch": self.batch_size, "conf": 0.001, "split": args.get("split", "val"),
-            "amp": self.amp_dtype is not None})
+            "amp": self.amp_dtype is not None, "plots": bool(args.get("plots", True)),
+            "save_dir": str(self.save_dir)})
         val_path = data.get(args.get("split", "val")) or data["train"]
         val_ds = YOLODataset(val_path, imgsz=self.imgsz, augment=False, nc=data["nc"],
                              max_boxes=max_boxes)
@@ -167,6 +214,25 @@ class DetectionTrainer:
         self.validator.names = data["names"]
         self.stopper = EarlyStopping(int(args.get("patience", 100)))
         yaml_save(self.save_dir / "args.yaml", self.args)
+
+    def probe_step(self, b: int) -> None:
+        """One real train step of this model at batch ``b`` on seeded data
+        (forward, loss, backward, SGD step, EMA), on a copy of the model, so
+        the run's weights do not move: what autobatch measures."""
+        nc, max_boxes = self.model.nc, int(self.args.get("max_boxes", 128))
+        model = copy.deepcopy(self.model).train()
+        opt, _, _ = build_optimizer(model.named_parameters(), optimizer="SGD", epochs=1, nb=1,
+                                    batch=b, nbs=b, warmup_epochs=0.0, nc=nc)
+        TrainStep(model, self.loss_fn, opt, ModelEMA(model), self.amp_dtype)(
+            synthetic_batch(b, self.imgsz, max_boxes, nc))
+
+    def _autobatch(self) -> dict:
+        """batch=-1: the largest power-of-two batch whose train step fits
+        ``autobatch_fraction`` (0.60) of the card (utils/autobatch.py)."""
+        from yolo_ad_refine_tpu_torch.utils.autobatch import autobatch
+
+        return autobatch(self.probe_step, self.device,
+                         fraction=float(self.args.get("autobatch_fraction") or 0.60))
 
     # -- loop ----------------------------------------------------------------
     def train(self) -> dict:
@@ -189,7 +255,14 @@ class DetectionTrainer:
                 self.train_loader.close_mosaic()
             self.train_loader.set_epoch(epoch)
             epoch_metrics = []  # device scalars, fetched once per epoch
-            for batch in self.train_loader:
+            ms_rng = np.random.default_rng(int(args.get("seed", 0)) + epoch)
+            for nbatch, batch in enumerate(self.train_loader):
+                if epoch == 0 and nbatch < 3 and args.get("plots", True):  # host arrays: no sync
+                    plot_images(batch["img"], batch["bboxes"], batch["cls"], batch["mask"],
+                                self.data["names"], self.save_dir / f"train_batch{nbatch}.jpg")
+                if args.get("multi_scale"):
+                    batch = multi_scale_batch(batch, self.imgsz, ms_rng)
+                self.batch = batch  # the step's host batch, for the callbacks
                 self.callbacks.run("on_train_batch_start", self)
                 m = self.train_step(batch)
                 epoch_metrics.append(torch.stack([m["box_loss"], m["cls_loss"], m["dfl_loss"],
@@ -220,6 +293,8 @@ class DetectionTrainer:
                 break
 
         self.model.names = self.data["names"]
+        if args.get("plots", True):
+            plot_results(self.csv)
         best = self.wdir / "best"
         if args.get("val", True) and (best / "weights.pt").exists():
             LOGGER.info(f"Validating {best}...")

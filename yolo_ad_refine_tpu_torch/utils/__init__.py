@@ -1,5 +1,5 @@
 """Runtime utilities of the PyTorch port: logging, yaml IO, run paths,
-device selection.
+device selection, and ``TryExcept``.
 
 Counterpart of ``yolo_ad_refine_tpu/utils/__init__.py``, kept to what the
 predict and train paths need. PyYAML reads and writes the yamls, as in the
@@ -82,6 +82,32 @@ def increment_path(path: str | Path, exist_ok: bool = False, mkdir: bool = False
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+class TryExcept:
+    """Context manager / decorator that logs an exception as a warning and
+    swallows it (the decorated function then returns None), as the JAX
+    package's ``utils.TryExcept`` does."""
+
+    def __init__(self, msg: str = "", verbose: bool = True):
+        self.msg = msg
+        self.verbose = verbose
+
+    def __call__(self, func):
+        def wrapper(*args, **kwargs):
+            with self:
+                return func(*args, **kwargs)
+
+        wrapper.__name__, wrapper.__doc__ = func.__name__, func.__doc__
+        return wrapper
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, value, tb):
+        if self.verbose and value:
+            LOGGER.warning(f"{self.msg}{': ' if self.msg else ''}{value}")
+        return True
 
 
 def not_ported(what: str, item: str):
