@@ -61,6 +61,18 @@ to 0 just before it and read just after, each DCN variant under its own
   ``last`` written in the JAX package's layout and resumed from it for one
   more epoch (the restored state as written, the first step's fp32 loss
   against the same resume from the port's ``train.pt``);
+- OBB training (``phase_obb_training``): ``YOLO("yolo11n-obb.yaml")
+  .train(task="obb")`` on a seeded DOTA-style set (64 train, 16 val tiles
+  of 1024² with corner-quad labels), 1 epoch at batch 16 in bf16: 4 steps,
+  the EMA validation and that of ``best`` through K5, a reload of
+  ``best`` as an OBB model, and one fp32 OBB step held against the CPU;
+- export and serving (``phase_export``): the flagship exported at batch
+  32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
+  fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
+  loaded by ``AutoBackend`` and run on 64 images against the eager model,
+  its DCN kernel's launches read from the ``yat_ad::`` ops' counters, and
+  ``DetectionValidator(backend=)`` over 20 images at batch 8 against the
+  same validation through the model;
 
 and holds one fp32 train step on the card against the same step on the
 CPU. Any failed phase raises and the script exits non-zero. The last line is
@@ -1002,6 +1014,249 @@ def phase_obb_val(model, dev):
     return launches
 
 
+def phase_obb_training(dev) -> dict:
+    """``YOLO(yolo11n-obb).train(task="obb")`` on the card: a seeded
+    DOTA-style set of 64 train and 16 val tiles of 1024² labelled with
+    corner quads, 1 epoch at batch 16 in bf16 (4 steps), the EMA validation
+    and that of ``best`` through K5, and a reload of ``best`` as an OBB
+    model. Then one fp32 OBB step (deterministic algorithms) against the
+    CPU at ``phase_step_card_vs_cpu``'s limits. Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_dota_dataset
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
+
+    counters = kernel_counters()
+
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    with dcn_env(None), tempfile.TemporaryDirectory(prefix="chip_smoke_obb_train_") as tmp:
+        t0 = time.perf_counter()
+        data = make_dota_dataset(Path(tmp) / "dota", n_val=16, n_train=64, imgsz=OBB_IMGSZ,
+                                 seed=5)
+        log(f"OBB training: DOTA-style set (64 train, 16 val tiles of {OBB_IMGSZ}², corner "
+            f"quads) written in {time.perf_counter() - t0:.1f} s")
+        model = obb_model(dev)
+        steps, mark = [], {}
+
+        def on_batch_start(tr):
+            torch.cuda.synchronize()
+            mark.update(counts=counts(), t=time.perf_counter())
+            if len(steps) == 0 and tr.batch["bboxes"].shape[-1] != 5:
+                raise AssertionError(f"OBB batch boxes {tr.batch['bboxes'].shape}, expected 5 "
+                                     "columns (xywhr)")
+
+        def on_batch_end(tr):
+            torch.cuda.synchronize()
+            now = counts()
+            steps.append({"ms": (time.perf_counter() - mark["t"]) * 1e3,
+                          **{k: now[k] - mark["counts"][k] for k in now}})
+            mark["after_steps"] = now
+
+        model.add_callback("on_train_batch_start", on_batch_start)
+        model.add_callback("on_train_batch_end", on_batch_end)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.train(data=data, epochs=1, batch=16, imgsz=OBB_IMGSZ, amp=True,
+                              plots=False, project=str(Path(tmp) / "runs"), workers=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = counts()
+        trainer = model.trainer
+        val = {k: run[k] - mark["after_steps"][k] for k in run}
+        ms = statistics.median(st["ms"] for st in steps[1:])
+        log(f"OBB training: {len(steps)} steps + validations in {wall:.1f} s; bf16 autocast "
+            f"{trainer.amp_dtype is not None}; steps " + ", ".join(f"{st['ms']:.1f}" for st in steps)
+            + f" ms; {ms:.1f} ms a step (median of steps 2-4, host clock with a synchronise), "
+            f"{16 / ms * 1e3:.1f} images/s at batch 16, imgsz {OBB_IMGSZ}")
+        log(f"OBB training: launches in the run {run}; in the validations after the steps {val}")
+        if len(steps) != 4 or trainer.amp_dtype is None:
+            raise AssertionError(f"expected 4 bf16 OBB steps, got {len(steps)} "
+                                 f"(amp {trainer.amp_dtype})")
+        if any(st[k] for st in steps for k in run) or val["nms_rotated"] != 2 or \
+                any(val[k] for k in run if k != "nms_rotated"):
+            raise AssertionError("the OBB run did not launch K5 once in each of its two "
+                                 f"validations and nothing else: steps {steps}, validations {val}")
+        csv = (Path(results["save_dir"]) / "results.csv").read_text().splitlines()
+        row = dict(zip(csv[0].split(","), csv[1].split(",")))
+        losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss",
+                                          "val/box_loss", "val/cls_loss", "val/dfl_loss")]
+        log(f"OBB training: results.csv train box / cls / dfl {losses[:3]}, val {losses[3:]}; "
+            f"mAP50 {results.get('metrics/mAP50(B)', 0.0):.4f}")
+        if not all(math.isfinite(v) and v > 0 for v in losses):
+            raise AssertionError(f"OBB losses not finite and positive: {losses}")
+        best = Path(results["save_dir"]) / "weights" / "best"
+        reloaded = YOLO(str(best), device=dev)
+        img = np.random.default_rng(1).integers(0, 256, (OBB_IMGSZ, OBB_IMGSZ, 3), dtype=np.uint8)
+        res = reloaded.predict([img], imgsz=OBB_IMGSZ, conf=0.001)
+        if reloaded.task != "obb" or res[0].obb is None or not np.isfinite(res[0].obb.data).all():
+            raise AssertionError("best did not reload and predict as an OBB model")
+        log(f"OBB training: {best.name} reloaded as task {reloaded.task}, "
+            f"{len(res[0])} rotated boxes on one tile")
+
+    r = np.random.default_rng(4)
+    xy, wh = r.uniform(48, 208, (2, 8, 2)), r.uniform(12, 60, (2, 8, 2))
+    mask = (np.arange(8)[None, :, None] < np.array([[[6]], [[4]]])).astype(np.float32)
+    boxes = np.concatenate([xy, wh, r.uniform(0, np.pi / 2, (2, 8, 1))], -1).astype(np.float32)
+    batch = {"img": r.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
+             "cls": r.integers(0, 15, (2, 8, 1)).astype(np.float32),
+             "bboxes": boxes * mask, "mask": mask}
+    base = build_detection_model(OBB_CFG, device="cpu", seed=3, imgsz=256)
+    hold_step_card_vs_cpu("OBB card vs CPU step", dev, base, batch,
+                          lambda: OBBLoss(nc=15, strides=(8, 16, 32)))
+    return {"obb_training_run": run, "obb_training_ms_per_step": ms}
+
+
+SERVE_BOX_TOL, SERVE_SCORE_TOL = 5e-2, 1e-3  # the serving limits, card vs CPU, fp32
+BF16_STEP = 2.0 ** -8  # one bf16 step, relative: a bf16 program against the eager bf16 model
+
+
+def phase_export(dev) -> dict:
+    """The flagship (scale n, imgsz 640) exported at batch 32 through
+    ``YOLO.export`` as ``torch_export`` and ``torchscript``, in fp32 and
+    with ``half=True`` (bf16), and as ``torch_export`` under
+    ``YAT_DCN_IMPL=pallas``; each artifact loaded by ``AutoBackend`` and run
+    on 64 seeded images. Held: the decoded output against the eager model
+    on the card (fp32 at the serving limits, boxes SERVE_BOX_TOL px and
+    scores SERVE_SCORE_TOL; bf16 within BF16_STEP of the largest value
+    against the eager model in bf16); the program's own DCN launches, 3 a
+    batch of K1 fwd (K3 fwd for the ``pallas`` export) and no other DCN
+    kernel; and ``DetectionValidator(backend=)`` over 20 images at batch 8
+    (a final partial batch of 4) within 1e-3 of the same validation
+    through the model. Printed: export and load seconds, images/s through
+    each backend beside the eager model's (forward only, no NMS).
+    Returns {path: launches}."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+    from yolo_ad_refine_tpu_torch.engine.exporter import AutoBackend, ExportedForward
+    from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
+
+    counters = kernel_counters()
+
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def images_per_s(fns) -> list[float]:
+        """Each callable's images/s over the 64 images in two batches of
+        32: 4 timed runs each, taken in turns (a, b, b, a, ...) after a
+        warm-up, median of each's runs."""
+        runs = [[] for _ in fns]
+        for fn in fns:
+            fn(x[:32])
+        torch.cuda.synchronize()
+        for r in range(4):
+            for j in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+                t0 = time.perf_counter()
+                for i in (0, 32):
+                    fns[j](x[i:i + 32])
+                torch.cuda.synchronize()
+                runs[j].append(64 / (time.perf_counter() - t0))
+        return [statistics.median(r) for r in runs]
+
+    paths, report = {}, {}
+    model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+    x = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (64, 640, 640, 3), dtype=np.uint8)).to(dev)
+    cases = [("torch_export", False, None), ("torchscript", False, None),
+             ("torch_export", True, None), ("torchscript", True, None),
+             ("torch_export", False, "pallas")]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        for fmt, half, impl in cases:
+            tag = f"{fmt}_{'bf16' if half else 'fp32'}" + (f"_{impl}" if impl else "")
+            with dcn_env(impl):
+                t0 = time.perf_counter()
+                path = model.export(format=fmt, imgsz=640, batch=32, half=half,
+                                    path=str(Path(tmp) / tag))
+                export_s = time.perf_counter() - t0
+                dtype = torch.bfloat16 if half else torch.float32
+                eager = ExportedForward(copy.deepcopy(model.model).to(dtype), dtype).eval()
+                with torch.inference_mode():
+                    want = torch.cat([eager(x[i:i + 32].float()) for i in (0, 32)]).float()
+            with dcn_env(None):  # the program keeps the DCN of its trace
+                t0 = time.perf_counter()
+                backend = AutoBackend(path, device=dev)
+                load_s = time.perf_counter() - t0
+                zero()
+                y = torch.cat([backend(x[i:i + 32]) for i in (0, 32)]).float()
+                torch.cuda.synchronize()
+                run = counts()
+
+            def eager_fn(b, eager=eager):
+                with torch.inference_mode():
+                    return eager(b.float())
+
+            with dcn_env(impl):  # the eager model reads the variable at each forward
+                rate, eager_rate = images_per_s([backend, eager_fn])
+            dcn = {k: v for k, v in run.items() if k.startswith("dcn_")}
+            fwd_k = "dcn_window_forward" if impl == "pallas" else "dcn_forward"
+            box_err = (y[..., :4] - want[..., :4]).abs().max().item()
+            score_err = (y[..., 4:] - want[..., 4:]).abs().max().item()
+            rel = (y - want).abs().max().item() / want.abs().max().item()
+            log(f"export {tag}: written in {export_s:.1f} s, loaded in {load_s:.1f} s "
+                f"({backend.kind}, DCN {backend.meta['dcn_impl']} radius "
+                f"{backend.meta['dcn_radius']}); 64 images: {rate:.1f} images/s through the "
+                f"backend, {eager_rate:.1f} through the eager model (forward only, medians of "
+                f"4 runs in turns); max |box diff| {box_err:.3e} px, |score diff| "
+                f"{score_err:.3e}, relative "
+                f"{rel:.3e}; launches {dcn}")
+            if dcn != {**{k: 0 for k in dcn}, fwd_k: 6}:
+                raise AssertionError(f"export {tag}: the loaded program did not launch {fwd_k} "
+                                     f"3 times a batch and no other DCN kernel: {dcn}")
+            if y.shape != (64, 8400, 84) or not torch.isfinite(y).all():
+                raise AssertionError(f"export {tag}: bad output {tuple(y.shape)}")
+            if half and rel > BF16_STEP:
+                raise AssertionError(f"export {tag}: {rel:.3e} from the eager bf16 model")
+            if not half and (box_err > SERVE_BOX_TOL or score_err > SERVE_SCORE_TOL):
+                raise AssertionError(f"export {tag}: the program and the eager model disagree")
+            paths[f"export_{tag}_run"] = run
+            report[tag] = {"export_s": export_s, "load_s": load_s, "images_per_s": rate,
+                           "eager_images_per_s": eager_rate}
+
+        # standalone validation through a backend at batch 8, 20 images
+        root = Path(tmp) / "shapes"
+        data = make_shapes_dataset(root, n_train=1, n_val=20, imgsz=640, seed=9)
+        files = sorted((root / "val" / "images").glob("*.jpg"))
+        for f, r in zip(files, model.predict([cv2.imread(str(f)) for f in files], conf=0.001,
+                                             batch=20)):
+            (root / "val" / "labels" / f"{f.stem}.txt").write_text("".join(
+                f"{int(c)} " + " ".join(f"{v:.6f}" for v in b) + "\n"
+                for b, c in zip(r.boxes.xywhn[:3], r.boxes.cls[:3])))
+        path = model.export(format="torch_export", imgsz=640, batch=8, half=False,
+                            path=str(Path(tmp) / "val_b8"))
+        backend = AutoBackend(path, device=dev)
+        args = {"data": data, "imgsz": 640, "batch": 8, "conf": 0.001, "iou": 0.7,
+                "max_det": 300, "task": "detect"}
+        zero()
+        got = DetectionValidator(dict(args))(backend=backend)
+        torch.cuda.synchronize()
+        run = counts()
+        want = DetectionValidator(dict(args))(model=model.model)
+    keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+            "metrics/mAP50-95(B)", "fitness")
+    log("export: backend validation, 20 images at batch 8 (3 batches, the last padded from 4): "
+        + ", ".join(f"{k} {got[k]:.6f} (model {want[k]:.6f})" for k in keys)
+        + f" (tol 1e-3); launches {run}")
+    if run["dcn_forward"] != 9 or run["nms_suppress"] != 3:
+        raise AssertionError(f"backend validation: expected 9 K1 fwd and 3 K4 launches: {run}")
+    if want["metrics/mAP50(B)"] <= 0.05 or any(abs(got[k] - want[k]) > 1e-3 for k in keys):
+        raise AssertionError("backend validation is vacuous or disagrees with the model's")
+    paths["export_backend_val_run"] = run
+    return {"paths": paths, "report": report}
+
+
 def kernel_counters():
     """Every kernel wrapper, by the name of its entry in the kernels line."""
     from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
@@ -1406,8 +1661,6 @@ def phase_step_card_vs_cpu(dev):
 
     from yolo_ad_refine_tpu_torch.models.model import build_detection_model
     from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
-    from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
-    from yolo_ad_refine_tpu_torch.train.step import TrainStep, images_to_tensor
 
     r = np.random.default_rng(2)
     xy = r.uniform(0, 180, (2, 8, 2))
@@ -1417,7 +1670,21 @@ def phase_step_card_vs_cpu(dev):
              "cls": r.integers(0, 3, (2, 8, 1)).astype(np.float32),
              "bboxes": boxes * mask, "mask": mask}
     base = build_detection_model(FLAGSHIP, nc=3, device="cpu", seed=3, imgsz=256)
-    opt_kw = dict(optimizer="SGD", epochs=1, nb=1, batch=2, nbs=2, warmup_epochs=0.0, nc=3)
+    hold_step_card_vs_cpu("card vs CPU step", dev, base, batch,
+                          lambda: DetectionLoss(nc=3, strides=(8, 16, 32)))
+
+
+def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss) -> None:
+    """``phase_step_card_vs_cpu``'s hold for any model: one fp32 SGD step of
+    ``base`` (a CPU model) on ``batch`` with the loss ``make_loss()`` on the
+    card and on the CPU, held at its limits; ``name`` heads the log lines."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
+    from yolo_ad_refine_tpu_torch.train.step import TrainStep, images_to_tensor
+
+    opt_kw = dict(optimizer="SGD", epochs=1, nb=1, batch=2, nbs=2, warmup_epochs=0.0,
+                  nc=base.nc)
 
     def step(model):
         grads = {}
@@ -1425,12 +1692,12 @@ def phase_step_card_vs_cpu(dev):
             p.register_post_accumulate_grad_hook(
                 lambda t, name=name: grads.__setitem__(name, t.grad.detach().double().cpu()))
         opt, _, _ = build_optimizer(model.named_parameters(), **opt_kw)
-        m = TrainStep(model, DetectionLoss(nc=3, strides=(8, 16, 32)), opt, ModelEMA(model))(batch)
+        m = TrainStep(model, make_loss(), opt, ModelEMA(model))(batch)
         return m["loss"].item(), grads
 
     loss_cpu, g_cpu = step(copy.deepcopy(base))
     m64 = copy.deepcopy(base).double().train()
-    out = DetectionLoss(nc=3, strides=(8, 16, 32))(
+    out = make_loss()(
         m64(images_to_tensor(batch["img"], "cpu").double()),
         *(torch.from_numpy(batch[k]).double() for k in ("cls", "bboxes", "mask")))
     out.total.backward()
@@ -1447,8 +1714,8 @@ def phase_step_card_vs_cpu(dev):
         rel = abs(loss - loss_cpu) / abs(loss_cpu)
         errs = sorted((((grads[n] - g).norm() / g.norm().clamp(min=1e-30)).item(), n)
                       for n, g in g_cpu.items() if n not in cancels)
-        ratio = max(((grads[n] - g64[n]).norm().item() / max(cpu_off[n], 1e-30), n)
-                    for n in cancels)
+        ratio = max((((grads[n] - g64[n]).norm().item() / max(cpu_off[n], 1e-30), n)
+                     for n in cancels), default=(0.0, "none"))
         over = [f"{n}: {e:.2e}" for e, n in errs if e > LEAF_TOL]
         margin = LEAF_TOL / max(errs[-1][0], 1e-30)
         log(f"{label}: loss {loss:.6f} vs CPU {loss_cpu:.6f} (rel {rel:.2e}, tol 1e-4); "
@@ -1466,24 +1733,24 @@ def phase_step_card_vs_cpu(dev):
         warnings.simplefilter("always")
         loss, grads = step(copy.deepcopy(base).to(dev))
         again = step(copy.deepcopy(base).to(dev))[1]
-    log("card step, deterministic algorithms; ops without a deterministic version: "
+    log(f"{name}, deterministic algorithms; ops without a deterministic version: "
         + ", ".join(sorted({str(w.message).split(" does not have")[0].split(" defaults to")[0]
                             for w in caught if "deterministic" in str(w.message)})))
-    rel, over, ratio = compare("card vs CPU step, fp32", loss, grads)
-    log("card step, cancelling leaves: |card - fp64| / |cpu - fp64| and, not held, the "
+    rel, over, ratio = compare(f"{name}, fp32", loss, grads)
+    log(f"{name}, cancelling leaves: |card - fp64| / |cpu - fp64| and, not held, the "
         "run-to-run spread |card - card again| / |cpu - fp64|: "
         + ", ".join(f"{n} {(grads[n] - g64[n]).norm().item() / max(cpu_off[n], 1e-30):.2f} "
                     f"{(grads[n] - again[n]).norm().item() / max(cpu_off[n], 1e-30):.2f}"
                     for n in sorted(cancels)))
     if rel > 1e-4:
-        raise AssertionError("card and CPU train-step losses disagree")
+        raise AssertionError(f"{name}: card and CPU train-step losses disagree")
     if over or ratio > 4:
-        raise AssertionError(f"card and CPU gradients disagree: {over[:8]}, cancelling-leaf "
-                             f"ratio {ratio:.2f}")
+        raise AssertionError(f"{name}: card and CPU gradients disagree: {over[:8]}, "
+                             f"cancelling-leaf ratio {ratio:.2f}")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        compare("control, card step with TF32 on", *step(copy.deepcopy(base).to(dev)))
+        compare(f"control, {name} with TF32 on", *step(copy.deepcopy(base).to(dev)))
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
@@ -1924,6 +2191,9 @@ def main() -> int:
         k5 = phase_k5(dev, gen, obb)
         paths["obb_serving_run"] = phase_obb_serving(obb, dev)
         paths["obb_val_run"] = phase_obb_val(obb, dev)
+        obb_training = phase_obb_training(dev)
+        paths["obb_training_run"] = obb_training["obb_training_run"]
+        paths.update(phase_export(dev)["paths"])
 
     def entry(name, source, replaces, measured, main_path, **extra):
         # launches: the count of the kernel's own main path, each path's beside it

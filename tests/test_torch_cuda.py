@@ -942,3 +942,27 @@ def test_gather_wrapper_rejects_bad_inputs(dev):
         gather_rows(x.transpose(1, 2), idx)
     with pytest.raises(ValueError):
         gather_rows(x, idx[:1])
+
+
+@pytest.mark.parametrize("fmt", ["torch_export", "torchscript"])
+def test_loaded_program_launches_k1_and_matches_the_eager_model(dev, fmt, tmp_path):
+    """A flagship program exported on the card and loaded by AutoBackend
+    runs K1 fwd once a level (its yat_ad::dcn_forward op's CUDA
+    implementation) and gives the eager model's output within the serving
+    limits (boxes 5e-2 px, scores 1e-3)."""
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.engine.exporter import AutoBackend, ExportedForward
+
+    model = YOLO("yolo11-701-YOLO-AD-Refine.yaml", device=dev, imgsz=128)
+    img = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(dev)
+    path = model.export(format=fmt, imgsz=128, batch=2, half=False, path=tmp_path / "m")
+    backend = AutoBackend(path, device=dev)
+    modulated_deform_conv2d.launches = 0
+    y = backend(img)
+    torch.cuda.synchronize()
+    assert modulated_deform_conv2d.launches == 3
+    with torch.inference_mode():
+        want = ExportedForward(model.model, torch.float32)(img.float())
+    assert (y[..., :4] - want[..., :4]).abs().max().item() <= 5e-2
+    assert (y[..., 4:] - want[..., 4:]).abs().max().item() <= 1e-3

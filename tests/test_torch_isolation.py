@@ -36,14 +36,15 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the train slice's, the bounded-DCN slice's and the training options'
-# modules, each imported under the blocker above
+# the train slice's, the bounded-DCN slice's, the training options' and the
+# OBB training and export slice's modules, each imported under the blocker above
 TRAIN_SLICE_MODULES = (
     "cfg.config", "data.augment", "data.build", "data.dataset", "data.synthetic",
-    "engine.checkpoint", "engine.validator", "ops.anchors", "ops.deform", "ops.deform_mxu",
-    "ops.deform_pallas", "ops.iou",
-    "train.loss", "train.optim", "train.step", "train.tal", "train.trainer",
+    "engine.checkpoint", "engine.exporter", "engine.validator", "ops.anchors", "ops.deform",
+    "ops.deform_mxu", "ops.deform_pallas", "ops.iou",
+    "train.loss", "train.obb", "train.optim", "train.step", "train.tal", "train.trainer",
     "utils.autobatch", "utils.callbacks", "utils.checks", "utils.metrics", "utils.plotting",
+    "utils.triton",
 )
 
 
@@ -98,7 +99,7 @@ def test_trainer_raises_on_options_not_ported(override, item, tmp_path):
 
 
 @pytest.mark.parametrize("args,call", [
-    ({"task": "pose"}, {}), ({}, {"backend": object()}),
+    ({"task": "pose"}, {}), ({"task": "obb"}, {"backend": object()}),
 ])
 def test_validator_raises_on_options_not_ported(args, call):
     from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator

@@ -106,15 +106,6 @@ def test_val_metrics_match_jax(val_results):
         assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
 
 
-def test_obb_training_and_val_loss_raise(pair, tmp_path):
-    from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
-    from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
-
-    _, port = pair
-    with pytest.raises(NotImplementedError, match="training task 'obb'"):
-        port.train(data="x.yaml", plots=False, project=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="OBB training"):
-        DetectionValidator({"task": "obb"})(model=port.model,
-                                            loss_fn=DetectionLoss(nc=15, strides=(8, 16, 32)))
+def test_detect_task_on_an_obb_model_raises():
     with pytest.raises(ValueError, match="task"):
         YOLO(CFG, task="detect", device="cpu", imgsz=IMGSZ)

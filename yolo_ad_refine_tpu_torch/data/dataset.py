@@ -8,8 +8,9 @@ duplicate rows dropped), each image resized so its long side is imgsz
 perspective, mixup, extras, HSV, flips) or the val letterbox, drawing from
 the given generator in the JAX package's order. Samples: img uint8 HWC
 BGR, bboxes (n, 4) xyxy px (OBB: (n, 5) xywhr px from DOTA-style corner
-rows), cls (n,), ori_shape, ratio_pad, im_file. OBB runs the val case
-only: its augments wait for OBB training. ``cache_images`` keeps the
+rows), cls (n,), ori_shape, ratio_pad, im_file. OBB trains with the
+letterbox, HSV and a flip of the corner quads (no mosaic, as in the JAX
+package). ``cache_images`` keeps the
 resized decodes in memory (``"ram"`` or True) or in ``.yat<imgsz>.npz``
 sidecars beside the images (``"disk"``); ``set_rectangle`` gives rect
 validation its static aspect-ratio buckets.
@@ -89,8 +90,6 @@ class YOLODataset:
                  fraction: float = 1.0, task: str = "detect", cache_images: str | bool = False):
         if task not in ("detect", "obb"):
             not_ported(f"the {task!r} dataset", "ROADMAP Queue 1 item 12, the other tasks")
-        if task == "obb" and augment:
-            not_ported("OBB augmentation", "ROADMAP Queue 1 item 12, OBB training")
         self.imgsz = imgsz
         self.augment = augment
         self.hyp = hyp or {}
@@ -257,11 +256,11 @@ class YOLODataset:
                    mosaic: bool | None = None) -> dict:
         """The train or val transform pipeline for one index."""
         rng = rng or np.random.default_rng()
-        if self.task == "obb":
-            return self._get_obb_sample(i)
         hyp = self.hyp
-        if mosaic is None:
+        if mosaic is None:  # drawn for every task, as the JAX package draws it
             mosaic = self.mosaic_enabled and rng.random() < hyp.get("mosaic", 1.0)
+        if self.task == "obb":  # no mosaic for OBB, as in the JAX package
+            return self._get_obb_sample(i, rng)
         mosaic_border = (-self.imgsz // 2, -self.imgsz // 2)
         if self.augment and mosaic:
             idxs = [i] + list(rng.integers(0, len(self), 3))
@@ -301,16 +300,25 @@ class YOLODataset:
                 "cls": cls.astype(np.float32), "ori_shape": tuple(ori_shape),
                 "ratio_pad": ratio_pad, "im_file": self.im_files[i % len(self)]}
 
-    def _get_obb_sample(self, i: int) -> dict:
-        """OBB val sample: the letterbox, with the corner quads moved with the
-        image and then turned into xywhr px (cv2.minAreaRect, angle in
-        [0, pi/2))."""
+    def _get_obb_sample(self, i: int, rng: np.random.Generator) -> dict:
+        """OBB sample (the JAX package's ``_get_obb_sample``): the letterbox
+        (scaled up only when augmenting), then with ``augment`` HSV and a
+        left-right flip of the image and its corner quads, drawn from
+        ``rng`` in that order; the quads then become xywhr px
+        (cv2.minAreaRect, angle in [0, pi/2))."""
         img, _, cls, (h0, w0) = self.load_item(i, with_shape=True)
         r1 = img.shape[0] / h0
         h, w = img.shape[:2]
         corners = self.labels[i]["corners"] * np.asarray([w, h], np.float32)
-        img, ratio, pad = A.letterbox_np(img, self.imgsz, scaleup=False)
+        img, ratio, pad = A.letterbox_np(img, self.imgsz, scaleup=self.augment)
         corners = corners * ratio[0] + np.asarray(pad, np.float32)
+        if self.augment:
+            img = np.ascontiguousarray(img)
+            A.augment_hsv(img, rng, self.hyp.get("hsv_h", 0.015), self.hyp.get("hsv_s", 0.7),
+                          self.hyp.get("hsv_v", 0.4))
+            if rng.random() < self.hyp.get("fliplr", 0.5):
+                img = np.ascontiguousarray(np.fliplr(img))
+                corners[..., 0] = img.shape[1] - corners[..., 0]
         return {"img": np.ascontiguousarray(img),
                 "bboxes": xyxyxyxy2xywhr_np(corners).astype(np.float32),
                 "cls": cls.astype(np.float32), "ori_shape": (h0, w0),

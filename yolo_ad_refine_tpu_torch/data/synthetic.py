@@ -105,31 +105,35 @@ def make_shapes_dataset(root: str | Path, n_train: int = 200, n_val: int = 48,
 
 
 def make_dota_dataset(root: str | Path, n_val: int = 16, imgsz: int = 1024, seed: int = 0,
-                      max_objects: int = 24) -> dict:
-    """Write a DOTA-format val set: ``n_val`` square ``imgsz`` PNG tiles of
-    blurred noise with filled rotated rectangles of the 15 DOTA v1 classes
-    (8-25 % of the tile long, any angle, each inside its tile), labelled
-    ``cls x1 y1 x2 y2 x3 y3 x4 y4`` in normalised corners. Deterministic in
-    (seed, sizes); returns a data dict for ``val(data=...)``."""
+                      max_objects: int = 24, n_train: int = 0) -> dict:
+    """Write a DOTA-format set: ``n_val`` (then ``n_train``) square
+    ``imgsz`` PNG tiles of blurred noise with filled rotated rectangles of
+    the 15 DOTA v1 classes (8-25 % of the tile long, any angle, each inside
+    its tile), labelled ``cls x1 y1 x2 y2 x3 y3 x4 y4`` in normalised
+    corners. Deterministic in (seed, sizes), the val tiles whatever
+    ``n_train``; returns a data dict for ``val(data=...)`` and, with train
+    tiles, ``train(data=...)``."""
     import cv2
 
     root = Path(root)
-    (root / "val" / "images").mkdir(parents=True, exist_ok=True)
-    (root / "val" / "labels").mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
-    for i in range(n_val):
-        img = rng.integers(40, 110, (imgsz, imgsz, 3), dtype=np.uint8)
-        img = cv2.GaussianBlur(img, (0, 0), sigmaX=float(rng.uniform(2, 6)))
-        lines = []
-        for _ in range(int(rng.integers(1, max_objects + 1))):
-            cls = int(rng.integers(0, len(DOTA_NAMES)))
-            w, h = rng.uniform(0.08, 0.25, 2) * imgsz * np.array([1.0, rng.uniform(0.3, 1.0)])
-            half = 0.5 * float(np.hypot(w, h)) + 1
-            cx, cy = rng.uniform(half, imgsz - half, 2)
-            pts = cv2.boxPoints(((cx, cy), (w, h), float(rng.uniform(0, 180))))
-            color = tuple(int(v) for v in rng.integers(0, 256, 3))
-            cv2.fillPoly(img, [np.round(pts).astype(np.int32)], color)
-            lines.append(f"{cls} " + " ".join(f"{v / imgsz:.6f}" for v in pts.reshape(-1)))
-        cv2.imwrite(str(root / "val" / "images" / f"{i:04d}.png"), img)
-        (root / "val" / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
-    return {"path": str(root), "val": "val/images", "names": dict(DOTA_NAMES)}
+    for split, n in (("val", n_val), ("train", n_train)):
+        (root / split / "images").mkdir(parents=True, exist_ok=True)
+        (root / split / "labels").mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = rng.integers(40, 110, (imgsz, imgsz, 3), dtype=np.uint8)
+            img = cv2.GaussianBlur(img, (0, 0), sigmaX=float(rng.uniform(2, 6)))
+            lines = []
+            for _ in range(int(rng.integers(1, max_objects + 1))):
+                cls = int(rng.integers(0, len(DOTA_NAMES)))
+                w, h = rng.uniform(0.08, 0.25, 2) * imgsz * np.array([1.0, rng.uniform(0.3, 1.0)])
+                half = 0.5 * float(np.hypot(w, h)) + 1
+                cx, cy = rng.uniform(half, imgsz - half, 2)
+                pts = cv2.boxPoints(((cx, cy), (w, h), float(rng.uniform(0, 180))))
+                color = tuple(int(v) for v in rng.integers(0, 256, 3))
+                cv2.fillPoly(img, [np.round(pts).astype(np.int32)], color)
+                lines.append(f"{cls} " + " ".join(f"{v / imgsz:.6f}" for v in pts.reshape(-1)))
+            cv2.imwrite(str(root / split / "images" / f"{i:04d}.png"), img)
+            (root / split / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "val": "val/images", "names": dict(DOTA_NAMES),
+            **({"train": "train/images"} if n_train else {})}

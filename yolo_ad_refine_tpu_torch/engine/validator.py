@@ -10,12 +10,16 @@ and GT are rescaled to each image's native pixels and matched at IoU
 (an OBB model) takes the rotated NMS (K5 on the card), rescales xywhr
 predictions and GT with ``scale_rboxes``, matches them by ``probiou_np``
 and leaves the confusion matrix alone, as the JAX validator does; its val
-loss waits for OBB training. ``rect`` (detect only) letterboxes the val
+loss is ``OBBLoss`` over the eval output's (feats, angle). ``rect`` (detect
+only) letterboxes the val
 set into ``rect_buckets`` static aspect-ratio buckets (the dataset's
 ``set_rectangle``), ``save_json`` writes ``predictions.json`` (COCO-style
 entries in native pixels) and ``plots`` writes ``confusion_matrix.png``
-and ``PR_curve.png``, both into ``save_dir``. Other tasks and exported
-backends are not ported.
+and ``PR_curve.png``, both into ``save_dir``. ``backend`` (an
+``engine/exporter.py`` ``AutoBackend``) runs standalone validation of the
+detect task through an exported artifact: a final partial batch is padded
+with zeros to the artifact's batch and its outputs cut back, as the JAX
+validator does; NMS and the metrics stay here. Other tasks are not ported.
 """
 
 from __future__ import annotations
@@ -71,10 +75,15 @@ class DetectionValidator:
     @torch.no_grad()
     def __call__(self, model=None, dataloader=None, loss_fn=None, backend=None) -> dict:
         """model: a port DetectionModel (for example the EMA's). loss_fn:
-        a DetectionLoss for the val losses. ``backend`` (an exported model,
-        as the JAX validator takes) is not ported and raises."""
-        if backend is not None:
-            not_ported("validation through an exported backend",
+        a DetectionLoss (an OBBLoss for OBB) for the val losses.
+        ``backend``: an ``AutoBackend`` that runs the forward instead of
+        ``model`` (which may then be None: nc and names come from the
+        artifact's metadata), detect task only, without val losses (an
+        artifact returns the decoded predictions, not the maps)."""
+        if backend is not None and (self.task != "detect" or backend.task != "detect"):
+            task = self.task if self.task != "detect" else backend.task
+            not_ported(f"validating task {task!r} through an exported backend (the "
+                       "JAX validator runs the detect task only)",
                        "ROADMAP Queue 1 item 11, export and serving")
         args = self.args
         imgsz = int(args.get("imgsz", 640))
@@ -82,20 +91,23 @@ class DetectionValidator:
         iou = float(args.get("iou", 0.7))
         max_det = int(args.get("max_det", 300))
         max_nms = int(args.get("max_nms", 2048))
-        nc = model.nc
+        nc = model.nc if model is not None else backend.nc
         rotated = self.task == "obb"
-        if model.task != self.task:
+        if model is not None and model.task != self.task:
             raise ValueError(f"validating task {self.task!r} with a {model.task!r} model")
-        if rotated and loss_fn is not None:
-            not_ported("the OBB val loss", "ROADMAP Queue 1 item 12, OBB training")
+        if backend is not None:
+            loss_fn = None
         dataloader = dataloader or self.dataloader
         if dataloader is None:
             dataloader = self._build_dataloader(args["data"], imgsz, int(args.get("batch", 16)))
-        names = self.names or getattr(model, "names", None) or {i: f"class{i}" for i in range(nc)}
-        dev = next(model.parameters()).device
+        names = (self.names or getattr(model, "names", None)
+                 or (backend.names if backend is not None else None)
+                 or {i: f"class{i}" for i in range(nc)})
+        dev = next(model.parameters()).device if backend is None else backend.device
         amp = bool(args.get("amp")) and dev.type == "cuda"
-        training = model.training
-        model.eval()
+        if model is not None:
+            training = model.training
+            model.eval()
 
         metrics = DetMetrics(names)
         confusion = ConfusionMatrix(nc)
@@ -106,9 +118,13 @@ class DetectionValidator:
         t0 = time.perf_counter()
         for batch in dataloader:
             t1 = time.perf_counter()
-            img = images_to_tensor(batch["img"], dev)
-            with torch.autocast(dev.type, dtype=torch.bfloat16) if amp else contextlib.nullcontext():
-                y, feats = model(img)
+            if backend is not None:
+                y = self._backend_forward(backend, batch["img"])
+            else:
+                img = images_to_tensor(batch["img"], dev)
+                with (torch.autocast(dev.type, dtype=torch.bfloat16) if amp
+                      else contextlib.nullcontext()):
+                    y, feats = model(img)
             det, cnt, extras = non_max_suppression(
                 y, conf_thres=conf, iou_thres=iou, max_det=max_det, max_nms=max_nms,
                 multi_label=True, nc=nc, rotated=rotated)
@@ -121,7 +137,8 @@ class DetectionValidator:
             self._update_metrics(det, cnt, batch, metrics, confusion, batch["img"].shape[1:3],
                                  angles, self.jdict)
             seen += len(batch["im_file"])
-        model.train(training)
+        if model is not None:
+            model.train(training)
 
         results = metrics.process()
         self.metrics, self.confusion_matrix = metrics, confusion
@@ -143,6 +160,17 @@ class DetectionValidator:
         if args.get("plots") and args.get("save_dir"):
             self._plot(metrics, confusion, names, save_dir)
         return results
+
+    @staticmethod
+    def _backend_forward(backend, img: np.ndarray) -> torch.Tensor:
+        """The artifact's decoded predictions for a host batch (B, H, W, 3):
+        an artifact has a fixed input batch, so a final partial batch is
+        padded with zero images up to it and the outputs are cut back (the
+        JAX validator's standalone mode, its engine/validator.py:142-158)."""
+        n = img.shape[0]
+        if backend.batch is not None and n < backend.batch:
+            img = np.concatenate([img, np.zeros((backend.batch - n, *img.shape[1:]), img.dtype)])
+        return backend(img)[:n]
 
     @staticmethod
     def _plot(metrics: DetMetrics, confusion: ConfusionMatrix, names: dict, save_dir: Path):

@@ -7,8 +7,8 @@ the JAX package wrote (``weights.msgpack``); ``.predict(images)``,
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
 the caller passes ``device="cpu"``. ``task`` ("detect" or "obb", as the JAX
 facade's) defaults to the one the model's head implies, as the reference
-guesses it from the model; OBB predicts and validates, and its training
-raises until it is ported.
+guesses it from the model; both predict, train and validate. ``.export``
+writes the model for ``engine/exporter.py``'s ``AutoBackend``.
 """
 
 from __future__ import annotations
@@ -100,8 +100,16 @@ class YOLO:
     def track(self, source=None, **kwargs):
         not_ported("track", "ROADMAP Queue 1 item 15, trackers")
 
-    def export(self, **kwargs):
-        not_ported("export", "ROADMAP Queue 1 item 11, export and serving")
+    def export(self, format: str = "torch_export", imgsz: int = 640, batch: int = 1,  # noqa: A002
+               half: bool = True, path: str | None = None) -> Path:
+        """Write this model as ``format`` (``engine/exporter.py``: checkpoint,
+        torch_export (.pt2) or torchscript) for a fixed batch and imgsz,
+        in bf16 with ``half``; returns the written path (``path``, by
+        default ``model_<format>`` with the format's suffix)."""
+        from yolo_ad_refine_tpu_torch.engine.exporter import Exporter
+
+        exporter = Exporter(self.model, imgsz=imgsz, batch=batch, half=half)
+        return exporter(format, path or f"model_{format}")
 
     def info(self) -> dict:
         return {"layers": len(self.model.model), "parameters": self.model.num_params(),

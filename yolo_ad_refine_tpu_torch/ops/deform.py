@@ -8,12 +8,15 @@ reference's mmcv semantics) and of the TPU kernel
   gather, in its NHWC / HWIO layout. The CPU path and the kernel's checks use
   it.
 - ``modulated_deform_conv2d`` is what the model calls, on channels_last
-  NCHW tensors, through a ``torch.autograd.Function``. A CPU tensor takes
-  the plain version and its autograd; a CUDA tensor launches K1 fwd
-  (``dcn_forward``) and, in the backward, K1 bwd (``dcn_backward``), the
-  port of ``deform_mxu2.py::_bwd_kernel``, or raises. There is no fallback.
+  NCHW tensors, through the dispatcher op ``yat_ad::dcn_forward`` and its
+  backward op ``yat_ad::dcn_backward`` (``register_dcn_ops``, which K2 and
+  K3 use too). A CPU tensor takes the plain version; a CUDA tensor
+  launches K1 fwd (``dcn_forward``) and, in the backward, K1 bwd
+  (``dcn_backward``), the port of ``deform_mxu2.py::_bwd_kernel``, or
+  raises. There is no fallback. Being ops, the kernels stay in a
+  ``torch.export`` or ``torch.jit.trace`` program (``engine/exporter.py``).
 - ``deform_conv2d_grads_plain`` is K1 bwd's plain version (autograd of the
-  plain forward); only the tests and the card's smoke run call it.
+  plain forward): the CPU implementation of ``yat_ad::dcn_backward``.
 
 ``radius=None`` samples unbounded (mmcv, ``ops/deform.py``), and its
 positional derivative at an integral sample coordinate is autodiff's
@@ -29,6 +32,7 @@ K1 unbounded (``auto``, ``exact``), K1 at the radius (``mxu2``), K2
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import os
 
@@ -312,30 +316,96 @@ def dcn_backward(x, offset, mask, weight, g, radius: int | None = None):
             dmask.permute(0, 3, 1, 2).float(), dweight)
 
 
-class _DeformConv(torch.autograd.Function):
-    """DCNv2 with its gradient. CUDA: forward K1 fwd, backward K1 bwd. CPU:
-    the plain version forward, and its autograd (recomputed) backward."""
+DCN_NAMESPACE = "yat_ad"  # the port's dispatcher ops: torch.ops.yat_ad.<kernel wrapper's name>
+_FWD_SCHEMA = "(Tensor x, Tensor offset, Tensor mask, Tensor weight, {r} radius) -> Tensor"
+_BWD_SCHEMA = ("(Tensor x, Tensor offset, Tensor mask, Tensor weight, Tensor g, {r} radius) -> "
+               "(Tensor, Tensor, Tensor, Tensor)")
 
-    @staticmethod
-    def forward(ctx, x, offset, mask, weight, radius):
+
+def register_dcn_ops(name: str, plain_fwd, kernel_fwd, plain_bwd, kernel_bwd,
+                     radius_type: str = "int"):
+    """Register one DCN variant as two dispatcher ops, ``yat_ad::<name>`` and
+    ``yat_ad::<bwd name>`` (the CUDA wrappers' names), and return them.
+
+    Each op takes channels_last NCHW tensors (x, offset, mask, weight as
+    ``modulated_deform_conv2d`` takes them, and g for the backward) and a
+    radius of ``radius_type`` ("float?" for K1, whose None samples
+    unbounded; "int" for K2 / K3). Its CUDA implementation launches the
+    kernel through ``kernel_fwd`` / ``kernel_bwd`` (which count their
+    launches); its CPU implementation runs ``plain_fwd`` / ``plain_bwd``
+    in the NHWC / HWIO layouts; its fake implementation gives the shapes,
+    types and layouts (outputs and dx, doffset, dmask channels_last,
+    dweight contiguous), so ``torch.export`` and ``torch.jit.trace`` record
+    the op itself; the forward's autograd calls the backward op. One route
+    for every caller: eager training and serving, and an exported program."""
+    cl = torch.channels_last
+    bwd_name = kernel_bwd.__name__
+
+    def nhwc_args(x, offset, mask, weight):
+        return (*(t.permute(0, 2, 3, 1) for t in (x, offset, mask)), weight.permute(2, 3, 1, 0))
+
+    def grads_nchw(dx, doff, dmask, dw):
+        return (*(t.contiguous(memory_format=cl) for t in (dx, doff, dmask)), dw.contiguous())
+
+    def cpu_fwd(x, offset, mask, weight, radius):
+        y = plain_fwd(*nhwc_args(x, offset, mask, weight), radius)
+        return y.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+
+    def cpu_bwd(x, offset, mask, weight, g, radius):
+        dx, doff, dmask, dw = plain_bwd(*nhwc_args(x, offset, mask, weight),
+                                        g.permute(0, 2, 3, 1), radius)
+        return grads_nchw(dx.permute(0, 3, 1, 2), doff.permute(0, 3, 1, 2),
+                          dmask.permute(0, 3, 1, 2), dw.permute(3, 2, 0, 1))
+
+    fwd = torch.library.custom_op(f"{DCN_NAMESPACE}::{name}", cpu_fwd, mutates_args=(),
+                                  device_types="cpu", schema=_FWD_SCHEMA.format(r=radius_type))
+    bwd = torch.library.custom_op(f"{DCN_NAMESPACE}::{bwd_name}", cpu_bwd, mutates_args=(),
+                                  device_types="cpu", schema=_BWD_SCHEMA.format(r=radius_type))
+
+    # the kernel wrappers check the inputs (channels_last among them) and raise
+    fwd.register_kernel("cuda")(kernel_fwd)
+
+    @bwd.register_kernel("cuda")
+    def _(x, offset, mask, weight, g, radius):
+        return grads_nchw(*kernel_bwd(x, offset, mask, weight, g, radius))
+
+    @fwd.register_fake
+    def _(x, offset, mask, weight, radius):
+        b, _, h, w = x.shape
+        return torch.empty((b, weight.shape[0], h, w), dtype=x.dtype, device=x.device,
+                           memory_format=cl)
+
+    @bwd.register_fake
+    def _(x, offset, mask, weight, g, radius):
+        return (torch.empty_like(x, memory_format=cl), torch.empty_like(offset, memory_format=cl),
+                torch.empty_like(mask, memory_format=cl),
+                torch.empty_like(weight, memory_format=torch.contiguous_format))
+
+    def setup_context(ctx, inputs, output):
+        x, offset, mask, weight, radius = inputs
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.radius = radius
-        if x.device.type == "cpu":
-            y = deform_conv2d_plain(x.permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
-                                    mask.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0), radius)
-            return y.permute(0, 3, 1, 2)
-        return dcn_forward(x, offset, mask, weight, radius)
 
-    @staticmethod
     def backward(ctx, g):
-        x, offset, mask, weight = ctx.saved_tensors
-        if x.device.type == "cpu":
-            nhwc = [t.permute(0, 2, 3, 1) for t in (x, offset, mask, g)]
-            dx, doff, dmask, dw = deform_conv2d_grads_plain(
-                nhwc[0], nhwc[1], nhwc[2], weight.permute(2, 3, 1, 0), nhwc[3], ctx.radius)
-            return (dx.permute(0, 3, 1, 2), doff.permute(0, 3, 1, 2), dmask.permute(0, 3, 1, 2),
-                    dw.permute(3, 2, 0, 1), None)
-        return (*dcn_backward(x, offset, mask, weight, g, ctx.radius), None)
+        return (*bwd(*ctx.saved_tensors, g, ctx.radius), None)
+
+    fwd.register_autograd(backward, setup_context=setup_context)
+    return fwd, bwd
+
+
+def _grads_plain_on_a_fresh_thread(x, offset, mask, weight, g, radius):
+    """``deform_conv2d_grads_plain`` for the CPU implementation of
+    ``yat_ad::dcn_backward``. It differentiates the plain forward with
+    autograd, which the dispatcher has switched off on the thread that
+    runs an op's kernel (its autograd keys are excluded there); a new
+    thread starts from the dispatcher's default state."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        return pool.submit(deform_conv2d_grads_plain, x, offset, mask, weight, g, radius).result()
+
+
+dcn_forward_op, dcn_backward_op = register_dcn_ops(
+    "dcn_forward", deform_conv2d_plain, dcn_forward, _grads_plain_on_a_fresh_thread, dcn_backward,
+    radius_type="float?")
 
 
 def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
@@ -345,12 +415,14 @@ def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
     the cast). Returns (B,Cout,H,W) channels_last in x.dtype,
     differentiable in all four inputs.
 
-    A CPU tensor runs ``deform_conv2d_plain`` (and its autograd); a CUDA
-    tensor launches the kernels of ``csrc/deform_conv.cu`` (K1 fwd, and K1
-    bwd in the backward) or raises."""
+    It calls the dispatcher op ``yat_ad::dcn_forward`` (its backward
+    ``yat_ad::dcn_backward``): a CPU tensor runs ``deform_conv2d_plain``
+    (and the autograd of it); a CUDA tensor launches the kernels of
+    ``csrc/deform_conv.cu`` (K1 fwd, and K1 bwd in the backward) or raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulated_deform_conv2d: unsupported device {x.device}")
-    return _DeformConv.apply(x, offset, mask, weight.to(x.dtype), radius)
+    return dcn_forward_op(x, offset, mask, weight.to(x.dtype),
+                          None if radius is None else float(radius))
 
 
 modulated_deform_conv2d.launches = 0

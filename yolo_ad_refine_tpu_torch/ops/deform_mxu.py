@@ -25,8 +25,11 @@ where |offset| >= radius (:389-391).
 
 from __future__ import annotations
 
+import functools
+
+from yolo_ad_refine_tpu_torch.ops.deform import register_dcn_ops
 from yolo_ad_refine_tpu_torch.ops.deform_pallas import (
-    WindowConv, _backward, _forward, window_forward_plain, window_grads_plain)
+    _backward, _forward, window_forward_plain, window_grads_plain)
 
 
 def deform_conv2d_mxu_plain(x, offset, mask, weight, radius: int):
@@ -60,17 +63,24 @@ def dcn_separable_backward(x, offset, mask, weight, g, radius: int):
     return grads
 
 
+dcn_separable_forward_op, dcn_separable_backward_op = register_dcn_ops(
+    "dcn_separable_forward", functools.partial(window_forward_plain, separable=True),
+    dcn_separable_forward, functools.partial(window_grads_plain, separable=True),
+    dcn_separable_backward)
+
+
 def modulated_deform_conv2d_mxu(x, offset, mask, weight, radius: int = 3):
     """K2 on channels_last NCHW tensors: x (B,C,H,W), offset (B,18,H,W)
     fp32, mask (B,9,H,W) fp32, weight (Cout,C,3,3) cast to x's type here;
     the offsets are clipped to +-radius. Returns (B,Cout,H,W) in x's type,
-    differentiable in all four inputs. A CPU tensor runs the plain
+    differentiable in all four inputs, through the dispatcher op
+    ``yat_ad::dcn_separable_forward`` (backward
+    ``yat_ad::dcn_separable_backward``): a CPU tensor runs the plain
     versions; a CUDA tensor launches ``dcn_separable_forward`` (and
     ``dcn_separable_backward``) or raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulated_deform_conv2d_mxu: unsupported device {x.device}")
-    return WindowConv.apply(x, offset, mask, weight.to(x.dtype), int(radius), True,
-                            (dcn_separable_forward, dcn_separable_backward))
+    return dcn_separable_forward_op(x, offset, mask, weight.to(x.dtype), int(radius))
 
 
 dcn_separable_forward.launches = 0

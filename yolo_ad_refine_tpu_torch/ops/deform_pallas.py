@@ -21,7 +21,10 @@ sums (:104, :256); the backward is all fp32 (:294-342).
 ``ops/deform_mxu.py`` (K2) computes the same function in the separable
 form and shares the helpers here: ``window_taps`` (with ``separable`` for
 K2's coordinates), ``window_forward_plain`` and ``window_grads_plain``,
-and the CUDA wrappers ``_forward`` / ``_backward``. The forward kernel's
+and the CUDA wrappers ``_forward`` / ``_backward``. Each form is a pair of
+dispatcher ops (``yat_ad::dcn_window_forward`` / ``_backward`` here,
+``yat_ad::dcn_separable_*`` in K2's module; ``ops/deform.py
+register_dcn_ops``). The forward kernel's
 launch plan (channel chunk, shared memory, grid, and the global mode for a
 radius whose window fits no block) is ``window_fwd_launch``; its products
 run on the tensor cores (3xTF32 in fp32, bf16 for K3's bf16, 2xTF32 for
@@ -45,7 +48,8 @@ import functools
 
 import torch
 
-from yolo_ad_refine_tpu_torch.ops.deform import KK, SMEM_PER_BLOCK, _check, _nhwc, k1_fwd_weight
+from yolo_ad_refine_tpu_torch.ops.deform import (
+    KK, SMEM_PER_BLOCK, _check, _nhwc, k1_fwd_weight, register_dcn_ops)
 from yolo_ad_refine_tpu_torch.utils import kernels
 
 MXU_CH = 8  # output rows per chunk of deform_mxu.py (its CH): K2's y coordinate is chunk-local
@@ -422,47 +426,22 @@ def dcn_window_backward(x, offset, mask, weight, g, radius: int):
     return grads
 
 
-class WindowConv(torch.autograd.Function):
-    """K3 or K2 with its gradient. CUDA: the form's forward and backward
-    kernels (``kernels``: the two wrappers). CPU: the plain forward and the
-    plain backward. No fallback."""
-
-    @staticmethod
-    def forward(ctx, x, offset, mask, weight, radius, separable, kernels):
-        ctx.save_for_backward(x, offset, mask, weight)
-        ctx.radius, ctx.separable, ctx.kernels = radius, separable, kernels
-        if x.device.type == "cpu":
-            y = window_forward_plain(x.permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
-                                     mask.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0),
-                                     radius, separable)
-            return y.permute(0, 3, 1, 2)
-        return kernels[0](x, offset, mask, weight, radius)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, offset, mask, weight = ctx.saved_tensors
-        if x.device.type == "cpu":
-            dx, doff, dmask, dw = window_grads_plain(
-                *(t.permute(0, 2, 3, 1) for t in (x, offset, mask)), weight.permute(2, 3, 1, 0),
-                g.permute(0, 2, 3, 1), ctx.radius, ctx.separable)
-            grads = (dx.permute(0, 3, 1, 2), doff.permute(0, 3, 1, 2), dmask.permute(0, 3, 1, 2),
-                     dw.permute(3, 2, 0, 1))
-        else:
-            grads = ctx.kernels[1](x, offset, mask, weight, g, ctx.radius)
-        return (*grads, None, None, None)
+dcn_window_forward_op, dcn_window_backward_op = register_dcn_ops(
+    "dcn_window_forward", window_forward_plain, dcn_window_forward, window_grads_plain,
+    dcn_window_backward)
 
 
 def modulated_deform_conv2d_pallas(x, offset, mask, weight, radius: int = 3):
     """K3 on channels_last NCHW tensors: x (B,C,H,W), offset (B,18,H,W)
     fp32, mask (B,9,H,W) fp32, weight (Cout,C,3,3) cast to x's type here;
     the offsets are clipped to +-radius. Returns (B,Cout,H,W) in x's type,
-    differentiable in all four inputs. A CPU tensor runs the plain
-    versions; a CUDA tensor launches ``dcn_window_forward`` (and
-    ``dcn_window_backward``) or raises."""
+    differentiable in all four inputs, through the dispatcher op
+    ``yat_ad::dcn_window_forward`` (backward ``yat_ad::dcn_window_backward``):
+    a CPU tensor runs the plain versions; a CUDA tensor launches
+    ``dcn_window_forward`` (and ``dcn_window_backward``) or raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulated_deform_conv2d_pallas: unsupported device {x.device}")
-    return WindowConv.apply(x, offset, mask, weight.to(x.dtype), int(radius), False,
-                            (dcn_window_forward, dcn_window_backward))
+    return dcn_window_forward_op(x, offset, mask, weight.to(x.dtype), int(radius))
 
 
 dcn_window_forward.launches = 0

@@ -3,7 +3,8 @@
 Counterpart of ``yolo_ad_refine_tpu/train/step.py`` (reference
 engine/trainer.py:367-427): uint8 images are scaled by 1/255, the model
 runs its train-mode forward (under bf16 autocast when ``amp_dtype`` is
-set), the loss runs in fp32, the gradient flows back through K1 bwd on the
+set), the loss runs in fp32 on that output whole (the per-level maps, or
+the OBB head's (feats, angle)), the gradient flows back through K1 bwd on the
 card, the optimizer steps every ``accumulate`` batches and the EMA of
 params and BN stats advances on each optimizer step. The JAX package's
 train-prologue and remat options shape XLA programs on the TPU and have no

@@ -1,6 +1,6 @@
 """Detection trainer on one device.
 
-Counterpart of the detect path of ``yolo_ad_refine_tpu/train/trainer.py``
+Counterpart of the detect and OBB paths of ``yolo_ad_refine_tpu/train/trainer.py``
 (reference engine/trainer.py:58-813 BaseTrainer, models/yolo/detect/
 train.py:19-143): default.yaml merged with the overrides, the augmented
 train loader, a train step per batch (bf16 autocast on the card when
@@ -14,7 +14,11 @@ epoch 0 as ``train_batch{0,1,2}.jpg``, ``results.png``, and the
 validator's confusion matrix and PR curve), ``multi_scale`` (each batch
 resized on the host to one of the stride-64 sizes from 0.5 to 1.5 imgsz,
 drawn from ``seed + epoch``), ``cache`` (ram / disk) and ``batch=-1``
-(autobatch from the card's memory, ``utils/autobatch.py``).
+(autobatch from the card's memory, ``utils/autobatch.py``). ``task="obb"``
+(an OBB model) trains on DOTA-style corner labels with ``OBBLoss``
+(``train/obb.py``) as its train and val loss, as the JAX trainer's OBB
+branch does; its batches hold (B, N, 5) xywhr boxes, which ``plot_images``
+draws by their first four columns, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from yolo_ad_refine_tpu_torch.engine.checkpoint import (
 from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
 from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
+from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
 from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
 from yolo_ad_refine_tpu_torch.train.step import TrainStep
 from yolo_ad_refine_tpu_torch.utils import (
@@ -71,9 +76,11 @@ def multi_scale_batch(batch: dict, imgsz: int, rng: np.random.Generator) -> dict
     return out
 
 
-def synthetic_batch(b: int, imgsz: int, max_boxes: int, nc: int, seed: int = 0) -> dict:
+def synthetic_batch(b: int, imgsz: int, max_boxes: int, nc: int, seed: int = 0,
+                    obb: bool = False) -> dict:
     """A seeded host batch in the collate's layout, 8 boxes an image (at
-    most max_boxes), for measuring a train step without a dataset."""
+    most max_boxes), for measuring a train step without a dataset; with
+    ``obb`` the boxes are xywhr px at angle 0."""
     r = np.random.default_rng(seed)
     n = min(8, max_boxes)
     xy = r.uniform(0, imgsz * 0.7, (b, n, 2))
@@ -83,6 +90,9 @@ def synthetic_batch(b: int, imgsz: int, max_boxes: int, nc: int, seed: int = 0) 
     cls[:, :n] = r.integers(0, nc, (b, n, 1))
     mask = np.zeros((b, max_boxes, 1), np.float32)
     mask[:, :n] = 1.0
+    if obb:
+        xy, wh = (boxes[..., :2] + boxes[..., 2:]) / 2, boxes[..., 2:] - boxes[..., :2]
+        boxes = np.concatenate([xy, wh, np.zeros_like(wh[..., :1])], -1)
     return {"img": r.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8), "cls": cls,
             "bboxes": boxes, "mask": mask}
 
@@ -118,9 +128,11 @@ class DetectionTrainer:
         for key, item in NOT_PORTED.items():
             if self.args.get(key):
                 not_ported(f"{key}=True in training", item)
-        if self.args.get("task", "detect") != "detect":
-            not_ported(f"training task {self.args['task']!r}",
-                        "ROADMAP Queue 1 item 12, the other tasks")
+        self.task = self.args.get("task") or "detect"
+        if self.task not in ("detect", "obb"):
+            not_ported(f"training task {self.task!r}", "ROADMAP Queue 1 item 12, the other tasks")
+        if model is not None and model.task != self.task:
+            raise ValueError(f"training task {self.task!r} with a {model.task!r} model")
         self.model = model
         self.device = (next(model.parameters()).device if model is not None
                        else select_device(self.args.get("device") or "cuda"))
@@ -164,15 +176,23 @@ class DetectionTrainer:
             from yolo_ad_refine_tpu_torch.utils.checks import check_amp
 
             self.amp_dtype = torch.bfloat16 if check_amp(self.model) else None
-        self.loss_fn = DetectionLoss(nc=data["nc"], strides=self.model.strides,
-                                     box_gain=float(args["box"]), cls_gain=float(args["cls"]),
-                                     dfl_gain=float(args["dfl"]))
+        if self.model.task != self.task:
+            raise ValueError(f"training task {self.task!r} with a {self.model.task!r} model "
+                             f"({args['model']})")
+        gains = dict(box_gain=float(args["box"]), cls_gain=float(args["cls"]),
+                     dfl_gain=float(args["dfl"]))
+        if self.task == "obb":  # the JAX trainer's OBB branch (its train/trainer.py:194-200)
+            self.loss_fn = OBBLoss(nc=data["nc"], strides=self.model.strides, **gains)
+        else:
+            self.loss_fn = DetectionLoss(nc=data["nc"], strides=self.model.strides, **gains)
+        # the val losses: OBBLoss takes the eval output's (feats, angle) whole
+        self.val_loss_fn = self.loss_fn
         if self.batch_size == -1:
             self.autobatch = self._autobatch()
             self.batch_size = self.args["batch"] = self.autobatch["batch"]
 
         train_ds = YOLODataset(data["train"], imgsz=self.imgsz, augment=True, hyp=hyp,
-                               nc=data["nc"], max_boxes=max_boxes,
+                               nc=data["nc"], max_boxes=max_boxes, task=self.task,
                                fraction=float(args.get("fraction", 1.0)),
                                cache_images=args.get("cache", False))
         self.train_loader = DataLoader(train_ds, batch_size=self.batch_size, shuffle=True,
@@ -206,10 +226,10 @@ class DetectionTrainer:
             **{k: args[k] for k in ("imgsz", "iou", "max_det", "max_boxes")},
             "batch": self.batch_size, "conf": 0.001, "split": args.get("split", "val"),
             "amp": self.amp_dtype is not None, "plots": bool(args.get("plots", True)),
-            "save_dir": str(self.save_dir)})
+            "save_dir": str(self.save_dir), "task": self.task})
         val_path = data.get(args.get("split", "val")) or data["train"]
         val_ds = YOLODataset(val_path, imgsz=self.imgsz, augment=False, nc=data["nc"],
-                             max_boxes=max_boxes)
+                             max_boxes=max_boxes, task=self.task)
         self.val_loader = DataLoader(val_ds, batch_size=self.batch_size, shuffle=False)
         self.validator.names = data["names"]
         self.stopper = EarlyStopping(int(args.get("patience", 100)))
@@ -224,7 +244,7 @@ class DetectionTrainer:
         opt, _, _ = build_optimizer(model.named_parameters(), optimizer="SGD", epochs=1, nb=1,
                                     batch=b, nbs=b, warmup_epochs=0.0, nc=nc)
         TrainStep(model, self.loss_fn, opt, ModelEMA(model), self.amp_dtype)(
-            synthetic_batch(b, self.imgsz, max_boxes, nc))
+            synthetic_batch(b, self.imgsz, max_boxes, nc, obb=self.task == "obb"))
 
     def _autobatch(self) -> dict:
         """batch=-1: the largest power-of-two batch whose train step fits
@@ -277,7 +297,7 @@ class DetectionTrainer:
             results, fitness = {}, 0.0
             if args.get("val", True) or epoch == final_epoch:
                 results = self.validator(model=self.ema.ema, dataloader=self.val_loader,
-                                         loss_fn=self.loss_fn)
+                                         loss_fn=self.val_loss_fn)
                 fitness = results.get("fitness", 0.0)
             if fitness >= self.best_fitness:
                 self.best_fitness = fitness
