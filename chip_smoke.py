@@ -73,6 +73,23 @@ to 0 just before it and read just after, each DCN variant under its own
   its DCN kernel's launches read from the ``yat_ad::`` ops' counters, and
   ``DetectionValidator(backend=)`` over 20 images at batch 8 against the
   same validation through the model;
+- data-parallel training (``phase_parallel``, after the training runs):
+  two ranks of ``tests/torch_parallel_worker.py`` sharing the card over
+  gloo with CUDA tensors train the flagship through ``YOLO.train`` with
+  DDP and with FSDP2 (global batch 16, 640, bf16, 4 steps, rank 0's
+  validation), each rank's K1 / K4 launches under ``launches_by_path``;
+  then, in the same two ranks, one fp32 step of DDP and of FSDP2, and in
+  a process of its own one NCCL rank's, held by ``phase_step_card_vs_cpu``
+  at its limits;
+- the command line (``phase_cli``): ``python -m yolo_ad_refine_tpu_torch``
+  ``detect train`` (flagship, 1 epoch at batch 16, 640), ``val`` and
+  ``predict`` on its ``best``, and ``checks`` (the card, four built
+  kernels), in subprocesses;
+- ``YOLO.tune`` (``phase_tune``): 2 iterations of that epoch, each held
+  to have trained (the Tuner scores a failed one 0 and goes on) and to
+  have launched K1 and K4; ``YOLO.benchmark`` (``phase_benchmark``): the three
+  formats at batch 32, 640, ms per image, and ``model_flops`` at scale n
+  and x;
 
 and holds one fp32 train step on the card against the same step on the
 CPU. Any failed phase raises and the script exits non-zero. The last line is
@@ -1598,7 +1615,7 @@ def phase_training(dev, impl: str | None = None, cfg: str = FLAGSHIP):
         log(f"training ({label}): {best.name} reloaded ({reloaded.model.num_params():,} parameters) and "
             f"predicted {len(res[0])} boxes")
         extra = {} if impl != "pallas" else {"reload_r13_run": reload_widened(best, dev)}
-    return launches, per_step, extra
+    return launches, per_step, extra, ms
 
 
 def reload_widened(best: Path, dev) -> dict:
@@ -1638,7 +1655,7 @@ def reload_widened(best: Path, dev) -> dict:
     return launches
 
 
-def phase_step_card_vs_cpu(dev):
+def phase_step_card_vs_cpu(dev, others: dict | None = None):
     """One fp32 SGD train step (TF32 off) at imgsz 256, batch 2, on the card
     and on the CPU from the same weights and batch: the loss within 1e-4
     relative and each gradient leaf within LEAF_TOL relative norm. Which
@@ -1671,13 +1688,20 @@ def phase_step_card_vs_cpu(dev):
              "bboxes": boxes * mask, "mask": mask}
     base = build_detection_model(FLAGSHIP, nc=3, device="cpu", seed=3, imgsz=256)
     hold_step_card_vs_cpu("card vs CPU step", dev, base, batch,
-                          lambda: DetectionLoss(nc=3, strides=(8, 16, 32)))
+                          lambda: DetectionLoss(nc=3, strides=(8, 16, 32)), others)
 
 
-def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss) -> None:
+def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss,
+                          others: dict | None = None) -> None:
     """``phase_step_card_vs_cpu``'s hold for any model: one fp32 SGD step of
     ``base`` (a CPU model) on ``batch`` with the loss ``make_loss()`` on the
-    card and on the CPU, held at its limits; ``name`` heads the log lines."""
+    card and on the CPU, held at its limits; ``name`` heads the log lines.
+    ``others`` {label: (loss, gradients by parameter name, the same
+    run's gradients on the CPU or None)}: more runs of the step
+    (``phase_parallel``'s ranks), held at the same limits; a cancelling
+    leaf of theirs against the larger of the CPU step's and the same run
+    on the CPU's distance from fp64, where there is such a run (two ranks
+    sum their halves: their fp32 rounding is not one process's)."""
     import torch
 
     from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
@@ -1705,25 +1729,39 @@ def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss) -> None:
     cpu_off = {n: (g - g64[n]).norm().item() for n, g in g_cpu.items()}
     cancels = {n for n, off in cpu_off.items() if off > LEAF_TOL / 4 * g64[n].norm().item()}
 
-    def compare(label, loss, grads):
+    def worst(grads, off):
+        return max((((grads[n] - g64[n]).norm().item() / max(off[n], 1e-30), n)
+                    for n in cancels), default=(0.0, "none"))
+
+    def compare(label, loss, grads, cpu_same=None):
         """(loss rel, leaves over the limit, worst card / CPU distance from
-        fp64 among the cancelling leaves), with the readings logged."""
+        fp64 among the cancelling leaves), with the readings logged. With
+        ``cpu_same``, the same step's gradients on the CPU (the ranks'
+        step), a leaf's CPU distance is the larger of the two CPU steps';
+        the ratio against the one-process CPU step alone is logged beside
+        it, not held."""
         if set(grads) != set(g_cpu):
             raise AssertionError(f"{label}: card and CPU steps gave gradients to different "
                                  "parameters")
         rel = abs(loss - loss_cpu) / abs(loss_cpu)
         errs = sorted((((grads[n] - g).norm() / g.norm().clamp(min=1e-30)).item(), n)
                       for n, g in g_cpu.items() if n not in cancels)
-        ratio = max((((grads[n] - g64[n]).norm().item() / max(cpu_off[n], 1e-30), n)
-                     for n in cancels), default=(0.0, "none"))
+        off = cpu_off if cpu_same is None else {
+            n: max(cpu_off[n], (cpu_same[n] - g64[n]).norm().item()) for n in cancels}
+        ratio = worst(grads, off)
         over = [f"{n}: {e:.2e}" for e, n in errs if e > LEAF_TOL]
         margin = LEAF_TOL / max(errs[-1][0], 1e-30)
+        against = "|cpu - fp64|" if cpu_same is None else \
+            "max(|cpu - fp64|, |cpu 2 ranks - fp64|)"
+        one_cpu = "" if cpu_same is None else \
+            "; against the one-process CPU alone, not held: {:.2f} ({})".format(
+                *worst(grads, cpu_off))
         log(f"{label}: loss {loss:.6f} vs CPU {loss_cpu:.6f} (rel {rel:.2e}, tol 1e-4); "
             f"{len(errs)} leaves held at {LEAF_TOL} relative norm: {len(over)} over, worst "
             + ", ".join(f"{n} {e:.2e}" for e, n in errs[:-4:-1])
             + f" (margin {margin:.2f}x); {len(cancels)} cancelling leaves "
-            f"against fp64: worst |card - fp64| / |cpu - fp64| {ratio[0]:.2f} ({ratio[1]}, "
-            "tol 4)")
+            f"against fp64: worst |card - fp64| / {against} {ratio[0]:.2f} ({ratio[1]}, "
+            f"tol 4){one_cpu}")
         return rel, over, ratio[0]
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -1747,6 +1785,11 @@ def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss) -> None:
     if over or ratio > 4:
         raise AssertionError(f"{name}: card and CPU gradients disagree: {over[:8]}, "
                              f"cancelling-leaf ratio {ratio:.2f}")
+    for label, (loss, grads, cpu_same) in (others or {}).items():
+        rel, over, ratio = compare(f"{name}, {label}", loss, grads, cpu_same)
+        if rel > 1e-4 or over or ratio > 4:
+            raise AssertionError(f"{name}, {label}: the step disagrees with the CPU's: loss rel "
+                                 f"{rel:.2e}, leaves {over[:8]}, cancelling-leaf ratio {ratio:.2f}")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -2138,6 +2181,316 @@ def phase_training_options(dev) -> dict:
     return out
 
 
+def shapes_set(root: Path) -> Path:
+    """The training phase's synthetic shapes set (64 train, 16 val images
+    at 640, seed 0) as a data.yaml, for the CLI's ``data=``."""
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+    from yolo_ad_refine_tpu_torch.utils import yaml_save
+
+    data = make_shapes_dataset(root / "shapes", n_train=64, n_val=16, imgsz=640, seed=0)
+    yaml_save(root / "shapes.yaml", data)
+    return root / "shapes.yaml"
+
+
+def run_cli(*argv: str, timeout: int = 300) -> str:
+    """``python -m yolo_ad_refine_tpu_torch <argv>`` from the checkout; raises
+    with its output where it fails. Returns its standard output."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "yolo_ad_refine_tpu_torch", *argv],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"CLI {' '.join(argv[:2])} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    log(f"cli: {' '.join(a for a in argv if not a.startswith(('data=', 'project=')))} "
+        f"ran in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def phase_cli() -> dict:
+    """The ``yat-torch`` command line in subprocesses (``python -m
+    yolo_ad_refine_tpu_torch``), on the card by default: ``detect train``
+    of the flagship at scale n, imgsz 640, batch 16 for 1 epoch (4 steps
+    and the EMA validation) on the training phase's shapes set, ``val`` and
+    ``predict`` (8 images, ``save_txt``) on its ``best``, and ``checks``.
+    Held: results.csv's row and finite losses, ``weights/best``, the val
+    metrics, an image and a label file for each predicted image, and the
+    card and the four built kernels in ``checks``. Printed: each command's
+    seconds and the train epoch's seconds over its 4 steps (the results.csv
+    time: the steps, their first calls at the shape, and the validation).
+    Returns the numbers."""
+    import cv2
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        data = shapes_set(tmp)
+        t0 = time.perf_counter()
+        run_cli("detect", "train", f"model={FLAGSHIP}", f"data={data}", "epochs=1", "batch=16",
+                "imgsz=640", "plots=False", "workers=8", f"project={tmp / 'runs'}", "name=cli")
+        train_s = time.perf_counter() - t0
+        run = tmp / "runs" / "cli"
+        csv = (run / "results.csv").read_text().splitlines()
+        row = dict(zip(csv[0].split(","), csv[1].split(",")))
+        losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")]
+        best = run / "weights" / "best"
+        if len(csv) != 2 or not all(math.isfinite(v) for v in losses) or \
+                not (best / "weights.pt").exists():
+            raise AssertionError(f"CLI train: results.csv {csv}, best {best.exists()}")
+        epoch_s = float(row["time"])
+        log(f"cli train: 1 epoch of 4 steps at batch 16, imgsz 640, with its validation in "
+            f"{epoch_s:.2f} s (results.csv), {epoch_s / 4 * 1e3:.0f} ms per step over that "
+            f"epoch; losses box {losses[0]:.4f} cls {losses[1]:.4f} dfl {losses[2]:.4f}")
+        out = run_cli("detect", "val", f"model={best}", f"data={data}", "imgsz=640", "batch=16")
+        if "'metrics/mAP50(B)'" not in out:
+            raise AssertionError(f"CLI val printed no metrics:\n{out[-2000:]}")
+        src = tmp / "images"
+        src.mkdir()
+        rng = np.random.default_rng(5)
+        for i, (h, w) in enumerate(SERVING_SHAPES[:8]):
+            cv2.imwrite(str(src / f"im{i}.jpg"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        run_cli("detect", "predict", f"model={best}", f"source={src}", "imgsz=640", "conf=0.001",
+                "save_txt=True", f"project={tmp / 'pred'}")
+        pred = tmp / "pred" / "predict"
+        saved = sorted(p.name for p in pred.glob("*.jpg"))
+        labels = sorted(p.stem for p in (pred / "labels").glob("*.txt"))
+        if saved != [f"im{i}.jpg" for i in range(8)] or labels != [f"im{i}" for i in range(8)]:
+            raise AssertionError(f"CLI predict saved {saved} and labels {labels}")
+        out = run_cli("checks")
+        built = [ln for ln in out.splitlines() if ln.startswith("kernel") and ": built" in ln]
+        card = [ln for ln in out.splitlines() if ln.startswith("cuda:0")]
+        if len(built) != 4 or not card or "H100" not in card[0]:
+            raise AssertionError(f"CLI checks did not report the card and 4 built kernels:\n{out}")
+        log(f"cli checks: {card[0].strip()}; {len(built)} kernels built")
+    return {"train_s": train_s, "epoch_s": epoch_s}
+
+
+def phase_tune(dev) -> dict:
+    """``YOLO(FLAGSHIP).tune(iterations=2)`` at scale n, imgsz 640, 1 epoch of
+    4 steps at batch 16 each, on the training phase's shapes set. The
+    Tuner scores an iteration whose training raises 0 and goes on, as the
+    JAX package's does, so each iteration is held on its own: its
+    ``DetectionTrainer.train`` returned (recorded by a wrapper around it),
+    no "training failed" warning, its results.csv row with finite losses,
+    its fitness row in tune_results.csv, and K1 fwd, K1 bwd and K4
+    launched within it. Also held: best_hyperparameters.yaml and the best
+    weights. Printed: seconds per iteration and each iteration's launches.
+    Returns {"tune_run": launches of the whole, "iterations": [...],
+    "seconds_per_iteration": s}."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
+    from yolo_ad_refine_tpu_torch.utils import yaml_load
+
+    counters = kernel_counters()
+    train = DetectionTrainer.train
+    per_iteration = []
+
+    def counted_train(trainer):
+        before = {k: f.launches for k, f in counters.items()}
+        t0 = time.perf_counter()
+        out = train(trainer)
+        torch.cuda.synchronize()
+        per_iteration.append({"seconds": time.perf_counter() - t0, "launches": {
+            k: f.launches - before[k] for k, f in counters.items()}})
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        tmp = Path(tmp)
+        data = shapes_set(tmp)
+        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+        for f in counters.values():
+            f.launches = 0
+        DetectionTrainer.train = counted_train
+        try:
+            with log_records() as messages:
+                t0 = time.perf_counter()
+                best = model.tune(iterations=2, data=str(data), epochs=1, batch=16, imgsz=640,
+                                  workers=8, project=str(tmp / "runs"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            DetectionTrainer.train = train
+        launches = {k: f.launches for k, f in counters.items()}
+        failed = [m for m in messages if "training failed" in m]
+        tune = tmp / "runs" / "tune"
+        rows = (tune / "tune_results.csv").read_text().splitlines()
+        fitness = [float(r.split(",")[0]) for r in rows[1:]]
+        if failed or len(per_iteration) != 2 or len(rows) != 3 or \
+                not all(math.isfinite(v) for v in fitness):
+            raise AssertionError(f"tune: {len(per_iteration)} of 2 trainings returned; "
+                                 f"failures {failed}; tune_results.csv {rows}")
+        for i, it in enumerate(per_iteration, 1):
+            csv = (tune / f"iter{i}" / "results.csv").read_text().splitlines()
+            row = dict(zip(csv[0].split(","), csv[1].split(",")))
+            losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss",
+                                              "train/dfl_loss")]
+            if len(csv) != 2 or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"tune iteration {i}: results.csv {csv}")
+            if not all(it["launches"][k] for k in ("dcn_forward", "dcn_backward",
+                                                   "nms_suppress")):
+                raise AssertionError(f"tune iteration {i} did not launch K1 fwd / bwd and K4: "
+                                     f"{it['launches']}")
+            log(f"tune iteration {i}: training {it['seconds']:.1f} s, fitness {fitness[i - 1]}, "
+                f"losses {[round(v, 4) for v in losses]}, launches "
+                f"{ {k: v for k, v in it['launches'].items() if v} }")
+        if yaml_load(tune / "best_hyperparameters.yaml") != best or \
+                not (tune / "weights" / "best" / "weights.pt").exists():
+            raise AssertionError(f"tune wrote {sorted(p.name for p in tune.iterdir())}")
+        log(f"tune: 2 iterations in {wall:.1f} s, {wall / 2:.1f} s per iteration (1 epoch of 4 "
+            f"steps at batch 16, 640, and its validations); launches {launches}")
+    return {"tune_run": launches, "iterations": per_iteration,
+            "seconds_per_iteration": wall / 2}
+
+
+def phase_benchmark(dev) -> dict:
+    """``YOLO(FLAGSHIP).benchmark`` at batch 32, imgsz 640 for checkpoint,
+    torch_export and torchscript (bf16 programs, the JAX default), each
+    row ``ok`` with its ms per image; then ``model_flops`` at 640 for
+    scale n and scale x. Returns the numbers."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.utils.benchmarks import model_flops
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+        t0 = time.perf_counter()
+        rows = model.benchmark(imgsz=640, batch=32, save_dir=Path(tmp) / "export")
+        wall = time.perf_counter() - t0
+    if [r["status"] for r in rows] != ["ok"] * 3:
+        raise AssertionError(f"benchmark rows: {rows}")
+    for r in rows:
+        log(f"benchmark: {r['format']}: {r['ms_per_image']:.3f} ms per image at batch 32, 640")
+    flops = {"n": model_flops(model.model, 640)}
+    x = YOLO(FLAGSHIP_X, device=dev, imgsz=640, seed=0)
+    flops["x"] = model_flops(x.model, 640)
+    del x
+    torch.cuda.empty_cache()
+    log(f"benchmark: {wall:.1f} s for the three formats; model_flops at 640: scale n "
+        f"{flops['n']:.2f} GFLOPs, scale x {flops['x']:.2f} GFLOPs (FlopCounterMode: "
+        "products and the DCN formula)")
+    return {"rows": rows, "gflops": flops}
+
+
+def phase_parallel(dev, one_process_ms: float) -> dict:
+    """Data-parallel training on the one card (``tests/torch_parallel_worker.py``
+    ranks with torchrun's environment): two ranks share the card over gloo
+    with CUDA tensors (``parallel/multihost.py``), so every collective
+    passes through the host and the times are no scaling figure. The
+    two-rank runs share one start-up of the ranks, in this order:
+
+    1. ``YOLO(FLAGSHIP).train`` on both ranks, DDP then FSDP2 (fsdp=True),
+       global batch 16 (8 a rank), imgsz 640, bf16, 1 epoch of 4 steps on
+       the training phase's shapes set, with rank 0's EMA validation: the
+       ms of steps 2-4 beside the one-process step, finite losses, one
+       save_dir, and each rank's K1 fwd / K1 bwd / K4 launches.
+    2. One fp32 step with deterministic algorithms, on
+       ``phase_step_card_vs_cpu``'s model and batch (global batch 2), by
+       two DDP ranks and two FSDP2 ranks on the card, and the same two-rank
+       DDP step on the CPU, whose halves round as theirs do.
+    Then one DDP rank over NCCL takes the same step. Returns {"paths":
+    {path: launches}, "steps": {label: (loss, grads, the CPU's two-rank
+    grads or None)}, "ms": {...}, "seconds": {...}}: the card steps'
+    losses and averaged gradients, which ``phase_step_card_vs_cpu`` holds
+    at its limits."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parallel_worker import run_ranks
+
+    paths, ms, steps, seconds = {}, {}, {}, {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        tmp = Path(tmp)
+        data = shapes_set(tmp)
+        r = np.random.default_rng(2)  # phase_step_card_vs_cpu's batch
+        xy = r.uniform(0, 180, (2, 8, 2))
+        boxes = np.concatenate([xy, xy + r.uniform(16, 70, (2, 8, 2))], -1).astype(np.float32)
+        mask = (np.arange(8)[None, :, None] < np.array([[[6]], [[4]]])).astype(np.float32)
+        batch = {"img": r.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
+                 "cls": r.integers(0, 3, (2, 8, 1)).astype(np.float32),
+                 "bboxes": boxes * mask, "mask": mask}
+        np.savez(tmp / "step.npz", **{k: v[None] for k, v in batch.items()})
+        step_spec = {"scenario": "step", "cfg": FLAGSHIP, "nc": 3, "seed": 3, "imgsz": 256,
+                     "batches": str(tmp / "step.npz"), "deterministic": True,
+                     "opt": dict(optimizer="SGD", epochs=1, nb=1, batch=2, nbs=2,
+                                 warmup_epochs=0.0, nc=3)}
+        kinds = ("ddp", "fsdp2")
+        trains = [{"scenario": "train", "out": str(tmp / kind), "cfg": FLAGSHIP,
+                   "train": {"data": str(data), "epochs": 1, "batch": 16, "imgsz": 640,
+                             "amp": True, "plots": False, "workers": 4,
+                             "fsdp": kind == "fsdp2", "project": str(tmp / "runs"),
+                             "name": kind}} for kind in kinds]
+        two_steps = {"DDP, 2 ranks (gloo)": ("ddp_2", "cuda", False),
+                     "FSDP2, 2 ranks (gloo)": ("fsdp2_2", "cuda", True),
+                     "CPU DDP, 2 ranks (gloo)": ("cpu_ddp_2", "cpu", False)}
+        runs = trains + [{**step_spec, "out": str(tmp / tag), "device": device, "fsdp": fsdp}
+                         for tag, device, fsdp in two_steps.values()]
+        t0 = time.perf_counter()
+        recs = run_ranks({"out": str(tmp / "two"), "timeout_s": 700, "device": "cuda",
+                          "threads": 4, "runs": runs}, world=2)
+        seconds["two_ranks"] = time.perf_counter() - t0
+        if any(x["backend"] != "gloo" for rs in recs for x in rs):
+            raise AssertionError(f"two ranks: backends {[[x['backend'] for x in rs] for rs in recs]}")
+        for kind, rs in zip(kinds, recs):
+            if len({x["results"]["save_dir"] for x in rs}) != 1:
+                raise AssertionError(f"{kind}: ranks {[x['results'] for x in rs]}")
+            csv = (Path(rs[0]["results"]["save_dir"]) / "results.csv").read_text().splitlines()
+            row = dict(zip(csv[0].split(","), csv[1].split(",")))
+            losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")]
+            if not all(math.isfinite(v) for v in losses) or any(len(x["ms"]) != 4 for x in rs):
+                raise AssertionError(f"{kind}: losses {losses}, steps {[x['ms'] for x in rs]}")
+            ms[kind] = [statistics.median(x["ms"][1:]) for x in rs]
+            for x in rs:
+                paths[f"parallel_{kind}_rank{x['rank']}_run"] = x["launches"]
+                if not (x["launches"]["dcn_forward"] and x["launches"]["dcn_backward"]):
+                    raise AssertionError(f"{kind} rank {x['rank']} launched {x['launches']}")
+            if not rs[0]["launches"]["nms_suppress"]:
+                raise AssertionError(f"{kind}: rank 0's validation launched no K4")
+            log(f"parallel {kind}: 2 ranks on one card (gloo, CUDA tensors), global batch 16, "
+                f"640, bf16: {ms[kind][0]:.1f} / {ms[kind][1]:.1f} ms per step (rank 0 / 1, "
+                f"median of steps 2-4) beside {one_process_ms:.1f} ms one process; losses "
+                f"{[round(v, 4) for v in losses]}; launches {[x['launches'] for x in rs]}")
+
+        def step_result(label, tag, rs):
+            grads = torch.load(tmp / tag / "state.pt")["grads"]
+            log(f"parallel {label}: fp32 step loss {rs[0]['loss'][0]:.6f}, {len(grads)} "
+                f"gradient leaves; launches {[x['launches'] for x in rs]}")
+            return rs[0]["loss"][0], grads
+
+        results = dict(zip(two_steps, recs[len(trains):]))
+        cpu_two = step_result("CPU DDP, 2 ranks (gloo)", "cpu_ddp_2",
+                              results.pop("CPU DDP, 2 ranks (gloo)"))[1]
+        for label, rs in results.items():
+            tag = two_steps[label][0]
+            steps[label] = (*step_result(label, tag, rs), cpu_two)
+            for x in rs:
+                paths[f"parallel_{tag}_fp32_step_rank{x['rank']}"] = x["launches"]
+        log(f"parallel: the two-rank runs (2 trainings, 3 fp32 steps) in "
+            f"{seconds['two_ranks']:.1f} s with one start-up of the ranks")
+
+        t0 = time.perf_counter()
+        rs = run_ranks({**step_spec, "out": str(tmp / "ddp_1"), "timeout_s": 300,
+                        "device": "cuda", "threads": 4}, world=1)
+        seconds["nccl_rank"] = time.perf_counter() - t0
+        if rs[0]["backend"] != "nccl":
+            raise AssertionError(f"one rank over {rs[0]['backend']}, not NCCL")
+        steps["DDP, 1 rank (NCCL)"] = (*step_result("DDP, 1 rank (NCCL)", "ddp_1", rs), None)
+        paths["parallel_ddp_1_fp32_step_rank0"] = rs[0]["launches"]
+    return {"paths": paths, "steps": steps, "ms": ms, "seconds": seconds}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     # cuBLAS's fixed-workspace mode, under which its results repeat from run
     # to run, as the deterministic card step (phase_step_card_vs_cpu) asks
@@ -2181,11 +2534,15 @@ def main() -> int:
             paths[f"serving_{impl}_run"] = phase_serving_variant(dev, impl)
         for impl in (None, "mxu", "pallas"):
             tag = "" if impl is None else f"_{impl}"
-            run, step, extra = phase_training(dev, impl)
+            run, step, extra, ms = phase_training(dev, impl)
             paths.update({f"training{tag}_run": run, f"training{tag}_step": step, **extra})
-        run, step, _ = phase_training(dev, None, FLAGSHIP_X)
+            if impl is None:
+                one_process_ms = ms
+        run, step, _, _ = phase_training(dev, None, FLAGSHIP_X)
         paths.update({"training_x_run": run, "training_x_step": step})
-        phase_step_card_vs_cpu(dev)
+        parallel = timed(phase_parallel, dev, one_process_ms)
+        paths.update(parallel["paths"])
+        phase_step_card_vs_cpu(dev, parallel["steps"])
         paths.update(phase_training_options(dev)["paths"])
         obb = obb_model(dev)
         k5 = phase_k5(dev, gen, obb)
@@ -2194,6 +2551,9 @@ def main() -> int:
         obb_training = phase_obb_training(dev)
         paths["obb_training_run"] = obb_training["obb_training_run"]
         paths.update(phase_export(dev)["paths"])
+        timed(phase_cli)
+        paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
+        timed(phase_benchmark, dev)
 
     def entry(name, source, replaces, measured, main_path, **extra):
         # launches: the count of the kernel's own main path, each path's beside it

@@ -31,20 +31,23 @@ for n in names:
 import chip_smoke  # its own imports; the port's are inside its phases
 sys.path.insert(0, "tests")
 import torch_jax_checkpoint  # chip_smoke's JAX-layout writer: the card has no JAX
+import torch_parallel_worker  # chip_smoke's data-parallel ranks
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the train slice's, the bounded-DCN slice's, the training options' and the
-# OBB training and export slice's modules, each imported under the blocker above
+# the train slice's, the bounded-DCN slice's, the training options', the OBB
+# training and export slice's, and the CLI / tune / benchmark / data-parallel
+# slice's modules, each imported under the blocker above
 TRAIN_SLICE_MODULES = (
-    "cfg.config", "data.augment", "data.build", "data.dataset", "data.synthetic",
-    "engine.checkpoint", "engine.exporter", "engine.validator", "ops.anchors", "ops.deform",
-    "ops.deform_mxu", "ops.deform_pallas", "ops.iou",
+    "__main__", "cfg.cli", "cfg.config", "data.augment", "data.build", "data.dataset",
+    "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.tuner",
+    "engine.validator", "ops.anchors", "ops.deform", "ops.deform_mxu", "ops.deform_pallas",
+    "ops.iou", "parallel", "parallel.multihost",
     "train.loss", "train.obb", "train.optim", "train.step", "train.tal", "train.trainer",
-    "utils.autobatch", "utils.callbacks", "utils.checks", "utils.metrics", "utils.plotting",
-    "utils.triton",
+    "utils.autobatch", "utils.benchmarks", "utils.callbacks", "utils.checks",
+    "utils.metrics", "utils.plotting", "utils.settings", "utils.triton",
 )
 
 
@@ -88,7 +91,7 @@ def test_trainer_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_path
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"fsdp": True}, "DDP/FSDP"), ({"task": "segment"}, "tasks"),
+    ({"task": "pose"}, "tasks"), ({"task": "segment"}, "tasks"),
 ])
 def test_trainer_raises_on_options_not_ported(override, item, tmp_path):
     from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer

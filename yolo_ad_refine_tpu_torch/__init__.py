@@ -5,6 +5,8 @@ runs the flagship YOLO-AD-Refine detector with hand-written CUDA kernels for
 the deformable conv and the NMS suppression.
 """
 
-from yolo_ad_refine_tpu_torch.models.yolo import YOLO
+__version__ = "0.1.0"
 
-__all__ = ["YOLO"]
+from yolo_ad_refine_tpu_torch.models.yolo import YOLO  # noqa: E402
+
+__all__ = ["YOLO", "__version__"]

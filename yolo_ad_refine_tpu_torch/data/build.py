@@ -7,7 +7,10 @@ from ``seed + epoch`` and every sample gets its own generator seeded from
 (seed + epoch, index), so a run's batches do not depend on the number of
 workers; labels are padded to (B, max_boxes) with a validity mask. A
 ``batch_plan`` (rect validation's buckets) replaces the epoch order with
-its own list of batches.
+its own list of batches. With ``rank_slice`` (data-parallel training,
+``parallel.multihost.per_host_batch_slice``) a rank loads only its
+contiguous part of every global batch: the same samples, drawn from the
+same generators, as the one-process batch holds there.
 """
 
 from __future__ import annotations
@@ -59,8 +62,9 @@ class DataLoader:
     def __init__(self, dataset: YOLODataset, batch_size: int = 16, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = False, workers: int | None = None,
                  prefetch: int = 4, max_boxes: int | None = None,
-                 batch_plan: list | None = None):
+                 batch_plan: list | None = None, rank_slice: tuple[int, int] | None = None):
         self.dataset = dataset
+        self.rank_slice = rank_slice  # (start, stop): this rank's part of every batch
         self.batch_plan = batch_plan  # explicit batches of indices, e.g. rect buckets
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -100,6 +104,8 @@ class DataLoader:
         else:
             idx = self.indices()
             batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        if self.rank_slice is not None:
+            batches = [b[self.rank_slice[0]: self.rank_slice[1]] for b in batches]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

@@ -12,7 +12,9 @@ directory:
 - ``meta.yaml``: the JAX package's keys (model_yaml, nc,
   dcn_offset_max, names, epoch, best_fitness, train_args, date, version).
 
-Tensors are written with ``torch.save``. ``load_checkpoint`` also reads a
+Tensors are written with ``torch.save``, in the one-process layout also
+from a data-parallel run (FSDP2's shards gathered), so a ``last`` resumes
+with any number of ranks. ``load_checkpoint`` also reads a
 directory the JAX package wrote (``weights.msgpack`` in flax's msgpack
 format, decoded with ``msgpack`` alone, and the same ``meta.yaml``), and in
 both cases widens the DCN clip radius to cover the checkpoint's
@@ -30,25 +32,33 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from yolo_ad_refine_tpu_torch import __version__
+from yolo_ad_refine_tpu_torch.parallel import full_tensor
+from yolo_ad_refine_tpu_torch.parallel.multihost import is_main_process
 from yolo_ad_refine_tpu_torch.utils import LOGGER, select_device, yaml_load, yaml_save
-
-VERSION = "0.1.0"
 
 
 def save_checkpoint(path: str | Path, *, model, ema=None, optimizer=None, epoch: int = -1,
                     best_fitness: float = 0.0, train_args: dict | None = None,
                     names: dict | None = None, dcn_offset_max: float | None = None) -> Path:
     """Write a checkpoint directory. With ``ema`` its model is the weights;
-    with ``optimizer`` too, ``train.pt`` holds what resume needs."""
+    with ``optimizer`` too, ``train.pt`` holds what resume needs. In a
+    data-parallel run every rank calls it: FSDP2's shards are gathered into
+    the one-process layout on every rank and rank 0 writes."""
+    def whole(m):
+        return {k: full_tensor(v).detach().cpu() for k, v in m.state_dict().items()}
+
     path = Path(path)
+    weights = whole(ema.ema if ema is not None else model)
+    train = None if optimizer is None else {
+        "model": whole(model), "optimizer": optimizer.state_dict(),
+        "ema_updates": ema.updates if ema is not None else 0}
+    if not is_main_process():
+        return path
     path.mkdir(parents=True, exist_ok=True)
-    weights = (ema.ema if ema is not None else model).state_dict()
-    torch.save({k: v.detach().cpu() for k, v in weights.items()}, path / "weights.pt")
-    if optimizer is not None:
-        torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                    "optimizer": optimizer.state_dict(),
-                    "ema_updates": ema.updates if ema is not None else 0},
-                   path / "train.pt")
+    torch.save(weights, path / "weights.pt")
+    if train is not None:
+        torch.save(train, path / "train.pt")
     yaml_save(path / "meta.yaml", {
         "model_yaml": model.yaml,
         "nc": model.nc,
@@ -60,7 +70,7 @@ def save_checkpoint(path: str | Path, *, model, ema=None, optimizer=None, epoch:
         "best_fitness": float(best_fitness),
         "train_args": train_args or {},
         "date": datetime.datetime.now().isoformat(),
-        "version": VERSION,
+        "version": __version__,
     })
     return path
 

@@ -5,14 +5,18 @@ weights or loads a checkpoint directory, one the port's trainer wrote or one
 the JAX package wrote (``weights.msgpack``); ``.predict(images)``,
 ``.train(data=...)`` and ``.val(data=...)`` run on the card by default
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
-the caller passes ``device="cpu"``. ``task`` ("detect" or "obb", as the JAX
+the caller passes ``device="cpu"`` (under a launcher, ``cuda`` is the
+rank's card, ``utils.select_device``). ``task`` ("detect" or "obb", as the JAX
 facade's) defaults to the one the model's head implies, as the reference
 guesses it from the model; both predict, train and validate. ``.export``
-writes the model for ``engine/exporter.py``'s ``AutoBackend``.
+writes the model for ``engine/exporter.py``'s ``AutoBackend``;
+``.benchmark`` times the exported formats and ``.tune`` evolves the
+training hyperparameters.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import torch
@@ -110,6 +114,24 @@ class YOLO:
 
         exporter = Exporter(self.model, imgsz=imgsz, batch=batch, half=half)
         return exporter(format, path or f"model_{format}")
+
+    def tune(self, iterations: int = 10, space: dict | None = None, **kwargs) -> dict:
+        """Hyperparameter evolution (reference engine/model.py:811 Model.tune,
+        ``engine/tuner.py``): each iteration trains a copy of this model
+        with mutated hyperparameters. Returns the best hyperparameters;
+        tune_results.csv, best_hyperparameters.yaml and the best weights
+        land in ``<project>/tune[n]/``."""
+        from yolo_ad_refine_tpu_torch.engine.tuner import Tuner
+
+        tuner = Tuner({**self.overrides, **kwargs, "mode": "train"}, space=space)
+        return tuner(lambda: copy.deepcopy(self.model), iterations=iterations)
+
+    def benchmark(self, **kwargs) -> list[dict]:
+        """The export-format matrix (``utils/benchmarks.py benchmark``):
+        imgsz, batch, formats, save_dir. Returns a row per format."""
+        from yolo_ad_refine_tpu_torch.utils.benchmarks import benchmark
+
+        return benchmark(self, **kwargs)
 
     def info(self) -> dict:
         return {"layers": len(self.model.model), "parameters": self.model.num_params(),

@@ -18,6 +18,7 @@ from torch import nn
 
 from yolo_ad_refine_tpu_torch.nn.common import Conv, max_pool_same
 from yolo_ad_refine_tpu_torch.nn.registry import register
+from yolo_ad_refine_tpu_torch.parallel import all_gather_cat, in_global_batch
 
 
 class Bottleneck(nn.Module):
@@ -215,7 +216,12 @@ class MLCA(nn.Module):
         # adaptive_avg_pool2d reads as (C=c, H=b, W=1): spatial row i of the
         # attention is the mean over BATCH segment i (a batch-mixing quirk of
         # the upstream code, reproduced; for b=1 it is a broadcast).
-        att_global = F.adaptive_avg_pool2d(torch.sigmoid(y_global).t().unsqueeze(-1), ls)[None]
+        # In data-parallel training the batch is the global one, as under
+        # the JAX package's mesh: every rank's rows, gathered.
+        sig = torch.sigmoid(y_global)
+        if self.training and in_global_batch():
+            sig = all_gather_cat(sig)
+        att_global = F.adaptive_avg_pool2d(sig.t().unsqueeze(-1), ls)[None]
         att = att_global * (1 - self.local_weight) + att_local * self.local_weight
         return x * F.adaptive_avg_pool2d(att, (h, w))
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolo_ad_refine_tpu_torch.nn.registry import register
+from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, in_global_batch
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:
@@ -33,24 +34,79 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return math.ceil(x / divisor) * divisor
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a process group.
+
+    The forward sums the count and the sum, then the squared deviations
+    from the global mean (two passes, as flax's variance), over the ranks.
+    The backward is the one-process batch norm's over the global batch,
+    dx = w·invstd·(g − mean(g) − x̂·mean(g·x̂)) with both means summed over
+    the ranks, and dw, db this rank's own sums (the data-parallel wrapper
+    averages them); it keeps the fused form, whose sums cancel as the
+    one-process kernel's do. Returns y and the (mean, biased variance) for
+    the running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.double() if x.dtype == torch.float64 else x.float()
+        c, dims, shape = x.shape[1], (0, 2, 3), (1, x.shape[1], 1, 1)
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+        stats = all_reduce_sum(torch.cat([count, xf.sum(dim=dims)]))
+        n = stats[0]
+        mean = stats[1:] / n
+        var = all_reduce_sum((xf - mean.view(shape)).square().sum(dim=dims)) / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        ctx.x_dtype = x.dtype
+        y = xhat * weight.view(shape) + bias.view(shape)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        c, dims, shape = xhat.shape[1], (0, 2, 3), (1, xhat.shape[1], 1, 1)
+        g = gy.to(xhat.dtype)
+        local = torch.cat([g.sum(dim=dims), (g * xhat).sum(dim=dims)])
+        glob = all_reduce_sum(local) / n
+        dx = (g - glob[:c].view(shape) - xhat * glob[c:].view(shape)) * \
+            (weight * invstd).view(shape)
+        return (dx.to(ctx.x_dtype), local[c:].to(weight.dtype), local[:c].to(weight.dtype),
+                None)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` uses
     the biased (two-pass, fp32) batch variance, as flax's BatchNorm with
     ``use_fast_variance=False`` does (``yolo_ad_refine_tpu/nn/common.py``);
     torch's own update uses the unbiased one. Normalisation, eval and the
-    parameter and buffer names are torch's."""
+    parameter and buffer names are torch's.
+
+    In train mode within a data-parallel step (``parallel.global_batch``,
+    under a process group of more than one rank), the mean and the biased variance are the
+    global batch's, as under the JAX package's mesh (``_GlobalBatchNorm``,
+    its sums over the ranks in fp32)."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if in_global_batch():
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                self._update_running(mean.float(), var.float())
+            return y
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean * m)
-            self.running_var.mul_(1.0 - m).add_(var * m)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return y
+
+    def _update_running(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean * m)
+        self.running_var.mul_(1.0 - m).add_(var * m)
+        self.num_batches_tracked.add_(1)
 
 
 def batch_norm(c: int) -> BatchNorm2d:

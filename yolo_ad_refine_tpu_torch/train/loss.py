@@ -7,7 +7,10 @@ ultralytics/utils/loss.py: SlideLoss:18-42, BboxLoss:264-311 with CIoU mixed
 foreground CIoU as ``auto_iou``, gains box=7.5 / cls=0.5 / dfl=1.5, and
 total = sum(components) * batch. The loss math runs in fp32 outside any
 autocast, whatever type the model computed in (in fp64 for fp64 maps, which
-the tests use as a reference).
+the tests use as a reference). Within a data-parallel step
+(``parallel.global_batch``), the normalisers (target_scores_sum, SlideLoss's foreground
+count and IoU sum) and the batch factor are the global batch's, as under
+the JAX package's mesh (``global_total``).
 """
 
 from __future__ import annotations
@@ -18,12 +21,27 @@ import torch
 
 from yolo_ad_refine_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from yolo_ad_refine_tpu_torch.ops.iou import bbox_iou, wasserstein_similarity
+from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, in_global_batch
+from yolo_ad_refine_tpu_torch.parallel.multihost import world_size
 from yolo_ad_refine_tpu_torch.train.tal import TaskAlignedAssigner
 
 
 class LossOutputs(NamedTuple):
     total: torch.Tensor       # scalar: loss.sum() * batch_size
     components: torch.Tensor  # (3,) detached [box, cls, dfl], gain-scaled
+
+
+def global_total(comps: torch.Tensor, b: int) -> LossOutputs:
+    """The outputs of a rank's share of a data-parallel step: ``comps``
+    holds this rank's sums over the global normalisers. The components
+    are the global batch's (summed over the ranks) and the total's value
+    is the global batch's loss, sum(components) * global batch; its
+    gradient is this rank's share times the world size, which the DDP /
+    FSDP2 mean over the ranks makes the global batch's gradient."""
+    n = world_size()
+    glob = all_reduce_sum(comps.detach())
+    share = comps.sum() * (b * n) * n
+    return LossOutputs(share + (glob.sum() * (b * n) - share).detach(), glob)
 
 
 def bce_with_logits(logits, targets):
@@ -96,11 +114,16 @@ class DetectionLoss:
                                anchor_points * stride_tensor, gt_labels, gt_bboxes, mask_gt)
         target_bboxes, target_scores, fg_mask = (assign.target_bboxes, assign.target_scores,
                                                  assign.fg_mask)
-        target_scores_sum = torch.clamp(target_scores.sum(), min=1.0)
-
         target_bboxes_g = target_bboxes / stride_tensor[None]
         weight = target_scores.sum(dim=-1) * fg_mask  # (B, A)
         iou = bbox_iou(pred_bboxes, target_bboxes_g, xywh=False, CIoU=True)
+        # the batch's sums: target_scores_sum, SlideLoss's foreground count and IoU sum
+        sums = torch.stack([target_scores.sum(), fg_mask.to(acc).sum(),
+                            (iou.detach() * fg_mask).sum()])
+        global_ = in_global_batch()
+        if global_:
+            sums = all_reduce_sum(sums)
+        target_scores_sum = torch.clamp(sums[0], min=1.0)
         loss_box = ((1.0 - iou) * weight).sum() / target_scores_sum
         nwd = wasserstein_similarity(pred_bboxes, target_bboxes_g)
         loss_nwd = ((1.0 - nwd) * weight).sum() / target_scores_sum
@@ -112,12 +135,13 @@ class DetectionLoss:
 
         bce = bce_with_logits(pred_scores, target_scores)
         if self.use_slide_loss:
-            n_fg = fg_mask.to(acc).sum()
-            mean_iou = (iou.detach() * fg_mask).sum() / torch.clamp(n_fg, min=1.0)
+            n_fg = sums[1]
+            mean_iou = sums[2] / torch.clamp(n_fg, min=1.0)
             auto_iou = torch.where(n_fg > 0, mean_iou, -1.0)
             bce = bce * slide_weight(target_scores, auto_iou)
         loss_cls = bce.sum() / target_scores_sum
 
         comps = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1],
                              loss_dfl * self.gains[2]])
-        return LossOutputs(comps.sum() * b, comps.detach())
+        return global_total(comps, b) if global_ else LossOutputs(comps.sum() * b,
+                                                                  comps.detach())

@@ -7,6 +7,9 @@ candidate test; the box loss is 1 - probiou, the class loss plain BCE (the
 flagship's SlideLoss and NWD are not part of it, as in the JAX package) and
 DFL on the axis-aligned ltrb of the target in grid units; gains 7.5 / 0.5 /
 1.5, total = sum(components) * batch. GT comes as (B, N, 5) xywhr pixels.
+Within a data-parallel step (``parallel.global_batch``),
+target_scores_sum and the batch factor are the global batch's
+(``train/loss.py global_total``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch.nn.functional as F
 from yolo_ad_refine_tpu_torch.nn.head import dist2rbox
 from yolo_ad_refine_tpu_torch.ops.anchors import bbox2dist, make_anchors
 from yolo_ad_refine_tpu_torch.ops.iou import probiou
-from yolo_ad_refine_tpu_torch.train.loss import bce_with_logits, dfl_loss
+from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, in_global_batch
+from yolo_ad_refine_tpu_torch.train.loss import bce_with_logits, dfl_loss, global_total
 from yolo_ad_refine_tpu_torch.train.tal import (
     AssignResult, TaskAlignedAssigner, select_topk_candidates)
 
@@ -139,7 +143,9 @@ class OBBLoss:
             torch.cat([pred_rboxes[..., :4].detach() * stride_tensor[None],
                        angle.detach()[..., None]], -1),
             anchor_points * stride_tensor, gt_labels, gt_rboxes.to(acc), mask_gt.to(acc))
-        target_scores_sum = torch.clamp(assign.target_scores.sum(), min=1.0)
+        global_ = in_global_batch()
+        tss = assign.target_scores.sum()
+        target_scores_sum = torch.clamp(all_reduce_sum(tss) if global_ else tss, min=1.0)
 
         loss_cls = bce_with_logits(pred_scores, assign.target_scores).sum() / target_scores_sum
 
@@ -157,4 +163,6 @@ class OBBLoss:
 
         comps = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1],
                              loss_dfl * self.gains[2]])
+        if global_:
+            return OBBLossOutputs(*global_total(comps, b))
         return OBBLossOutputs(comps.sum() * b, comps.detach())

@@ -23,7 +23,11 @@ engine/trainer.py:753-813 build_optimizer, :209-215 and :369-380 schedules,
   counted in optimizer steps.
 
 ``load_jax_opt_state`` carries the JAX package's optax state into the
-torch optimizer for a resume (see its docstring for the map).
+torch optimizer for a resume (see its docstring for the map). Under FSDP2
+(``parallel.wrap_model``) the optimizer moves onto the sharded parameters
+(``Optimizer.rebind``), the clip norm is the global one
+(``global_grad_norm``), and the EMA and ``state_dict`` gather the shards,
+so every rank's EMA and every checkpoint are the one-process ones.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import math
 
 import torch
 from torch import nn
+
+from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, full_tensor, is_sharded, shard_like
 
 
 # parameters the port holds in another shape than their flax leaf, by the
@@ -104,11 +110,10 @@ class Optimizer:
             return False
         grads = [p.grad for g in self.opt.param_groups for p in g["params"] if p.grad is not None]
         if grads:
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
-                                                         for g in grads]))
+            norm = global_grad_norm(grads)
             scale = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
             for g in grads:
-                g.mul_(scale.to(g.dtype))
+                (g.to_local() if is_sharded(g) else g).mul_(scale.to(g.dtype))
         at = self.steps * self.accumulate  # the schedules run in batches
         for group in self.opt.param_groups:
             group["lr"] = self.lr_fns[group["name"]](at)
@@ -124,16 +129,55 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         """The torch optimizer's state, the counts, and the gradients summed
-        so far towards the next step (None where a parameter has none)."""
-        return {"opt": self.opt.state_dict(), "batches": self.batches, "steps": self.steps,
-                "acc_grads": [None if p.grad is None else p.grad.detach().clone()
+        so far towards the next step (None where a parameter has none), in
+        the one-process layout: FSDP2's shards are gathered (on every rank)."""
+        opt = self.opt.state_dict()
+        opt["state"] = {i: {k: full_tensor(v) for k, v in st.items()}
+                        for i, st in opt["state"].items()}
+        return {"opt": opt, "batches": self.batches, "steps": self.steps,
+                "acc_grads": [None if p.grad is None else full_tensor(p.grad).detach().clone()
                               for p in self.params()]}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load a ``state_dict`` (of a one-process run or of a sharded one:
+        they are the same) into the optimizer over plain parameters; a
+        sharded run loads before ``rebind``."""
         self.opt.load_state_dict(state["opt"])
         self.batches, self.steps = int(state["batches"]), int(state["steps"])
         for p, g in zip(self.params(), state.get("acc_grads") or []):
             p.grad = None if g is None else g.to(p.device, p.dtype)
+
+    def rebind(self, params: dict, names: dict) -> None:
+        """Move the optimizer onto FSDP2's sharded parameters: ``params``
+        {name: new parameter}, ``names`` {id(old parameter): name}. Each
+        state tensor of a parameter's shape (the momenta) and each summed
+        gradient becomes this rank's shard."""
+        for group in self.opt.param_groups:
+            new = [params[names[id(p)]] for p in group["params"]]
+            for old, p in zip(group["params"], new):
+                if not is_sharded(p):  # a parameter FSDP2 keeps whole
+                    continue
+                st = self.opt.state.pop(old, None)
+                if st is not None:
+                    self.opt.state[p] = {k: shard_like(v, p) if torch.is_tensor(v)
+                                         and v.shape == p.shape else v for k, v in st.items()}
+                if old.grad is not None:
+                    p.grad = shard_like(old.grad, p)
+            group["params"] = new
+
+
+def global_grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of the gradients. FSDP2's sharded gradients
+    (DTensors) sum their shards' squares over the ranks, and FSDP2's whole
+    0-d leaves, the same on every rank, add theirs once; without sharded
+    ones (one process, or DDP, whose averaged gradients are the same on
+    every rank) it is the norm of the leaves' norms."""
+    if not any(is_sharded(g) for g in grads):
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
+                                                     for g in grads]))
+    sq = [torch.linalg.vector_norm(g.to_local().float()).square() for g in grads if is_sharded(g)]
+    whole = [torch.linalg.vector_norm(g.float()).square() for g in grads if not is_sharded(g)]
+    return (all_reduce_sum(torch.stack(sq).sum()) + sum(whole, torch.zeros_like(sq[0]))).sqrt()
 
 
 def build_optimizer(named_params, *, optimizer: str = "auto", lr0: float = 0.01,
@@ -272,5 +316,5 @@ class ModelEMA:
         d = ema_decay(self.updates, self.decay, self.tau).item()
         src = model.state_dict()
         for k, e in self.ema.state_dict().items():
-            if e.dtype.is_floating_point:
-                e.mul_(d).add_(src[k].detach().float() * (1.0 - d))
+            if e.dtype.is_floating_point:  # FSDP2's shards gathered: every rank's EMA is whole
+                e.mul_(d).add_(full_tensor(src[k].detach()).float() * (1.0 - d))

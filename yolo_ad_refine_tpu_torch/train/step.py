@@ -6,7 +6,11 @@ runs its train-mode forward (under bf16 autocast when ``amp_dtype`` is
 set), the loss runs in fp32 on that output whole (the per-level maps, or
 the OBB head's (feats, angle)), the gradient flows back through K1 bwd on the
 card, the optimizer steps every ``accumulate`` batches and the EMA of
-params and BN stats advances on each optimizer step. The JAX package's
+params and BN stats advances on each optimizer step. ``wrapped`` (DDP or
+FSDP2, ``parallel.wrap_model``) runs the forward of a data-parallel step,
+within ``parallel.global_batch`` with the loss, so that both compute the
+global batch's statistics; DDP's all-reduce waits under ``no_sync`` for
+the batch that steps the optimizer. The JAX package's
 train-prologue and remat options shape XLA programs on the TPU and have no
 counterpart here.
 """
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from yolo_ad_refine_tpu_torch.parallel import global_batch
 from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
 from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, Optimizer
 
@@ -46,9 +51,13 @@ class TrainStep:
     PHASES = ("forward", "loss", "backward", "optimizer + EMA")
 
     def __init__(self, model: nn.Module, loss_fn: DetectionLoss, optimizer: Optimizer,
-                 ema: ModelEMA, amp_dtype: torch.dtype | None = None):
+                 ema: ModelEMA, amp_dtype: torch.dtype | None = None,
+                 wrapped: nn.Module | None = None):
         self.model, self.loss_fn, self.optimizer, self.ema = model, loss_fn, optimizer, ema
         self.amp_dtype = amp_dtype
+        self.wrapped = model if wrapped is None else wrapped
+        self.data_parallel = wrapped is not None
+        self.grads_pending = False  # DDP: this rank's summed gradients, not yet averaged
         self.on_phase = None
 
     def _end(self, phase: str) -> None:
@@ -57,18 +66,25 @@ class TrainStep:
 
     def __call__(self, batch: dict) -> dict:
         model = self.model
-        dev = next(model.parameters()).device
+        p = next(model.parameters())
+        dev = p.device
         model.train()
-        img = images_to_tensor(batch["img"], dev)
+        img = images_to_tensor(batch["img"], dev).to(p.dtype)  # fp64: the tests' reference
         cls, bboxes, mask = targets_to_device(batch, dev)
         ctx = (torch.autocast(dev.type, dtype=self.amp_dtype) if self.amp_dtype is not None
                else contextlib.nullcontext())
-        with ctx:
-            feats = model(img)
-        self._end("forward")
-        out = self.loss_fn(feats, cls, bboxes, mask)
-        self._end("loss")
-        out.total.backward()
+        # DDP all-reduces the gradients only on the batch that steps the optimizer
+        local = (isinstance(self.wrapped, nn.parallel.DistributedDataParallel)
+                 and (self.optimizer.batches + 1) % self.optimizer.accumulate != 0)
+        with self.wrapped.no_sync() if local else contextlib.nullcontext(), \
+                global_batch(self.data_parallel):
+            with ctx:
+                feats = self.wrapped(img)
+            self._end("forward")
+            out = self.loss_fn(feats, cls, bboxes, mask)
+            self._end("loss")
+            out.total.backward()
+        self.grads_pending = local
         self._end("backward")
         if self.optimizer.step():
             self.ema.update(model)
@@ -78,3 +94,16 @@ class TrainStep:
         return {"loss": out.total.detach(), "components": c, "box_loss": c[0], "cls_loss": c[1],
                 "dfl_loss": c[2],
                 "dcn_offset_max": off_max if off_max is not None else torch.zeros((), device=dev)}
+
+    @torch.no_grad()
+    def average_pending_grads(self) -> None:
+        """Average over the ranks the gradients that DDP's skipped
+        all-reduces left local, so the summed gradient (a checkpoint's) is
+        the global one; the next all-reduce averages them again unchanged."""
+        if self.grads_pending:
+            n = torch.distributed.get_world_size()
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    torch.distributed.all_reduce(p.grad)
+                    p.grad.div_(n)
+            self.grads_pending = False

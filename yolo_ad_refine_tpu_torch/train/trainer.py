@@ -19,6 +19,20 @@ drawn from ``seed + epoch``), ``cache`` (ram / disk) and ``batch=-1``
 (``train/obb.py``) as its train and val loss, as the JAX trainer's OBB
 branch does; its batches hold (B, N, 5) xywhr boxes, which ``plot_images``
 draws by their first four columns, as the JAX package's does.
+
+Under a launcher (``torchrun --nproc_per_node=N``, or the JAX package's
+``YAT_*`` variables) every rank trains its contiguous slice of each global
+batch on its own card in DDP, or FSDP2 with ``fsdp=True`` (``parallel/``),
+and the step is the one-process step over the global batch, as under the
+JAX trainer's mesh: the BatchNorm statistics, MLCA's batch mean, the loss
+normalisers and the batch factor are global, ``accumulate`` comes from the
+global batch and dcn_offset_max is the maximum over the ranks. Rank 0
+chooses the save_dir, writes results.csv, the plots, args.yaml and the
+checkpoints (in the one-process layout), and validates the EMA; the
+fitness and the stop decision are agreed over the ranks. ``batch=-1``
+picks the global batch from one card, as the JAX trainer's autobatch
+picks it from one device. A world size that does not divide the batch
+raises.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ from yolo_ad_refine_tpu_torch.engine.checkpoint import (
     load_checkpoint, load_train_state, save_checkpoint)
 from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
+from yolo_ad_refine_tpu_torch.parallel import multihost as mh
+from yolo_ad_refine_tpu_torch.parallel import wrap_model
 from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
 from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
 from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
@@ -50,10 +66,6 @@ CSV_KEYS = ("epoch", "time", "train/box_loss", "train/cls_loss", "train/dfl_loss
             "metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
             "metrics/mAP50-95(B)", "val/box_loss", "val/cls_loss", "val/dfl_loss",
             "lr/pg0", "lr/pg1", "lr/pg2", "train/dcn_offset_max")
-
-# options the port does not run yet, with the ROADMAP item that brings them
-NOT_PORTED = {"fsdp": "ROADMAP Queue 1 item 10, DDP/FSDP"}
-
 
 def multi_scale_batch(batch: dict, imgsz: int, rng: np.random.Generator) -> dict:
     """The JAX package's multi_scale (its train/trainer.py multi_scale_batch,
@@ -125,9 +137,6 @@ class DetectionTrainer:
     def __init__(self, overrides: dict | None = None, model: DetectionModel | None = None,
                  callbacks: Callbacks | None = None):
         self.args = get_cfg(overrides)
-        for key, item in NOT_PORTED.items():
-            if self.args.get(key):
-                not_ported(f"{key}=True in training", item)
         self.task = self.args.get("task") or "detect"
         if self.task not in ("detect", "obb"):
             not_ported(f"training task {self.task!r}", "ROADMAP Queue 1 item 12, the other tasks")
@@ -142,11 +151,19 @@ class DetectionTrainer:
         self.epochs = int(self.args["epochs"])
         self.batch_size = int(self.args["batch"])
         self.imgsz = int(self.args["imgsz"])
-        self.save_dir = increment_path(Path(self.args.get("project") or "runs") /
-                                       (self.args.get("name") or "train"),
-                                       exist_ok=bool(self.args.get("exist_ok")), mkdir=True)
+        # under a launcher (torchrun, or the JAX package's YAT_* variables) every
+        # rank trains its slice of each global batch; rank 0 writes the run's files
+        self.distributed = mh.maybe_initialize_distributed(self.device)
+        self.main = mh.is_main_process()
+        save_dir = None
+        if self.main:
+            save_dir = increment_path(Path(self.args.get("project") or "runs") /
+                                      (self.args.get("name") or "train"),
+                                      exist_ok=bool(self.args.get("exist_ok")), mkdir=True)
+        self.save_dir = Path(mh.broadcast_object(str(save_dir)))
         self.wdir = self.save_dir / "weights"
-        self.wdir.mkdir(parents=True, exist_ok=True)
+        if self.main:
+            self.wdir.mkdir(parents=True, exist_ok=True)
         self.csv = self.save_dir / "results.csv"
         self.best_fitness = 0.0
         self.start_epoch = 0
@@ -181,23 +198,23 @@ class DetectionTrainer:
                              f"({args['model']})")
         gains = dict(box_gain=float(args["box"]), cls_gain=float(args["cls"]),
                      dfl_gain=float(args["dfl"]))
-        if self.task == "obb":  # the JAX trainer's OBB branch (its train/trainer.py:194-200)
-            self.loss_fn = OBBLoss(nc=data["nc"], strides=self.model.strides, **gains)
-        else:
-            self.loss_fn = DetectionLoss(nc=data["nc"], strides=self.model.strides, **gains)
-        # the val losses: OBBLoss takes the eval output's (feats, angle) whole
-        self.val_loss_fn = self.loss_fn
-        if self.batch_size == -1:
+        # the JAX trainer's OBB branch (its train/trainer.py:194-200); OBBLoss
+        # takes the eval output's (feats, angle) whole as the val loss too
+        loss_cls = OBBLoss if self.task == "obb" else DetectionLoss
+        self.loss_fn = loss_cls(nc=data["nc"], strides=self.model.strides, **gains)
+        if self.batch_size == -1:  # the JAX trainer's: one device's pick is the global batch
             self.autobatch = self._autobatch()
-            self.batch_size = self.args["batch"] = self.autobatch["batch"]
+            self.batch_size = self.args["batch"] = int(mh.broadcast_scalar(
+                self.autobatch["batch"]))
 
         train_ds = YOLODataset(data["train"], imgsz=self.imgsz, augment=True, hyp=hyp,
                                nc=data["nc"], max_boxes=max_boxes, task=self.task,
                                fraction=float(args.get("fraction", 1.0)),
                                cache_images=args.get("cache", False))
-        self.train_loader = DataLoader(train_ds, batch_size=self.batch_size, shuffle=True,
-                                       seed=int(args.get("seed", 0)), drop_last=True,
-                                       workers=args.get("workers"))
+        self.train_loader = DataLoader(
+            train_ds, batch_size=self.batch_size, shuffle=True, seed=int(args.get("seed", 0)),
+            drop_last=True, workers=args.get("workers"),
+            rank_slice=mh.per_host_batch_slice(self.batch_size)[1:] if self.distributed else None)
         self.nb = max(len(self.train_loader), 1)
         self.optimizer, self.accumulate, self.lr_fns = build_optimizer(
             self.model.named_parameters(), optimizer=args.get("optimizer", "auto"),
@@ -219,8 +236,12 @@ class DetectionTrainer:
                 ckpt, self.model, self.ema, self.optimizer)
             LOGGER.info(f"resuming from {ckpt} at epoch {self.start_epoch} "
                         f"(best fitness {self.best_fitness:.4f})")
+        # DDP, or FSDP2 with fsdp=True (which shards the optimizer's state too);
+        # without a process group the model trains as it is, as on a one-device mesh
+        wrapped = (wrap_model(self.model, self.batch_size, fsdp=bool(args.get("fsdp")),
+                              optimizer=self.optimizer) if self.distributed else None)
         self.train_step = TrainStep(self.model, self.loss_fn, self.optimizer, self.ema,
-                                    self.amp_dtype)
+                                    self.amp_dtype, wrapped=wrapped)
 
         self.validator = DetectionValidator(args={
             **{k: args[k] for k in ("imgsz", "iou", "max_det", "max_boxes")},
@@ -233,7 +254,8 @@ class DetectionTrainer:
         self.val_loader = DataLoader(val_ds, batch_size=self.batch_size, shuffle=False)
         self.validator.names = data["names"]
         self.stopper = EarlyStopping(int(args.get("patience", 100)))
-        yaml_save(self.save_dir / "args.yaml", self.args)
+        if self.main:
+            yaml_save(self.save_dir / "args.yaml", self.args)
 
     def probe_step(self, b: int) -> None:
         """One real train step of this model at batch ``b`` on seeded data
@@ -261,6 +283,7 @@ class DetectionTrainer:
         LOGGER.info(f"{colorstr('trainer:')} {len(self.train_loader.dataset)} train imgs, "
                     f"{len(self.val_loader.dataset)} val imgs, {self.epochs} epochs, "
                     f"batch {self.batch_size} on {self.device}"
+                    f"{f' x {mh.world_size()} ranks' if self.distributed else ''}"
                     f"{' (bf16 autocast)' if self.amp_dtype is not None else ''}")
         close_mosaic = int(args.get("close_mosaic", 10))
         t_start = time.time()
@@ -277,7 +300,7 @@ class DetectionTrainer:
             epoch_metrics = []  # device scalars, fetched once per epoch
             ms_rng = np.random.default_rng(int(args.get("seed", 0)) + epoch)
             for nbatch, batch in enumerate(self.train_loader):
-                if epoch == 0 and nbatch < 3 and args.get("plots", True):  # host arrays: no sync
+                if self.main and epoch == 0 and nbatch < 3 and args.get("plots", True):
                     plot_images(batch["img"], batch["bboxes"], batch["cls"], batch["mask"],
                                 self.data["names"], self.save_dir / f"train_batch{nbatch}.jpg")
                 if args.get("multi_scale"):
@@ -289,19 +312,21 @@ class DetectionTrainer:
                                                   m["dcn_offset_max"].float()]))
                 self.callbacks.run("on_train_batch_end", self)
             fetched = torch.stack(epoch_metrics).cpu().numpy().astype(np.float64)
-            mloss = fetched[:, :3].mean(axis=0)
-            self.dcn_offset_max = float(fetched[:, 3].max())
+            mloss = fetched[:, :3].mean(axis=0)  # the global batches' losses on every rank
+            self.dcn_offset_max = mh.all_reduce_max(float(fetched[:, 3].max()))
             self.dcn_offset_max_run = max(self.dcn_offset_max, self.dcn_offset_max_run)
             self._check_dcn_offsets()
 
             results, fitness = {}, 0.0
-            if args.get("val", True) or epoch == final_epoch:
+            if self.main and (args.get("val", True) or epoch == final_epoch):
                 results = self.validator(model=self.ema.ema, dataloader=self.val_loader,
-                                         loss_fn=self.val_loss_fn)
+                                         loss_fn=self.loss_fn)
                 fitness = results.get("fitness", 0.0)
+            fitness = mh.broadcast_scalar(fitness)  # rank 0 validated (EMA is the same everywhere)
             if fitness >= self.best_fitness:
                 self.best_fitness = fitness
-            self._log_epoch(epoch, mloss, results, time.time() - t_start)
+            if self.main:
+                self._log_epoch(epoch, mloss, results, time.time() - t_start)
             self.last_epoch_scalars = {
                 "train/box_loss": float(mloss[0]), "train/cls_loss": float(mloss[1]),
                 "train/dfl_loss": float(mloss[2]),
@@ -309,17 +334,18 @@ class DetectionTrainer:
             self.callbacks.run("on_fit_epoch_end", self)
             self._save_ckpts(epoch, fitness)
             self.callbacks.run("on_model_save", self)
-            if self.stopper(epoch, fitness):
+            if mh.all_agree_stop(self.stopper(epoch, fitness)):
                 break
 
         self.model.names = self.data["names"]
-        if args.get("plots", True):
+        if self.main and args.get("plots", True):
             plot_results(self.csv)
         best = self.wdir / "best"
-        if args.get("val", True) and (best / "weights.pt").exists():
+        if self.main and args.get("val", True) and (best / "weights.pt").exists():
             LOGGER.info(f"Validating {best}...")
             results = self.validator(model=load_checkpoint(best, self.device),
                                      dataloader=self.val_loader)
+        mh.sync_hosts()  # the other ranks return once rank 0 has written and validated best
         self.callbacks.run("on_train_end", self)
         LOGGER.info(f"training complete in {(time.time() - t_start) / 3600:.3f} h; "
                     f"best fitness {self.best_fitness:.4f}")
@@ -353,8 +379,13 @@ class DetectionTrainer:
                     f"fitness {results.get('fitness', 0.0):.4f}")
 
     def _save_ckpts(self, epoch: int, fitness: float):
+        """``last`` and, on a new best, ``best``: every rank gathers the
+        state (FSDP2's shards, DDP's gradients that wait for their
+        all-reduce), rank 0 writes it."""
         if not self.args.get("save", True):
             return
+        if self.distributed:
+            self.train_step.average_pending_grads()
         common = dict(model=self.model, ema=self.ema, epoch=epoch, best_fitness=self.best_fitness,
                       train_args=self.args, names=self.data["names"],
                       dcn_offset_max=self.dcn_offset_max_run)

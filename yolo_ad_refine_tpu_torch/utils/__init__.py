@@ -118,7 +118,10 @@ def not_ported(what: str, item: str):
 
 def select_device(device: str | torch.device = "cuda") -> torch.device:
     """Resolve ``device``; a CUDA device that is not there raises instead of
-    falling back to the CPU. The CPU runs only when the caller asks for it."""
+    falling back to the CPU. The CPU runs only when the caller asks for it.
+    Under a launcher that sets ``LOCAL_RANK`` (torchrun), a bare "cuda" is
+    the rank's card, card LOCAL_RANK modulo the card count (ranks share
+    the cards when there are more ranks than cards)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -126,4 +129,6 @@ def select_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r} (use 'cuda' or 'cpu')")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
     return device
