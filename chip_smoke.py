@@ -66,6 +66,17 @@ to 0 just before it and read just after, each DCN variant under its own
   of 1024² with corner-quad labels), 1 epoch at batch 16 in bf16: 4 steps,
   the EMA validation and that of ``best`` through K5, a reload of
   ``best`` as an OBB model, and one fp32 OBB step held against the CPU;
+- segment and pose (``phase_segment``, ``phase_pose``, after OBB
+  training): ``YOLO("yolo11n-seg.yaml", task="segment")`` (nc 80) and
+  ``YOLO("yolo11n-pose.yaml", task="pose")`` (nc 1, 17 keypoints) at 640,
+  class 0 at P5 at the prior 0.3: 64 images served at batch 32, fp32,
+  conf 0.25 (images/s, the mean kept, the masks' share of a batch), card
+  vs CPU on 2 images (boxes and keypoints 5e-2 px, scores 1e-3, mask
+  pixels flipped 2e-3); ``.val`` of 16 seeded polygon or keypoint images
+  labelled with the model's own detections, card vs CPU at 1e-3; 1 epoch
+  of ``.train`` on 64 / 16 images at batch 16, bf16 (4 steps), ``best``
+  reloaded as the task's model, and one fp32 step of SegmentationLoss /
+  PoseLoss against the CPU; K4 once a batch on each path;
 - export and serving (``phase_export``): the flagship exported at batch
   32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
   fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
@@ -1129,6 +1140,346 @@ def phase_obb_training(dev) -> dict:
     return {"obb_training_run": run, "obb_training_ms_per_step": ms}
 
 
+TASK_CFGS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml"}  # n, full width
+TASK_IMGSZ = 640
+MASK_FLIP_TOL = 2e-3  # share of mask pixels card vs CPU may flip (tests/test_torch_segment.py)
+
+
+def task_model(task: str, dev):
+    """yolo11n-seg (nc 80) or yolo11n-pose (nc 1, 17 keypoints) at 640 with
+    seeded weights. Seeded Detect heads score every anchor of a level alike
+    (about 1e-5); class 0's bias at the P5 level takes the prior 0.3 and
+    every other class bias 0.01, so that at conf 0.25 the NMS keeps tens of
+    detections an image out of the 400 P5 candidates, as in a served batch,
+    and a multi-label validation ranks those same rows first."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    t0 = time.perf_counter()
+    model = YOLO(TASK_CFGS[task], task=task, device=dev, imgsz=TASK_IMGSZ, seed=0)
+    with torch.no_grad():
+        for seq in model.model.model[model.model.head_idx].cv3:
+            seq[-1].bias.fill_(-math.log((1 - 0.01) / 0.01))
+        model.model.model[model.model.head_idx].cv3[2][-1].bias[0] = -math.log((1 - 0.3) / 0.3)
+    log(f"{task}: {TASK_CFGS[task]} built on {dev} in {time.perf_counter() - t0:.1f} s, "
+        f"{model.model.num_params():,} parameters, strides {model.model.strides}")
+    return model
+
+
+def task_serving(task: str, model, dev) -> dict:
+    """The task's predict path on the card: 64 images of the serving shapes
+    at batch 32, 640, fp32, conf 0.25, three timed runs, K4 once a batch;
+    the masks' share of a batch (``engine/predictor.py segment_masks`` on
+    one batch's NMS output, timed alone with a synchronise); then 2 images
+    card vs CPU: the decoded boxes, scores and keypoints, and the masks of
+    32 fixed anchors from each side's prototypes and coefficients."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess, segment_masks
+    from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
+    from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
+
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (*SERVING_SHAPES[i % len(SERVING_SHAPES)], 3), dtype=np.uint8)
+            for i in range(64)]
+    model.predict(imgs[:32], conf=0.25, batch=32)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    seconds = []
+    for _ in range(3):
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(imgs, conf=0.25, batch=32)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches["nms_suppress"] != 2 or any(v for k, v in launches.items()
+                                               if k != "nms_suppress"):
+            raise AssertionError(f"{task} serving did not launch K4 once a batch and nothing "
+                                 f"else: {launches}")
+    dt = sorted(seconds)[1]
+    kept = [len(r) for r in results]
+    log(f"{task} serving: 64 images, batch 32, imgsz {TASK_IMGSZ}, fp32, conf 0.25: "
+        f"{64 / dt:.1f} images/s, {dt / 2 * 1e3:.1f} ms/batch (median of 3 runs: "
+        + ", ".join(f"{64 / s:.1f}" for s in seconds) + " images/s; host clock, preprocess + "
+        f"forward + NMS + {'masks + ' if task == 'segment' else ''}results); kept "
+        f"{np.mean(kept):.1f} an image (min {min(kept)}, max {max(kept)}); launches {launches}")
+    if not all(0 < k <= 300 for k in kept):
+        raise AssertionError(f"{task} serving: an image kept no detection or too many: {kept}")
+    for r in results:
+        extra = r.masks if task == "segment" else r.keypoints
+        if extra is None or len(extra) != len(r) or not np.isfinite(r.boxes.data).all():
+            raise AssertionError(f"{task} serving: bad results for an image of {r.orig_shape}")
+        if task == "segment" and r.masks.data.shape != (len(r), *r.orig_shape):
+            raise AssertionError(f"segment serving: masks {r.masks.data.shape}")
+        if task == "pose" and not (r.keypoints.data.shape == (len(r), 17, 3)
+                                   and np.isfinite(r.keypoints.data).all()):
+            raise AssertionError(f"pose serving: keypoints {r.keypoints.data.shape}")
+    out = {"run": launches, "images_per_s": 64 / dt, "ms_per_batch": dt / 2 * 1e3,
+           "kept_mean": float(np.mean(kept))}
+    if task == "segment":
+        cover = float(np.mean([r.masks.data.mean() for r in results if len(r)]))
+        out["mask_mb_per_batch"] = sum(r.masks.data.nbytes for r in results) / 2 / 2**20
+        x, metas = preprocess(imgs[:32], TASK_IMGSZ, 32, torch.device(dev), torch.float32)
+        with torch.inference_mode():
+            y, feats = model.model(x)
+            det, cnt, extras = non_max_suppression(y, conf_thres=0.25, iou_thres=0.7,
+                                                   nc=model.model.nc)
+            cnt = cnt.cpu().numpy()
+            shapes = [im.shape[:2] for im in imgs[:32]]
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                segment_masks(feats[2], extras, det, cnt, metas, shapes, TASK_IMGSZ)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out["masks_ms_per_batch"] = sorted(ms)[1]
+        log(f"segment serving: the masks of a batch ({int(cnt.sum())} kept rows, proto to "
+            f"original-size bool masks on the card and their copy to the host) "
+            f"{out['masks_ms_per_batch']:.1f} ms (median of 3: "
+            + ", ".join(f"{v:.1f}" for v in ms)
+            + f"), {out['masks_ms_per_batch'] / out['ms_per_batch'] * 100:.1f} % of the "
+            f"{out['ms_per_batch']:.1f} ms batch; the kept masks hold "
+            f"{out['mask_mb_per_batch']:.0f} MiB of bool a batch on the host, mask pixels set "
+            f"{cover * 100:.2f} %")
+
+    x, metas = preprocess(imgs[:2], TASK_IMGSZ, 2, torch.device(dev), torch.float32)
+    with torch.inference_mode():
+        y_gpu, f_gpu = model.model(x)
+        cpu = copy.deepcopy(model.model).cpu()
+        y_cpu, f_cpu = cpu(x.cpu())
+    y_gpu = y_gpu.float().cpu()
+    nc = model.model.nc
+    errs = {"box": (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item(),
+            "score": (y_gpu[..., 4:4 + nc] - y_cpu[..., 4:4 + nc]).abs().max().item()}
+    if task == "pose":
+        k = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).reshape(2, -1, 17, 3).abs()
+        errs["keypoint"], errs["visibility"] = k[..., :2].max().item(), k[..., 2].max().item()
+    else:
+        errs["coefficient"] = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).abs().max().item()
+        anchors = torch.arange(0, y_cpu.shape[1], y_cpu.shape[1] // 32)[:32]
+        flips = []
+        for j, (ratio, pad) in enumerate(metas):
+            boxes = y_cpu[j, anchors, :4]
+            boxes = torch.cat([boxes[:, :2] - boxes[:, 2:] / 2,
+                               boxes[:, :2] + boxes[:, 2:] / 2], 1)
+            m = [scale_masks(process_mask(f[2][j], yy[j, anchors, 4 + nc:].to(f[2].device),
+                                          boxes.to(f[2].device), (TASK_IMGSZ, TASK_IMGSZ)),
+                             pad, ratio[0], imgs[j].shape[:2]).cpu()
+                 for f, yy in ((f_gpu, y_gpu), (f_cpu, y_cpu))]
+            flips.append((m[0] != m[1]).float().mean().item())
+            if not m[1].any():
+                raise AssertionError("segment serving: the held anchors' masks are empty")
+        errs["mask_pixels_flipped"] = max(flips)
+    log(f"{task} serving: card vs CPU on 2 images: " + ", ".join(
+        f"max |{k} diff| {v:.3e}" if k != "mask_pixels_flipped" else
+        f"mask pixels flipped (32 anchors an image) {v:.3e}" for k, v in errs.items())
+        + f" (tol boxes and keypoints 5e-2 px, scores, coefficients and visibility 1e-3, "
+        f"mask pixels flipped {MASK_FLIP_TOL})")
+    n_anchors = sum((TASK_IMGSZ // s) ** 2 for s in model.model.strides)
+    width = 4 + nc + (32 if task == "segment" else 51)
+    if not (y_gpu.shape == (2, n_anchors, width) and torch.isfinite(y_gpu).all()):
+        raise AssertionError(f"bad decoded {task} predictions {tuple(y_gpu.shape)}")
+    lim = {"box": 5e-2, "score": 1e-3, "keypoint": 5e-2, "visibility": 1e-3,
+           "coefficient": 1e-3, "mask_pixels_flipped": MASK_FLIP_TOL}
+    if any(v > lim[k] for k, v in errs.items()):
+        raise AssertionError(f"card and CPU {task} predictions disagree: {errs}")
+    return out
+
+
+def task_val(task: str, model, dev) -> dict:
+    """``.val`` of the task's model on a seeded set of 16 images of 640² at
+    batch 8 (polygons, or 17-keypoint figures), each image labelled with
+    the model's own detections at conf 0.25: K4 once a batch, finite
+    metrics, and the (B) and (M) / (P) metrics within 1e-3 of the same
+    validation on the CPU. The seeded head scores its ~70 kept rows alike,
+    so the AP is about the share of them labelled: pose labels them all
+    (boxes and keypoints); segment, whose ~70 masks overlap in one index
+    mask (0.035 mAP50(M) so labelled, measured on one H100), labels the first 3
+    rows' contours and validates with ``max_det=3``."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_pose_dataset, make_segment_dataset
+
+    tag = "M" if task == "segment" else "P"
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{task}_val_") as tmp:
+        root = Path(tmp) / task
+        make = make_segment_dataset if task == "segment" else make_pose_dataset
+        data = make(root, n_val=16, imgsz=TASK_IMGSZ, seed=0)
+        files = sorted((root / "val" / "images").glob("*.jpg"))
+        for f, r in zip(files, model.predict([cv2.imread(str(f)) for f in files], conf=0.25,
+                                             batch=16)):
+            if task == "segment":
+                rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in (p / TASK_IMGSZ).reshape(-1))
+                        for c, p in zip(r.boxes.cls[:3], r.masks.xy[:3]) if len(p) >= 3]
+            else:
+                rows = ["0 " + " ".join(f"{v:.6f}" for v in (*b.clip(0, 1), *np.concatenate(
+                    [k.clip(0, 1), np.full((17, 1), 2.0)], -1).reshape(-1)))
+                        for b, k in zip(r.boxes.xywhn, r.keypoints.xyn)]
+            (root / "val" / "labels" / f"{f.stem}.txt").write_text("\n".join(rows) + "\n")
+        args = {"data": data, "imgsz": TASK_IMGSZ, "batch": 8, "conf": 0.001,
+                "max_det": 3 if task == "segment" else 300}
+        counters = kernel_counters()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        metrics = model.val(**args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        cpu = copy.deepcopy(model)
+        cpu.model = cpu.model.cpu()
+        t1 = time.perf_counter()
+        want = cpu.val(**args)
+        cpu_s = time.perf_counter() - t1
+    keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+            "metrics/mAP50-95(B)", f"metrics/mAP50({tag})", f"metrics/mAP50-95({tag})", "fitness")
+    log(f"{task} val: 16 images at batch 8 in {wall:.2f} s, {wall / 16 * 1e3:.1f} ms an image "
+        f"(host clock, loader to metrics; the validator's own {metrics['speed_ms_per_image']:.1f} "
+        f"ms, of it inference + NMS{' + mask IoU' if task == 'segment' else ''} "
+        f"{metrics['inference_ms_per_image']:.1f} ms); launches {launches}")
+    log(f"{task} val: card " + ", ".join(f"{k} {metrics[k]:.6f}" for k in keys))
+    log(f"{task} val: CPU ({cpu_s:.1f} s) " + ", ".join(f"{k} {want[k]:.6f}" for k in keys)
+        + " (tol 1e-3)")
+    if launches["nms_suppress"] != 2:
+        raise AssertionError(f"K4 was not launched once a batch in the {task} validation")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite {task} val metrics {metrics}")
+    if metrics[f"metrics/mAP50({tag})"] <= 0.05 or any(abs(metrics[k] - want[k]) > 1e-3
+                                                       for k in keys):
+        raise AssertionError(f"the card's {task} val metrics are vacuous or disagree with the "
+                             "CPU's")
+    return {"run": launches, "ms_per_image": wall / 16 * 1e3}
+
+
+def task_training(task: str, dev) -> dict:
+    """``YOLO(yolo11n-seg | yolo11n-pose).train()`` on the card: a seeded set
+    of 64 train and 16 val images of 640², 1 epoch at batch 16 in bf16 (4
+    steps), the EMA validation and that of ``best`` through K4, and a reload
+    of ``best`` as the task's model. Then one fp32 step of the task's loss
+    (deterministic algorithms) against the CPU at ``phase_step_card_vs_cpu``'s
+    limits."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.build import collate
+    from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_pose_dataset, make_segment_dataset
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
+    from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
+
+    counters = kernel_counters()
+
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    make = make_segment_dataset if task == "segment" else make_pose_dataset
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{task}_train_") as tmp:
+        t0 = time.perf_counter()
+        data = make(Path(tmp) / task, n_val=16, n_train=64, imgsz=TASK_IMGSZ, seed=5)
+        log(f"{task} training: seeded set (64 train, 16 val images of {TASK_IMGSZ}²) written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        model = YOLO(TASK_CFGS[task], task=task, device=dev, imgsz=TASK_IMGSZ, seed=0)
+        steps, mark = [], {}
+
+        def on_batch_start(tr):
+            torch.cuda.synchronize()
+            mark.update(counts=counts(), t=time.perf_counter())
+
+        def on_batch_end(tr):
+            torch.cuda.synchronize()
+            now = counts()
+            steps.append({"ms": (time.perf_counter() - mark["t"]) * 1e3,
+                          **{k: now[k] - mark["counts"][k] for k in now}})
+            mark["after_steps"] = now
+
+        model.add_callback("on_train_batch_start", on_batch_start)
+        model.add_callback("on_train_batch_end", on_batch_end)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.train(data=data, epochs=1, batch=16, imgsz=TASK_IMGSZ, amp=True,
+                              plots=False, project=str(Path(tmp) / "runs"), workers=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = counts()
+        trainer = model.trainer
+        val = {k: run[k] - mark["after_steps"][k] for k in run}
+        ms = statistics.median(st["ms"] for st in steps[1:])
+        log(f"{task} training: {len(steps)} steps + validations in {wall:.1f} s; bf16 autocast "
+            f"{trainer.amp_dtype is not None}; steps " + ", ".join(f"{st['ms']:.1f}" for st in steps)
+            + f" ms; {ms:.1f} ms a step (median of steps 2-4, host clock with a synchronise), "
+            f"{16 / ms * 1e3:.1f} images/s at batch 16, imgsz {TASK_IMGSZ}; launches in the run "
+            f"{run}, in the validations after the steps {val}")
+        if len(steps) != 4 or trainer.amp_dtype is None:
+            raise AssertionError(f"expected 4 bf16 {task} steps, got {len(steps)}")
+        if any(st[k] for st in steps for k in run) or val["nms_suppress"] != 2 or \
+                any(val[k] for k in run if k != "nms_suppress"):
+            raise AssertionError(f"the {task} run did not launch K4 once in each of its two "
+                                 f"validations and nothing else: steps {steps}, validations {val}")
+        csv = (Path(results["save_dir"]) / "results.csv").read_text().splitlines()
+        row = dict(zip(csv[0].split(","), csv[1].split(",")))
+        losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss",
+                                          "val/box_loss", "val/cls_loss", "val/dfl_loss")]
+        tag = "M" if task == "segment" else "P"
+        log(f"{task} training: results.csv train box / cls / dfl {losses[:3]}, val {losses[3:]}; "
+            f"mAP50(B) {results.get('metrics/mAP50(B)', 0.0):.4f}, mAP50({tag}) "
+            f"{results.get(f'metrics/mAP50({tag})', float('nan')):.4f}")
+        if not all(math.isfinite(v) and v > 0 for v in losses) or \
+                not math.isfinite(results[f"metrics/mAP50({tag})"]):
+            raise AssertionError(f"{task} losses or metrics not finite: {losses}, {results}")
+        best = Path(results["save_dir"]) / "weights" / "best"
+        reloaded = YOLO(str(best), device=dev)
+        if reloaded.task != task:
+            raise AssertionError(f"best reloaded as {reloaded.task}, not {task}")
+        # one collated batch of 2 at 256 for the fp32 step against the CPU
+        info = check_det_dataset(data)
+        kw = ({"kpt_shape": data["kpt_shape"], "flip_idx": data["flip_idx"]}
+              if task == "pose" else {})
+        ds = YOLODataset(info["val"], imgsz=256, augment=False, nc=len(info["names"]),
+                         max_boxes=16, task=task, **kw)
+        batch = collate([ds.get_sample(i) for i in range(2)], 16)
+    nc = len(info["names"])
+    base = build_detection_model(TASK_CFGS[task], nc=nc, device="cpu", seed=3, imgsz=256)
+    make_loss = ((lambda: SegmentationLoss(nc=nc, strides=(8, 16, 32))) if task == "segment"
+                 else (lambda: PoseLoss(nc=nc, strides=(8, 16, 32))))
+    hold_step_card_vs_cpu(f"{task} card vs CPU step", dev, base,
+                          {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}, make_loss)
+    return {"run": run, "ms_per_step": ms}
+
+
+def phase_task(task: str, dev) -> dict:
+    """The segment or pose slice on the card: serving, validation and
+    training (``task_serving``, ``task_val``, ``task_training``). Returns
+    {"paths": {path: launches}, ...the measurements}."""
+    model = task_model(task, dev)
+    serving = task_serving(task, model, dev)
+    val = task_val(task, model, dev)
+    del model
+    training = task_training(task, dev)
+    return {"paths": {f"{task}_serving_run": serving["run"], f"{task}_val_run": val["run"],
+                      f"{task}_training_run": training["run"]},
+            "serving": serving, "val_ms_per_image": val["ms_per_image"],
+            "ms_per_step": training["ms_per_step"]}
+
+
+def phase_segment(dev) -> dict:
+    """yolo11n-seg served, validated and trained on the card (``phase_task``)."""
+    return phase_task("segment", dev)
+
+
+def phase_pose(dev) -> dict:
+    """yolo11n-pose served, validated and trained on the card (``phase_task``)."""
+    return phase_task("pose", dev)
+
+
 SERVE_BOX_TOL, SERVE_SCORE_TOL = 5e-2, 1e-3  # the serving limits, card vs CPU, fp32
 BF16_STEP = 2.0 ** -8  # one bf16 step, relative: a bf16 program against the eager bf16 model
 
@@ -1721,9 +2072,10 @@ def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss,
 
     loss_cpu, g_cpu = step(copy.deepcopy(base))
     m64 = copy.deepcopy(base).double().train()
-    out = make_loss()(
-        m64(images_to_tensor(batch["img"], "cpu").double()),
-        *(torch.from_numpy(batch[k]).double() for k in ("cls", "bboxes", "mask")))
+    loss64 = make_loss()  # the task losses take the batch's masks or keypoints too
+    out = loss64(m64(images_to_tensor(batch["img"], "cpu").double()),
+                 *(torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask",
+                                                        *getattr(loss64, "extra_keys", ()))))
     out.total.backward()
     g64 = {n: p.grad.detach() for n, p in m64.named_parameters() if p.grad is not None}
     cpu_off = {n: (g - g64[n]).norm().item() for n, g in g_cpu.items()}
@@ -2550,6 +2902,8 @@ def main() -> int:
         paths["obb_val_run"] = phase_obb_val(obb, dev)
         obb_training = phase_obb_training(dev)
         paths["obb_training_run"] = obb_training["obb_training_run"]
+        paths.update(timed(phase_segment, dev)["paths"])
+        paths.update(timed(phase_pose, dev)["paths"])
         paths.update(phase_export(dev)["paths"])
         timed(phase_cli)
         paths["tune_run"] = timed(phase_tune, dev)["tune_run"]

@@ -91,18 +91,19 @@ def test_trainer_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_path
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"task": "pose"}, "tasks"), ({"task": "segment"}, "tasks"),
+    ({"task": "classify"}, "tasks"), ({"task": "world"}, "tasks"),
 ])
 def test_trainer_raises_on_options_not_ported(override, item, tmp_path):
     from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
 
     args = {"data": "x.yaml", "plots": False, "project": str(tmp_path), "device": "cpu"}
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=f"item 12, the other {item}"):
         DetectionTrainer({**args, **override})
 
 
 @pytest.mark.parametrize("args,call", [
-    ({"task": "pose"}, {}), ({"task": "obb"}, {"backend": object()}),
+    ({"task": "classify"}, {}), ({"task": "obb"}, {"backend": object()}),
+    ({"task": "segment"}, {"backend": object()}), ({"task": "pose"}, {"backend": object()}),
 ])
 def test_validator_raises_on_options_not_ported(args, call):
     from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator

@@ -9,7 +9,9 @@ and runs one of two scenarios:
 
 - ``step``: ``spec["steps"]`` train steps of a model (its yaml, nc, imgsz,
   seed, or the state dict in ``spec["weights"]``) on the global batches in
-  ``spec["batches"]`` (an .npz of img, cls, bboxes, mask, stacked by step),
+  ``spec["batches"]`` (an .npz of img, cls, bboxes, mask and a segment
+  batch's masks or a pose batch's keypoints, stacked by step), with the
+  loss of the model's task,
   each rank on its slice, wrapped in DDP or FSDP2 (``fsdp``) through
   ``parallel.wrap_model``. Rank 0 writes the losses, components, the first
   step's gradients as the optimizer reads them (averaged over the ranks,
@@ -119,6 +121,8 @@ def run_step(spec: dict, rank: int, device) -> dict:
     from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
     from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
     from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
+    from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
+    from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
     from yolo_ad_refine_tpu_torch.train.step import TrainStep
 
     if spec.get("deterministic"):
@@ -133,17 +137,20 @@ def run_step(spec: dict, rank: int, device) -> dict:
         model.load_state_dict(torch.load(spec["weights"], map_location=device))
     if spec.get("float64"):  # no fp32 rounding: the ranks' step against one process's exactly
         model.double()
-    loss_cls = OBBLoss if model.task == "obb" else DetectionLoss
-    loss_fn = loss_cls(nc=model.nc, strides=model.strides)
+    head = model.model[model.head_idx]
+    loss_fn = {"obb": OBBLoss, "segment": SegmentationLoss,
+               "pose": lambda **k: PoseLoss(kpt_shape=head.kpt_shape, **k)}.get(
+        model.task, DetectionLoss)(nc=model.nc, strides=model.strides)
     local = {}
-    assign = loss_fn.assigner
+    det = getattr(loss_fn, "det", loss_fn)  # the segment and pose losses' detection loss
+    assign = det.assigner
 
     def assigner(*a, **k):  # this rank's target_scores_sum, before the loss syncs it
         res = assign(*a, **k)
         local.setdefault("target_scores_sum", float(res.target_scores.sum()))
         return res
 
-    loss_fn.assigner = assigner
+    det.assigner = assigner
 
     def bn0_input(module, args, out):  # the first BatchNorm's input on this rank's slice
         local.setdefault("bn0_local_mean", out.detach().float().mean(dim=(0, 2, 3)).tolist())
@@ -173,7 +180,7 @@ def run_step(spec: dict, rank: int, device) -> dict:
     _, start, stop = per_host_batch_slice(int(data["img"].shape[1]))
     losses, comps, ms, states = [], [], [], []
     for s in range(steps):
-        batch = {k: data[k][s, start:stop] for k in ("img", "cls", "bboxes", "mask")}
+        batch = {k: data[k][s, start:stop] for k in data.files}  # with a task's masks, keypoints
         sync(device)
         t0 = time.perf_counter()
         m = train_step(batch)

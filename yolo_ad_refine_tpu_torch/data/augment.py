@@ -14,7 +14,9 @@ RandomHSV:1301, RandomFlip:1381, LetterBox:1475):
   ``np.random.Generator`` and draws from it in the same order as the JAX
   copy, so the same seeds give bit-equal images.
 
-Boxes are (n, 4) xyxy pixels with (n,) class ids throughout.
+Boxes are (n, 4) xyxy pixels with (n,) class ids throughout; the segment
+task's instances are lists of (P, 2) pixel polygons (``mosaic4_segments``,
+``random_perspective_segments``, ``copy_paste_flip``).
 """
 
 from __future__ import annotations
@@ -128,28 +130,9 @@ def random_perspective(img, boxes, cls, rng: np.random.Generator, degrees: float
 
     border < 0 crops a mosaic canvas back to the target size.
     """
-    height = img.shape[0] + border[0] * 2
-    width = img.shape[1] + border[1] * 2
-
     # center -> perspective -> rotation+scale -> shear -> translation
-    C = np.eye(3)
-    C[0, 2] = -img.shape[1] / 2
-    C[1, 2] = -img.shape[0] / 2
-    P = np.eye(3)
-    P[2, 0] = rng.uniform(-perspective, perspective)
-    P[2, 1] = rng.uniform(-perspective, perspective)
-    R = np.eye(3)
-    a = rng.uniform(-degrees, degrees)
-    s = rng.uniform(1 - scale, 1 + scale)
-    R[:2] = cv2.getRotationMatrix2D(angle=a, center=(0, 0), scale=s)
-    S = np.eye(3)
-    S[0, 1] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
-    S[1, 0] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
-    T = np.eye(3)
-    T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * width
-    T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * height
-    M = T @ S @ R @ P @ C
-
+    M, height, width, s = _warp_matrix(img, rng, degrees, translate, scale, shear, perspective,
+                                       border)
     if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
         if perspective:
             img = cv2.warpPerspective(img, M, dsize=(width, height), borderValue=(114, 114, 114))
@@ -186,19 +169,8 @@ def mosaic4(items, imgsz: int, rng: np.random.Generator):
     all_boxes, all_cls = [], []
     for i, (img, boxes, cls) in enumerate(items):
         h, w = img.shape[:2]
-        if i == 0:  # top-left
-            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
-            x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
-        elif i == 1:  # top-right
-            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
-            x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
-        elif i == 2:  # bottom-left
-            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
-            x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
-        else:  # bottom-right
-            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
-            x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
-        canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+        (x1a, y1a, x2a, y2a), (x1b, y1b) = _mosaic_corner(i, xc, yc, w, h, s)
+        canvas[y1a:y2a, x1a:x2a] = img[y1b:y1b + (y2a - y1a), x1b:x1b + (x2a - x1a)]
         padw, padh = x1a - x1b, y1a - y1b
         if len(boxes):
             b = boxes.copy()
@@ -215,6 +187,154 @@ def mosaic4(items, imgsz: int, rng: np.random.Generator):
         boxes = np.zeros((0, 4), np.float32)
         cls = np.zeros((0,), np.float32)
     return canvas, boxes.astype(np.float32), cls
+
+
+def _mosaic_corner(i: int, xc: int, yc: int, w: int, h: int, s: int):
+    """Tile i's canvas box (x1a, y1a, x2a, y2a) and its crop's top-left
+    (x1b, y1b) in the image (reference augment.py Mosaic._mosaic4)."""
+    if i == 0:  # top-left
+        x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+        return (x1a, y1a, x2a, y2a), (w - (x2a - x1a), h - (y2a - y1a))
+    if i == 1:  # top-right
+        x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+        return (x1a, y1a, x2a, y2a), (0, h - (y2a - y1a))
+    if i == 2:  # bottom-left
+        x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+        return (x1a, y1a, x2a, y2a), (w - (x2a - x1a), 0)
+    x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)  # bottom-right
+    return (x1a, y1a, x2a, y2a), (0, 0)
+
+
+def mosaic4_segments(items, imgsz: int, rng: np.random.Generator):
+    """The 4-image mosaic with instance polygons (reference augment.py:489
+    with segments): items = [(img BGR, [(P, 2) px polygons], cls)]. The
+    polygons take their tile's offset; they are clipped after the warp.
+    Returns (canvas, polygons, cls)."""
+    s = imgsz
+    yc = int(rng.uniform(s // 2, 3 * s // 2))
+    xc = int(rng.uniform(s // 2, 3 * s // 2))
+    canvas = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+    all_polys, all_cls = [], []
+    for i, (img, polys, cls) in enumerate(items):
+        h, w = img.shape[:2]
+        (x1a, y1a, x2a, y2a), (x1b, y1b) = _mosaic_corner(i, xc, yc, w, h, s)
+        canvas[y1a:y2a, x1a:x2a] = img[y1b:y1b + (y2a - y1a), x1b:x1b + (x2a - x1a)]
+        off = np.asarray([x1a - x1b, y1a - y1b], np.float32)
+        for p, c in zip(polys, cls):
+            all_polys.append(p + off)
+            all_cls.append(c)
+    return canvas, all_polys, np.asarray(all_cls, np.float32)
+
+
+def _warp_matrix(img, rng: np.random.Generator, degrees, translate, scale, shear, perspective,
+                 border):
+    """``random_perspective``'s matrix, drawn in its order, and the output
+    (height, width)."""
+    height = img.shape[0] + border[0] * 2
+    width = img.shape[1] + border[1] * 2
+    C = np.eye(3)
+    C[0, 2] = -img.shape[1] / 2
+    C[1, 2] = -img.shape[0] / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-perspective, perspective)
+    P[2, 1] = rng.uniform(-perspective, perspective)
+    R = np.eye(3)
+    a = rng.uniform(-degrees, degrees)
+    s = rng.uniform(1 - scale, 1 + scale)
+    R[:2] = cv2.getRotationMatrix2D(angle=a, center=(0, 0), scale=s)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    T = np.eye(3)
+    T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * width
+    T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * height
+    return T @ S @ R @ P @ C, height, width, s
+
+
+def random_perspective_segments(img, segments, cls, rng: np.random.Generator,
+                                degrees: float = 0.0, translate: float = 0.1,
+                                scale: float = 0.5, shear: float = 0.0,
+                                perspective: float = 0.0, border=(0, 0)):
+    """``random_perspective`` for polygons (reference augment.py:1026): the
+    image warped by the same matrix, each polygon point-wise, clipped to the
+    output; instances whose clipped extent is not over 2 px both ways are
+    dropped. Returns (img, polygons, cls)."""
+    M, height, width, _ = _warp_matrix(img, rng, degrees, translate, scale, shear, perspective,
+                                       border)
+    if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
+        if perspective:
+            img = cv2.warpPerspective(img, M, dsize=(width, height), borderValue=(114, 114, 114))
+        else:
+            img = cv2.warpAffine(img, M[:2], dsize=(width, height), borderValue=(114, 114, 114))
+    out_polys, out_cls = [], []
+    for poly, c in zip(segments, cls):
+        xy = np.ones((len(poly), 3), np.float64)
+        xy[:, :2] = poly
+        xy = xy @ M.T
+        xy = xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]
+        xy[:, 0] = xy[:, 0].clip(0, width)
+        xy[:, 1] = xy[:, 1].clip(0, height)
+        if np.ptp(xy[:, 0]) > 2 and np.ptp(xy[:, 1]) > 2:
+            out_polys.append(xy.astype(np.float32))
+            out_cls.append(c)
+    return img, out_polys, np.asarray(out_cls, np.float32)
+
+
+def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Intersection over box2's area, (N, M) (reference utils/metrics.py
+    bbox_ioa)."""
+    if not len(box1) or not len(box2):
+        return np.zeros((len(box1), len(box2)), np.float32)
+    ix1 = np.maximum(box1[:, None, 0], box2[None, :, 0])
+    iy1 = np.maximum(box1[:, None, 1], box2[None, :, 1])
+    ix2 = np.minimum(box1[:, None, 2], box2[None, :, 2])
+    iy2 = np.minimum(box1[:, None, 3], box2[None, :, 3])
+    inter = np.clip(ix2 - ix1, 0, None) * np.clip(iy2 - iy1, 0, None)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area2[None] + eps)
+
+
+def polygon_boxes(segments: list) -> np.ndarray:
+    """(n, 4) xyxy extents of (P, 2) polygons, float32."""
+    if not segments:
+        return np.zeros((0, 4), np.float32)
+    return np.stack([np.asarray([s[:, 0].min(), s[:, 1].min(), s[:, 0].max(), s[:, 1].max()])
+                     for s in segments]).astype(np.float32)
+
+
+def copy_paste_flip(img: np.ndarray, segments: list, cls: np.ndarray, p: float,
+                    rng: np.random.Generator):
+    """CopyPaste in its default ``flip`` mode (reference augment.py:1631-1727):
+    the instances whose left-right mirrored box overlaps every existing box
+    by IoA < 0.30 are candidates; the round(p * n) least overlapping are
+    pasted, mirrored, with their pixels from the flipped image. Draws
+    nothing from ``rng`` (as the JAX copy). Returns (img, segments, cls)."""
+    if p <= 0 or not segments:
+        return img, segments, cls
+    w = img.shape[1]
+    boxes = polygon_boxes(segments)
+    flipped_segs = [np.stack([w - s[:, 0], s[:, 1]], -1) for s in segments]
+    flipped_boxes = boxes.copy()
+    flipped_boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+    ioa = bbox_ioa(flipped_boxes, boxes)
+    candidates = np.nonzero((ioa < 0.30).all(1))[0]
+    if not len(candidates):
+        return img, segments, cls
+    candidates = candidates[np.argsort(ioa.max(1)[candidates])]
+    chosen = candidates[: round(p * len(candidates))]
+    if not len(chosen):
+        return img, segments, cls
+    paste = np.zeros(img.shape, np.uint8)
+    out_segments, out_cls = list(segments), [cls]
+    for j in chosen:
+        out_cls.append(cls[[j]])
+        out_segments.append(flipped_segs[j])
+        cv2.drawContours(paste, [flipped_segs[j].astype(np.int32)], -1, (1, 1, 1), cv2.FILLED)
+    flipped = cv2.flip(img, 1)
+    img = img.copy()
+    m = paste.astype(bool)
+    img[m] = flipped[m]
+    return img, out_segments, np.concatenate(out_cls, 0)
 
 
 def mixup(img1, boxes1, cls1, img2, boxes2, cls2, rng: np.random.Generator):

@@ -23,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset
+from yolo_ad_refine_tpu_torch.train.segment import polygons_to_index_mask
 from yolo_ad_refine_tpu_torch.utils import LOGGER
 
 NUM_THREADS = min(8, max(1, (os.cpu_count() or 1) - 1))
@@ -32,8 +33,13 @@ def collate(samples: list[dict], max_boxes: int) -> dict:
     """Stack samples into numpy batch arrays: img (B, H, W, 3) uint8 RGB
     (the BGR -> RGB flip happens here, once), cls (B, N, 1), bboxes
     (B, N, 4) xyxy px or (B, N, 5) xywhr px for OBB, mask (B, N, 1); boxes
-    past max_boxes are dropped."""
+    past max_boxes are dropped. Pose samples add keypoints (B, N, K, 3)
+    pixels; segment samples add masks (B, H/4, W/4) int32, each image's
+    polygons (its first max_boxes) drawn at a quarter scale into an
+    overlap-encoded index mask (``train/segment.py
+    polygons_to_index_mask``, i + 1 for row i), the prototypes' size."""
     b = len(samples)
+    h, w = samples[0]["img"].shape[:2]
     img = np.stack([s["img"][..., ::-1] for s in samples])  # BGR -> RGB
     cls = np.zeros((b, max_boxes, 1), np.float32)
     bboxes = np.zeros((b, max_boxes, samples[0]["bboxes"].shape[-1]), np.float32)
@@ -50,10 +56,26 @@ def collate(samples: list[dict], max_boxes: int) -> dict:
             mask[i, :n, 0] = 1.0
     if overflow:
         LOGGER.warning(f"collate: dropped {overflow} boxes over max_boxes={max_boxes}")
-    return {"img": img, "cls": cls, "bboxes": bboxes, "mask": mask,
-            "ori_shape": [s["ori_shape"] for s in samples],
-            "ratio_pad": [s["ratio_pad"] for s in samples],
-            "im_file": [s["im_file"] for s in samples]}
+    out = {"img": img, "cls": cls, "bboxes": bboxes, "mask": mask,
+           "ori_shape": [s["ori_shape"] for s in samples],
+           "ratio_pad": [s["ratio_pad"] for s in samples],
+           "im_file": [s["im_file"] for s in samples]}
+    if "keypoints" in samples[0]:
+        nk = max((s["keypoints"].shape[1] for s in samples if len(s["keypoints"])), default=0)
+        kpts = np.zeros((b, max_boxes, nk, 3), np.float32)
+        for i, s in enumerate(samples):
+            n = min(len(s["keypoints"]), max_boxes)
+            if n and nk:
+                kpts[i, :n] = s["keypoints"][:n]
+        out["keypoints"] = kpts
+    if "segments" in samples[0]:
+        masks = np.zeros((b, h // 4, w // 4), np.int32)
+        for i, s in enumerate(samples):
+            if s["segments"]:
+                masks[i] = polygons_to_index_mask([p / 4.0 for p in s["segments"][:max_boxes]],
+                                                  (h // 4, w // 4))
+        out["masks"] = masks
+    return out
 
 
 class DataLoader:

@@ -1,16 +1,24 @@
 """YOLO-format detection dataset (host-side numpy + cv2).
 
-Counterpart of ``yolo_ad_refine_tpu/data/dataset.py`` for ``task="detect"``
-and ``task="obb"`` (reference ultralytics/data/base.py:21, dataset.py:45,
+Counterpart of ``yolo_ad_refine_tpu/data/dataset.py`` for the detect, OBB,
+segment and pose tasks (reference ultralytics/data/base.py:21, dataset.py:45,
 data/utils.py:254): images are globbed, YOLO txt labels parsed (exact
 duplicate rows dropped), each image resized so its long side is imgsz
 (ceil, base.py:171), and ``get_sample`` runs the train pipeline (mosaic,
 perspective, mixup, extras, HSV, flips) or the val letterbox, drawing from
 the given generator in the JAX package's order. Samples: img uint8 HWC
 BGR, bboxes (n, 4) xyxy px (OBB: (n, 5) xywhr px from DOTA-style corner
-rows), cls (n,), ori_shape, ratio_pad, im_file. OBB trains with the
-letterbox, HSV and a flip of the corner quads (no mosaic, as in the JAX
-package). ``cache_images`` keeps the
+rows), cls (n,), ori_shape, ratio_pad, im_file; segment adds
+``segments``, the (P, 2) pixel polygons of the rows ``cls x1 y1 x2 y2 ...``
+(the boxes their extents), and pose ``keypoints`` (n, K, 3) pixels with
+the visibility last, from the rows ``cls cx cy w h (kx ky [kv]) * K``
+(``kpt_shape`` inferred from the row width when not given; without
+``flip_idx`` no left-right flip). OBB trains with the letterbox, HSV and
+a flip of the corner quads (no mosaic, as in the JAX package); segment
+with mosaic, CopyPaste (flip mode), the perspective warp of the polygons,
+HSV and a flip; pose with the letterbox, HSV and a flip that swaps the
+joints by ``flip_idx``. Labels are parsed on each construction (the JAX
+package's label cache, keyed by the task, is not ported). ``cache_images`` keeps the
 resized decodes in memory (``"ram"`` or True) or in ``.yat<imgsz>.npz``
 sidecars beside the images (``"disk"``); ``set_rectangle`` gives rect
 validation its static aspect-ratio buckets.
@@ -28,6 +36,8 @@ import numpy as np
 
 from yolo_ad_refine_tpu_torch.data import augment as A
 from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported, yaml_load
+
+TASKS = ("detect", "obb", "segment", "pose")
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
 
@@ -87,10 +97,15 @@ class YOLODataset:
 
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = False,
                  hyp: dict | None = None, max_boxes: int = 128, nc: int = 80,
-                 fraction: float = 1.0, task: str = "detect", cache_images: str | bool = False):
-        if task not in ("detect", "obb"):
+                 fraction: float = 1.0, task: str = "detect", cache_images: str | bool = False,
+                 kpt_shape: tuple | None = None, flip_idx: list | None = None):
+        if task not in TASKS:
             not_ported(f"the {task!r} dataset", "ROADMAP Queue 1 item 12, the other tasks")
         self.imgsz = imgsz
+        # pose: the (K, ndim) keypoint layout, inferred from the label rows when
+        # None; flip_idx is each keypoint's mirror, without which no fliplr
+        self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
+        self.flip_idx = list(flip_idx) if flip_idx else None
         self.augment = augment
         self.hyp = hyp or {}
         self.max_boxes = max_boxes
@@ -158,36 +173,74 @@ class YOLODataset:
             raise FileNotFoundError(f"no images found in {img_path}")
         return files
 
+    def _parse_rows(self, raw: list[list[str]]):
+        """(rows (n, 5) [cls, cx, cy, w, h] normalised, extra) of one label
+        file's rows; extra is the task's: corners (n, 4, 2), polygons
+        [(P, 2)] or keypoints (n, K, 3), all normalised."""
+        if self.task == "obb":
+            # DOTA-style rows: cls x1 y1 x2 y2 x3 y3 x4 y4, normalised corners;
+            # rows keep their axis-aligned hull
+            vals = np.asarray(raw, np.float32)
+            corners = vals[:, 1:9].reshape(-1, 4, 2).clip(0, 1)
+            return np.stack([vals[:, 0], corners[..., 0].mean(-1), corners[..., 1].mean(-1),
+                             np.ptp(corners[..., 0], -1), np.ptp(corners[..., 1], -1)], -1), \
+                corners
+        if self.task == "pose":
+            if self.kpt_shape is None:  # from the first labelled file's row width
+                extra = len(raw[0]) - 5
+                self.kpt_shape = (extra // 3, 3) if extra % 3 == 0 else (extra // 2, 2)
+            nk, ndim = self.kpt_shape
+            vals = np.asarray(raw, np.float32)
+            rows = vals[:, :5]
+            rows[:, 1:] = rows[:, 1:].clip(0, 1)
+            k = vals[:, 5:5 + nk * ndim].reshape(-1, nk, ndim)
+            if ndim == 2:  # no visibility flag: every keypoint visible
+                k = np.concatenate([k, np.ones((*k.shape[:2], 1), np.float32)], -1)
+            return rows, k
+        if self.task == "segment" and any(len(r) > 5 for r in raw):
+            polys, rows = [], []
+            for r in raw:
+                vals = np.asarray(r, np.float32)
+                poly = vals[1:].reshape(-1, 2).clip(0, 1)
+                polys.append(poly)
+                (x1, y1), (x2, y2) = poly.min(0), poly.max(0)
+                rows.append([vals[0], (x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
+            return np.asarray(rows, np.float32), polys
+        rows = np.asarray(raw, dtype=np.float32)[:, :5]
+        rows[:, 1:] = rows[:, 1:].clip(0, 1)
+        return rows, None
+
     def _load_labels(self) -> list[dict]:
         labels = []
         n_missing = 0
-        obb = self.task == "obb"
         for lf in self.label_files:
-            rows = np.zeros((0, 5), np.float32)
-            corners = np.zeros((0, 4, 2), np.float32)
+            rows, extra = np.zeros((0, 5), np.float32), None
             if Path(lf).exists():
                 raw = [x.split() for x in Path(lf).read_text().splitlines() if x.strip()]
-                if raw and obb:
-                    # DOTA-style rows: cls x1 y1 x2 y2 x3 y3 x4 y4, normalised
-                    # corners; rows keep their axis-aligned hull
-                    vals = np.asarray(raw, np.float32)
-                    corners = vals[:, 1:9].reshape(-1, 4, 2).clip(0, 1)
-                    rows = np.stack([vals[:, 0], corners[..., 0].mean(-1), corners[..., 1].mean(-1),
-                                     np.ptp(corners[..., 0], -1), np.ptp(corners[..., 1], -1)], -1)
-                elif raw:
-                    rows = np.asarray(raw, dtype=np.float32)[:, :5]
-                    rows[:, 1:] = rows[:, 1:].clip(0, 1)
+                if raw:
+                    rows, extra = self._parse_rows(raw)
             else:
                 n_missing += 1
             if len(rows) > 1:  # drop exact duplicates, keep the first, in order
-                key = np.concatenate([rows, corners.reshape(len(rows), -1)], 1) if obb else rows
+                key = (np.concatenate([rows, extra.reshape(len(rows), -1)], 1)
+                       if self.task in ("obb", "pose") else rows)
                 _, keep = np.unique(key, axis=0, return_index=True)
                 if len(keep) < len(rows):
                     keep = np.sort(keep)
                     rows = rows[keep]
-                    corners = corners[keep] if obb else corners
-            labels.append({"cls": rows[:, 0], "xywhn": rows[:, 1:5],
-                           **({"corners": corners} if obb else {})})
+                    if extra is not None:
+                        extra = ([extra[k] for k in keep] if isinstance(extra, list)
+                                 else extra[keep])
+            lab = {"cls": rows[:, 0], "xywhn": rows[:, 1:5]}
+            if self.task == "obb":
+                lab["corners"] = extra if extra is not None else np.zeros((0, 4, 2), np.float32)
+            elif self.task == "segment":
+                lab["segments"] = extra or []
+            elif self.task == "pose":
+                nk = self.kpt_shape[0] if self.kpt_shape else 0
+                lab["keypoints"] = (extra if extra is not None
+                                    else np.zeros((len(rows), nk, 3), np.float32))
+            labels.append(lab)
         if n_missing:
             LOGGER.warning(f"{n_missing}/{len(self.im_files)} label files missing "
                            "(treated as background)")
@@ -259,6 +312,10 @@ class YOLODataset:
         hyp = self.hyp
         if mosaic is None:  # drawn for every task, as the JAX package draws it
             mosaic = self.mosaic_enabled and rng.random() < hyp.get("mosaic", 1.0)
+        if self.task == "segment":  # which draws its own mosaic, as in the JAX package
+            return self._get_segment_sample(i, rng)
+        if self.task == "pose":
+            return self._get_pose_sample(i, rng)
         if self.task == "obb":  # no mosaic for OBB, as in the JAX package
             return self._get_obb_sample(i, rng)
         mosaic_border = (-self.imgsz // 2, -self.imgsz // 2)
@@ -323,4 +380,91 @@ class YOLODataset:
                 "bboxes": xyxyxyxy2xywhr_np(corners).astype(np.float32),
                 "cls": cls.astype(np.float32), "ori_shape": (h0, w0),
                 "ratio_pad": ((ratio[0] * r1, ratio[1] * r1), pad),
+                "im_file": self.im_files[i % len(self)]}
+
+    def _get_pose_sample(self, i: int, rng: np.random.Generator) -> dict:
+        """Pose sample (the JAX package's ``_get_pose_sample``): the
+        letterbox (scaled up only when augmenting), keypoints moved with the
+        boxes and the invisible ones zeroed; with ``augment`` HSV and, only
+        with ``flip_idx``, a left-right flip that swaps the joints (a person
+        mirrored without the swap is wrong GT), drawn from ``rng``."""
+        img, boxes, cls, (h0, w0) = self.load_item(i, with_shape=True)
+        r1 = img.shape[0] / h0
+        h, w = img.shape[:2]
+        kpts = self.labels[i]["keypoints"].copy()  # (n, K, 3) normalised
+        if len(kpts):
+            kpts[..., 0] *= w
+            kpts[..., 1] *= h
+        img, ratio, pad = A.letterbox_np(img, self.imgsz, scaleup=self.augment)
+        boxes = boxes * ratio[0] + np.asarray([*pad, *pad], np.float32)
+        if len(kpts):
+            vis = kpts[..., 2:] > 0
+            kpts[..., :2] = (kpts[..., :2] * ratio[0] + np.asarray(pad, np.float32)) * vis
+        if self.augment:
+            img = np.ascontiguousarray(img)
+            A.augment_hsv(img, rng, self.hyp.get("hsv_h", 0.015), self.hyp.get("hsv_s", 0.7),
+                          self.hyp.get("hsv_v", 0.4))
+            if self.flip_idx is not None and rng.random() < self.hyp.get("fliplr", 0.5):
+                img = np.ascontiguousarray(np.fliplr(img))
+                if len(boxes):
+                    boxes = np.stack([img.shape[1] - boxes[:, 2], boxes[:, 1],
+                                      img.shape[1] - boxes[:, 0], boxes[:, 3]], -1)
+                if len(kpts):
+                    kpts = kpts[:, self.flip_idx]
+                    vis = kpts[..., 2:] > 0
+                    kpts[..., 0] = (img.shape[1] - kpts[..., 0]) * vis[..., 0]
+        return {"img": np.ascontiguousarray(img), "bboxes": boxes.astype(np.float32),
+                "cls": cls.astype(np.float32), "keypoints": kpts.astype(np.float32),
+                "ori_shape": (h0, w0), "ratio_pad": ((ratio[0] * r1, ratio[1] * r1), pad),
+                "im_file": self.im_files[i % len(self)]}
+
+    def _load_segment_item(self, i: int):
+        """(img resized, polygons in its pixels, cls), a mosaic tile."""
+        img, _, cls = self.load_item(i)
+        h, w = img.shape[:2]
+        return img, [s * np.asarray([w, h], np.float32) for s in self.labels[i]["segments"]], cls
+
+    def _get_segment_sample(self, i: int, rng: np.random.Generator) -> dict:
+        """Segment sample (the JAX package's ``_get_segment_sample``). Train:
+        with the mosaic drawn (again) from ``rng``, mosaic4 of polygons,
+        CopyPaste, the warp (the reference's order), HSV and a flip; else
+        the letterbox, with ``augment`` CopyPaste, HSV and a flip. The boxes
+        are the final polygons' extents."""
+        hyp = self.hyp
+        flip = lambda im, segs: (np.ascontiguousarray(np.fliplr(im)),  # noqa: E731
+                                 [np.stack([im.shape[1] - s[:, 0], s[:, 1]], -1) for s in segs])
+        if self.augment and self.mosaic_enabled and rng.random() < hyp.get("mosaic", 1.0):
+            items = [self._load_segment_item(j) for j in [i] + list(rng.integers(0, len(self), 3))]
+            img, segments, cls = A.mosaic4_segments(items, self.imgsz, rng)
+            img, segments, cls = A.copy_paste_flip(img, segments, cls, hyp.get("copy_paste", 0.0),
+                                                   rng)
+            img, segments, cls = A.random_perspective_segments(
+                img, segments, cls, rng, degrees=hyp.get("degrees", 0.0),
+                translate=hyp.get("translate", 0.1), scale=hyp.get("scale", 0.5),
+                shear=hyp.get("shear", 0.0), perspective=hyp.get("perspective", 0.0),
+                border=(-self.imgsz // 2, -self.imgsz // 2))
+            img = np.ascontiguousarray(img)
+            A.augment_hsv(img, rng, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7),
+                          hyp.get("hsv_v", 0.4))
+            if rng.random() < hyp.get("fliplr", 0.5):
+                img, segments = flip(img, segments)
+            ori_shape, ratio_pad = (self.imgsz, self.imgsz), ((1.0, 1.0), (0.0, 0.0))
+        else:
+            img, _, cls, (h0, w0) = self.load_item(i, with_shape=True)
+            r1 = img.shape[0] / h0
+            h, w = img.shape[:2]
+            segments = [s * np.asarray([w, h], np.float32) for s in self.labels[i]["segments"]]
+            img, ratio, pad = A.letterbox_np(img, self.imgsz, scaleup=self.augment)
+            segments = [s * ratio[0] + np.asarray(pad, np.float32) for s in segments]
+            if self.augment:
+                img, segments, cls = A.copy_paste_flip(np.ascontiguousarray(img), segments, cls,
+                                                       hyp.get("copy_paste", 0.0), rng)
+                A.augment_hsv(img, rng, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7),
+                              hyp.get("hsv_v", 0.4))
+                if rng.random() < hyp.get("fliplr", 0.5):
+                    img, segments = flip(img, segments)
+            ori_shape, ratio_pad = (h0, w0), ((ratio[0] * r1, ratio[1] * r1), pad)
+        return {"img": np.ascontiguousarray(img), "bboxes": A.polygon_boxes(segments),
+                "cls": np.asarray(cls, np.float32), "segments": segments,
+                "ori_shape": ori_shape, "ratio_pad": ratio_pad,
                 "im_file": self.im_files[i % len(self)]}

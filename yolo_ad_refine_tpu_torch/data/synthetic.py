@@ -8,6 +8,10 @@ whole train pipeline runs without a download. The same seed writes the same
 files as the JAX package's generator. ``make_dota_dataset`` writes an
 oriented-box val set in the DOTA layout that ``data/split_dota.py`` tiles
 produce (square tiles, 15 DOTA v1 classes, corner-quad labels).
+``make_segment_dataset`` writes instance polygons (``cls x1 y1 x2 y2 ...``)
+and ``make_pose_dataset`` COCO-style 17-keypoint figures (``cls cx cy w h``
+then x y v a keypoint, with ``kpt_shape`` and ``flip_idx`` in the data
+dict), the label formats of the segment and pose tasks.
 """
 
 from __future__ import annotations
@@ -17,6 +21,16 @@ from pathlib import Path
 import numpy as np
 
 CLASS_NAMES = {0: "disc", 1: "box", 2: "tri"}
+# COCO's 17 keypoints: nose, eyes, ears, shoulders, elbows, wrists, hips, knees,
+# ankles (left before right); each one's mirror image for a left-right flip
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+# a standing figure's keypoints in units of its height, x from its centre line
+_FIGURE = np.array([(0, 0.05), (-0.03, 0.03), (0.03, 0.03), (-0.06, 0.05), (0.06, 0.05),
+                    (-0.15, 0.2), (0.15, 0.2), (-0.2, 0.38), (0.2, 0.38), (-0.22, 0.55),
+                    (0.22, 0.55), (-0.1, 0.55), (0.1, 0.55), (-0.11, 0.77), (0.11, 0.77),
+                    (-0.12, 0.98), (0.12, 0.98)])
+_LIMBS = [(5, 7), (7, 9), (6, 8), (8, 10), (5, 6), (11, 12), (5, 11), (6, 12), (11, 13),
+          (13, 15), (12, 14), (14, 16)]
 DOTA_NAMES = dict(enumerate((
     "plane", "ship", "storage-tank", "baseball-diamond", "tennis-court", "basketball-court",
     "ground-track-field", "harbor", "bridge", "large-vehicle", "small-vehicle", "helicopter",
@@ -136,4 +150,88 @@ def make_dota_dataset(root: str | Path, n_val: int = 16, imgsz: int = 1024, seed
             cv2.imwrite(str(root / split / "images" / f"{i:04d}.png"), img)
             (root / split / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
     return {"path": str(root), "val": "val/images", "names": dict(DOTA_NAMES),
+            **({"train": "train/images"} if n_train else {})}
+
+
+def _noise_tile(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    import cv2
+
+    img = rng.integers(40, 110, (h, w, 3), dtype=np.uint8)
+    return cv2.GaussianBlur(img, (0, 0), sigmaX=float(rng.uniform(2, 6)))
+
+
+def make_segment_dataset(root: str | Path, n_val: int = 16, imgsz: int = 640, seed: int = 0,
+                         max_objects: int = 12, n_train: int = 0) -> dict:
+    """Write a segment-task set: ``n_val`` (then ``n_train``) square
+    ``imgsz`` JPEGs of blurred noise with filled polygons of the 3 shapes
+    classes (discs as 16-gons, turned boxes, triangles; 6-25 % of the image
+    across, overlapping at times, drawn in label order), labelled ``cls x1
+    y1 x2 y2 ...`` in normalised polygon points. Deterministic in (seed,
+    sizes); returns a data dict."""
+    import cv2
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("val", n_val), ("train", n_train)):
+        (root / split / "images").mkdir(parents=True, exist_ok=True)
+        (root / split / "labels").mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = _noise_tile(rng, imgsz, imgsz)
+            lines = []
+            for _ in range(int(rng.integers(1, max_objects + 1))):
+                cls = int(rng.integers(0, 3))
+                r = float(rng.uniform(0.03, 0.125)) * imgsz
+                cx, cy = rng.uniform(r + 1, imgsz - r - 1, 2)
+                k = (16, 4, 3)[cls]
+                ang = rng.uniform(0, 2 * np.pi) + np.arange(k) * 2 * np.pi / k
+                pts = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)], -1)
+                cv2.fillPoly(img, [np.round(pts).astype(np.int32)],
+                             tuple(int(v) for v in rng.integers(0, 256, 3)))
+                lines.append(f"{cls} " + " ".join(f"{v / imgsz:.6f}" for v in pts.reshape(-1)))
+            cv2.imwrite(str(root / split / "images" / f"{i:04d}.jpg"), img)
+            (root / split / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "val": "val/images", "names": dict(CLASS_NAMES),
+            **({"train": "train/images"} if n_train else {})}
+
+
+def make_pose_dataset(root: str | Path, n_val: int = 16, imgsz: int = 640, seed: int = 0,
+                      max_objects: int = 6, n_train: int = 0) -> dict:
+    """Write a pose-task set: ``n_val`` (then ``n_train``) square ``imgsz``
+    JPEGs of blurred noise with stick figures (COCO's 17 keypoints, limbs
+    drawn, 15-60 % of the image tall, jittered and at times mirrored),
+    labelled ``0 cx cy w h`` then ``x y v`` a keypoint, normalised; about
+    one keypoint in eight is unlabelled (0 0 0) and one in eight occluded
+    (v = 1). Deterministic in (seed, sizes); returns a data dict with
+    ``kpt_shape`` [17, 3] and COCO's ``flip_idx``."""
+    import cv2
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("val", n_val), ("train", n_train)):
+        (root / split / "images").mkdir(parents=True, exist_ok=True)
+        (root / split / "labels").mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = _noise_tile(rng, imgsz, imgsz)
+            lines = []
+            for _ in range(int(rng.integers(1, max_objects + 1))):
+                h = float(rng.uniform(0.15, 0.6)) * imgsz
+                pts = (_FIGURE + rng.normal(0, 0.02, _FIGURE.shape)) * h
+                pts[:, 0] *= rng.choice([-1.0, 1.0])
+                lo, hi = pts.min(0), pts.max(0)
+                pts += rng.uniform(-lo + 2, imgsz - hi - 2)
+                color = tuple(int(v) for v in rng.integers(120, 256, 3))
+                for a, b in _LIMBS:
+                    cv2.line(img, tuple(int(v) for v in pts[a]), tuple(int(v) for v in pts[b]),
+                             color, max(2, int(h / 40)))
+                vis = rng.choice([0, 1, 2], size=17, p=[0.125, 0.125, 0.75])
+                x1, y1 = pts.min(0) - 4
+                x2, y2 = pts.max(0) + 4
+                box = np.array([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]) / imgsz
+                kp = np.concatenate([pts / imgsz * (vis[:, None] > 0), vis[:, None]], -1)
+                lines.append("0 " + " ".join(f"{v:.6f}" for v in box.clip(0, 1)) + " "
+                             + " ".join(f"{x:.6f} {y:.6f} {int(v)}" for x, y, v in kp))
+            cv2.imwrite(str(root / split / "images" / f"{i:04d}.jpg"), img)
+            (root / split / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "val": "val/images", "names": {0: "person"},
+            "kpt_shape": [17, 3], "flip_idx": list(COCO_FLIP_IDX),
             **({"train": "train/images"} if n_train else {})}

@@ -9,7 +9,10 @@ to one square size, and a partial last batch is padded to the batch size,
 as in the JAX predictor. The task follows the model's head: an OBB model
 goes through the rotated NMS (K5 on the card) and its xywhr detections are
 rescaled into ``Results.obb``, with their axis-aligned hulls in
-``Results.boxes``. ``save``, ``save_txt`` (with ``save_conf``) and
+``Results.boxes``; a segment model's NMS (K4) carries the 32 mask
+coefficients, whose masks (``segment_masks``) become ``Results.masks``; a
+pose model's carries the decoded keypoints, rescaled into
+``Results.keypoints``. ``save``, ``save_txt`` (with ``save_conf``) and
 ``save_crop`` write the annotated images, the label files and the crops
 into ``<project>/predict[n]``, as the JAX predictor does.
 """
@@ -27,6 +30,7 @@ from yolo_ad_refine_tpu_torch.data.augment import letterbox
 from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
 from yolo_ad_refine_tpu_torch.engine.results import OBBoxes, Results
 from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
+from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
 from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
 from yolo_ad_refine_tpu_torch.utils import LOGGER, increment_path
 
@@ -75,6 +79,26 @@ def preprocess(images, imgsz: int, batch_size: int, device, dtype):
     return batch.permute(0, 3, 1, 2).to(dtype) / 255.0, metas
 
 
+def segment_masks(proto, coeffs, det, cnt, metas, shapes, imgsz: int) -> list[np.ndarray]:
+    """The kept detections' masks of a batch on the model's device, each
+    image's as (n, h0, w0) bool over its original image: proto (B, nm, mh,
+    mw), coeffs (B, max_det, nm) and det (B, max_det, 6) xyxy input pixels
+    from the NMS, cnt (B,) on the host, metas [(ratio, pad)] and shapes
+    [(h0, w0)] for the batch's real images. The JAX predictor computes the
+    same values for every one of the max_det rows of the whole batch
+    (B x max_det x imgsz^2 floats); here only each image's n kept rows
+    (``ops/masks.py process_mask``, then ``scale_masks``)."""
+    out = []
+    for j, ((ratio, pad), shape0) in enumerate(zip(metas, shapes)):
+        n = int(cnt[j])
+        if not n:
+            out.append(np.zeros((0, *shape0), bool))
+            continue
+        m = process_mask(proto[j], coeffs[j, :n], det[j, :n, :4], (imgsz, imgsz))
+        out.append(scale_masks(m, pad, ratio[0], shape0).cpu().numpy())
+    return out
+
+
 class DetectionPredictor:
     def __init__(self, overrides: dict | None = None):
         self.args = dict(overrides or {})
@@ -94,7 +118,9 @@ class DetectionPredictor:
         save_crop = bool(args.get("save_crop", False))
         names = names or getattr(model, "names", None) or {i: f"class{i}" for i in range(model.nc)}
         p = next(model.parameters())
-        rotated = model.task == "obb"
+        task = model.task
+        rotated = task == "obb"
+        kpt_shape = getattr(model.model[model.head_idx], "kpt_shape", None)
         model.eval()
 
         # vid_stride reaches the loader here; the JAX predictor drops it (ROADMAP Queue 3)
@@ -108,11 +134,15 @@ class DetectionPredictor:
             with torch.inference_mode():
                 x, metas = preprocess([im for _, im, _ in chunk], imgsz, batch_size, p.device,
                                       p.dtype)
-                y, _ = model(x)
+                y, feats = model(x)
                 det, cnt, extras = non_max_suppression(
                     y, conf_thres=conf, iou_thres=iou, max_det=max_det, agnostic=agnostic,
                     nc=model.nc, rotated=rotated)
-                det, cnt, extras = det.cpu().numpy(), cnt.cpu().numpy(), extras.cpu().numpy()
+                cnt = cnt.cpu().numpy()
+                masks = (segment_masks(feats[2], extras, det, cnt, metas,
+                                       [im.shape[:2] for _, im, _ in chunk], imgsz)
+                         if task == "segment" else None)
+                det, extras = det.cpu().numpy(), extras.cpu().numpy()
             dt = (time.perf_counter() - t0) / len(chunk) * 1000
             for j, ((name, im0, out_name), (ratio, pad)) in enumerate(zip(chunk, metas)):
                 n = int(cnt[j])
@@ -126,6 +156,13 @@ class DetectionPredictor:
                 elif n:
                     d[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(d[:, :4]),
                                            im0.shape[:2], ratio_pad=(ratio, pad)).numpy()
+                if task == "pose":  # keypoints un-letterboxed, not clipped (the JAX predictor's)
+                    kp = extras[j, :n].reshape(n, *kpt_shape).copy()
+                    kp[..., 0] = (kp[..., 0] - pad[0]) / ratio[0]
+                    kp[..., 1] = (kp[..., 1] - pad[1]) / ratio[0]
+                    kw["keypoints"] = kp
+                elif task == "segment" and n:
+                    kw["masks"] = masks[j]
                 r = Results(im0, name, names, d, speed={"inference": dt}, **kw)
                 results.append(r)
                 if verbose:

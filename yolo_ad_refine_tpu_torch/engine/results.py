@@ -1,10 +1,10 @@
 """Inference result containers (host-side numpy).
 
-Counterpart of ``Boxes`` / ``OBBoxes`` / ``Results`` in
-``yolo_ad_refine_tpu/engine/results.py`` (reference engine/results.py),
-with its ``plot``, ``save``, ``save_txt`` and ``save_crop`` for boxes and
-oriented boxes, drawn with cv2 on the host. The masks and keypoints
-branches come with the segment and pose tasks (ROADMAP Queue 1 item 12).
+Counterpart of ``Boxes`` / ``Masks`` / ``Keypoints`` / ``OBBoxes`` /
+``Results`` in ``yolo_ad_refine_tpu/engine/results.py`` (reference
+engine/results.py), with its ``plot``, ``save``, ``save_txt``,
+``save_crop`` and ``tojson`` for boxes, instance masks, keypoints and
+oriented boxes, drawn with cv2 on the host.
 """
 
 from __future__ import annotations
@@ -58,6 +58,58 @@ class Boxes:
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+class Masks:
+    """(n, H, W) binary instance masks over the original image (reference
+    results.py Masks); the predictor gives them as bool."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self) -> list[np.ndarray]:
+        """Each mask's largest external contour, (P, 2) pixels (reference
+        masks2segments)."""
+        import cv2
+
+        out = []
+        for m in self.data:
+            cs, _ = cv2.findContours((m > 0.5).astype(np.uint8), cv2.RETR_EXTERNAL,
+                                     cv2.CHAIN_APPROX_SIMPLE)
+            out.append(max(cs, key=cv2.contourArea).reshape(-1, 2).astype(np.float32)
+                       if cs else np.zeros((0, 2), np.float32))
+        return out
+
+
+class Keypoints:
+    """(n, K, 2 or 3) keypoints in original-image pixels (reference
+    results.py Keypoints): ``xy`` pixels, ``xyn`` normalised, ``conf`` the
+    visibility where there is one."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple):
+        self.data = np.asarray(data, np.float32)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.xy / np.asarray([w, h], np.float32)
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
 class OBBoxes:
     """(n, 7) oriented detections [cx, cy, w, h, r, conf, cls] in
     original-image pixels, r in radians (reference results.py OBB)."""
@@ -100,15 +152,19 @@ class OBBoxes:
 
 class Results:
     """Per-image result: boxes (for OBB their axis-aligned hulls, with the
-    rotated boxes in ``obb``) and metadata."""
+    rotated boxes in ``obb``), the instance masks (segment), the keypoints
+    (pose) and metadata."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict, boxes: np.ndarray,
-                 speed: dict | None = None, obb: np.ndarray | None = None):
+                 speed: dict | None = None, masks: np.ndarray | None = None,
+                 keypoints: np.ndarray | None = None, obb: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape)
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.obb = OBBoxes(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {}
 
@@ -120,16 +176,28 @@ class Results:
         return tuple(int(v) for v in np.array([37, 255, 153]) * ((c * 17 + 29) % 7 + 1) % 255)
 
     def plot(self, line_width: int | None = None, font_scale: float = 0.5) -> np.ndarray:
-        """Draw the detections (and the rotated boxes' outlines) on a copy
-        of the original BGR image."""
+        """Draw the detections on a copy of the original BGR image: the
+        masks blended in at half weight, the rotated boxes' outlines, the
+        keypoints whose visibility passes 0.25, then the boxes and labels."""
         import cv2
 
         img = self.orig_img.copy()
         lw = line_width or max(round(sum(img.shape) / 2 * 0.003), 2)
+        if self.masks is not None and len(self.masks):
+            overlay = img.copy()
+            for i, m in enumerate(self.masks.data):
+                on = m > 0.5
+                overlay[on] = 0.5 * overlay[on] + 0.5 * np.array(self._color(i))
+            img = overlay.astype(img.dtype)
         if self.obb is not None and len(self.obb):
             for i, pts in enumerate(self.obb.xyxyxyxy):
                 cv2.polylines(img, [pts.astype(np.int32)], True, self._color(int(self.obb.cls[i])),
                               lw)
+        if self.keypoints is not None and len(self.keypoints):
+            for kps in self.keypoints.data:
+                for x, y, *v in kps:
+                    if not v or v[0] > 0.25:
+                        cv2.circle(img, (int(x), int(y)), max(lw, 2), (0, 0, 255), -1)
         for x1, y1, x2, y2, conf, cls in self.boxes.data:
             c = int(cls)
             color = self._color(c)
@@ -152,16 +220,26 @@ class Results:
     def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> Path:
         """YOLO-format label rows, one a detection: ``cls cx cy w h`` of the
         box normalised by the image (OBB: ``cls`` and the 4 normalised
-        corner points), with the confidence last under ``save_conf``."""
+        corner points; segment: ``cls`` and the mask's normalised contour;
+        pose: the box, then each keypoint's normalised x, y and
+        visibility), with the confidence last under ``save_conf``."""
         h, w = self.orig_shape
         lines = []
         for i in range(len(self.obb if self.obb is not None else self.boxes)):
             if self.obb is not None:
                 c, conf = int(self.obb.cls[i]), float(self.obb.conf[i])
                 coords = (self.obb.xyxyxyxy[i] / np.asarray([w, h], np.float32)).reshape(-1)
+            elif self.masks is not None and i < len(self.masks):
+                c, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])
+                coords = (self.masks.xy[i] / np.asarray([w, h], np.float32)).reshape(-1)
             else:
                 c, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])
                 coords = self.boxes.xywhn[i]
+                if self.keypoints is not None:
+                    kd = self.keypoints.data[i].copy()
+                    kd[:, 0] /= w
+                    kd[:, 1] /= h
+                    coords = np.concatenate([coords, kd.reshape(-1)])
             row = (c, *np.asarray(coords).tolist()) + ((conf,) if save_conf else ())
             lines.append(("%g " * len(row)).rstrip() % row)
         p = Path(txt_file)
@@ -198,6 +276,15 @@ class Results:
             entry = {"name": str(self.names.get(int(cls), int(cls))), "class": int(cls),
                      "confidence": round(conf, 5),
                      "box": {"x1": x1, "y1": y1, "x2": x2, "y2": y2}}
+            if self.keypoints is not None and i < len(self.keypoints):
+                entry["keypoints"] = {"x": self.keypoints.xy[i, :, 0].round(2).tolist(),
+                                      "y": self.keypoints.xy[i, :, 1].round(2).tolist()}
+                if self.keypoints.conf is not None:
+                    entry["keypoints"]["visible"] = self.keypoints.conf[i].round(3).tolist()
+            if self.masks is not None and i < len(self.masks):
+                seg = self.masks.xy[i]
+                entry["segments"] = {"x": seg[:, 0].round(2).tolist(),
+                                     "y": seg[:, 1].round(2).tolist()}
             if self.obb is not None and i < len(self.obb):
                 entry["rbox"] = {k: round(float(v), 3) for k, v in zip("xywhr", self.obb.xywhr[i])}
             out.append(entry)

@@ -10,7 +10,14 @@ and GT are rescaled to each image's native pixels and matched at IoU
 (an OBB model) takes the rotated NMS (K5 on the card), rescales xywhr
 predictions and GT with ``scale_rboxes``, matches them by ``probiou_np``
 and leaves the confusion matrix alone, as the JAX validator does; its val
-loss is ``OBBLoss`` over the eval output's (feats, angle). ``rect`` (detect
+loss is ``OBBLoss`` over the eval output's (feats, angle). ``task=
+"segment"`` also matches each image's kept rows' masks against its GT
+instances by mask IoU at the prototypes' resolution (``ops/masks.py
+mask_iou_matrix`` on the model's device, against the batch's index masks)
+into the ``(M)`` metrics; ``task="pose"`` matches the kept rows' keypoints
+by OKS (``kpt_iou_np``: GT box area x 0.53, COCO's sigmas at 17
+keypoints, else 1 / K) into the ``(P)`` metrics; the val losses of both
+are the detection loss's over the maps. ``rect`` (detect
 only) letterboxes the val
 set into ``rect_buckets`` static aspect-ratio buckets (the dataset's
 ``set_rectangle``), ``save_json`` writes ``predictions.json`` (COCO-style
@@ -19,7 +26,8 @@ and ``PR_curve.png``, both into ``save_dir``. ``backend`` (an
 ``engine/exporter.py`` ``AutoBackend``) runs standalone validation of the
 detect task through an exported artifact: a final partial batch is padded
 with zeros to the artifact's batch and its outputs cut back, as the JAX
-validator does; NMS and the metrics stay here. Other tasks are not ported.
+validator does; NMS and the metrics stay here. Other tasks, and a backend
+of any task but detect, are not ported.
 """
 
 from __future__ import annotations
@@ -33,19 +41,22 @@ import numpy as np
 import torch
 
 from yolo_ad_refine_tpu_torch.data.build import DataLoader
-from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+from yolo_ad_refine_tpu_torch.data.dataset import TASKS, YOLODataset, check_det_dataset
 from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
+from yolo_ad_refine_tpu_torch.ops.masks import mask_iou_matrix
 from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
+from yolo_ad_refine_tpu_torch.train.pose import OKS_SIGMA
 from yolo_ad_refine_tpu_torch.train.step import images_to_tensor, targets_to_device
 from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported
 from yolo_ad_refine_tpu_torch.utils.metrics import (
-    ConfusionMatrix, DetMetrics, box_iou_np, match_predictions, probiou_np)
+    ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, match_predictions, probiou_np)
 
 
 class DetectionValidator:
     """Runs a model over a val split and computes detection metrics.
     ``args``: imgsz, batch, conf (0.001), iou (0.7), max_det (300),
-    max_nms (2048), max_boxes, split, data, task ("detect" or "obb"), amp
+    max_nms (2048), max_boxes, split, data, task (detect, obb, segment or
+    pose), amp
     (bf16 autocast on the card), rect and rect_buckets (4), save_json,
     plots and save_dir (".")."""
 
@@ -55,7 +66,7 @@ class DetectionValidator:
         self.names = None
         self.jdict = None
         self.task = self.args.get("task") or "detect"
-        if self.task not in ("detect", "obb"):
+        if self.task not in TASKS:
             not_ported(f"validating task {self.task!r}",
                        "ROADMAP Queue 1 item 12, the other tasks")
 
@@ -75,7 +86,8 @@ class DetectionValidator:
     @torch.no_grad()
     def __call__(self, model=None, dataloader=None, loss_fn=None, backend=None) -> dict:
         """model: a port DetectionModel (for example the EMA's). loss_fn:
-        a DetectionLoss (an OBBLoss for OBB) for the val losses.
+        a DetectionLoss (an OBBLoss for OBB; for segment and pose the
+        detection loss, given the maps) for the val losses.
         ``backend``: an ``AutoBackend`` that runs the forward instead of
         ``model`` (which may then be None: nc and names come from the
         artifact's metadata), detect task only, without val losses (an
@@ -110,6 +122,11 @@ class DetectionValidator:
             model.eval()
 
         metrics = DetMetrics(names)
+        task_metrics = DetMetrics(names) if self.task in ("segment", "pose") else None
+        kpt_sigmas = None
+        if self.task == "pose":
+            k = model.model[model.head_idx].kpt_shape[0]
+            kpt_sigmas = OKS_SIGMA if k == 17 else np.ones(k) / k
         confusion = ConfusionMatrix(nc)
         self.jdict = [] if args.get("save_json") else None
         loss_sum = torch.zeros(3, device=dev)
@@ -128,20 +145,33 @@ class DetectionValidator:
             det, cnt, extras = non_max_suppression(
                 y, conf_thres=conf, iou_thres=iou, max_det=max_det, max_nms=max_nms,
                 multi_label=True, nc=nc, rotated=rotated)
-            if loss_fn is not None:
-                loss_sum += loss_fn(feats, *targets_to_device(batch, dev)).components
+            if loss_fn is not None:  # OBBLoss takes (feats, angle); segment, pose the maps
+                maps = feats[0] if self.task in ("segment", "pose") else feats
+                loss_sum += loss_fn(maps, *targets_to_device(batch, dev)).components
                 n_batches += 1
-            det, cnt = det.cpu().numpy(), cnt.cpu().numpy()
+            cnt = cnt.cpu().numpy()
+            task_ious = (self._mask_ious(feats[2], extras, det, cnt, batch)
+                         if self.task == "segment" else None)
+            det = det.cpu().numpy()
             angles = extras[..., 0].cpu().numpy() if rotated else None
+            pred_kpts = extras.cpu().numpy() if self.task == "pose" else None
             t_inference += time.perf_counter() - t1
+            if self.task == "pose":
+                task_ious = self._oks(det, cnt, batch, pred_kpts, model, kpt_sigmas)
             self._update_metrics(det, cnt, batch, metrics, confusion, batch["img"].shape[1:3],
-                                 angles, self.jdict)
+                                 angles, self.jdict, task_metrics, task_ious)
             seen += len(batch["im_file"])
         if model is not None:
             model.train(training)
 
         results = metrics.process()
         self.metrics, self.confusion_matrix = metrics, confusion
+        if task_metrics is not None:
+            tag = "M" if self.task == "segment" else "P"
+            r = task_metrics.process()
+            results[f"metrics/mAP50({tag})"] = r["metrics/mAP50(B)"]
+            results[f"metrics/mAP50-95({tag})"] = r["metrics/mAP50-95(B)"]
+            self.task_metrics = task_metrics
         if n_batches:
             ls = (loss_sum / n_batches).tolist()
             results.update({"val/box_loss": ls[0], "val/cls_loss": ls[1], "val/dfl_loss": ls[2]})
@@ -160,6 +190,39 @@ class DetectionValidator:
         if args.get("plots") and args.get("save_dir"):
             self._plot(metrics, confusion, names, save_dir)
         return results
+
+    @staticmethod
+    def _mask_ious(proto, coeffs, det, cnt, batch) -> list[np.ndarray]:
+        """Each image's (n_gt, n) mask IoU of its n kept rows against its
+        n_gt GT instances (``mask_iou_matrix`` on the rows the JAX validator
+        reads of its (max_boxes, max_det) matrix), on the model's device."""
+        gt = torch.from_numpy(batch["masks"]).to(proto.device)
+        img_hw = tuple(batch["img"].shape[1:3])
+        out = []
+        for i in range(len(cnt)):
+            n, n_gt = int(cnt[i]), int((batch["mask"][i, :, 0] > 0).sum())
+            out.append(mask_iou_matrix(proto[i], coeffs[i, :n], det[i, :n, :4], img_hw, gt[i],
+                                       n_gt).cpu().numpy())
+        return out
+
+    @staticmethod
+    def _oks(det, cnt, batch, pred_kpts, model, sigmas) -> list[np.ndarray | None]:
+        """Each image's (n_gt, n) OKS of its kept rows' keypoints against its
+        GT's, in letterboxed pixels (OKS does not move under the letterbox's
+        scale and shift), with the GT box areas x 0.53 (the JAX validator's);
+        None where either side is empty."""
+        kpt_shape = model.model[model.head_idx].kpt_shape
+        out = []
+        for i in range(len(cnt)):
+            n, m = int(cnt[i]), batch["mask"][i, :, 0] > 0
+            if not (n and m.any()):
+                out.append(None)
+                continue
+            gt_boxes = batch["bboxes"][i][m]
+            area = np.prod(np.clip(gt_boxes[:, 2:4] - gt_boxes[:, :2], 1, None), -1)
+            pk = pred_kpts[i, :n].reshape(n, *kpt_shape)
+            out.append(kpt_iou_np(batch["keypoints"][i][m], pk, area * 0.53, np.asarray(sigmas)))
+        return out
 
     @staticmethod
     def _backend_forward(backend, img: np.ndarray) -> torch.Tensor:
@@ -186,7 +249,8 @@ class DetectionValidator:
 
     @staticmethod
     def _update_metrics(det, cnt, batch, metrics: DetMetrics, confusion: ConfusionMatrix,
-                        imgsz, angles=None, jdict: list | None = None):
+                        imgsz, angles=None, jdict: list | None = None,
+                        task_metrics: DetMetrics | None = None, task_ious=None):
         """Rescale both sides to native pixels (reference _prepare_batch /
         _prepare_pred) and match at the 10 IoU thresholds. With ``angles``
         (B, max_det), OBB: det rows are xywh, GT (n, 5) xywhr, matched by
@@ -194,7 +258,9 @@ class DetectionValidator:
         gathers the save_json entries of the JAX validator (reference
         detect/val.py pred_to_json): image_id the file's stem (an int when
         numeric), category_id, bbox [x1, y1, w, h] in native pixels to 3
-        places and score to 5, from the rows as they are (OBB: xywh)."""
+        places and score to 5, from the rows as they are (OBB: xywh).
+        ``task_metrics`` takes the segment or pose matches, by each image's
+        (n_gt, n) mask IoU or OKS in ``task_ious`` (None: no match)."""
         imgsz = tuple(int(v) for v in imgsz)
         rotated = angles is not None
 
@@ -227,6 +293,9 @@ class DetectionValidator:
             if n == 0:
                 if len(gt_cls):
                     metrics.update_stats(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)
+                    if task_metrics is not None:
+                        task_metrics.update_stats(np.zeros((0, 10), bool), np.zeros(0),
+                                                  np.zeros(0), gt_cls)
                     if not rotated:
                         confusion.process_batch(None, gt_boxes, gt_cls)
                 continue
@@ -234,5 +303,10 @@ class DetectionValidator:
             tp = (match_predictions(d[:, 5], gt_cls, iou) if len(gt_cls)
                   else np.zeros((n, 10), bool))
             metrics.update_stats(tp, d[:, 4], d[:, 5], gt_cls)
+            if task_metrics is not None:
+                ious = task_ious[i]
+                tp_t = (match_predictions(d[:, 5], gt_cls, ious)
+                        if ious is not None and len(gt_cls) else np.zeros((n, 10), bool))
+                task_metrics.update_stats(tp_t, d[:, 4], d[:, 5], gt_cls)
             if not rotated:
                 confusion.process_batch(d, gt_boxes, gt_cls)

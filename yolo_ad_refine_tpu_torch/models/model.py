@@ -18,14 +18,17 @@ from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg, parse_model_y
 from yolo_ad_refine_tpu_torch.nn.head import ModulatedDeformConv
 from yolo_ad_refine_tpu_torch.utils import LOGGER, select_device
 
+HEAD_TASKS = {"OBB": "obb", "Segment": "segment", "Pose": "pose"}  # any other head: detect
 _WEIGHTED = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear, ModulatedDeformConv)
 
 
 class DetectionModel(nn.Module):
     """A yaml-built detector. ``forward`` in eval mode returns the head's
     eval output: ``(y, feats)`` with y (B, N, 4+nc), or for the OBB head
-    ``(y, (feats, angle))`` with the angle appended to y; in train mode the
-    per-level maps (with the angle for OBB). ``task`` follows the head, as
+    ``(y, (feats, angle))`` with the angle appended to y (Segment:
+    ``(y, (feats, mc, proto))``, the coefficients appended; Pose:
+    ``(y, (feats, kpt))``, the decoded keypoints appended); in train mode the
+    per-level maps (with the head's extra outputs for OBB, Segment, Pose). ``task`` follows the head, as
     the JAX predictor derives it (reference: the task guessed from the
     model)."""
 
@@ -47,7 +50,7 @@ class DetectionModel(nn.Module):
 
     @property
     def task(self) -> str:
-        return "obb" if self.specs[self.head_idx].name == "OBB" else "detect"
+        return HEAD_TASKS.get(self.specs[self.head_idx].name, "detect")
 
     @property
     def deconv_layer_indices(self) -> tuple:
@@ -78,7 +81,7 @@ class DetectionModel(nn.Module):
         x = torch.zeros(1, 3, imgsz, imgsz, dtype=p.dtype, device=p.device).contiguous(
             memory_format=torch.channels_last)
         feats = self(x)[1]
-        if isinstance(feats, tuple):  # OBB: (feats, angle)
+        if isinstance(feats, tuple):  # OBB, Segment, Pose: (feats, *extras)
             feats = feats[0]
         self.train(training)
         self.strides = tuple(imgsz // f.shape[2] for f in feats)

@@ -8,7 +8,9 @@ bookkeeping, for the modules this port has so far.
 - width gain: c2 = make_divisible(min(c2, max_channels) * width, 8) unless
   c2 == nc, for the conv family including bare nn.Conv2d /
   nn.ConvTranspose2d rows (fork extension)
-- yaml-level variables (``head_channel``, ``fusion_mode``) resolved by name
+- yaml-level variables (``head_channel``, ``fusion_mode``, ``kpt_shape``)
+  resolved by name
+- Segment's proto channels ``npr`` width-scaled and capped at max_channels
 - C3k2 forces c3k=True at scales m/l/x
 """
 
@@ -29,7 +31,7 @@ from yolo_ad_refine_tpu_torch.nn import tssa as T
 from yolo_ad_refine_tpu_torch.nn.common import make_divisible
 from yolo_ad_refine_tpu_torch.utils import LOGGER, ROOT, yaml_load
 
-HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB"}
+HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB", "Segment", "Pose"}
 # modules whose first yaml arg is an out-channel subject to width scaling
 WIDTH_SCALED = {"Conv", "SPPF", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA", "C2PTSSA",
                 "nn.Conv2d", "nn.ConvTranspose2d"}
@@ -175,6 +177,12 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             head_nc = _arg(args, 0, nc)
             if name == "OBB":
                 module = H.OBB(nc=head_nc, ne=_arg(args, 1, 1), ch=head_ch)
+            elif name == "Segment":
+                # reference tasks.py:1041: the proto channels are width-scaled
+                npr = make_divisible(min(_arg(args, 2, 256), max_channels) * width, 8)
+                module = H.Segment(nc=head_nc, nm=_arg(args, 1, 32), npr=npr, ch=head_ch)
+            elif name == "Pose":
+                module = H.Pose(nc=head_nc, kpt_shape=tuple(_arg(args, 1, (17, 3))), ch=head_ch)
             elif name == "Detect":
                 module = H.Detect(nc=head_nc, ch=head_ch)
             else:

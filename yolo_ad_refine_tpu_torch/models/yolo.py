@@ -6,9 +6,10 @@ the JAX package wrote (``weights.msgpack``); ``.predict(images)``,
 ``.train(data=...)`` and ``.val(data=...)`` run on the card by default
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
 the caller passes ``device="cpu"`` (under a launcher, ``cuda`` is the
-rank's card, ``utils.select_device``). ``task`` ("detect" or "obb", as the JAX
-facade's) defaults to the one the model's head implies, as the reference
-guesses it from the model; both predict, train and validate. ``.export``
+rank's card, ``utils.select_device``). ``task`` ("detect", "obb", "segment"
+or "pose", as the JAX facade's) defaults to the one the model's head
+implies, as the reference guesses it from the model; each predicts, trains
+and validates. ``.export``
 writes the model for ``engine/exporter.py``'s ``AutoBackend``;
 ``.benchmark`` times the exported formats and ``.tune`` evolves the
 training hyperparameters.

@@ -1,12 +1,14 @@
-"""Detection heads: stock Detect, the oriented-box OBB and the fork's AYHead.
+"""Detection heads: stock Detect, Segment, Pose, the oriented-box OBB and
+the fork's AYHead.
 
 Counterpart of ``yolo_ad_refine_tpu/nn/head.py`` (reference
-ultralytics/nn/modules/head.py: Detect:21-163, OBB:189-217,
+ultralytics/nn/modules/head.py: Detect:21-163, Segment:164-186,
+Pose:219-258, OBB:189-217, block.py Proto,
 TaskDecomposition:626, CoordAtt:671, CrossTaskInteraction:722, DyDCNv2:751,
 Scale:783, ResidualBlockGN:1031, AYHead(1):1049-1252). Train forward returns
 the per-level raw maps; eval returns ``(y, feats)`` with ``y`` (B, N, 4+nc):
 xywh boxes in input pixels and sigmoided class scores (OBB appends its
-angle).
+angle, Segment its mask coefficients, Pose its decoded keypoints).
 """
 
 from __future__ import annotations
@@ -76,6 +78,93 @@ class Detect(nn.Module):
         return y, outputs
 
 
+class Proto(nn.Module):
+    """Mask prototypes (reference block.py Proto): Conv 3x3, a learned 2x
+    upsample (ConvTranspose 2x2 stride 2), Conv 3x3, Conv 1x1 to ``c2``."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+def extra_branch(ch, c4: int, out_ch: int) -> nn.ModuleList:
+    """The per-level ``cv4.i`` branch of Segment / Pose / OBB: Conv 3x3,
+    Conv 3x3, 1x1 to ``out_ch`` (the JAX ``_extra_branch``)."""
+    return nn.ModuleList(
+        nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, out_ch, 1)) for x in ch)
+
+
+def flat_branch(branch: nn.ModuleList, xs) -> torch.Tensor:
+    """The levels' (B, out_ch, H, W) outputs of ``branch`` flattened to
+    (B, A, out_ch), anchors in the order of ``decode_detections``."""
+    b = xs[0].shape[0]
+    return torch.cat([m(x).reshape(b, m[-1].out_channels, -1) for m, x in zip(branch, xs)],
+                     2).transpose(1, 2)
+
+
+@register
+class Segment(Detect):
+    """Segmentation head (reference head.py:164-186): Detect plus the mask
+    coefficients ``cv4.i`` (``nm`` a level) and Proto on the first level.
+    Train returns (feats, mc, proto); eval returns (cat(y, mc), (feats, mc,
+    proto)) with mc (B, A, nm) and proto (B, nm, H/4, W/4)."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch=(), reg_max: int = 16,
+                 strides=(8, 16, 32)):
+        super().__init__(nc, ch, reg_max, strides)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        self.cv4 = extra_branch(ch, max(ch[0] // 4, nm), nm)
+
+    def forward(self, xs, input_h: int | None = None):
+        p = self.proto(xs[0])
+        mc = flat_branch(self.cv4, xs)
+        feats = self.maps(xs)
+        if self.training:
+            return feats, mc, p
+        y = decode_detections(feats, _strides(feats, input_h, self.strides), self.nc,
+                              self.reg_max)
+        return torch.cat([y, mc.to(y.dtype)], -1), (feats, mc, p)
+
+
+@register
+class Pose(Detect):
+    """Keypoint head (reference head.py:219-258): Detect plus the per-level
+    keypoint branch ``cv4.i`` (K * ndim a level). Train returns (feats,
+    kpt) with kpt (B, A, K * ndim) raw; eval appends the keypoints decoded
+    as (k * 2 + anchor - 0.5) * stride in fp32, the visibility sigmoided
+    when ndim is 3, and returns (cat(y, kpts), (feats, kpt))."""
+
+    def __init__(self, nc: int = 1, kpt_shape=(17, 3), ch=(), reg_max: int = 16,
+                 strides=(8, 16, 32)):
+        super().__init__(nc, ch, reg_max, strides)
+        self.kpt_shape = tuple(int(v) for v in kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.cv4 = extra_branch(ch, max(ch[0] // 4, nk), nk)
+
+    def forward(self, xs, input_h: int | None = None):
+        kpt = flat_branch(self.cv4, xs)
+        feats = self.maps(xs)
+        if self.training:
+            return feats, kpt
+        strides = _strides(feats, input_h, self.strides)
+        y = decode_detections(feats, strides, self.nc, self.reg_max)
+        anchors, stride_t = make_anchors([(f.shape[2], f.shape[3]) for f in feats], strides, 0.5,
+                                         device=kpt.device)
+        b, a = kpt.shape[:2]
+        k = kpt.float().reshape(b, a, *self.kpt_shape)
+        xy = (k[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+        if self.kpt_shape[1] == 3:
+            xy = torch.cat([xy, torch.sigmoid(k[..., 2:3])], -1)
+        return torch.cat([y, xy.reshape(b, a, -1).to(y.dtype)], -1), (feats, kpt)
+
+
 def dist2rbox(distance, angle, anchor_points):
     """Rotated boxes (cx, cy, w, h) from lt / rb distances turned by
     ``angle`` around their anchors (reference utils/tal.py dist2rbox)."""
@@ -99,14 +188,11 @@ class OBB(Detect):
                  strides=(8, 16, 32)):
         super().__init__(nc, ch, reg_max, strides)
         self.ne = ne
-        c4 = max(ch[0] // 4, ne)
-        self.cv4 = nn.ModuleList(
-            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, ne, 1)) for x in ch)
+        self.cv4 = extra_branch(ch, max(ch[0] // 4, ne), ne)
 
     def forward(self, xs, input_h: int | None = None):
         b = xs[0].shape[0]
-        logits = torch.cat([self.cv4[i](x).reshape(b, self.ne, -1) for i, x in enumerate(xs)], 2)
-        angle = ((torch.sigmoid(logits.float()) - 0.25) * math.pi).transpose(1, 2)  # (B, A, ne)
+        angle = (torch.sigmoid(flat_branch(self.cv4, xs).float()) - 0.25) * math.pi  # (B, A, ne)
         feats = self.maps(xs)
         if self.training:
             return feats, angle

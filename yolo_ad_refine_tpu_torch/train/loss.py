@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from yolo_ad_refine_tpu_torch.train.tal import AssignResult
+
 from yolo_ad_refine_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from yolo_ad_refine_tpu_torch.ops.iou import bbox_iou, wasserstein_similarity
 from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, in_global_batch
@@ -29,6 +31,17 @@ from yolo_ad_refine_tpu_torch.train.tal import TaskAlignedAssigner
 class LossOutputs(NamedTuple):
     total: torch.Tensor       # scalar: loss.sum() * batch_size
     components: torch.Tensor  # (3,) detached [box, cls, dfl], gain-scaled
+
+
+class DetectionParts(NamedTuple):
+    """What the task losses (``train/segment.py``, ``train/pose.py``) take
+    from the detection loss besides its components."""
+
+    assign: AssignResult
+    anchor_points: torch.Tensor  # (A, 2) grid units, in ``acc``
+    stride_tensor: torch.Tensor  # (A, 1)
+    n_fg: torch.Tensor           # the batch's foreground count (the global batch's within one)
+    acc: torch.dtype             # fp32, or fp64 for fp64 maps
 
 
 def global_total(comps: torch.Tensor, b: int) -> LossOutputs:
@@ -88,9 +101,14 @@ class DetectionLoss:
         train-mode output; gt_labels (B, N, 1), gt_bboxes (B, N, 4) xyxy in
         input pixels (padded rows 0), mask_gt (B, N, 1)."""
         with torch.autocast(feats[0].device.type, enabled=False):
-            return self._loss(feats, gt_labels, gt_bboxes, mask_gt)
+            comps, _ = self.components(feats, gt_labels, gt_bboxes, mask_gt)
+            return total_of(comps, feats[0].shape[0])
 
-    def _loss(self, feats, gt_labels, gt_bboxes, mask_gt) -> LossOutputs:
+    def components(self, feats, gt_labels, gt_bboxes, mask_gt):
+        """(comps, parts): the gain-scaled [box, cls, dfl] with their
+        gradient (this rank's shares of the global batch's within
+        ``parallel.global_batch``), and the ``DetectionParts`` the task
+        losses build on. Call outside autocast."""
         b = feats[0].shape[0]
         dev = feats[0].device
         acc = torch.float64 if feats[0].dtype == torch.float64 else torch.float32
@@ -143,5 +161,12 @@ class DetectionLoss:
 
         comps = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1],
                              loss_dfl * self.gains[2]])
-        return global_total(comps, b) if global_ else LossOutputs(comps.sum() * b,
-                                                                  comps.detach())
+        return comps, DetectionParts(assign, anchor_points, stride_tensor, sums[1], acc)
+
+
+def total_of(comps: torch.Tensor, b: int) -> LossOutputs:
+    """The outputs of gain-scaled components ``comps`` (with their gradient)
+    of a batch of ``b``: total = sum(comps) * b, or within a data-parallel
+    step the global batch's (``global_total``)."""
+    return global_total(comps, b) if in_global_batch() else LossOutputs(comps.sum() * b,
+                                                                       comps.detach())

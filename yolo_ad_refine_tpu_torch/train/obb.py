@@ -23,7 +23,7 @@ from yolo_ad_refine_tpu_torch.nn.head import dist2rbox
 from yolo_ad_refine_tpu_torch.ops.anchors import bbox2dist, make_anchors
 from yolo_ad_refine_tpu_torch.ops.iou import probiou
 from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, in_global_batch
-from yolo_ad_refine_tpu_torch.train.loss import bce_with_logits, dfl_loss, global_total
+from yolo_ad_refine_tpu_torch.train.loss import bce_with_logits, dfl_loss, total_of
 from yolo_ad_refine_tpu_torch.train.tal import (
     AssignResult, TaskAlignedAssigner, select_topk_candidates)
 
@@ -163,6 +163,4 @@ class OBBLoss:
 
         comps = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1],
                              loss_dfl * self.gains[2]])
-        if global_:
-            return OBBLossOutputs(*global_total(comps, b))
-        return OBBLossOutputs(comps.sum() * b, comps.detach())
+        return OBBLossOutputs(*total_of(comps, b))

@@ -4,7 +4,10 @@ Counterpart of ``yolo_ad_refine_tpu/train/step.py`` (reference
 engine/trainer.py:367-427): uint8 images are scaled by 1/255, the model
 runs its train-mode forward (under bf16 autocast when ``amp_dtype`` is
 set), the loss runs in fp32 on that output whole (the per-level maps, or
-the OBB head's (feats, angle)), the gradient flows back through K1 bwd on the
+the OBB head's (feats, angle), Segment's (feats, mc, proto), Pose's
+(feats, kpt)) with the batch's targets and the task's extra ones (the
+loss's ``extra_keys``: the segment batch's index ``masks``, the pose
+batch's ``keypoints``), the gradient flows back through K1 bwd on the
 card, the optimizer steps every ``accumulate`` batches and the EMA of
 params and BN stats advances on each optimizer step. ``wrapped`` (DDP or
 FSDP2, ``parallel.wrap_model``) runs the forward of a data-parallel step,
@@ -44,7 +47,8 @@ def targets_to_device(batch: dict, device):
 class TrainStep:
     """Callable train step over a model, its loss, optimizer and EMA.
     ``__call__(batch)`` returns the metrics as device tensors (no sync):
-    loss, box_loss, cls_loss, dfl_loss and dcn_offset_max. ``on_phase``, when
+    loss, the components, box_loss (the first component), cls_loss and
+    dfl_loss (the last two) and dcn_offset_max. ``on_phase``, when
     set, is called with each phase's name (``PHASES``) as the phase ends;
     ``engine/profile_train.py`` times the phases through it."""
 
@@ -71,6 +75,8 @@ class TrainStep:
         model.train()
         img = images_to_tensor(batch["img"], dev).to(p.dtype)  # fp64: the tests' reference
         cls, bboxes, mask = targets_to_device(batch, dev)
+        extras = tuple(torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                       for k in getattr(self.loss_fn, "extra_keys", ()))
         ctx = (torch.autocast(dev.type, dtype=self.amp_dtype) if self.amp_dtype is not None
                else contextlib.nullcontext())
         # DDP all-reduces the gradients only on the batch that steps the optimizer
@@ -81,7 +87,7 @@ class TrainStep:
             with ctx:
                 feats = self.wrapped(img)
             self._end("forward")
-            out = self.loss_fn(feats, cls, bboxes, mask)
+            out = self.loss_fn(feats, cls, bboxes, mask, *extras)
             self._end("loss")
             out.total.backward()
         self.grads_pending = local
@@ -91,8 +97,8 @@ class TrainStep:
         self._end("optimizer + EMA")
         off_max = getattr(model.model[model.head_idx], "dcn_offset_max", None)
         c = out.components
-        return {"loss": out.total.detach(), "components": c, "box_loss": c[0], "cls_loss": c[1],
-                "dfl_loss": c[2],
+        return {"loss": out.total.detach(), "components": c, "box_loss": c[0], "cls_loss": c[-2],
+                "dfl_loss": c[-1],
                 "dcn_offset_max": off_max if off_max is not None else torch.zeros((), device=dev)}
 
     @torch.no_grad()

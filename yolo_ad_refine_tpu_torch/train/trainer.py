@@ -1,6 +1,7 @@
 """Detection trainer on one device.
 
-Counterpart of the detect and OBB paths of ``yolo_ad_refine_tpu/train/trainer.py``
+Counterpart of the detect, OBB, segment and pose paths of
+``yolo_ad_refine_tpu/train/trainer.py``
 (reference engine/trainer.py:58-813 BaseTrainer, models/yolo/detect/
 train.py:19-143): default.yaml merged with the overrides, the augmented
 train loader, a train step per batch (bf16 autocast on the card when
@@ -19,6 +20,13 @@ drawn from ``seed + epoch``), ``cache`` (ram / disk) and ``batch=-1``
 (``train/obb.py``) as its train and val loss, as the JAX trainer's OBB
 branch does; its batches hold (B, N, 5) xywhr boxes, which ``plot_images``
 draws by their first four columns, as the JAX package's does.
+``task="segment"`` (a Segment model) trains on polygon labels with
+``SegmentationLoss`` (``train/segment.py``) and its batches' overlap-encoded
+index masks; ``task="pose"`` (a Pose model) on keypoint labels with
+``PoseLoss`` (``train/pose.py``), the data yaml's ``kpt_shape`` and
+``flip_idx`` reaching the train set; the val losses of both are the
+detection loss's (the JAX trainer's ``val_loss_fn = loss_fn.det``), and
+results.csv keeps its (B) columns.
 
 Under a launcher (``torchrun --nproc_per_node=N``, or the JAX package's
 ``YAT_*`` variables) every rank trains its contiguous slice of each global
@@ -46,7 +54,7 @@ import torch
 
 from yolo_ad_refine_tpu_torch.cfg.config import get_cfg
 from yolo_ad_refine_tpu_torch.data.build import DataLoader
-from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+from yolo_ad_refine_tpu_torch.data.dataset import TASKS, YOLODataset, check_det_dataset
 from yolo_ad_refine_tpu_torch.engine.checkpoint import (
     load_checkpoint, load_train_state, save_checkpoint)
 from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
@@ -56,6 +64,8 @@ from yolo_ad_refine_tpu_torch.parallel import wrap_model
 from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
 from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
 from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
+from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
+from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
 from yolo_ad_refine_tpu_torch.train.step import TrainStep
 from yolo_ad_refine_tpu_torch.utils import (
     LOGGER, colorstr, increment_path, not_ported, select_device, yaml_save)
@@ -69,10 +79,11 @@ CSV_KEYS = ("epoch", "time", "train/box_loss", "train/cls_loss", "train/dfl_loss
 
 def multi_scale_batch(batch: dict, imgsz: int, rng: np.random.Generator) -> dict:
     """The JAX package's multi_scale (its train/trainer.py multi_scale_batch,
-    reference detect/train.py:60-75) for detect batches: one size drawn
-    from the multiples of 64 in [0.5, 1.5] imgsz, every image resized to it
-    on the host with cv2's INTER_LINEAR and the boxes' first four columns
-    scaled; a batch already at the drawn size passes unchanged."""
+    reference detect/train.py:60-75): one size drawn from the multiples of
+    64 in [0.5, 1.5] imgsz, every image resized to it on the host with cv2's
+    INTER_LINEAR, the boxes' first four columns and the keypoints' x, y
+    scaled, and the index masks resized to a quarter of it as uint16 with
+    INTER_NEAREST; a batch already at the drawn size passes unchanged."""
     import cv2
 
     lo, hi = (int(imgsz * 0.5) // 64) * 64, (int(imgsz * 1.5) // 64) * 64
@@ -85,6 +96,13 @@ def multi_scale_batch(batch: dict, imgsz: int, rng: np.random.Generator) -> dict
                            for im in batch["img"]])
     out["bboxes"] = batch["bboxes"].copy()
     out["bboxes"][..., :4] *= sz / batch["img"].shape[1]  # column 4 (an OBB angle) keeps
+    if "keypoints" in batch:
+        out["keypoints"] = batch["keypoints"].copy()
+        out["keypoints"][..., :2] *= sz / batch["img"].shape[1]
+    if "masks" in batch:  # instance indices fit uint16 (max_boxes < 65536); cv2 has no int32
+        out["masks"] = np.stack([
+            cv2.resize(m.astype(np.uint16), (sz // 4, sz // 4), interpolation=cv2.INTER_NEAREST)
+            for m in batch["masks"]]).astype(batch["masks"].dtype)
     return out
 
 
@@ -138,7 +156,7 @@ class DetectionTrainer:
                  callbacks: Callbacks | None = None):
         self.args = get_cfg(overrides)
         self.task = self.args.get("task") or "detect"
-        if self.task not in ("detect", "obb"):
+        if self.task not in TASKS:
             not_ported(f"training task {self.task!r}", "ROADMAP Queue 1 item 12, the other tasks")
         if model is not None and model.task != self.task:
             raise ValueError(f"training task {self.task!r} with a {model.task!r} model")
@@ -196,21 +214,32 @@ class DetectionTrainer:
         if self.model.task != self.task:
             raise ValueError(f"training task {self.task!r} with a {self.model.task!r} model "
                              f"({args['model']})")
-        gains = dict(box_gain=float(args["box"]), cls_gain=float(args["cls"]),
-                     dfl_gain=float(args["dfl"]))
-        # the JAX trainer's OBB branch (its train/trainer.py:194-200); OBBLoss
-        # takes the eval output's (feats, angle) whole as the val loss too
-        loss_cls = OBBLoss if self.task == "obb" else DetectionLoss
-        self.loss_fn = loss_cls(nc=data["nc"], strides=self.model.strides, **gains)
+        gains = dict(nc=data["nc"], strides=self.model.strides, box_gain=float(args["box"]),
+                     cls_gain=float(args["cls"]), dfl_gain=float(args["dfl"]))
+        # the JAX trainer's task branches (its train/trainer.py:170-200): OBBLoss
+        # takes the eval output's (feats, angle) whole as the val loss too; the
+        # segment and pose val losses are the detection loss's on the maps
+        if self.task == "segment":
+            self.loss_fn = SegmentationLoss(**gains)
+        elif self.task == "pose":
+            head = self.model.model[self.model.head_idx]
+            self.loss_fn = PoseLoss(**gains, kpt_shape=head.kpt_shape,
+                                    pose_gain=float(args.get("pose", 12.0)),
+                                    kobj_gain=float(args.get("kobj", 1.0)))
+        else:
+            self.loss_fn = (OBBLoss if self.task == "obb" else DetectionLoss)(**gains)
+        self.val_loss_fn = getattr(self.loss_fn, "det", self.loss_fn)
         if self.batch_size == -1:  # the JAX trainer's: one device's pick is the global batch
             self.autobatch = self._autobatch()
             self.batch_size = self.args["batch"] = int(mh.broadcast_scalar(
                 self.autobatch["batch"]))
 
+        pose_kw = ({"kpt_shape": data.get("kpt_shape"), "flip_idx": data.get("flip_idx")}
+                   if self.task == "pose" else {})
         train_ds = YOLODataset(data["train"], imgsz=self.imgsz, augment=True, hyp=hyp,
                                nc=data["nc"], max_boxes=max_boxes, task=self.task,
                                fraction=float(args.get("fraction", 1.0)),
-                               cache_images=args.get("cache", False))
+                               cache_images=args.get("cache", False), **pose_kw)
         self.train_loader = DataLoader(
             train_ds, batch_size=self.batch_size, shuffle=True, seed=int(args.get("seed", 0)),
             drop_last=True, workers=args.get("workers"),
@@ -250,7 +279,7 @@ class DetectionTrainer:
             "save_dir": str(self.save_dir), "task": self.task})
         val_path = data.get(args.get("split", "val")) or data["train"]
         val_ds = YOLODataset(val_path, imgsz=self.imgsz, augment=False, nc=data["nc"],
-                             max_boxes=max_boxes, task=self.task)
+                             max_boxes=max_boxes, task=self.task, **pose_kw)
         self.val_loader = DataLoader(val_ds, batch_size=self.batch_size, shuffle=False)
         self.validator.names = data["names"]
         self.stopper = EarlyStopping(int(args.get("patience", 100)))
@@ -260,12 +289,18 @@ class DetectionTrainer:
     def probe_step(self, b: int) -> None:
         """One real train step of this model at batch ``b`` on seeded data
         (forward, loss, backward, SGD step, EMA), on a copy of the model, so
-        the run's weights do not move: what autobatch measures."""
+        the run's weights do not move: what autobatch measures. A segment
+        or pose model's step charges the detection loss only, as the JAX
+        trainer's probe does (the extra branches' losses are a small
+        constant on top of the peak)."""
         nc, max_boxes = self.model.nc, int(self.args.get("max_boxes", 128))
         model = copy.deepcopy(self.model).train()
         opt, _, _ = build_optimizer(model.named_parameters(), optimizer="SGD", epochs=1, nb=1,
                                     batch=b, nbs=b, warmup_epochs=0.0, nc=nc)
-        TrainStep(model, self.loss_fn, opt, ModelEMA(model), self.amp_dtype)(
+        loss_fn = self.loss_fn
+        if self.task in ("segment", "pose"):
+            loss_fn = lambda preds, *t: self.val_loss_fn(preds[0], *t)  # noqa: E731
+        TrainStep(model, loss_fn, opt, ModelEMA(model), self.amp_dtype)(
             synthetic_batch(b, self.imgsz, max_boxes, nc, obb=self.task == "obb"))
 
     def _autobatch(self) -> dict:
@@ -320,7 +355,7 @@ class DetectionTrainer:
             results, fitness = {}, 0.0
             if self.main and (args.get("val", True) or epoch == final_epoch):
                 results = self.validator(model=self.ema.ema, dataloader=self.val_loader,
-                                         loss_fn=self.loss_fn)
+                                         loss_fn=self.val_loss_fn)
                 fitness = results.get("fitness", 0.0)
             fitness = mh.broadcast_scalar(fitness)  # rank 0 validated (EMA is the same everywhere)
             if fitness >= self.best_fitness:

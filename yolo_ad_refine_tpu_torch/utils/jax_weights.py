@@ -15,8 +15,10 @@ are converted on the way (flax -> torch):
 - EDFFN fft (8, 5, C) -> (C, 1, 1, 8, 5); AdaptiveDynamicTanh alphas
   (ns,) -> (1, ns, 1, 1); AYHead scale{i} -> scale.{i}.scale
 - DyDCNv2 weight (3, 3, C, Cout) -> DyDCNV2.conv.weight (Cout, C, 3, 3)
-- OBB head: the reference's ``cv2`` / ``cv3`` sit under ``detect/``
-  (``detect/cv2_i_j``), the angle branch ``cv4.i.j`` at ``cv4_i_j``
+- OBB, Segment and Pose heads: the reference's ``cv2`` / ``cv3`` sit under
+  ``detect/`` (``detect/cv2_i_j``), the extra branch ``cv4.i.j`` at
+  ``cv4_i_j``; Segment's Proto at ``proto/{cv1,upsample,cv2,cv3}`` (its
+  ``upsample`` a flax ConvTranspose, flipped like any other)
 
 ``load_jax_variables`` takes the flax trees flattened to
 ``{"modules_8/m0/m1/cv1/conv/kernel": array}``; ``jax_to_port`` gives the
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolo_ad_refine_tpu_torch.nn.head import OBB, ModulatedDeformConv
+from yolo_ad_refine_tpu_torch.nn.head import OBB, ModulatedDeformConv, Pose, Segment
 
 STATS = {"running_mean": "mean", "running_var": "var"}
 
@@ -154,8 +156,10 @@ def jax_leaf_map(model: nn.Module) -> list[tuple[str, torch.Tensor, list]]:
     """(port name, tensor, targets) for every tensor a flax leaf fills, in
     module order; targets as ``_targets`` gives them. BatchNorm's
     num_batches_tracked has no flax leaf and is left out."""
-    # the JAX OBB head nests its Detect under "detect" (its nn/head.py OBB)
-    nested = frozenset(_module_path(n)[0] for n, m in model.named_modules() if isinstance(m, OBB))
+    # the JAX OBB, Segment and Pose heads nest their Detect under "detect"
+    # (its nn/head.py:279,307 and OBB)
+    nested = frozenset(_module_path(n)[0] for n, m in model.named_modules()
+                       if isinstance(m, (OBB, Segment, Pose)))
     heads = {f"{n}.out_proj": m.num_heads for n, m in model.named_modules()
              if isinstance(m, nn.MultiheadAttention)}
     out = []

@@ -4,8 +4,9 @@ Counterpart of ``yolo_ad_refine_tpu/utils/metrics.py`` (reference
 ultralytics/utils/metrics.py: compute_ap:1112 with 101-point interpolation,
 ap_per_class:1144, Metric / DetMetrics:1234-1500, ConfusionMatrix:900) and
 the fork's fitness 0.9 * mAP50 + 0.1 * mAP50-95 (metrics.py:1356-1359),
-which picks the best checkpoint; ``box_iou_np`` and ``probiou_np`` from
-``yolo_ad_refine_tpu/utils/metrics_np.py`` for the validator's matching.
+which picks the best checkpoint; ``box_iou_np``, ``probiou_np`` and
+``kpt_iou_np`` (OKS) from ``yolo_ad_refine_tpu/utils/metrics_np.py`` for
+the validator's matching.
 Host-side numpy, as in the reference.
 """
 
@@ -24,6 +25,18 @@ def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndar
     area1 = np.prod(box1[:, 2:4] - box1[:, :2], -1)[:, None]
     area2 = np.prod(box2[:, 2:4] - box2[:, :2], -1)[None, :]
     return inter / (area1 + area2 - inter + eps)
+
+
+def kpt_iou_np(gt_kpts: np.ndarray, pred_kpts: np.ndarray, area: np.ndarray,
+               sigmas: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """OKS of (N, K, 3) GT against (M, K, 2+) predicted keypoints -> (N, M)
+    (reference utils/metrics.py kpt_iou); area (N,) the GT areas. Invariant
+    under a uniform scale, so any such frame of both serves."""
+    d = ((gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2
+         + (gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]) ** 2)  # (N, M, K)
+    mask = (gt_kpts[:, None, :, 2] > 0).astype(np.float64)
+    e = d / (2 * sigmas[None, None]) ** 2 / (area[:, None, None] + eps) / 2
+    return (np.exp(-e) * mask).sum(-1) / (mask.sum(-1) + eps)
 
 
 def _obb_cov_np(rb: np.ndarray):
