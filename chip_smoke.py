@@ -77,6 +77,22 @@ to 0 just before it and read just after, each DCN variant under its own
   of ``.train`` on 64 / 16 images at batch 16, bf16 (4 steps), ``best``
   reloaded as the task's model, and one fp32 step of SegmentationLoss /
   PoseLoss against the CPU; K4 once a batch on each path;
+- classification (``phase_classify``): yolo11n-cls (nc 1000) at 224, the
+  forward + softmax of 64 images in fp32 against the CPU (probabilities
+  1e-4, the same top-5), ``ClassificationTrainer`` for 1 epoch on a seeded
+  class-folder set (4 colours x 32 images, 4 steps at batch 32) through
+  ``YOLO.train``, and ``validate``'s top1 / top5 card vs CPU; no kernel;
+- YOLOv10 (``phase_v10``): yolov10n at 640 through the task helpers
+  above, NMS-free: serving (its selected rows, cut at conf), validation
+  and 1 epoch of training with E2EDetectLoss, one fp32 step against the
+  CPU; no K4 launch on any of them;
+- YOLO-World (``phase_world``): yolov8s-worldv2 at 640 with
+  ``set_classes(["person", "car", "dog"])``: serving 64 images at batch 32
+  and validating 16, K4 once a batch on each (``world_serving_run``,
+  ``world_val_run``) and held against its plain version on a serving and
+  a validation batch's candidates over the 3-name vocabulary (the kernels
+  line's K4 ``world_batches``); its training raises, as the JAX train
+  step does;
 - export and serving (``phase_export``): the flagship exported at batch
   32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
   fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
@@ -809,17 +825,11 @@ def phase_k4(dev, gen):
             f"{int((sc > conf).sum())} valid)")
     t = time_case(Impl(), "K4", boxes, scores, 0.001)
     plain_ms = cuda_time(lambda: suppress_plain(boxes, scores, NMS_IOU, 0.001), iters=3, warmup=1)
-    keep = t["keep"]
     b, k = scores.shape
-    # work this data needs: each kept candidate's IoU against every later one
-    idx = torch.arange(k, device=dev)
-    pairs = int(((k - 1 - idx)[None, :] * keep).sum())
-    flops = pairs * 15 + b * k * 3
-    nbytes = b * k * (16 + 4 + 1)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    bound = k4_bound(t["keep"])
     log(f"K4 B={b} K={k}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: mask "
         f"{t['mask_ms']:.4f}, walk {t['walk_ms']:.4f}), plain {plain_ms:.3f} ms, "
-        f"bound {max(t_bytes, t_ops):.5f} ms ({pairs} IoU pairs)")
+        f"bound {bound['bound_ms']:.5f} ms ({bound['pairs']} IoU pairs)")
     batch = {}
     for c, v in real.items():
         r = time_case(Impl(), "K4", *v, c)
@@ -830,8 +840,22 @@ def phase_k4(dev, gen):
             f"{r['walk_ms']:.4f}), {r['kept']} kept of {r['valid']} valid")
     return {"max_abs_err": float(differ), "ms": t["ms"], "device_ms": t["device_ms"],
             "parts": {"mask_ms": t["mask_ms"], "walk_ms": t["walk_ms"]}, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "predict_batch": batch}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "predict_batch": batch}
+
+
+def k4_bound(keep) -> dict:
+    """K4's least time for a keep mask (B, K): the work this data needs,
+    each kept candidate's IoU against every later one (15 operations a
+    pair, 3 a candidate), against the bytes (boxes, scores, keep) once."""
+    import torch
+
+    b, k = keep.shape
+    idx = torch.arange(k, device=keep.device)
+    pairs = int(((k - 1 - idx)[None, :] * keep).sum())
+    t_bytes = b * k * (16 + 4 + 1) / H100_BYTES_PER_S * 1e3
+    t_ops = (pairs * 15 + b * k * 3) / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "pairs": pairs,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def obb_model(dev):
@@ -1140,44 +1164,92 @@ def phase_obb_training(dev) -> dict:
     return {"obb_training_run": run, "obb_training_ms_per_step": ms}
 
 
-TASK_CFGS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml"}  # n, full width
+# the task helpers' models, full width: scale n, YOLO-World at s (its published size)
+TASK_CFGS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml", "v10": "yolov10n.yaml",
+             "world": "yolov8s-worldv2.yaml"}
 TASK_IMGSZ = 640
+WORLD_NAMES = ["person", "car", "dog"]  # the vocabulary set_classes gives the World model
+
+
+def model_task(task: str) -> str:
+    """The YOLO task of a task helper's model: YOLOv10 and YOLO-World detect."""
+    return task if task in ("segment", "pose") else "detect"
+
+
+def k4_per_run(task: str) -> int:
+    """K4's launches on 64 served images at batch 32, or 16 validated at
+    batch 8: once a batch, and none for YOLOv10, which selects without NMS."""
+    return 0 if task == "v10" else 2
+
+
+def logit(p: float) -> float:
+    return -math.log((1 - p) / p)
+
+
+def task_dataset(task: str):
+    """The seeded set writer of a task helper, called as (root, n_val=,
+    n_train=, imgsz=, seed=): polygons, 17-keypoint figures, or the shapes
+    set (YOLOv10, YOLO-World)."""
+    from yolo_ad_refine_tpu_torch.data import synthetic
+
+    if task in ("segment", "pose"):
+        return {"segment": synthetic.make_segment_dataset,
+                "pose": synthetic.make_pose_dataset}[task]
+    return lambda root, n_train=0, **kw: synthetic.make_shapes_dataset(
+        root, n_train=max(n_train, 1), **kw)
 MASK_FLIP_TOL = 2e-3  # share of mask pixels card vs CPU may flip (tests/test_torch_segment.py)
 
 
 def task_model(task: str, dev):
-    """yolo11n-seg (nc 80) or yolo11n-pose (nc 1, 17 keypoints) at 640 with
-    seeded weights. Seeded Detect heads score every anchor of a level alike
-    (about 1e-5); class 0's bias at the P5 level takes the prior 0.3 and
-    every other class bias 0.01, so that at conf 0.25 the NMS keeps tens of
-    detections an image out of the 400 P5 candidates, as in a served batch,
-    and a multi-label validation ranks those same rows first."""
+    """yolo11n-seg (nc 80), yolo11n-pose (nc 1, 17 keypoints), yolov10n (nc
+    80) or yolov8s-worldv2 (the 80-name placeholder vocabulary, then
+    ``set_classes(WORLD_NAMES)``) at 640 with seeded weights. Seeded Detect
+    heads score every anchor of a level alike (about 1e-5); class 0's bias
+    at the P5 level takes the prior 0.3 and every other class bias 0.01
+    (v10: in both branches, the one-to-one's selecting), so that at conf
+    0.25 the NMS keeps tens of detections an image out of the 400 P5
+    candidates, as in a served batch, and a multi-label validation ranks
+    those same rows first. WorldDetect has one bias a level for every
+    class: 0.3 at P5, 0.01 elsewhere."""
     import torch
 
     from yolo_ad_refine_tpu_torch import YOLO
 
     t0 = time.perf_counter()
-    model = YOLO(TASK_CFGS[task], task=task, device=dev, imgsz=TASK_IMGSZ, seed=0)
+    model = YOLO(TASK_CFGS[task], task=model_task(task), device=dev, imgsz=TASK_IMGSZ, seed=0)
+    head = model.model.model[model.model.head_idx]
     with torch.no_grad():
-        for seq in model.model.model[model.model.head_idx].cv3:
-            seq[-1].bias.fill_(-math.log((1 - 0.01) / 0.01))
-        model.model.model[model.model.head_idx].cv3[2][-1].bias[0] = -math.log((1 - 0.3) / 0.3)
+        if task == "world":
+            for i, contrast in enumerate(head.cv4):
+                contrast.bias.fill_(logit(0.3 if i == 2 else 0.01))
+        else:
+            for cv3 in (head.cv3, *((head.cv3_one2one,) if task == "v10" else ())):
+                for seq in cv3:
+                    seq[-1].bias.fill_(logit(0.01))
+                cv3[2][-1].bias[0] = logit(0.3)
+    if task == "world":
+        model.set_classes(WORLD_NAMES)
     log(f"{task}: {TASK_CFGS[task]} built on {dev} in {time.perf_counter() - t0:.1f} s, "
-        f"{model.model.num_params():,} parameters, strides {model.model.strides}")
+        f"{model.model.num_params():,} parameters, strides {model.model.strides}, "
+        f"{model.model.n_scores} score columns")
     return model
 
 
 def task_serving(task: str, model, dev) -> dict:
     """The task's predict path on the card: 64 images of the serving shapes
-    at batch 32, 640, fp32, conf 0.25, three timed runs, K4 once a batch;
-    the masks' share of a batch (``engine/predictor.py segment_masks`` on
-    one batch's NMS output, timed alone with a synchronise); then 2 images
-    card vs CPU: the decoded boxes, scores and keypoints, and the masks of
-    32 fixed anchors from each side's prototypes and coefficients."""
+    at batch 32, 640, fp32, conf 0.25, three timed runs, K4 once a batch
+    (YOLOv10: never, its rows are selected without NMS); the masks' share
+    of a batch (``engine/predictor.py segment_masks`` on one batch's NMS
+    output, timed alone with a synchronise); then 2 images card vs CPU: the
+    decoded boxes, scores (YOLO-World: a column per name of its vocabulary)
+    and keypoints (v10: the one-to-one decode, anchor by anchor, before the
+    selection), and the masks of 32 fixed anchors from each side's
+    prototypes and coefficients."""
     import numpy as np
     import torch
 
     from yolo_ad_refine_tpu_torch.engine.predictor import preprocess, segment_masks
+    from yolo_ad_refine_tpu_torch.nn.head import decode_detections
     from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
     from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
 
@@ -1196,10 +1268,10 @@ def task_serving(task: str, model, dev) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = {k: f.launches for k, f in counters.items()}
-        if launches["nms_suppress"] != 2 or any(v for k, v in launches.items()
-                                               if k != "nms_suppress"):
-            raise AssertionError(f"{task} serving did not launch K4 once a batch and nothing "
-                                 f"else: {launches}")
+        if launches["nms_suppress"] != k4_per_run(task) or any(
+                v for k, v in launches.items() if k != "nms_suppress"):
+            raise AssertionError(f"{task} serving did not launch K4 {k4_per_run(task)} times "
+                                 f"(once a batch, v10 never) and nothing else: {launches}")
     dt = sorted(seconds)[1]
     kept = [len(r) for r in results]
     log(f"{task} serving: 64 images, batch 32, imgsz {TASK_IMGSZ}, fp32, conf 0.25: "
@@ -1210,9 +1282,11 @@ def task_serving(task: str, model, dev) -> dict:
     if not all(0 < k <= 300 for k in kept):
         raise AssertionError(f"{task} serving: an image kept no detection or too many: {kept}")
     for r in results:
-        extra = r.masks if task == "segment" else r.keypoints
+        extra = {"segment": r.masks, "pose": r.keypoints}.get(task, r.boxes)
         if extra is None or len(extra) != len(r) or not np.isfinite(r.boxes.data).all():
             raise AssertionError(f"{task} serving: bad results for an image of {r.orig_shape}")
+        if task == "world" and not set(r.boxes.cls.tolist()) <= set(range(len(WORLD_NAMES))):
+            raise AssertionError(f"world serving: classes outside the vocabulary {r.boxes.cls}")
         if task == "segment" and r.masks.data.shape != (len(r), *r.orig_shape):
             raise AssertionError(f"segment serving: masks {r.masks.data.shape}")
         if task == "pose" and not (r.keypoints.data.shape == (len(r), 17, 3)
@@ -1247,18 +1321,22 @@ def task_serving(task: str, model, dev) -> dict:
             f"{cover * 100:.2f} %")
 
     x, metas = preprocess(imgs[:2], TASK_IMGSZ, 2, torch.device(dev), torch.float32)
+    strides = model.model.strides
     with torch.inference_mode():
         y_gpu, f_gpu = model.model(x)
         cpu = copy.deepcopy(model.model).cpu()
         y_cpu, f_cpu = cpu(x.cpu())
+        if task == "v10":  # the decode the selection reads, anchor by anchor
+            y_gpu, y_cpu = (decode_detections(f["one2one"], strides, model.model.nc)
+                            for f in (f_gpu, f_cpu))
     y_gpu = y_gpu.float().cpu()
-    nc = model.model.nc
+    nc = model.model.n_scores
     errs = {"box": (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item(),
             "score": (y_gpu[..., 4:4 + nc] - y_cpu[..., 4:4 + nc]).abs().max().item()}
     if task == "pose":
         k = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).reshape(2, -1, 17, 3).abs()
         errs["keypoint"], errs["visibility"] = k[..., :2].max().item(), k[..., 2].max().item()
-    else:
+    elif task == "segment":
         errs["coefficient"] = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).abs().max().item()
         anchors = torch.arange(0, y_cpu.shape[1], y_cpu.shape[1] // 32)[:32]
         flips = []
@@ -1279,8 +1357,8 @@ def task_serving(task: str, model, dev) -> dict:
         f"mask pixels flipped (32 anchors an image) {v:.3e}" for k, v in errs.items())
         + f" (tol boxes and keypoints 5e-2 px, scores, coefficients and visibility 1e-3, "
         f"mask pixels flipped {MASK_FLIP_TOL})")
-    n_anchors = sum((TASK_IMGSZ // s) ** 2 for s in model.model.strides)
-    width = 4 + nc + (32 if task == "segment" else 51)
+    n_anchors = sum((TASK_IMGSZ // s) ** 2 for s in strides)
+    width = 4 + nc + {"segment": 32, "pose": 51}.get(task, 0)
     if not (y_gpu.shape == (2, n_anchors, width) and torch.isfinite(y_gpu).all()):
         raise AssertionError(f"bad decoded {task} predictions {tuple(y_gpu.shape)}")
     lim = {"box": 5e-2, "score": 1e-3, "keypoint": 5e-2, "visibility": 1e-3,
@@ -1292,10 +1370,11 @@ def task_serving(task: str, model, dev) -> dict:
 
 def task_val(task: str, model, dev) -> dict:
     """``.val`` of the task's model on a seeded set of 16 images of 640² at
-    batch 8 (polygons, or 17-keypoint figures), each image labelled with
-    the model's own detections at conf 0.25: K4 once a batch, finite
-    metrics, and the (B) and (M) / (P) metrics within 1e-3 of the same
-    validation on the CPU. The seeded head scores its ~70 kept rows alike,
+    batch 8 (polygons, 17-keypoint figures, or for YOLOv10 and YOLO-World
+    the shapes set), each image labelled with the model's own detections
+    at conf 0.25 (the first 20 for those two): K4 once a batch (v10:
+    never), finite metrics, and the (B) and (M) / (P) metrics within 1e-3
+    of the same validation on the CPU. The seeded head scores its ~70 kept rows alike,
     so the AP is about the share of them labelled: pose labels them all
     (boxes and keypoints); segment, whose ~70 masks overlap in one index
     mask (0.035 mAP50(M) so labelled, measured on one H100), labels the first 3
@@ -1304,19 +1383,19 @@ def task_val(task: str, model, dev) -> dict:
     import numpy as np
     import torch
 
-    from yolo_ad_refine_tpu_torch.data.synthetic import make_pose_dataset, make_segment_dataset
-
-    tag = "M" if task == "segment" else "P"
+    tag = {"segment": "M", "pose": "P"}.get(task, "B")
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{task}_val_") as tmp:
         root = Path(tmp) / task
-        make = make_segment_dataset if task == "segment" else make_pose_dataset
-        data = make(root, n_val=16, imgsz=TASK_IMGSZ, seed=0)
+        data = task_dataset(task)(root, n_val=16, imgsz=TASK_IMGSZ, seed=0)
         files = sorted((root / "val" / "images").glob("*.jpg"))
         for f, r in zip(files, model.predict([cv2.imread(str(f)) for f in files], conf=0.25,
                                              batch=16)):
             if task == "segment":
                 rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in (p / TASK_IMGSZ).reshape(-1))
                         for c, p in zip(r.boxes.cls[:3], r.masks.xy[:3]) if len(p) >= 3]
+            elif task != "pose":
+                rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in b.clip(0, 1))
+                        for b, c in zip(r.boxes.xywhn[:20], r.boxes.cls[:20])]
             else:
                 rows = ["0 " + " ".join(f"{v:.6f}" for v in (*b.clip(0, 1), *np.concatenate(
                     [k.clip(0, 1), np.full((17, 1), 2.0)], -1).reshape(-1)))
@@ -1337,8 +1416,9 @@ def task_val(task: str, model, dev) -> dict:
         t1 = time.perf_counter()
         want = cpu.val(**args)
         cpu_s = time.perf_counter() - t1
-    keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
-            "metrics/mAP50-95(B)", f"metrics/mAP50({tag})", f"metrics/mAP50-95({tag})", "fitness")
+    keys = tuple(dict.fromkeys((
+        "metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)",
+        f"metrics/mAP50({tag})", f"metrics/mAP50-95({tag})", "fitness")))
     log(f"{task} val: 16 images at batch 8 in {wall:.2f} s, {wall / 16 * 1e3:.1f} ms an image "
         f"(host clock, loader to metrics; the validator's own {metrics['speed_ms_per_image']:.1f} "
         f"ms, of it inference + NMS{' + mask IoU' if task == 'segment' else ''} "
@@ -1346,8 +1426,9 @@ def task_val(task: str, model, dev) -> dict:
     log(f"{task} val: card " + ", ".join(f"{k} {metrics[k]:.6f}" for k in keys))
     log(f"{task} val: CPU ({cpu_s:.1f} s) " + ", ".join(f"{k} {want[k]:.6f}" for k in keys)
         + " (tol 1e-3)")
-    if launches["nms_suppress"] != 2:
-        raise AssertionError(f"K4 was not launched once a batch in the {task} validation")
+    if launches["nms_suppress"] != k4_per_run(task):
+        raise AssertionError(f"K4 was not launched {k4_per_run(task)} times (once a batch, v10 "
+                             f"never) in the {task} validation: {launches}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite {task} val metrics {metrics}")
     if metrics[f"metrics/mAP50({tag})"] <= 0.05 or any(abs(metrics[k] - want[k]) > 1e-3
@@ -1358,20 +1439,20 @@ def task_val(task: str, model, dev) -> dict:
 
 
 def task_training(task: str, dev) -> dict:
-    """``YOLO(yolo11n-seg | yolo11n-pose).train()`` on the card: a seeded set
-    of 64 train and 16 val images of 640², 1 epoch at batch 16 in bf16 (4
-    steps), the EMA validation and that of ``best`` through K4, and a reload
-    of ``best`` as the task's model. Then one fp32 step of the task's loss
-    (deterministic algorithms) against the CPU at ``phase_step_card_vs_cpu``'s
-    limits."""
+    """``YOLO(yolo11n-seg | yolo11n-pose | yolov10n).train()`` on the card: a
+    seeded set of 64 train and 16 val images of 640², 1 epoch at batch 16
+    in bf16 (4 steps), the EMA validation and that of ``best`` through K4
+    (v10: no K4, and E2EDetectLoss), and a reload of ``best`` as the task's
+    model. Then one fp32 step of the task's loss (deterministic algorithms)
+    against the CPU at ``phase_step_card_vs_cpu``'s limits."""
     import numpy as np
     import torch
 
     from yolo_ad_refine_tpu_torch import YOLO
     from yolo_ad_refine_tpu_torch.data.build import collate
     from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
-    from yolo_ad_refine_tpu_torch.data.synthetic import make_pose_dataset, make_segment_dataset
     from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train.loss import E2EDetectLoss
     from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
     from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
 
@@ -1380,13 +1461,13 @@ def task_training(task: str, dev) -> dict:
     def counts():
         return {k: f.launches for k, f in counters.items()}
 
-    make = make_segment_dataset if task == "segment" else make_pose_dataset
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{task}_train_") as tmp:
         t0 = time.perf_counter()
-        data = make(Path(tmp) / task, n_val=16, n_train=64, imgsz=TASK_IMGSZ, seed=5)
+        data = task_dataset(task)(Path(tmp) / task, n_val=16, n_train=64, imgsz=TASK_IMGSZ,
+                                  seed=5)
         log(f"{task} training: seeded set (64 train, 16 val images of {TASK_IMGSZ}²) written "
             f"in {time.perf_counter() - t0:.1f} s")
-        model = YOLO(TASK_CFGS[task], task=task, device=dev, imgsz=TASK_IMGSZ, seed=0)
+        model = YOLO(TASK_CFGS[task], task=model_task(task), device=dev, imgsz=TASK_IMGSZ, seed=0)
         steps, mark = [], {}
 
         def on_batch_start(tr):
@@ -1420,15 +1501,17 @@ def task_training(task: str, dev) -> dict:
             f"{run}, in the validations after the steps {val}")
         if len(steps) != 4 or trainer.amp_dtype is None:
             raise AssertionError(f"expected 4 bf16 {task} steps, got {len(steps)}")
-        if any(st[k] for st in steps for k in run) or val["nms_suppress"] != 2 or \
+        if any(st[k] for st in steps for k in run) or \
+                val["nms_suppress"] != (0 if task == "v10" else 2) or \
                 any(val[k] for k in run if k != "nms_suppress"):
             raise AssertionError(f"the {task} run did not launch K4 once in each of its two "
-                                 f"validations and nothing else: steps {steps}, validations {val}")
+                                 f"validations (v10: never) and nothing else: steps {steps}, "
+                                 f"validations {val}")
         csv = (Path(results["save_dir"]) / "results.csv").read_text().splitlines()
         row = dict(zip(csv[0].split(","), csv[1].split(",")))
         losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss",
                                           "val/box_loss", "val/cls_loss", "val/dfl_loss")]
-        tag = "M" if task == "segment" else "P"
+        tag = {"segment": "M", "pose": "P"}.get(task, "B")
         log(f"{task} training: results.csv train box / cls / dfl {losses[:3]}, val {losses[3:]}; "
             f"mAP50(B) {results.get('metrics/mAP50(B)', 0.0):.4f}, mAP50({tag}) "
             f"{results.get(f'metrics/mAP50({tag})', float('nan')):.4f}")
@@ -1437,19 +1520,20 @@ def task_training(task: str, dev) -> dict:
             raise AssertionError(f"{task} losses or metrics not finite: {losses}, {results}")
         best = Path(results["save_dir"]) / "weights" / "best"
         reloaded = YOLO(str(best), device=dev)
-        if reloaded.task != task:
-            raise AssertionError(f"best reloaded as {reloaded.task}, not {task}")
+        if reloaded.task != model_task(task):
+            raise AssertionError(f"best reloaded as {reloaded.task}, not {model_task(task)}")
         # one collated batch of 2 at 256 for the fp32 step against the CPU
         info = check_det_dataset(data)
         kw = ({"kpt_shape": data["kpt_shape"], "flip_idx": data["flip_idx"]}
               if task == "pose" else {})
         ds = YOLODataset(info["val"], imgsz=256, augment=False, nc=len(info["names"]),
-                         max_boxes=16, task=task, **kw)
+                         max_boxes=16, task=model_task(task), **kw)
         batch = collate([ds.get_sample(i) for i in range(2)], 16)
     nc = len(info["names"])
     base = build_detection_model(TASK_CFGS[task], nc=nc, device="cpu", seed=3, imgsz=256)
-    make_loss = ((lambda: SegmentationLoss(nc=nc, strides=(8, 16, 32))) if task == "segment"
-                 else (lambda: PoseLoss(nc=nc, strides=(8, 16, 32))))
+    make_loss = {"segment": lambda: SegmentationLoss(nc=nc, strides=(8, 16, 32)),
+                 "pose": lambda: PoseLoss(nc=nc, strides=(8, 16, 32)),
+                 "v10": lambda: E2EDetectLoss(nc=nc, strides=(8, 16, 32))}[task]
     hold_step_card_vs_cpu(f"{task} card vs CPU step", dev, base,
                           {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}, make_loss)
     return {"run": run, "ms_per_step": ms}
@@ -1478,6 +1562,160 @@ def phase_segment(dev) -> dict:
 def phase_pose(dev) -> dict:
     """yolo11n-pose served, validated and trained on the card (``phase_task``)."""
     return phase_task("pose", dev)
+
+
+def phase_v10(dev) -> dict:
+    """yolov10n (NMS-free) served, validated and trained on the card
+    (``phase_task``), none of it launching K4."""
+    return phase_task("v10", dev)
+
+
+def k4_on_world(model, dev) -> dict:
+    """K4 held against its plain version on one World serving batch's
+    candidates (32 images, single-label at conf 0.25, as the predictor
+    selects them) and one validation batch's (8 images, multi-label at conf
+    0.001 over the 3 names, as the validator does): equal keep masks, and
+    the kernel's and the plain version's times on each."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import Impl, predict_candidates, time_case
+    from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_plain
+
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, (*SERVING_SHAPES[i % len(SERVING_SHAPES)], 3), dtype=np.uint8)
+            for i in range(32)]
+    cases = {"serving conf 0.25": (*predict_candidates(model, imgs, TASK_IMGSZ, (0.25,))[0.25],
+                                   0.25),
+             "val conf 0.001": (*predict_candidates(model, imgs[:8], TASK_IMGSZ, (0.001,),
+                                                    multi_label=True)[0.001], 0.001)}
+    out = {}
+    for label, (bx, sc, conf) in cases.items():
+        got, want = suppress(bx, sc, NMS_IOU, conf), suppress_plain(bx, sc, NMS_IOU, conf)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 keep mask differs from plain on the World {label} batch: "
+                                 f"{int((got != want).sum())} entries")
+        r = time_case(Impl(), "K4", bx, sc, conf)
+        plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, conf), iters=3, warmup=1)
+        b, k = sc.shape
+        bound = k4_bound(got)
+        out[label] = {"B": b, "K": k, "ms": r["ms"], "device_ms": r["device_ms"],
+                      "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                      "bound_by": bound["bound_by"], "kept": r["kept"], "valid": r["valid"]}
+        log(f"K4 on the World {label} batch's candidates (B={b}, K={k}): keep mask equal to "
+            f"plain; kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+            f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.5f} ms ({bound['pairs']} IoU "
+            f"pairs), {r['kept']} kept of {r['valid']} valid")
+    return out
+
+
+def phase_world(dev) -> dict:
+    """yolov8s-worldv2 at 640 with ``set_classes(WORLD_NAMES)``: served
+    (``task_serving``: 64 images at batch 32, fp32, K4 once a batch, card vs
+    CPU), K4 held against its plain version on a serving and a validation
+    batch's candidates (``k4_on_world``), validated (``task_val``: 16
+    images at batch 8, K4 once a batch, card vs CPU at 1e-3), and its
+    training held to raise, as the JAX train step does (it passes the graph
+    no text embeddings)."""
+    model = task_model("world", dev)
+    serving = task_serving("world", model, dev)
+    k4 = k4_on_world(model, dev)
+    val = task_val("world", model, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_train_") as tmp:
+        data = task_dataset("world")(Path(tmp) / "ds", n_val=2, n_train=2, imgsz=TASK_IMGSZ)
+        try:
+            model.train(data=data, epochs=1, batch=2, imgsz=TASK_IMGSZ, plots=False,
+                        project=str(Path(tmp) / "runs"))
+        except ValueError as e:
+            if "C2fAttn needs text embeddings" not in str(e):
+                raise
+            log(f"world training raises, as the JAX train step does: {e}")
+        else:
+            raise AssertionError("YOLO-World training ran; the JAX train step raises on it")
+    return {"paths": {"world_serving_run": serving["run"], "world_val_run": val["run"]},
+            "serving": serving, "val_ms_per_image": val["ms_per_image"], "k4": k4}
+
+
+CLS_CFG, CLS_IMGSZ = "yolo11n-cls.yaml", 224  # nc 1000 for the forward
+
+
+def phase_classify(dev) -> dict:
+    """yolo11n-cls on the card: the forward (softmax) of 64 images at 224
+    in fp32, timed, against the CPU's (probabilities within 1e-4, the same
+    top-5 but where the card's 5th and 6th lie within the measured
+    difference: a rounding tie); ``ClassificationTrainer`` for 1 epoch on a
+    seeded class-folder set (4 colours, 32 images each, at 224; batch 32: 4
+    steps, ms a step); ``validate``'s top1 / top5 of the trained model on
+    the card equal to the same model's on the CPU. No kernel runs on this
+    path: the JAX package has no Pallas kernel on it either."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_classify_dataset
+    from yolo_ad_refine_tpu_torch.train.classify import ClassificationDataset, validate
+    from yolo_ad_refine_tpu_torch.train.step import images_to_tensor
+
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    model = YOLO(CLS_CFG, device=dev, imgsz=CLS_IMGSZ, seed=0)
+    rng = np.random.default_rng(0)
+    x = images_to_tensor(rng.integers(0, 256, (64, CLS_IMGSZ, CLS_IMGSZ, 3), dtype=np.uint8), dev)
+    net = model.model.eval()
+    with torch.inference_mode():
+        ms = cuda_time(lambda: net(x), iters=10)
+        probs = net(x).float().cpu()
+        want = copy.deepcopy(net).cpu()(x.cpu())
+    err = (probs - want).abs().max().item()
+    top, ref = probs.argsort(-1, descending=True), want.argsort(-1, descending=True)
+    ties = 0
+    for i in range(64):
+        if not torch.equal(top[i, :5], ref[i, :5]):
+            gap = (probs[i, top[i, 4]] - probs[i, top[i, 5]]).item()
+            if set(top[i, :5].tolist()) != set(ref[i, :5].tolist()) and gap > 2 * err:
+                raise AssertionError(f"classify top-5 differs card vs CPU at image {i}")
+            ties += 1
+    log(f"classify: {CLS_CFG} ({model.model.num_params():,} parameters, nc 1000) forward + "
+        f"softmax of 64 images at {CLS_IMGSZ}, fp32: {ms:.2f} ms a batch (CUDA events, mean of "
+        f"10), {64 / ms * 1e3:.0f} images/s; card vs CPU max |prob diff| {err:.2e} (tol 1e-4), "
+        f"top-5 equal on {64 - ties} of 64 (rounding ties {ties})")
+    if probs.shape != (64, 1000) or err > 1e-4 or not torch.isfinite(probs).all():
+        raise AssertionError(f"classify forward: shape {tuple(probs.shape)}, max diff {err:.2e}")
+    steps, mark = [], {}
+
+    def on_batch_start(tr):
+        torch.cuda.synchronize()
+        mark["t"] = time.perf_counter()
+
+    def on_batch_end(tr):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - mark["t"]) * 1e3)
+
+    model.add_callback("on_train_batch_start", on_batch_start)
+    model.add_callback("on_train_batch_end", on_batch_end)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_classify_") as tmp:
+        data = make_classify_dataset(Path(tmp) / "cls", n_train=32, n_val=16, imgsz=CLS_IMGSZ)
+        t0 = time.perf_counter()
+        r = model.train(data=str(data), epochs=1, batch=32, imgsz=CLS_IMGSZ,
+                        project=str(Path(tmp) / "runs"))
+        wall = time.perf_counter() - t0
+        step_ms = statistics.median(steps[1:])
+        val_ds = ClassificationDataset(data / "val", CLS_IMGSZ)
+        got = validate(model.model, val_ds, 16)
+        ref = validate(copy.deepcopy(model.model).cpu(), val_ds, 16)
+        reloaded = YOLO(str(Path(r["save_dir"]) / "weights" / "best"), device=dev)
+    log(f"classify training: ClassificationTrainer, 1 epoch of 128 images at batch 32 "
+        f"({len(steps)} steps, fp32) in {wall:.1f} s with its validation; steps "
+        + ", ".join(f"{v:.1f}" for v in steps) + f" ms; {step_ms:.1f} ms a step (median of steps "
+        f"2-4, host clock with a synchronise), {32 / step_ms * 1e3:.0f} images/s; top1 "
+        f"{r['top1']:.3f}; validate on the card {got}, on the CPU {ref}")
+    launches = {k: f.launches for k, f in counters.items()}
+    if len(steps) != 4 or got != ref or reloaded.task != "classify" or any(launches.values()):
+        raise AssertionError(f"classify training: {len(steps)} steps, card {got} vs CPU {ref}, "
+                             f"reloaded as {reloaded.task}, launches {launches}")
+    return {"paths": {"classify_run": launches}, "forward_ms_per_batch": ms,
+            "ms_per_step": step_ms}
 
 
 SERVE_BOX_TOL, SERVE_SCORE_TOL = 5e-2, 1e-3  # the serving limits, card vs CPU, fp32
@@ -2904,6 +3142,10 @@ def main() -> int:
         paths["obb_training_run"] = obb_training["obb_training_run"]
         paths.update(timed(phase_segment, dev)["paths"])
         paths.update(timed(phase_pose, dev)["paths"])
+        paths.update(timed(phase_classify, dev)["paths"])
+        paths.update(timed(phase_v10, dev)["paths"])
+        world = timed(phase_world, dev)
+        paths.update(world["paths"])
         paths.update(phase_export(dev)["paths"])
         timed(phase_cli)
         paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
@@ -2948,7 +3190,8 @@ def main() -> int:
                             for k, t in k1_wide.items()}),
         *bounded_entries,
         entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run",
-              device_ms=k4["device_ms"], parts=k4["parts"], predict_batch=k4["predict_batch"]),
+              device_ms=k4["device_ms"], parts=k4["parts"], predict_batch=k4["predict_batch"],
+              world_batches=world["k4"]),
         entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",
               device_ms=k5["device_ms"], parts=k5["parts"], predict_batch=k5["predict_batch"],
               rounding_ties=k5["rounding_ties"]),

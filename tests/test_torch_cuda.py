@@ -966,3 +966,51 @@ def test_loaded_program_launches_k1_and_matches_the_eager_model(dev, fmt, tmp_pa
         want = ExportedForward(model.model, torch.float32)(img.float())
     assert (y[..., :4] - want[..., :4]).abs().max().item() <= 5e-2
     assert (y[..., 4:] - want[..., 4:]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("conf,multi_label", [(0.25, False), (0.001, True)])
+def test_nms_kernel_on_world_vocabulary_candidates(dev, conf, multi_label):
+    """K4 on yolov8s-worldv2's candidates after set_classes with 3 names,
+    selected over the vocabulary's columns as the predictor (single-label)
+    and the validator (multi-label) select them: the keep mask equals the
+    plain version's, and predict launches K4 once a batch."""
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import predict_candidates
+
+    model = YOLO("yolov8s-worldv2.yaml", device=dev, imgsz=320, seed=0)
+    model.set_classes(["person", "car", "dog"])
+    with torch.no_grad():
+        for contrast in model.model.model[model.model.head_idx].cv4:
+            contrast.bias.fill_(-1.0)
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (320, 320, 3), dtype=np.uint8) for _ in range(4)]
+    boxes, scores = predict_candidates(model, imgs, 320, (conf,), multi_label=multi_label)[conf]
+    assert int((scores > conf).sum()) > 0
+    assert torch.equal(suppress(boxes, scores, 0.7, conf), suppress_plain(boxes, scores, 0.7, conf))
+    suppress.launches = 0
+    results = model.predict(imgs, conf=conf, batch=4)
+    assert suppress.launches == 1
+    assert all(set(r.boxes.cls.tolist()) <= {0.0, 1.0, 2.0} for r in results)
+
+
+def test_v10_and_classify_run_without_k4_and_match_the_cpu(dev):
+    """yolov10n's NMS-free serving launches no K4; its one-to-one maps (what
+    its selection reads) and yolo11n-cls's softmax agree with the same
+    models on the CPU, to 1e-4 of their largest value."""
+    import copy
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    x = torch.rand(2, 3, 320, 320, generator=torch.Generator().manual_seed(0))
+    for cfg in ("yolov10n.yaml", "yolo11n-cls.yaml"):
+        net = YOLO(cfg, device=dev, imgsz=320, seed=0).model.eval()
+        with torch.no_grad():
+            pairs = [(net(x.to(dev)), copy.deepcopy(net).cpu()(x))]
+        if cfg.startswith("yolov10"):
+            pairs = list(zip(pairs[0][0][1]["one2one"], pairs[0][1][1]["one2one"]))
+        for got, want in pairs:
+            assert (got.float().cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    suppress.launches = 0
+    YOLO("yolov10n.yaml", device=dev, imgsz=320).predict(
+        [np.zeros((320, 320, 3), np.uint8)] * 2, conf=0.001, batch=2)
+    assert suppress.launches == 0

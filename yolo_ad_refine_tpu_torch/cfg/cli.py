@@ -12,6 +12,8 @@ Usage:
     yat-torch detect predict model=runs/train/weights/best source=imgs/
     yat-torch detect tune data=coco128.yaml iterations=10
     yat-torch detect benchmark model=runs/train/weights/best imgsz=640 batch=32
+    yat-torch classify train model=yolo11n-cls.yaml data=<class-folder dir> imgsz=224
+    yat-torch classify val model=runs/cls/weights/best data=<class-folder dir> imgsz=224
     yat-torch cfg | yat-torch version | yat-torch checks | yat-torch settings [key=value]
     torchrun --nproc_per_node=8 -m yolo_ad_refine_tpu_torch detect train data=... batch=128
 

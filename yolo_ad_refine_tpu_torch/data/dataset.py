@@ -35,9 +35,26 @@ import cv2
 import numpy as np
 
 from yolo_ad_refine_tpu_torch.data import augment as A
-from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported, yaml_load
+from yolo_ad_refine_tpu_torch.utils import LOGGER, yaml_load
 
 TASKS = ("detect", "obb", "segment", "pose")
+
+
+def check_task(task: str, classify_entry: str) -> None:
+    """Raise ValueError for a task the detection engine does not run:
+    classify, which runs through ``train/classify.py`` ``classify_entry``,
+    and a task name the port does not know."""
+    if task == "classify":
+        raise ValueError(
+            f"task 'classify' runs through train/classify.py {classify_entry}, not here: "
+            "YOLO(<a Classify model>).train / .val (data=<a class-folder dir>) hand the "
+            "model to it")
+    if task not in TASKS:
+        raise ValueError(
+            f"unknown task {task!r}: the port's detection engine takes {', '.join(TASKS)} "
+            "(YOLOv10 and YOLO-World models are 'detect'); RT-DETR, then ATSS, are not ported "
+            "yet (ROADMAP Queue 1 item 12)")
+
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
 
@@ -99,8 +116,7 @@ class YOLODataset:
                  hyp: dict | None = None, max_boxes: int = 128, nc: int = 80,
                  fraction: float = 1.0, task: str = "detect", cache_images: str | bool = False,
                  kpt_shape: tuple | None = None, flip_idx: list | None = None):
-        if task not in TASKS:
-            not_ported(f"the {task!r} dataset", "ROADMAP Queue 1 item 12, the other tasks")
+        check_task(task, "ClassificationDataset")
         self.imgsz = imgsz
         # pose: the (K, ndim) keypoint layout, inferred from the label rows when
         # None; flip_idx is each keypoint's mirror, without which no fliplr

@@ -12,6 +12,7 @@ produce (square tiles, 15 DOTA v1 classes, corner-quad labels).
 and ``make_pose_dataset`` COCO-style 17-keypoint figures (``cls cx cy w h``
 then x y v a keypoint, with ``kpt_shape`` and ``flip_idx`` in the data
 dict), the label formats of the segment and pose tasks.
+``make_classify_dataset`` writes the classify task's class folders.
 """
 
 from __future__ import annotations
@@ -235,3 +236,35 @@ def make_pose_dataset(root: str | Path, n_val: int = 16, imgsz: int = 640, seed:
     return {"path": str(root), "val": "val/images", "names": {0: "person"},
             "kpt_shape": [17, 3], "flip_idx": list(COCO_FLIP_IDX),
             **({"train": "train/images"} if n_train else {})}
+
+
+CLASSIFY_COLOURS = {"red": (40, 40, 220), "green": (60, 200, 60), "blue": (220, 80, 40),
+                    "yellow": (40, 210, 230)}
+
+
+def make_classify_dataset(root: str | Path, n_train: int = 32, n_val: int = 8, imgsz: int = 64,
+                          seed: int = 0, classes: dict | None = None) -> Path:
+    """Write ``<root>/{train,val}/<class>/<i>.png``: a folder per class of
+    ``classes`` (name -> BGR colour, by default the four of
+    ``CLASSIFY_COLOURS``), each image noise around its class's colour with
+    a disc of another class's colour, ``n_train`` / ``n_val`` a class.
+    Deterministic in the arguments; returns ``root``, the ``data=`` of the
+    classify task. PNG, so that no JPEG coder's rounding enters."""
+    import cv2
+
+    classes = classes or CLASSIFY_COLOURS
+    colours = list(classes.values())
+    root = Path(root)
+    for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 7919)):
+        rng = np.random.default_rng(s)
+        for ci, (name, colour) in enumerate(classes.items()):
+            (root / split / name).mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                img = np.clip(np.array(colour, np.float32) + rng.normal(0, 25, (imgsz, imgsz, 3)),
+                              0, 255).astype(np.uint8)
+                other = colours[(ci + 1 + int(rng.integers(0, len(colours) - 1))) % len(colours)]
+                r = int(rng.integers(imgsz // 8, imgsz // 4))
+                centre = tuple(int(v) for v in rng.integers(r, imgsz - r, 2))
+                cv2.circle(img, centre, r, tuple(int(v) for v in other), -1)
+                cv2.imwrite(str(root / split / name / f"{i:04d}.png"), img)
+    return root

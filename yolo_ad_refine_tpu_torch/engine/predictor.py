@@ -12,9 +12,15 @@ rescaled into ``Results.obb``, with their axis-aligned hulls in
 ``Results.boxes``; a segment model's NMS (K4) carries the 32 mask
 coefficients, whose masks (``segment_masks``) become ``Results.masks``; a
 pose model's carries the decoded keypoints, rescaled into
-``Results.keypoints``. ``save``, ``save_txt`` (with ``save_conf``) and
-``save_crop`` write the annotated images, the label files and the crops
-into ``<project>/predict[n]``, as the JAX predictor does.
+``Results.keypoints``. A YOLO-World model serves its vocabulary: K4's
+candidates take the text rows' class count (``DetectionModel.n_scores``).
+A YOLOv10 model takes no NMS: its selected rows are cut at ``conf``
+(``nms_free_rows``, the JAX validator's branch; the JAX predictor runs its
+NMS on them and reads the class column as a score, ROADMAP Queue 3). The
+JAX package serves no classifier, and neither does the port. ``save``,
+``save_txt`` (with ``save_conf``) and ``save_crop`` write the annotated
+images, the label files and the crops into ``<project>/predict[n]``, as the
+JAX predictor does.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
 from yolo_ad_refine_tpu_torch.engine.results import OBBoxes, Results
 from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
 from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
-from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
+from yolo_ad_refine_tpu_torch.nn.head import v10Detect
+from yolo_ad_refine_tpu_torch.ops.nms import nms_free_rows, non_max_suppression
 from yolo_ad_refine_tpu_torch.utils import LOGGER, increment_path
 
 
@@ -119,7 +126,13 @@ class DetectionPredictor:
         names = names or getattr(model, "names", None) or {i: f"class{i}" for i in range(model.nc)}
         p = next(model.parameters())
         task = model.task
+        if task == "classify":
+            raise ValueError(
+                "predict on a Classify model: the JAX package serves no classifier (its "
+                "predictor knows no Classify head and its Results have no probs); run the "
+                "model's forward, whose eval output is the softmax, or .val(data=...)")
         rotated = task == "obb"
+        nms_free = isinstance(model.model[model.head_idx], v10Detect)
         kpt_shape = getattr(model.model[model.head_idx], "kpt_shape", None)
         model.eval()
 
@@ -135,9 +148,12 @@ class DetectionPredictor:
                 x, metas = preprocess([im for _, im, _ in chunk], imgsz, batch_size, p.device,
                                       p.dtype)
                 y, feats = model(x)
-                det, cnt, extras = non_max_suppression(
-                    y, conf_thres=conf, iou_thres=iou, max_det=max_det, agnostic=agnostic,
-                    nc=model.nc, rotated=rotated)
+                if nms_free:
+                    det, cnt, extras = nms_free_rows(y, conf)
+                else:
+                    det, cnt, extras = non_max_suppression(
+                        y, conf_thres=conf, iou_thres=iou, max_det=max_det, agnostic=agnostic,
+                        nc=model.n_scores, rotated=rotated)
                 cnt = cnt.cpu().numpy()
                 masks = (segment_masks(feats[2], extras, det, cnt, metas,
                                        [im.shape[:2] for _, im, _ in chunk], imgsz)

@@ -86,16 +86,20 @@ def synthetic_rotated_candidates(b: int, k: int, gen, dev):
     return torch.cat([xy + cls, wh, ang], -1).to(dev).contiguous(), scores.to(dev).contiguous()
 
 
-def predict_candidates(model, imgs, imgsz: int, confs, rotated: bool = False) -> dict:
+def predict_candidates(model, imgs, imgsz: int, confs, rotated: bool = False,
+                       multi_label: bool = False) -> dict:
     """{conf: (boxes, scores)}, the suppression's input for one predict batch
-    of ``imgs`` through the port's ``YOLO`` ``model`` at each conf."""
+    of ``imgs`` through the port's ``YOLO`` ``model`` at each conf, over the
+    model's score columns (a YOLO-World vocabulary's); ``multi_label`` as
+    the validator selects them."""
     from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
 
     dev = next(model.model.parameters()).device
     x, _ = preprocess(imgs, imgsz, len(imgs), dev, torch.float32)
     with torch.inference_mode():
         y = model.model(x)[0]
-    return {c: select_candidates(y, c, nc=model.model.nc, rotated=rotated)[:2] for c in confs}
+    return {c: select_candidates(y, c, nc=model.model.n_scores, rotated=rotated,
+                                 multi_label=multi_label)[:2] for c in confs}
 
 
 def _real_cases(dev) -> dict:

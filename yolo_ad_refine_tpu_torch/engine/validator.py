@@ -26,8 +26,14 @@ and ``PR_curve.png``, both into ``save_dir``. ``backend`` (an
 ``engine/exporter.py`` ``AutoBackend``) runs standalone validation of the
 detect task through an exported artifact: a final partial batch is padded
 with zeros to the artifact's batch and its outputs cut back, as the JAX
-validator does; NMS and the metrics stay here. Other tasks, and a backend
-of any task but detect, are not ported.
+validator does; NMS and the metrics stay here. A YOLOv10 model (v10Detect)
+takes no NMS: its selected rows are cut at ``conf`` (``nms_free_rows``,
+the JAX validator's branch), and its val loss is ``E2EDetectLoss`` over the
+eval output's branch dict. A YOLO-World model runs with its text
+embeddings, and K4's candidates take its vocabulary's class count
+(``DetectionModel.n_scores``), where the JAX validator passes the yaml's nc
+(ROADMAP Queue 3). Classification validates through ``train/classify.py``
+``validate``; a backend of any task but detect is not ported.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ import numpy as np
 import torch
 
 from yolo_ad_refine_tpu_torch.data.build import DataLoader
-from yolo_ad_refine_tpu_torch.data.dataset import TASKS, YOLODataset, check_det_dataset
+from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset, check_task
 from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
 from yolo_ad_refine_tpu_torch.ops.masks import mask_iou_matrix
-from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
+from yolo_ad_refine_tpu_torch.nn.head import v10Detect
+from yolo_ad_refine_tpu_torch.ops.nms import nms_free_rows, non_max_suppression
 from yolo_ad_refine_tpu_torch.train.pose import OKS_SIGMA
 from yolo_ad_refine_tpu_torch.train.step import images_to_tensor, targets_to_device
 from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported
@@ -66,9 +73,7 @@ class DetectionValidator:
         self.names = None
         self.jdict = None
         self.task = self.args.get("task") or "detect"
-        if self.task not in TASKS:
-            not_ported(f"validating task {self.task!r}",
-                       "ROADMAP Queue 1 item 12, the other tasks")
+        check_task(self.task, "validate")
 
     def _build_dataloader(self, data, imgsz: int, batch: int) -> DataLoader:
         info = check_det_dataset(data)
@@ -103,7 +108,8 @@ class DetectionValidator:
         iou = float(args.get("iou", 0.7))
         max_det = int(args.get("max_det", 300))
         max_nms = int(args.get("max_nms", 2048))
-        nc = model.nc if model is not None else backend.nc
+        nc = model.n_scores if model is not None else backend.nc
+        nms_free = model is not None and isinstance(model.model[model.head_idx], v10Detect)
         rotated = self.task == "obb"
         if model is not None and model.task != self.task:
             raise ValueError(f"validating task {self.task!r} with a {model.task!r} model")
@@ -142,9 +148,12 @@ class DetectionValidator:
                 with (torch.autocast(dev.type, dtype=torch.bfloat16) if amp
                       else contextlib.nullcontext()):
                     y, feats = model(img)
-            det, cnt, extras = non_max_suppression(
-                y, conf_thres=conf, iou_thres=iou, max_det=max_det, max_nms=max_nms,
-                multi_label=True, nc=nc, rotated=rotated)
+            if nms_free:
+                det, cnt, extras = nms_free_rows(y, conf)
+            else:
+                det, cnt, extras = non_max_suppression(
+                    y, conf_thres=conf, iou_thres=iou, max_det=max_det, max_nms=max_nms,
+                    multi_label=True, nc=nc, rotated=rotated)
             if loss_fn is not None:  # OBBLoss takes (feats, angle); segment, pose the maps
                 maps = feats[0] if self.task in ("segment", "pose") else feats
                 loss_sum += loss_fn(maps, *targets_to_device(batch, dev)).components

@@ -2,24 +2,47 @@
 
 Counterpart of ``yolo_ad_refine_tpu/models/model.py`` (reference
 ultralytics/nn/tasks.py BaseModel._predict_once:141-168 savelist routing,
-DetectionModel:309-398). The yaml rows are ``self.model[i]``, so parameter
-names read ``model.{i}.<...>`` as in the reference. Strides are derived from
-shapes: the head divides the input height by each level's height.
+DetectionModel:309-398, WorldModel:603-669). The yaml rows are
+``self.model[i]``, so parameter names read ``model.{i}.<...>`` as in the
+reference. Strides are derived from shapes: the head divides the input
+height by each level's height. A YOLO-World graph carries a text stream:
+its C2fAttn rows read it as their guide, ImagePoolingAttn replaces it, and
+WorldDetect scores against the original embeddings.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
-from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg, parse_model_yaml
-from yolo_ad_refine_tpu_torch.nn.head import ModulatedDeformConv
+from yolo_ad_refine_tpu_torch.models.parser import TEXT_MODULES, load_model_cfg, parse_model_yaml
+from yolo_ad_refine_tpu_torch.nn.block import C2fAttn, ImagePoolingAttn
+from yolo_ad_refine_tpu_torch.nn.head import ModulatedDeformConv, WorldDetect
 from yolo_ad_refine_tpu_torch.utils import LOGGER, select_device
 
-HEAD_TASKS = {"OBB": "obb", "Segment": "segment", "Pose": "pose"}  # any other head: detect
+# any other head: detect
+HEAD_TASKS = {"OBB": "obb", "Segment": "segment", "Pose": "pose", "Classify": "classify"}
 _WEIGHTED = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear, ModulatedDeformConv)
+
+
+def _require_text(txt, module: nn.Module):
+    if txt is None:
+        raise ValueError(
+            f"{type(module).__name__} needs text embeddings: call set_classes(names) on the "
+            "YOLO facade (offline hashed-n-gram encoder) or pass text_feats")
+    return txt
+
+
+def placeholder_text(nc: int, embed: int) -> np.ndarray:
+    """The text embeddings a YOLO-World graph starts with until
+    ``set_classes``: (nc, embed) standard normal from
+    ``np.random.default_rng(0)``, each row L2-normalised, as the JAX
+    DetectionModel draws them (the reference seeds a randn placeholder)."""
+    t = np.random.default_rng(0).standard_normal((nc, embed)).astype(np.float32)
+    return t / np.linalg.norm(t, axis=-1, keepdims=True)
 
 
 class DetectionModel(nn.Module):
@@ -28,9 +51,14 @@ class DetectionModel(nn.Module):
     ``(y, (feats, angle))`` with the angle appended to y (Segment:
     ``(y, (feats, mc, proto))``, the coefficients appended; Pose:
     ``(y, (feats, kpt))``, the decoded keypoints appended); in train mode the
-    per-level maps (with the head's extra outputs for OBB, Segment, Pose). ``task`` follows the head, as
-    the JAX predictor derives it (reference: the task guessed from the
-    model)."""
+    per-level maps (with the head's extra outputs for OBB, Segment, Pose).
+    v10Detect returns (det, {"one2many", "one2one"}) in eval and the dict
+    in train; Classify the softmax in eval and the logits in train. A
+    YOLO-World graph (C2fAttn / ImagePoolingAttn rows) takes ``text_feats``
+    (nc, embed), by default ``self.text_feats`` (the placeholder until
+    ``set_classes``); WorldDetect's eval output has a class column per
+    text row. ``task`` follows the head, as the JAX predictor derives it
+    (reference: the task guessed from the model)."""
 
     def __init__(self, cfg: str | dict = "yolo11n.yaml", ch: int = 3, nc: int | None = None,
                  verbose: bool = False):
@@ -47,18 +75,37 @@ class DetectionModel(nn.Module):
         self.head_idx = next((s.i for s in self.specs if s.is_head), -1)
         self.strides = None
         self.names = {i: f"class{i}" for i in range(self.nc)}
+        # YOLO-World graphs need a text stream from their first forward; a
+        # host tensor (not a buffer: no weight of its own), moved per forward
+        self.text_feats = None
+        if any(s.name in TEXT_MODULES for s in self.specs):
+            head = self.model[self.head_idx] if self.head_idx >= 0 else None
+            embed = int(getattr(head, "embed", 512) or 512)
+            self.text_feats = torch.from_numpy(placeholder_text(self.nc, embed))
 
     @property
     def task(self) -> str:
         return HEAD_TASKS.get(self.specs[self.head_idx].name, "detect")
 
     @property
+    def n_scores(self) -> int:
+        """The class columns of the eval output: the text rows of a
+        YOLO-World graph (after ``set_classes``, its vocabulary), else nc."""
+        return int(self.text_feats.shape[0]) if self.text_feats is not None else self.nc
+
+    @property
     def deconv_layer_indices(self) -> tuple:
         """Yaml rows that are ConvTranspose2d: their weights are (I, O, kh, kw)."""
         return tuple(s.i for s in self.specs if isinstance(s.module, nn.ConvTranspose2d))
 
-    def forward(self, x):
+    def forward(self, x, text_feats=None):
         input_h = x.shape[2]
+        if text_feats is None:
+            text_feats = self.text_feats
+        txt = None  # the running text stream, batched (B, nc, embed)
+        if text_feats is not None:
+            text_feats = torch.as_tensor(text_feats, dtype=torch.float32).to(x.device)
+            txt = text_feats.expand(x.shape[0], *text_feats.shape)
         ys: list = []
         out = x
         for i, (m, f) in enumerate(zip(self.model, self.froms)):
@@ -67,20 +114,36 @@ class DetectionModel(nn.Module):
                 return out if j == -1 else ys[j % i]
 
             if i == self.head_idx:
+                if isinstance(f, int):  # a single-input head (Classify)
+                    return m(fetch(f), input_h=input_h)
+                if isinstance(m, WorldDetect):  # scores against the original embeddings
+                    return m([fetch(j) for j in f], text_feats=text_feats, input_h=input_h)
                 return m([fetch(j) for j in f], input_h=input_h)
-            out = m(fetch(f) if isinstance(f, int) else [fetch(j) for j in f])
+            inp = fetch(f) if isinstance(f, int) else [fetch(j) for j in f]
+            if isinstance(m, C2fAttn):
+                out = m(inp, _require_text(txt, m))
+            elif isinstance(m, ImagePoolingAttn):
+                txt = m(inp, _require_text(txt, m))
+                out = inp[0]  # the rows after it route around it by index
+            else:
+                out = m(inp)
             ys.append(out if i in self.save else None)
         return out
 
     @torch.no_grad()
-    def probe_strides(self, imgsz: int = 640) -> tuple:
-        """Per-level strides from one eval forward of a zero image."""
+    def probe_strides(self, imgsz: int = 640) -> tuple | None:
+        """Per-level strides from one eval forward of a zero image; None
+        for Classify, which has no levels (the JAX package's)."""
+        if self.task == "classify":
+            return None
         p = next(self.parameters())
         training = self.training
         self.eval()
         x = torch.zeros(1, 3, imgsz, imgsz, dtype=p.dtype, device=p.device).contiguous(
             memory_format=torch.channels_last)
         feats = self(x)[1]
+        if isinstance(feats, dict):  # v10Detect: {"one2many", "one2one"}
+            feats = feats["one2one"]
         if isinstance(feats, tuple):  # OBB, Segment, Pose: (feats, *extras)
             feats = feats[0]
         self.train(training)
@@ -107,6 +170,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             bound = 1.0 / math.sqrt(m.embed_dim)
             m.in_proj_weight.uniform_(-bound, bound, generator=generator)
             m.in_proj_bias.zero_()
+        elif isinstance(m, WorldDetect) and m.default_text is not None:
+            m.default_text.normal_(0.0, 0.02, generator=generator)
     for m in model.modules():
         if hasattr(m, "bias_init"):
             m.bias_init()

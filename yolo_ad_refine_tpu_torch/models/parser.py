@@ -12,6 +12,10 @@ bookkeeping, for the modules this port has so far.
   resolved by name
 - Segment's proto channels ``npr`` width-scaled and capped at max_channels
 - C3k2 forces c3k=True at scales m/l/x
+- C2fAttn's embed channels and head count take their own width gains
+  (reference tasks.py:1021-1024); ImagePoolingAttn keeps the channels of
+  its first input, and its output replaces the text stream
+  (``models/model.py``)
 """
 
 from __future__ import annotations
@@ -26,15 +30,19 @@ from torch import nn
 
 from yolo_ad_refine_tpu_torch.nn import block as B
 from yolo_ad_refine_tpu_torch.nn import common as C
+from yolo_ad_refine_tpu_torch.nn import conv_extras as CE
 from yolo_ad_refine_tpu_torch.nn import head as H
 from yolo_ad_refine_tpu_torch.nn import tssa as T
 from yolo_ad_refine_tpu_torch.nn.common import make_divisible
 from yolo_ad_refine_tpu_torch.utils import LOGGER, ROOT, yaml_load
 
-HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB", "Segment", "Pose"}
+HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB", "Segment", "Pose", "Classify",
+                "v10Detect", "WorldDetect"}
 # modules whose first yaml arg is an out-channel subject to width scaling
 WIDTH_SCALED = {"Conv", "SPPF", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA", "C2PTSSA",
-                "nn.Conv2d", "nn.ConvTranspose2d"}
+                "nn.Conv2d", "nn.ConvTranspose2d", "C2fAttn", "SCDown", "C2fCIB", "PSA"}
+# rows that read YOLO-World's text stream: a graph with them has text embeddings
+TEXT_MODULES = {"C2fAttn", "ImagePoolingAttn"}
 CSP_MODULES = {"C2f": B.C2f, "C3": B.C3, "C3k2": B.C3k2, "C3k2_MLCA": B.C3k2MLCA}
 PSA_MODULES = {"C2PSA": B.C2PSA, "C2PTSSA": T.C2PTSSA}
 
@@ -120,6 +128,7 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             LOGGER.warning(f"WARNING no model scale passed. Assuming scale='{scale}'.")
         depth, width, max_channels = scales[scale]
     variables = {k: v for k, v in d.items() if k not in ("backbone", "head", "scales")}
+    text_graph = any(row[2] in TEXT_MODULES for row in d["backbone"] + d["head"])
 
     ch_list = [ch]
     specs: list[LayerSpec] = []
@@ -149,6 +158,21 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
                     c3k = True  # reference tasks.py:1050-1051
                 module = CSP_MODULES[name](c1, c2, n, c3k=c3k, e=_arg(rest, 1, 0.5),
                                            shortcut=_arg(rest, 2, True))
+            elif name == "SCDown":
+                module = CE.SCDown(c1, c2, _arg(rest, 0, 3), _arg(rest, 1, 2))
+            elif name == "C2fCIB":
+                module = CE.C2fCIB(c1, c2, n, shortcut=_arg(rest, 0, False),
+                                   lk=_arg(rest, 1, False))
+            elif name == "PSA":
+                module = CE.PSA(c1, c2, _arg(rest, 0, 0.5))
+            elif name == "C2fAttn":
+                # reference tasks.py:1021-1024: the embed channels and the head
+                # count take their own width gains
+                ec = make_divisible(min(_arg(rest, 0, 128), max_channels / 2) * width, 8)
+                nh = _arg(rest, 1, 1)
+                if nh > 1:
+                    nh = int(max(round(min(nh, max_channels / 64)) * width, 1))
+                module = B.C2fAttn(c1, c2, n, ec=ec, nh=nh, gc=_arg(rest, 2, 512))
             elif name in PSA_MODULES:
                 e = _arg(rest, 0, 0.5)
                 module = PSA_MODULES[name](c1, c2, n, e if isinstance(e, float) else 0.5)
@@ -157,6 +181,12 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             else:  # nn.ConvTranspose2d
                 module = C.plain_conv_transpose2d(c1, c2, _arg(rest, 0, 3), _arg(rest, 1, 2),
                                                   _arg(rest, 2, 1), _arg(rest, 3, 1))
+        elif name == "ImagePoolingAttn":
+            # the text-refinement row (reference tasks.py:1082, its ec unscaled):
+            # its output replaces the text stream; the rows after it route
+            # around it by index
+            module = B.ImagePoolingAttn(ec=_arg(args, 0, 256), ch=tuple(ch_list[j] for j in f))
+            c2 = ch_list[f[0]]
         elif name == "ELA_HSFPN":
             module = B.ELAHSFPN(c1, _arg(args, 0, True))
         elif name == "Multiply":
@@ -172,10 +202,20 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
         elif name == "nn.Upsample":
             module = nn.Upsample(size=_arg(args, 0, None), scale_factor=_arg(args, 1, 2),
                                  mode=_arg(args, 2, "nearest"))
+        elif name == "Classify":
+            c2 = _arg(args, 0, nc)
+            module = H.Classify(c1, nc=c2)
         elif name in HEAD_MODULES:
             head_ch = tuple(ch_list[x] for x in f)
             head_nc = _arg(args, 0, nc)
-            if name == "OBB":
+            if name == "v10Detect":
+                module = H.v10Detect(nc=head_nc, ch=head_ch)
+            elif name == "WorldDetect":
+                # the learned default_text exists only where no row gives text
+                module = H.WorldDetect(nc=head_nc, embed=_arg(args, 1, 512),
+                                       with_bn=_arg(args, 2, True), ch=head_ch,
+                                       default_text=not text_graph)
+            elif name == "OBB":
                 module = H.OBB(nc=head_nc, ne=_arg(args, 1, 1), ch=head_ch)
             elif name == "Segment":
                 # reference tasks.py:1041: the proto channels are width-scaled

@@ -6,10 +6,14 @@ the JAX package wrote (``weights.msgpack``); ``.predict(images)``,
 ``.train(data=...)`` and ``.val(data=...)`` run on the card by default
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
 the caller passes ``device="cpu"`` (under a launcher, ``cuda`` is the
-rank's card, ``utils.select_device``). ``task`` ("detect", "obb", "segment"
-or "pose", as the JAX facade's) defaults to the one the model's head
-implies, as the reference guesses it from the model; each predicts, trains
-and validates. ``.export``
+rank's card, ``utils.select_device``). ``task`` ("detect", "obb", "segment",
+"pose" or "classify", as the JAX facade's) defaults to the one the model's
+head implies, as the reference guesses it from the model; each predicts,
+trains and validates, but classify, which trains and validates through
+``train/classify.py`` (the JAX facade's ``train`` and ``val`` build the
+detection engine, which cannot read class folders) and predicts nothing,
+as the JAX package serves no classifier. ``set_classes`` sets a YOLO-World
+model's vocabulary. ``.export``
 writes the model for ``engine/exporter.py``'s ``AutoBackend``;
 ``.benchmark`` times the exported formats and ``.tune`` evolves the
 training hyperparameters.
@@ -25,7 +29,7 @@ import torch
 from yolo_ad_refine_tpu_torch.engine.checkpoint import load_checkpoint
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
 from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
-from yolo_ad_refine_tpu_torch.utils import increment_path, not_ported, select_device
+from yolo_ad_refine_tpu_torch.utils import LOGGER, increment_path, not_ported, select_device
 from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
 
 
@@ -70,9 +74,16 @@ class YOLO:
         cache=, resume= (a ``last`` directory of the port's or of the JAX
         package's), ...); afterwards ``self.model`` is the best checkpoint's
         model."""
+        overrides = {**self.overrides, **kwargs, "mode": "train"}
+        if self.task == "classify":
+            from yolo_ad_refine_tpu_torch.train.classify import ClassificationTrainer
+
+            trainer = ClassificationTrainer(overrides, model=self.model, callbacks=self.callbacks)
+            results = trainer.train()
+            self.model, self.trainer = trainer.model, trainer
+            return results
         from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
 
-        overrides = {**self.overrides, **kwargs, "mode": "train"}
         trainer = DetectionTrainer(overrides=overrides, model=self.model,
                                    callbacks=self.callbacks)
         results = trainer.train()
@@ -94,6 +105,13 @@ class YOLO:
         from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
 
         args = get_cfg({**self.overrides, **kwargs, "mode": "val"})
+        if self.task == "classify":  # top1 / top5 over data's val (else train) class folders
+            from yolo_ad_refine_tpu_torch.train.classify import ClassificationDataset, validate
+
+            root = Path(args["data"])
+            ds = ClassificationDataset(root / "val" if (root / "val").exists() else root / "train",
+                                       int(args["imgsz"]))
+            return validate(self.model, ds, int(args["batch"]))
         args.update(plots=bool(kwargs.get("plots", False)), amp=bool(kwargs.get("amp", False)))
         if (args["plots"] or args.get("save_json")) and not args.get("save_dir"):
             args["save_dir"] = str(increment_path(
@@ -101,6 +119,34 @@ class YOLO:
                 exist_ok=bool(args.get("exist_ok")), mkdir=True))
         self.validator = DetectionValidator(args=args)
         return self.validator(model=self.model)
+
+    def set_classes(self, names: list, text_embeddings=None) -> "YOLO":
+        """A YOLO-World model's vocabulary (JAX models/yolo.py:120-145,
+        reference YOLOWorld.set_classes): ``text_embeddings`` (len(names),
+        embed), or without them the names encoded by the offline hashed
+        n-gram encoder (``utils/text.py``), as CLIP's weights are not
+        shipped. The eval output then has a class column per name."""
+        import numpy as np
+
+        from yolo_ad_refine_tpu_torch.nn.head import WorldDetect
+
+        head = self.model.model[self.model.head_idx]
+        if not isinstance(head, WorldDetect):
+            raise ValueError("set_classes requires a WorldDetect (yolo-world) model")
+        self.model.names = dict(enumerate(names))
+        if text_embeddings is not None:
+            t = np.asarray(text_embeddings, np.float32)
+            if t.ndim != 2 or t.shape[0] != len(names):
+                raise ValueError(f"text_embeddings must be (len(names), embed), got {t.shape}")
+        else:
+            from yolo_ad_refine_tpu_torch.utils.text import encode_class_names
+
+            t = encode_class_names([str(n) for n in names], head.embed)
+            LOGGER.warning("set_classes without text_embeddings: using the offline hashed-n-gram "
+                           "text encoder (no CLIP weights here; zero-shot semantics are degraded "
+                           "— pass CLIP embeddings for parity)")
+        self.model.text_feats = torch.from_numpy(t)
+        return self
 
     def track(self, source=None, **kwargs):
         not_ported("track", "ROADMAP Queue 1 item 15, trackers")

@@ -4,7 +4,8 @@ Counterpart of ``yolo_ad_refine_tpu/nn/block.py`` (reference
 ultralytics/nn/modules/block.py: Bottleneck:341, C2f:232, C3:256, C3k:742,
 C3k2:731, SPPF:177, Attention/PSABlock/C2PSA:874-1049, ELA_HSFPN:1408,
 Multiply:1442, Add:1448, Fusion:1500, MLCA:1540, Bottleneck_MLCA:1586,
-C3k_MLCA/C3k2_MLCA:1596-1605). NCHW modules; submodule names follow the
+C3k_MLCA/C3k2_MLCA:1596-1605, and YOLO-World's MaxSigmoidAttnBlock:418,
+C2fAttn:453, ImagePoolingAttn:480). NCHW modules; submodule names follow the
 reference so a state_dict carries over.
 """
 
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_ad_refine_tpu_torch.nn.common import Conv, max_pool_same
+from yolo_ad_refine_tpu_torch.nn.common import Conv, autocast_off, max_pool_same
 from yolo_ad_refine_tpu_torch.nn.registry import register
 from yolo_ad_refine_tpu_torch.parallel import all_gather_cat, in_global_batch
 
@@ -317,3 +318,94 @@ class Fusion(nn.Module):
         w = torch.relu(self.fusion_weight)
         w = (w / (w.sum() + 1e-4)).to(xs[0].dtype)
         return sum(w[i] * xs[i] for i in range(len(xs)))
+
+
+class MaxSigmoidAttnBlock(nn.Module):
+    """Text-guided max-sigmoid gate (reference block.py:418): the image
+    embedding scores against every class text embedding, the maximum over
+    the classes, sigmoided per head, gates the 3x3-projected features."""
+
+    def __init__(self, c1: int, c2: int, nh: int = 1, ec: int = 128, gc: int = 512,
+                 scale: bool = False):
+        super().__init__()
+        self.nh, self.hc = nh, c2 // nh
+        self.ec = Conv(c1, ec, 1, act=False) if c1 != ec else None
+        self.gl = nn.Linear(gc, ec)
+        self.bias = nn.Parameter(torch.zeros(nh))
+        self.proj_conv = Conv(c1, c2, 3, 1, act=False)
+        self.scale = nn.Parameter(torch.ones(nh)) if scale else None
+
+    def forward(self, x, guide):
+        b, _, h, w = x.shape
+        embed = self.ec(x) if self.ec is not None else x
+        with autocast_off(x):
+            g = self.gl(guide.float()).reshape(guide.shape[0], -1, self.nh, self.hc)
+            e = embed.float().reshape(b, self.nh, self.hc, h, w)
+            aw = torch.einsum("bmchw,bnmc->bmhwn", e, g).amax(dim=-1) / (self.hc ** 0.5)
+            aw = torch.sigmoid(aw + self.bias[None, :, None, None])
+            if self.scale is not None:
+                aw = aw * self.scale[None, :, None, None]
+        y = self.proj_conv(x)
+        return (y.reshape(b, self.nh, self.hc, h, w) * aw[:, :, None].to(y.dtype)).reshape(
+            b, -1, h, w)
+
+
+@register
+class C2fAttn(nn.Module):
+    """C2f with a trailing text-guided attention branch (reference block.py:453)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, ec: int = 128, nh: int = 1, gc: int = 512,
+                 shortcut: bool = False, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((3 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
+                               for _ in range(n))
+        self.attn = MaxSigmoidAttnBlock(self.c, self.c, nh=nh, ec=ec, gc=gc)
+
+    def forward(self, x, guide):
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        ys.append(self.attn(ys[-1], guide))
+        return self.cv2(torch.cat(ys, 1))
+
+
+@register
+class ImagePoolingAttn(nn.Module):
+    """Image-aware text refinement (reference block.py:480): each level's
+    1x1 projection, max-pooled to k x k patches, is attended by the text
+    embeddings; the result is added to them. In fp32, as the JAX package
+    computes it; its flax names (``projections_i``, ``query_0`` (LayerNorm)
+    / ``query_1`` (Dense), ``key_*``, ``value_*``, ``proj``) follow from the
+    Sequential / ModuleList indices."""
+
+    def __init__(self, ec: int = 256, ch=(), ct: int = 512, nh: int = 8, k: int = 3,
+                 scale: bool = False):
+        super().__init__()
+        self.ec, self.nh, self.k = ec, nh, k
+        # flax's LayerNorm epsilon (1e-6), not torch's default
+        self.query = nn.Sequential(nn.LayerNorm(ct, eps=1e-6), nn.Linear(ct, ec))
+        self.key = nn.Sequential(nn.LayerNorm(ec, eps=1e-6), nn.Linear(ec, ec))
+        self.value = nn.Sequential(nn.LayerNorm(ec, eps=1e-6), nn.Linear(ec, ec))
+        self.proj = nn.Linear(ec, ct)
+        self.projections = nn.ModuleList(nn.Conv2d(c, ec, 1) for c in ch)
+        self.scale = nn.Parameter(torch.zeros(1)) if scale else None
+
+    def forward(self, xs, text):
+        bs, k2 = xs[0].shape[0], self.k * self.k
+        with autocast_off(text):
+            # torch's bins are the JAX package's adaptive_max_pool2d's (its nn/block.py:397)
+            x = torch.cat([F.adaptive_max_pool2d(p(x.float()), self.k).reshape(bs, self.ec, k2)
+                           for p, x in zip(self.projections, xs)], -1).transpose(1, 2)
+            text = text.float()
+            hc = self.ec // self.nh
+            q = self.query(text).reshape(bs, -1, self.nh, hc)
+            kk = self.key(x).reshape(bs, -1, self.nh, hc)
+            v = self.value(x).reshape(bs, -1, self.nh, hc)
+            aw = torch.softmax(torch.einsum("bnmc,bkmc->bmnk", q, kk) / hc ** 0.5, dim=-1)
+            out = self.proj(torch.einsum("bmnk,bkmc->bnmc", aw, v).reshape(bs, -1, self.ec))
+            if self.scale is not None:
+                out = out * self.scale
+            return out + text

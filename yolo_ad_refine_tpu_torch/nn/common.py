@@ -173,6 +173,12 @@ class Concat(nn.Module):
         return torch.cat(xs, dim=self.d)
 
 
+def autocast_off(x: torch.Tensor):
+    """Autocast off on ``x``'s device, for what the JAX package computes in
+    fp32 whatever the model's type (YOLO-World's text attention and scores)."""
+    return torch.autocast(x.device.type, enabled=False)
+
+
 def max_pool_same(x, k: int, s: int = 1):
     """MaxPool2d(k, stride, padding=k//2) with -inf padding."""
     return F.max_pool2d(x, k, s, k // 2)

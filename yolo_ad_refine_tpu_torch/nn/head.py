@@ -1,9 +1,10 @@
-"""Detection heads: stock Detect, Segment, Pose, the oriented-box OBB and
-the fork's AYHead.
+"""Heads: stock Detect, Segment, Pose, the oriented-box OBB, YOLOv10's
+v10Detect, YOLO-World's WorldDetect, Classify and the fork's AYHead.
 
 Counterpart of ``yolo_ad_refine_tpu/nn/head.py`` (reference
 ultralytics/nn/modules/head.py: Detect:21-163, Segment:164-186,
-Pose:219-258, OBB:189-217, block.py Proto,
+Pose:219-258, OBB:189-217, v10Detect:564, WorldDetect:279, Classify:259,
+block.py Proto, ContrastiveHead:526, BNContrastiveHead:549,
 TaskDecomposition:626, CoordAtt:671, CrossTaskInteraction:722, DyDCNv2:751,
 Scale:783, ResidualBlockGN:1031, AYHead(1):1049-1252). Train forward returns
 the per-level raw maps; eval returns ``(y, feats)`` with ``y`` (B, N, 4+nc):
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_ad_refine_tpu_torch.nn.common import Conv, ConvGN, batch_norm, dfl_decode
+from yolo_ad_refine_tpu_torch.nn.common import Conv, ConvGN, autocast_off, batch_norm, dfl_decode
 from yolo_ad_refine_tpu_torch.nn.registry import register
 from yolo_ad_refine_tpu_torch.ops.anchors import dist2bbox, make_anchors
 from yolo_ad_refine_tpu_torch.ops.deform import dcn_impl
@@ -38,6 +39,29 @@ def decode_detections(feats, strides, nc: int, reg_max: int = 16):
     return torch.cat([dbox, torch.sigmoid(cls.float())], dim=-1)
 
 
+def detect_branches(nc: int, ch, reg_max: int = 16) -> tuple[nn.ModuleList, nn.ModuleList]:
+    """Detect's per-level box branch ``cv2.i`` (Conv 3x3, Conv 3x3, 1x1 to
+    4 * reg_max) and class branch ``cv3.i`` (two depthwise 3x3 + 1x1 pairs,
+    1x1 to nc)."""
+    c2 = max(16, ch[0] // 4, reg_max * 4)
+    c3 = max(ch[0], min(nc, 100))
+    cv2 = nn.ModuleList(
+        nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch)
+    cv3 = nn.ModuleList(
+        nn.Sequential(nn.Sequential(Conv(x, x, 3, g=x), Conv(x, c3, 1)),
+                      nn.Sequential(Conv(c3, c3, 3, g=c3), Conv(c3, c3, 1)),
+                      nn.Conv2d(c3, nc, 1))
+        for x in ch)
+    return cv2, cv3
+
+
+def init_branch_biases(cv2, cv3, nc: int, strides) -> None:
+    """The box biases 1 and the class prior log(5 / nc / (640 / s)^2)."""
+    for i, (a, b) in enumerate(zip(cv2, cv3)):
+        a[-1].bias.data.fill_(1.0)
+        b[-1].bias.data.fill_(math.log(5 / nc / (640 / strides[i]) ** 2))
+
+
 def _strides(feats, input_h, default):
     return tuple(input_h // f.shape[2] for f in feats) if input_h is not None else default
 
@@ -49,21 +73,10 @@ class Detect(nn.Module):
     def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, strides=(8, 16, 32)):
         super().__init__()
         self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
-        c2 = max(16, ch[0] // 4, reg_max * 4)
-        c3 = max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
-            for x in ch)
-        self.cv3 = nn.ModuleList(
-            nn.Sequential(nn.Sequential(Conv(x, x, 3, g=x), Conv(x, c3, 1)),
-                          nn.Sequential(Conv(c3, c3, 3, g=c3), Conv(c3, c3, 1)),
-                          nn.Conv2d(c3, nc, 1))
-            for x in ch)
+        self.cv2, self.cv3 = detect_branches(nc, ch, reg_max)
 
     def bias_init(self):
-        for i, (a, b) in enumerate(zip(self.cv2, self.cv3)):
-            a[-1].bias.data.fill_(1.0)
-            b[-1].bias.data.fill_(math.log(5 / self.nc / (640 / self.strides[i]) ** 2))
+        init_branch_biases(self.cv2, self.cv3, self.nc, self.strides)
 
     def maps(self, xs):
         """Per-level raw (B, 4*reg_max + nc, H, W) maps."""
@@ -206,6 +219,157 @@ class OBB(Detect):
         rbox = dist2rbox(dist, angle[..., 0], anchors[None]) * stride_t[None]
         y = torch.cat([rbox, torch.sigmoid(cls.float()), angle], dim=-1)
         return y, (feats, angle)
+
+
+def v10_select(y, max_det: int = 300):
+    """YOLOv10's NMS-free selection (the JAX v10Detect's eval tail, reference
+    v10postprocess): the top ``max_det`` anchors by their best class score,
+    by a stable descending sort, which keeps ``jax.lax.top_k``'s tie order
+    (lower index first). y (B, N, 4+nc) -> (B, min(max_det, N), 6): xywh
+    in input pixels, the score, the class (the first maximum)."""
+    scores = y[..., 4:].amax(-1)
+    k = min(max_det, scores.shape[-1])
+    top_s, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_s, idx = top_s[:, :k], idx[:, :k]
+    rows = torch.gather(y, 1, idx[..., None].expand(-1, -1, y.shape[-1]))
+    cls = rows[..., 4:].argmax(-1)
+    return torch.cat([rows[..., :4], top_s[..., None], cls[..., None].to(y.dtype)], -1)
+
+
+@register
+class v10Detect(Detect):
+    """YOLOv10 end-to-end head (reference head.py:564): Detect's branches
+    (one-to-many) and a second set ``cv2_one2one`` / ``cv3_one2one`` on the
+    detached inputs (one-to-one), so that no one-to-one loss reaches the
+    backbone. Train returns {"one2many": maps, "one2one": maps}; eval returns
+    (det, that dict), det (B, min(max_det, N), 6) from the one-to-one
+    decode by ``v10_select``: no NMS."""
+
+    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, strides=(8, 16, 32),
+                 max_det: int = 300):
+        super().__init__(nc, ch, reg_max, strides)
+        self.max_det = max_det
+        self.cv2_one2one, self.cv3_one2one = detect_branches(nc, ch, reg_max)
+
+    def bias_init(self):
+        super().bias_init()
+        init_branch_biases(self.cv2_one2one, self.cv3_one2one, self.nc, self.strides)
+
+    def forward(self, xs, input_h: int | None = None):
+        one2one = [torch.cat([a(x.detach()), b(x.detach())], 1)
+                   for a, b, x in zip(self.cv2_one2one, self.cv3_one2one, xs)]
+        feats = {"one2many": self.maps(xs), "one2one": one2one}
+        if self.training:
+            return feats
+        y = decode_detections(one2one, _strides(one2one, input_h, self.strides), self.nc,
+                              self.reg_max)
+        return v10_select(y, self.max_det), feats
+
+
+class ContrastiveHead(nn.Module):
+    """Image-text scores (reference block.py:526): the L2-normalised
+    embedding against the normalised text rows, times exp(logit_scale),
+    plus bias."""
+
+    def __init__(self):
+        super().__init__()
+        self.bias = nn.Parameter(torch.tensor([-10.0]))
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def normalise(self, e):
+        return e / (e.norm(dim=1, keepdim=True) + 1e-12)
+
+    def forward(self, e, text):
+        """e (B, E, H, W), text (nc, E) normalised, both fp32 -> (B, nc, H, W)."""
+        return torch.einsum("behw,ce->bchw", self.normalise(e), text) * \
+            self.logit_scale.exp() + self.bias
+
+
+class BNContrastiveHead(ContrastiveHead):
+    """ContrastiveHead whose BatchNorm replaces the L2 norm of the embedding
+    (reference block.py:549): the port's BatchNorm (biased variance, eps
+    1e-3), logit_scale starting at -1."""
+
+    def __init__(self, embed: int = 512):
+        super().__init__()
+        self.norm = batch_norm(embed)
+        self.logit_scale.data.fill_(-1.0)
+
+    def normalise(self, e):
+        return self.norm(e)
+
+
+@register
+class WorldDetect(nn.Module):
+    """Open-vocabulary head (reference head.py:279): Detect's box branch
+    ``cv2.i``, an embedding branch ``cv3.i`` (Conv 3x3, Conv 3x3, 1x1 to
+    ``embed``) and the per-level contrastive head ``cv4.i`` (BNContrastiveHead
+    with ``with_bn``, else ContrastiveHead) scoring against the class text
+    embeddings ``text_feats`` (nc, embed), in fp32. The class count of the
+    output follows the text rows (after ``set_classes``, fewer or more than
+    ``nc``). Without text embeddings the learned ``default_text`` (nc,
+    embed) stands in; it exists only where ``default_text`` is asked for, as
+    the JAX head creates it only when it is first called without text (a
+    graph with C2fAttn rows always has text). Train returns the per-level
+    maps, eval (y, maps)."""
+
+    def __init__(self, nc: int = 80, embed: int = 512, with_bn: bool = True, ch=(),
+                 reg_max: int = 16, strides=(8, 16, 32), default_text: bool = False):
+        super().__init__()
+        self.nc, self.embed, self.reg_max, self.strides = nc, embed, reg_max, tuple(strides)
+        c2 = max(16, ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
+            for x in ch)
+        self.cv3 = nn.ModuleList(
+            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, embed, 1)) for x in ch)
+        self.cv4 = nn.ModuleList(BNContrastiveHead(embed) if with_bn else ContrastiveHead()
+                                 for _ in ch)
+        self.default_text = (nn.Parameter(torch.randn(nc, embed) * 0.02) if default_text
+                             else None)
+
+    def bias_init(self):
+        for a in self.cv2:
+            a[-1].bias.data.fill_(1.0)
+
+    def forward(self, xs, text_feats=None, input_h: int | None = None):
+        t = self.default_text if text_feats is None else text_feats
+        if t is None:
+            raise ValueError("WorldDetect needs text embeddings: call set_classes(names) on "
+                             "the YOLO facade or pass text_feats")
+        with autocast_off(xs[0]):
+            t = t.to(xs[0].device, torch.float32)
+            t = t / (t.norm(dim=-1, keepdim=True) + 1e-12)
+        outputs = []
+        for box, emb, head, x in zip(self.cv2, self.cv3, self.cv4, xs):
+            r = box(x)
+            e = emb(x)
+            with autocast_off(x):
+                logits = head(e.float(), t)
+            outputs.append(torch.cat([r, logits.to(r.dtype)], 1))
+        if self.training:
+            return outputs
+        y = decode_detections(outputs, _strides(outputs, input_h, self.strides), t.shape[0],
+                              self.reg_max)
+        return y, outputs
+
+
+@register
+class Classify(nn.Module):
+    """Classification head (reference head.py:259): Conv 1x1 to ``c_``,
+    global average pool, Dropout, Linear. Train returns the logits (fp32),
+    eval the softmax probabilities."""
+
+    def __init__(self, c1: int, nc: int = 1000, c_: int = 1280, dropout: float = 0.0):
+        super().__init__()
+        self.conv = Conv(c1, c_, 1, 1)
+        self.drop = nn.Dropout(dropout)
+        self.linear = nn.Linear(c_, nc)
+
+    def forward(self, x, input_h: int | None = None):
+        logits = self.linear(self.drop(self.conv(x).mean(dim=(2, 3)))).float()
+        return logits if self.training else torch.softmax(logits, -1)
 
 
 class TaskDecomposition(nn.Module):

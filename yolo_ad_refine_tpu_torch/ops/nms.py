@@ -296,3 +296,14 @@ def non_max_suppression(prediction, conf_thres: float = 0.25, iou_thres: float =
     extra_out = torch.zeros((b, max_det + 1, e), dtype=extra.dtype, device=extra.device)
     extra_out.scatter_(1, dst[..., None].expand(b, k, e), extra_rows)
     return out[:, :max_det], counts, extra_out[:, :max_det]
+
+
+def nms_free_rows(det, conf_thres: float):
+    """YOLOv10's rows without suppression (the JAX validator's NMS-free
+    branch, its engine/validator.py:127-135): ``det`` (B, K, 6) xywh, score,
+    class, score-sorted, as v10Detect selects them -> xyxy rows, those at or
+    under ``conf_thres`` zeroed, their counts (B,) int32 and empty extras
+    (B, K, 0)."""
+    keep = det[..., 4] > conf_thres
+    out = torch.cat([xywh2xyxy(det[..., :4]), det[..., 4:6]], -1) * keep[..., None]
+    return out, keep.sum(-1).to(torch.int32), det.new_zeros((*det.shape[:2], 0))

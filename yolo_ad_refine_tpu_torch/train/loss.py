@@ -1,4 +1,5 @@
-"""Detection training loss: the fork-modified v8DetectionLoss.
+"""Detection training loss: the fork-modified v8DetectionLoss, and YOLOv10's
+dual-assignment E2EDetectLoss over two of it.
 
 Counterpart of ``yolo_ad_refine_tpu/train/loss.py`` (reference
 ultralytics/utils/loss.py: SlideLoss:18-42, BboxLoss:264-311 with CIoU mixed
@@ -170,3 +171,22 @@ def total_of(comps: torch.Tensor, b: int) -> LossOutputs:
     step the global batch's (``global_total``)."""
     return global_total(comps, b) if in_global_batch() else LossOutputs(comps.sum() * b,
                                                                        comps.detach())
+
+
+class E2EDetectLoss:
+    """YOLOv10's dual-assignment loss (JAX train/loss.py:190-205, reference
+    utils/loss.py E2EDetectLoss): the one-to-many maps train with TAL
+    topk=10, the one-to-one maps (on detached inputs) with topk=1, both
+    with SlideLoss and NWD; totals and components are the two losses'
+    sums."""
+
+    def __init__(self, nc: int, strides, **kw):
+        self.one2many = DetectionLoss(nc, strides, tal_topk=10, **kw)
+        self.one2one = DetectionLoss(nc, strides, tal_topk=1, **kw)
+
+    def __call__(self, preds: dict, gt_labels, gt_bboxes, mask_gt) -> LossOutputs:
+        """preds: {"one2many": maps, "one2one": maps}, v10Detect's train
+        output (its eval output's second value)."""
+        m = self.one2many(preds["one2many"], gt_labels, gt_bboxes, mask_gt)
+        o = self.one2one(preds["one2one"], gt_labels, gt_bboxes, mask_gt)
+        return LossOutputs(m.total + o.total, m.components + o.components)

@@ -26,7 +26,11 @@ index masks; ``task="pose"`` (a Pose model) on keypoint labels with
 ``PoseLoss`` (``train/pose.py``), the data yaml's ``kpt_shape`` and
 ``flip_idx`` reaching the train set; the val losses of both are the
 detection loss's (the JAX trainer's ``val_loss_fn = loss_fn.det``), and
-results.csv keeps its (B) columns.
+results.csv keeps its (B) columns. A YOLOv10 model (v10Detect) trains and
+validates with ``E2EDetectLoss`` over both branches' maps. A YOLO-World
+graph (C2fAttn / ImagePoolingAttn rows) raises, as the JAX train step does:
+it calls the graph without text embeddings. Classification trains through
+``train/classify.py`` ``ClassificationTrainer``.
 
 Under a launcher (``torchrun --nproc_per_node=N``, or the JAX package's
 ``YAT_*`` variables) every rank trains its contiguous slice of each global
@@ -54,21 +58,22 @@ import torch
 
 from yolo_ad_refine_tpu_torch.cfg.config import get_cfg
 from yolo_ad_refine_tpu_torch.data.build import DataLoader
-from yolo_ad_refine_tpu_torch.data.dataset import TASKS, YOLODataset, check_det_dataset
+from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset, check_task
 from yolo_ad_refine_tpu_torch.engine.checkpoint import (
     load_checkpoint, load_train_state, save_checkpoint)
 from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
 from yolo_ad_refine_tpu_torch.parallel import multihost as mh
 from yolo_ad_refine_tpu_torch.parallel import wrap_model
-from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
+from yolo_ad_refine_tpu_torch.nn.head import v10Detect
+from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss
 from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
 from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
 from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
 from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
 from yolo_ad_refine_tpu_torch.train.step import TrainStep
 from yolo_ad_refine_tpu_torch.utils import (
-    LOGGER, colorstr, increment_path, not_ported, select_device, yaml_save)
+    LOGGER, colorstr, increment_path, select_device, yaml_save)
 from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
 from yolo_ad_refine_tpu_torch.utils.plotting import plot_images, plot_results
 
@@ -156,8 +161,7 @@ class DetectionTrainer:
                  callbacks: Callbacks | None = None):
         self.args = get_cfg(overrides)
         self.task = self.args.get("task") or "detect"
-        if self.task not in TASKS:
-            not_ported(f"training task {self.task!r}", "ROADMAP Queue 1 item 12, the other tasks")
+        check_task(self.task, "ClassificationTrainer")
         if model is not None and model.task != self.task:
             raise ValueError(f"training task {self.task!r} with a {model.task!r} model")
         self.model = model
@@ -214,6 +218,12 @@ class DetectionTrainer:
         if self.model.task != self.task:
             raise ValueError(f"training task {self.task!r} with a {self.model.task!r} model "
                              f"({args['model']})")
+        if self.model.text_feats is not None:
+            # the JAX train step calls the graph without text_feats, and its
+            # C2fAttn rows raise (its models/model.py _require_text)
+            raise ValueError(
+                "C2fAttn needs text embeddings: YOLO-World training is not supported, as the "
+                "JAX package's train step passes none (ROADMAP Queue 3)")
         gains = dict(nc=data["nc"], strides=self.model.strides, box_gain=float(args["box"]),
                      cls_gain=float(args["cls"]), dfl_gain=float(args["dfl"]))
         # the JAX trainer's task branches (its train/trainer.py:170-200): OBBLoss
@@ -226,6 +236,10 @@ class DetectionTrainer:
             self.loss_fn = PoseLoss(**gains, kpt_shape=head.kpt_shape,
                                     pose_gain=float(args.get("pose", 12.0)),
                                     kobj_gain=float(args.get("kobj", 1.0)))
+        elif isinstance(self.model.model[self.model.head_idx], v10Detect):
+            # the JAX trainer's v10 branch (its train/trainer.py:222-227): the eval
+            # output carries the branch dict too, so the val loss is the same
+            self.loss_fn = E2EDetectLoss(**gains)
         else:
             self.loss_fn = (OBBLoss if self.task == "obb" else DetectionLoss)(**gains)
         self.val_loss_fn = getattr(self.loss_fn, "det", self.loss_fn)

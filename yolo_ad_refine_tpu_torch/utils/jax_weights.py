@@ -9,7 +9,7 @@ are converted on the way (flax -> torch):
   with the spatial flip (flax does not flip the kernel, torch does)
 - Conv1d (K, I, O) -> (O, I, K); Dense (I, O) -> Linear (O, I)
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
-  GroupNorm scale -> weight
+  GroupNorm and LayerNorm scale -> weight
 - MultiHeadDotProductAttention query/key/value (D, nh, hd) -> in_proj_weight,
   out (nh, hd, D) -> out_proj.weight
 - EDFFN fft (8, 5, C) -> (C, 1, 1, 8, 5); AdaptiveDynamicTanh alphas
@@ -19,6 +19,10 @@ are converted on the way (flax -> torch):
   ``detect/`` (``detect/cv2_i_j``), the extra branch ``cv4.i.j`` at
   ``cv4_i_j``; Segment's Proto at ``proto/{cv1,upsample,cv2,cv3}`` (its
   ``upsample`` a flax ConvTranspose, flipped like any other)
+- WorldDetect: the contrastive head ``cv4.i`` holds flat leaves
+  ``cv4_i_norm`` (its BatchNorm), ``cv4_i_logit_scale`` and ``cv4_i_bias``;
+  ``default_text`` and v10Detect's ``cv2_one2one_i_j`` / ``cv3_one2one_*``
+  follow from their names
 
 ``load_jax_variables`` takes the flax trees flattened to
 ``{"modules_8/m0/m1/cv1/conv/kernel": array}``; ``jax_to_port`` gives the
@@ -37,7 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolo_ad_refine_tpu_torch.nn.head import OBB, ModulatedDeformConv, Pose, Segment
+from yolo_ad_refine_tpu_torch.nn.head import (
+    OBB, ContrastiveHead, ModulatedDeformConv, Pose, Segment)
 
 STATS = {"running_mean": "mean", "running_var": "var"}
 
@@ -87,6 +92,8 @@ def _module_path(name: str) -> list[str]:
             pass                                   # TaskDecomposition reduction_conv.conv
         elif comp == "gn" and out and out[-1] == "reduction_conv":
             out[-1] = "gn"                         # ... and its GN sits beside it
+        elif comp == "norm" and out and re.fullmatch(r"cv4_\d+", out[-1]):
+            out[-1] = f"{out[-1]}_norm"            # WorldDetect's cv4.i.norm -> cv4_i_norm
         else:
             out.append(comp)
     return out
@@ -126,7 +133,9 @@ def _targets(mname: str, mod: nn.Module, pname: str, shape: tuple, nested=frozen
                  (shape[2], shape[3], shape[1], shape[0]))]
     if pname in STATS:
         return [("batch_stats", f"{key}/{STATS[pname]}", same, shape)]
-    if isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
+    if isinstance(mod, ContrastiveHead):  # cv4.i.logit_scale -> cv4_i_logit_scale
+        return [("params", f"{key}_{pname}", lambda a, s=shape: a.reshape(s), shape)]
+    if isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
         return [("params", f"{key}/{'scale' if pname == 'weight' else 'bias'}", same, shape)]
     if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
         if pname == "bias":
