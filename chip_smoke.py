@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
 It builds the hand-written CUDA kernels from ``yolo_ad_refine_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each kernel (K1 DCN
 forward and backward; K2, the separable DCN, and K3, the bounded-window
-DCN, forward and backward; K4 NMS; K5 rotated NMS; the gather probe)
+DCN, forward and backward; K4 NMS; K5 rotated NMS; the gather probe; the
+LAP of RT-DETR's matcher)
 against its plain PyTorch version at the shapes of its paths and times
 both; K1 also at the flagship's wider DCN of scales m, l (C = Cout = 256)
 and x (384), where its backward runs in (C-chunk, Cout-chunk) pairs, and
@@ -93,6 +94,19 @@ to 0 just before it and read just after, each DCN variant under its own
   a validation batch's candidates over the 3-name vocabulary (the kernels
   line's K4 ``world_batches``); its training raises, as the JAX train
   step does;
+- RT-DETR (``phase_rtdetr``, after ``phase_world``): rtdetr-l at 640
+  served (64 images at batch 32, fp32, conf 0.25: no kernel, it is
+  NMS-free) and validated (16 images, card vs CPU at 1e-3); trained 4
+  bf16 steps at batch 16 with the denoising group (556 queries), the LAP
+  kernel (``csrc/lap.cu``, the Hungarian matcher) once a step for the 7
+  levels' 112 cost matrices and once in the EMA validation; the gradient
+  of one training forward card vs CPU at 256, held in fp64 and in fp32
+  (a decoder layer whose ReLU inputs the card's fp32 rounding puts on the
+  other side of 0 may miss, while the card's flips against fp64 stay
+  within 4 times the CPU's); the LAP kernel against
+  its plain version on the step's matrices and on synthetic ones; the
+  ATSS loss card vs CPU; a yolov10n TorchScript program validated
+  through its sidecar's head kind against the model;
 - export and serving (``phase_export``): the flagship exported at batch
   32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
   fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
@@ -1636,6 +1650,620 @@ def phase_world(dev) -> dict:
             "serving": serving, "val_ms_per_image": val["ms_per_image"], "k4": k4}
 
 
+RTDETR_CFG, RTDETR_IMGSZ = "rtdetr-l.yaml", 640  # nc 80, nq 300, 6 decoder layers
+LAP_TOL = 1e-3  # |kernel - plain| of a matrix's optimal cost (fp32 sums of up to 128 terms)
+
+
+def rtdetr_model(dev):
+    """rtdetr-l at 640 with seeded weights; the decoder's score heads at
+    the class prior 0.01, and the last layer's class 0 shifted so that a
+    tenth of the queries of two seeded images score over 0.25: at conf
+    0.25 tens of the 300 queries an image are kept, as in a served
+    batch. The encoder's selection keeps its seeded scores."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    t0 = time.perf_counter()
+    model = YOLO(RTDETR_CFG, device=dev, imgsz=RTDETR_IMGSZ, seed=0)
+    head = model.model.model[model.model.head_idx]
+    with torch.no_grad():
+        for h in head.dec_score_head:
+            h.bias.fill_(logit(0.01))
+        x = torch.rand(2, 3, RTDETR_IMGSZ, RTDETR_IMGSZ,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+        cls0 = model.model(x)[1][1][-1][..., 0].float().flatten()  # the last layer's logits
+        head.dec_score_head[-1].bias[0] += logit(0.25) - torch.quantile(cls0, 0.9).item()
+    log(f"rtdetr: {RTDETR_CFG} built on {dev} in {time.perf_counter() - t0:.1f} s, "
+        f"{model.model.num_params():,} parameters, nq {head.nq}, {head.ndl} decoder layers")
+    return model
+
+
+def tie_encoder_scores(model):
+    """``model`` (a DetectionModel) with its encoder score head constant:
+    every anchor ties, so the selection is the first nq anchors in index
+    order on every device (``lax.top_k``'s tie order, the port's stable
+    sort). Seeded weights leave groups of exactly tied scores (anchors of
+    equal features) that may straddle the 300th place, where the last bit
+    of a card or CPU convolution decides which are selected; a card-vs-CPU
+    hold compares the same queries only with the selection fixed."""
+    import torch
+
+    head = model.model[model.head_idx].enc_score_head
+    with torch.no_grad():
+        head.weight.zero_()
+        head.bias.fill_(0.0)
+    return model
+
+
+def rtdetr_serving(model, dev) -> dict:
+    """The RT-DETR predict path on the card: 64 images of the serving
+    shapes at batch 32, 640, fp32, conf 0.25, three timed runs, no kernel
+    launched (it is NMS-free: ``rtdetr_rows``); then 2 images card vs CPU,
+    the normalised boxes in pixels and the scores of the 300 queries, on
+    a copy whose selection is fixed (``tie_encoder_scores``)."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (*SERVING_SHAPES[i % len(SERVING_SHAPES)], 3), dtype=np.uint8)
+            for i in range(64)]
+    model.predict(imgs[:32], conf=0.25, batch=32)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    seconds = []
+    for _ in range(3):
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(imgs, conf=0.25, batch=32)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters.items()}
+        if any(launches.values()):
+            raise AssertionError(f"rtdetr serving launched a kernel (it is NMS-free): {launches}")
+    dt = sorted(seconds)[1]
+    kept = [len(r) for r in results]
+    log(f"rtdetr serving: 64 images, batch 32, imgsz {RTDETR_IMGSZ}, fp32, conf 0.25: "
+        f"{64 / dt:.1f} images/s, {dt / 2 * 1e3:.1f} ms/batch (median of 3 runs: "
+        + ", ".join(f"{64 / s:.1f}" for s in seconds) + " images/s; host clock, preprocess + "
+        f"forward + decode + results); kept {np.mean(kept):.1f} an image (min {min(kept)}, "
+        f"max {max(kept)}); launches {launches} (K4 0: no NMS)")
+    if not all(0 < k <= 300 for k in kept) or not all(np.isfinite(r.boxes.data).all()
+                                                      for r in results):
+        raise AssertionError(f"rtdetr serving: an image kept no query, or bad rows: {kept}")
+    x, _ = preprocess(imgs[:2], RTDETR_IMGSZ, 2, torch.device(dev), torch.float32)
+    tied = tie_encoder_scores(copy.deepcopy(model.model))
+    with torch.inference_mode():
+        y_gpu = tied(x)[0].float().cpu()
+        y_cpu = tied.cpu()(x.cpu())[0]
+    errs = {"box_px": ((y_gpu[..., :4] - y_cpu[..., :4]).abs().max() * RTDETR_IMGSZ).item(),
+            "score": (y_gpu[..., 4:] - y_cpu[..., 4:]).abs().max().item()}
+    log(f"rtdetr serving: card vs CPU on 2 images: max |box diff| {errs['box_px']:.3e} px, "
+        f"max |score diff| {errs['score']:.3e} (tol 5e-2 px, 1e-3)")
+    if y_gpu.shape != (2, 300, 84) or not torch.isfinite(y_gpu).all():
+        raise AssertionError(f"bad RT-DETR eval output {tuple(y_gpu.shape)}")
+    if errs["box_px"] > 5e-2 or errs["score"] > 1e-3:
+        raise AssertionError(f"card and CPU RT-DETR outputs disagree: {errs}")
+    return {"run": launches, "images_per_s": 64 / dt, "ms_per_batch": dt / 2 * 1e3,
+            "kept_mean": float(np.mean(kept))}
+
+
+def label_with_own_rows(model, root: Path, n: int = 20) -> None:
+    """Each val image of the set at ``root`` labelled with the model's own
+    first ``n`` rows at conf 0.25, so that a validation reads mAP above 0."""
+    import cv2
+
+    files = sorted((root / "val" / "images").glob("*.jpg"))
+    for f, r in zip(files, model.predict([cv2.imread(str(f)) for f in files], conf=0.25,
+                                         batch=16)):
+        rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in b.clip(0, 1))
+                for b, c in zip(r.boxes.xywhn[:n], r.boxes.cls[:n])]
+        (root / "val" / "labels" / f"{f.stem}.txt").write_text("\n".join(rows) + "\n")
+
+
+def rtdetr_val(model, dev) -> dict:
+    """``.val`` of rtdetr-l on 16 seeded shapes images of 640² at batch 8,
+    each labelled with the model's own first 20 rows: no kernel (no NMS,
+    no val loss through the facade), finite metrics within 1e-3 of the
+    same validation on the CPU."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rtdetr_val_") as tmp:
+        root = Path(tmp) / "ds"
+        data = make_shapes_dataset(root, n_train=1, n_val=16, imgsz=RTDETR_IMGSZ, seed=0)
+        label_with_own_rows(model, root)
+        args = {"data": data, "imgsz": RTDETR_IMGSZ, "batch": 8, "conf": 0.001}
+        counters = kernel_counters()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        metrics = model.val(**args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        cpu = copy.deepcopy(model)
+        cpu.model = cpu.model.cpu()
+        t1 = time.perf_counter()
+        want = cpu.val(**args)
+        cpu_s = time.perf_counter() - t1
+    keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+            "metrics/mAP50-95(B)", "fitness")
+    log(f"rtdetr val: 16 images at batch 8 in {wall:.2f} s, {wall / 16 * 1e3:.1f} ms an image "
+        f"(host clock, loader to metrics; the validator's own {metrics['speed_ms_per_image']:.1f}"
+        f" ms, of it inference + decode {metrics['inference_ms_per_image']:.1f} ms); launches "
+        f"{launches}")
+    log("rtdetr val: card " + ", ".join(f"{k} {metrics[k]:.6f}" for k in keys))
+    log(f"rtdetr val: CPU ({cpu_s:.1f} s) " + ", ".join(f"{k} {want[k]:.6f}" for k in keys)
+        + " (tol 1e-3)")
+    if any(launches.values()) or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"rtdetr val launched a kernel or gave non-finite metrics: "
+                             f"{launches}, {metrics}")
+    if metrics["metrics/mAP50(B)"] <= 0.05 or any(abs(metrics[k] - want[k]) > 1e-3
+                                                  for k in keys):
+        raise AssertionError("the card's rtdetr val metrics are vacuous or disagree with the CPU's")
+    return {"run": launches, "ms_per_image": wall / 16 * 1e3}
+
+
+def rtdetr_training(dev) -> dict:
+    """``YOLO("rtdetr-l.yaml").train()`` on the card: a seeded shapes set of
+    64 train and 16 val images of 640², 1 epoch at batch 16 in bf16 (4
+    steps), each step with a denoising group (max_boxes 128: ndn 256, T 556
+    queries) and one launch of the LAP kernel for the 7 levels' 112 cost
+    matrices; the EMA validation's val loss launches it once more, the
+    validation of ``best`` not at all. The LAP's share of a step is CUDA
+    events around each of its calls. Then one training gradient card vs
+    CPU (``rtdetr_step_card_vs_cpu``). Returns the run's launches, the step's
+    ms, and the first step's cost matrices."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.build import collate
+    from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train import rtdetr as R
+
+    counters = kernel_counters()
+
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    lap = R.linear_sum_assignment
+    lap_events, captured, in_step = [], {}, [False]
+
+    def timed_lap(cost, mask=None, **kw):
+        if not in_step[0]:
+            return lap(cost, mask, **kw)
+        captured.setdefault("cost", cost.detach().float().clone())
+        captured.setdefault("mask", mask.detach().clone())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = lap(cost, mask, **kw)
+        end.record()
+        lap_events.append((start, end))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rtdetr_train_") as tmp:
+        data = make_shapes_dataset(Path(tmp) / "ds", n_train=64, n_val=16, imgsz=RTDETR_IMGSZ,
+                                   seed=5)
+        model = YOLO(RTDETR_CFG, device=dev, imgsz=RTDETR_IMGSZ, seed=0)
+        steps, mark = [], {}
+
+        def on_batch_start(tr):
+            torch.cuda.synchronize()
+            in_step[0] = True
+            mark.update(counts=counts(), t=time.perf_counter(), lap=len(lap_events))
+
+        def on_batch_end(tr):
+            torch.cuda.synchronize()
+            in_step[0] = False
+            now = counts()
+            lap_ms = sum(s.elapsed_time(e) for s, e in lap_events[mark["lap"]:])
+            steps.append({"ms": (time.perf_counter() - mark["t"]) * 1e3, "lap_ms": lap_ms,
+                          **{k: now[k] - mark["counts"][k] for k in now}})
+            mark["after_steps"] = now
+
+        model.add_callback("on_train_batch_start", on_batch_start)
+        model.add_callback("on_train_batch_end", on_batch_end)
+        for f in counters.values():
+            f.launches = 0
+        R.linear_sum_assignment = timed_lap
+        try:
+            t0 = time.perf_counter()
+            results = model.train(data=data, epochs=1, batch=16, imgsz=RTDETR_IMGSZ, amp=True,
+                                  plots=False, project=str(Path(tmp) / "runs"), workers=8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            R.linear_sum_assignment = lap
+        run = counts()
+        trainer = model.trainer
+        val = {k: run[k] - mark["after_steps"][k] for k in run}
+        ms = statistics.median(st["ms"] for st in steps[1:])
+        lap_ms = statistics.median(st["lap_ms"] for st in steps[1:])
+        t_queries = trainer.loss_fn.dn_cfg.ndn + trainer.loss_fn.nq
+        log(f"rtdetr training: {len(steps)} steps + validations in {wall:.1f} s; bf16 autocast "
+            f"{trainer.amp_dtype is not None}; {t_queries} queries a step (ndn "
+            f"{trainer.loss_fn.dn_cfg.ndn}); steps " + ", ".join(f"{st['ms']:.1f}" for st in steps)
+            + f" ms; {ms:.1f} ms a step (median of steps 2-4, host clock with a synchronise), "
+            f"{16 / ms * 1e3:.1f} images/s at batch 16, imgsz {RTDETR_IMGSZ}; the LAP kernel "
+            f"{lap_ms:.3f} ms a step (CUDA events, median of steps 2-4; "
+            + ", ".join(f"{st['lap_ms']:.3f}" for st in steps) + f" ms), {lap_ms / ms * 100:.2f} % "
+            f"of the step; launches in the run {run}, in the validations after the steps {val}")
+        if len(steps) != 4 or trainer.amp_dtype is None or t_queries != 556:
+            raise AssertionError(f"expected 4 bf16 RT-DETR steps of 556 queries, got "
+                                 f"{len(steps)}, {t_queries}")
+        if any(st[k] != (k == "linear_sum_assignment") for st in steps for k in run) or \
+                any(val[k] != (k == "linear_sum_assignment") for k in run):
+            raise AssertionError(f"the RT-DETR run did not launch the LAP kernel once a step and "
+                                 f"once in the EMA validation, and nothing else: steps {steps}, "
+                                 f"validations {val}")
+        csv = (Path(results["save_dir"]) / "results.csv").read_text().splitlines()
+        row = dict(zip(csv[0].split(","), csv[1].split(",")))
+        losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss",
+                                          "val/box_loss", "val/cls_loss", "val/dfl_loss")]
+        log(f"rtdetr training: results.csv train giou / cls / l1 {losses[:3]}, val {losses[3:]}; "
+            f"mAP50(B) {results.get('metrics/mAP50(B)', 0.0):.4f}")
+        if not all(math.isfinite(v) and v > 0 for v in losses):
+            raise AssertionError(f"rtdetr losses not finite: {losses}")
+        reloaded = YOLO(str(Path(results["save_dir"]) / "weights" / "best"), device=dev)
+        if reloaded.model.head_kind != "rtdetr":
+            raise AssertionError("rtdetr best did not reload as an RT-DETR model")
+        info = check_det_dataset(data)
+        ds = YOLODataset(info["val"], imgsz=256, augment=False, nc=3, max_boxes=16)
+        batch = collate([ds.get_sample(i) for i in range(2)], 16)
+    batch = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    base = tie_encoder_scores(build_detection_model(RTDETR_CFG, nc=3, device="cpu", seed=3,
+                                                    imgsz=256))
+    cfg = R.make_dn_config(16)
+    dn = R.make_cdn_group(*(torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask")),
+                          torch.Generator().manual_seed(4), nc=3, imgsz=256.0, cfg=cfg,
+                          attn_blocked=torch.from_numpy(R.build_dn_attn_blocked(cfg, 300)))
+    step = rtdetr_step_card_vs_cpu(dev, base, batch, dn)
+    return {"run": run, "ms_per_step": ms, "lap_ms_per_step": lap_ms, "cost": captured["cost"],
+            "mask": captured["mask"], "step": step}
+
+
+def rtdetr_step_card_vs_cpu(dev, base, batch: dict, dn: dict) -> dict:
+    """The gradient of one RT-DETR training forward and loss: ``base``
+    (rtdetr-l at 256, its selection fixed by ``tie_encoder_scores``) on
+    ``batch`` (2 images, converted to [0, 1] once on the CPU: the card's
+    ``x / 255`` multiplies by the reciprocal, an ulp off the CPU's division)
+    with the denoising group ``dn`` injected, on the card and on the CPU
+    from the same weights, in fp64 and in fp32 (TF32 off, deterministic
+    algorithms), the card's with the CPU's matches (how many GT slots its
+    own LAP would have matched otherwise is printed). Held in both: the
+    loss within 1e-4 relative. In fp64: each leaf within LEAF_TOL relative
+    norm (a leaf's norm floored at 1e-6 of the largest leaf's: leaves whose
+    gradient cancels to ~0, a bias before a norm). In fp32:
+    ``phase_step_card_vs_cpu``'s rule (a leaf whose CPU fp32 gradient lies
+    more than LEAF_TOL / 4 from fp64 is held against fp64, the card within
+    4 times the CPU's distance; every other leaf within LEAF_TOL of the
+    CPU's). The seeded decoder's ReLUs (FFN, box and position MLPs) take
+    pre-activations within fp32 rounding of 0 to either side, and a box
+    head's gradient comes from a few matched queries, so one flipped unit
+    moves a whole leaf. A leaf that misses the rule therefore passes only
+    if it is the weight or bias of a layer feeding a decoder ReLU whose
+    inputs the card's fp32 forward puts on the other side of 0 than the
+    CPU's, and the card's fp32 forward puts at most 4 times as many of the
+    decoder's ReLU inputs on the other side of 0 than the fp64 forward as
+    the CPU's fp32 forward does (the rule's factor for a cancelling leaf);
+    the ReLU inputs are compared only when a leaf misses."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.nn.transformer import MLP, DeformableDecoderLayer
+    from yolo_ad_refine_tpu_torch.train import rtdetr as R
+    from yolo_ad_refine_tpu_torch.train.step import images_to_tensor
+
+    img = images_to_tensor(batch["img"], "cpu")
+    targets = [torch.from_numpy(batch[k]) for k in ("cls", "bboxes", "mask")]
+
+    def forward(model):
+        d = next(model.parameters())
+        return model.train()(img.to(d.device, d.dtype),
+                             dn={k: v.to(d.device) for k, v in dn.items()})
+
+    def grads_of(model):
+        d = next(model.parameters()).device
+        out = R.RTDETRLoss(nc=base.nc, nq=300, imgsz=256, max_boxes=16)(
+            forward(model), *(t.to(d) for t in targets))
+        out.total.backward()
+        return out.total.item(), {n: p.grad.detach().double().cpu()
+                                  for n, p in model.named_parameters() if p.grad is not None}
+
+    def relu_inputs(model) -> dict:
+        """{layer name: its outputs} of every layer that feeds a ReLU of
+        the decoder (FFN, box and position MLPs; the position MLP runs once
+        a decoder layer), one forward."""
+        outs = {}
+        for name, m in model.named_modules():
+            layers = ([(f"{name}.layers.{i}", lay) for i, lay in enumerate(m.layers[:-1])]
+                      if isinstance(m, MLP) else [(f"{name}.linear1", m.linear1)]
+                      if isinstance(m, DeformableDecoderLayer) else [])
+            for n, layer in layers:
+                layer.register_forward_hook(
+                    lambda mod, i, o, n=n: outs.setdefault(n, []).append(o.detach().cpu()))
+        with torch.no_grad():
+            forward(model)
+        return outs
+
+    def flips(a: dict, b: dict) -> dict:
+        """{layer: how many of its ReLU inputs lie on the other side of 0
+        in ``b`` than in ``a``}."""
+        return {n: sum(int(((x > 0) != (y > 0)).sum()) for x, y in zip(a[n], b[n])) for n in a}
+
+    # the CPU's matches, replayed in the card's: a match is a discontinuity
+    # of the loss, and with the selection fixed many queries have tied
+    # costs, whose assignment the last bit of an fp32 cost decides
+    lap, state = R.linear_sum_assignment, {}
+
+    def cpu_matches(cost, mask=None, **kw):
+        got = lap(cost, mask, **kw)
+        if cost.device.type == "cpu":
+            state["cpu"] = got
+            return got
+        state["differ"] = int((got.cpu() != state["cpu"]).sum())
+        return state["cpu"].to(got.device)
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    R.linear_sum_assignment = cpu_matches
+    out, cpu_grads = {}, {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            loss_cpu, g_cpu = grads_of(copy.deepcopy(base).to(dtype))
+            cpu_grads[tag] = g_cpu
+            state["differ"] = 0
+            loss, g = grads_of(copy.deepcopy(base).to(dev, dtype))
+            rel = abs(loss - loss_cpu) / abs(loss_cpu)
+            head = (f"rtdetr card vs CPU gradient, {tag}: the card's own LAP would have matched "
+                    f"{state['differ']} of {state['cpu'].numel()} GT slots otherwise (the CPU's "
+                    f"replayed); loss {loss:.9f} vs CPU {loss_cpu:.9f} (rel {rel:.2e}, tol 1e-4); ")
+            if tag == "fp64":
+                top = max(v.norm().item() for v in g_cpu.values())
+                errs = sorted((((g[n] - w).norm() / max(w.norm().item(), 1e-6 * top)).item(), n)
+                              for n, w in g_cpu.items())
+                over = [f"{n}: {e:.2e}" for e, n in errs if e > LEAF_TOL]
+                out[tag] = {"loss_rel": rel, "worst_leaf": errs[-1][0], "over": len(over)}
+                log(head + f"{len(errs)} leaves, {len(over)} over {LEAF_TOL} relative norm, "
+                    "worst " + ", ".join(f"{n} {e:.2e}" for e, n in errs[:-4:-1]))
+                if rel > 1e-4 or over:
+                    raise AssertionError(f"rtdetr card vs CPU gradient (fp64) disagrees: loss "
+                                         f"rel {rel:.2e}, leaves {over[:8]}")
+                continue
+            g64 = cpu_grads["fp64"]
+            off = {n: (w - g64[n]).norm().item() for n, w in g_cpu.items()}
+            cancels = {n for n in g_cpu if off[n] > LEAF_TOL / 4 * g64[n].norm().item()}
+            held = [(((g[n] - w).norm() / w.norm().clamp(min=1e-30)).item(), n)
+                    for n, w in g_cpu.items() if n not in cancels]
+            ratio = [((g[n] - g64[n]).norm().item() / max(off[n], 1e-30), n) for n in cancels]
+            missed = sorted([(e, n) for e, n in held if e > LEAF_TOL]
+                            + [(r, n) for r, n in ratio if r > 4], reverse=True)
+            flipped, n_flips, vs_fp64, n_inputs = {}, 0, {"card": 0, "cpu": 0}, 0
+            if missed:
+                card_in, cpu_in, fp64_in = (relu_inputs(copy.deepcopy(base).to(*to)) for to in
+                                            ((dev,), ("cpu",), ("cpu", torch.float64)))
+                flipped = flips(card_in, cpu_in)
+                n_flips = sum(flipped.values())
+                vs_fp64 = {"card": sum(flips(card_in, fp64_in).values()),
+                           "cpu": sum(flips(cpu_in, fp64_in).values())}
+                n_inputs = sum(x.numel() for v in card_in.values() for x in v)
+            unexplained = [n for _, n in missed if not flipped.get(n.rsplit(".", 1)[0])]
+            out[tag] = {"loss_rel": rel, "missed": [n for _, n in missed],
+                        "relu_flips": n_flips, "relu_flips_vs_fp64": vs_fp64,
+                        "relu_inputs": n_inputs,
+                        "relu_flips_by_layer": {n.rsplit(".", 1)[0]: flipped.get(
+                            n.rsplit(".", 1)[0], 0) for _, n in missed}}
+            log(head + f"{len(held)} leaves held at {LEAF_TOL}, worst {max(held, default=(0.0,))[0]:.2e}; "
+                f"{len(cancels)} cancelling leaves, worst card / CPU distance from fp64 "
+                f"{max(ratio, default=(0.0,))[0]:.2f} (tol 4); missed on {len(missed)}: "
+                + ", ".join(f"{n} {v:.3g}" for v, n in missed[:6])
+                + "; their layers' ReLU inputs on the other side of 0 than the CPU's fp32: "
+                + ", ".join(f"{n} {k}" for n, k in out[tag]["relu_flips_by_layer"].items())
+                + f"; the decoder's {n_flips} of {n_inputs:,}; against the fp64 forward the "
+                f"card's fp32 flips {vs_fp64['card']}, the CPU's {vs_fp64['cpu']} (tol 4 times "
+                "the CPU's)")
+            if rel > 1e-4 or unexplained or vs_fp64["card"] > 4 * vs_fp64["cpu"]:
+                raise AssertionError(f"rtdetr card vs CPU gradient (fp32) disagrees: loss rel "
+                                     f"{rel:.2e}, leaves missed with no flipped ReLU input "
+                                     f"{unexplained[:8]}, ReLU inputs flipped against fp64 "
+                                     f"{vs_fp64}")
+    finally:
+        R.linear_sum_assignment = lap
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def lap_bound(cost, mask, scans) -> dict:
+    """The LAP's bound: the valid rows' costs (the only ones it solves) and
+    the uint8 row masks read once, col4row and the scan counts written
+    once, over the HBM rate, against
+    its reduced-cost passes this run's data needed (each Dijkstra scan
+    reads N costs and does 4 fp32 operations a column: two subtractions, an
+    addition, a comparison) over the fp32 rate; the larger, and what it
+    is."""
+    b, m, n = cost.shape
+    valid = int((mask > 0).sum())
+    nbytes = valid * n * 4 + mask.numel() + b * m * 4 + b * 4
+    ops = float(scans.sum()) * n * 4
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "scans": int(scans.sum())}
+
+
+def phase_lap(training: dict, dev) -> dict:
+    """The LAP kernel against its plain version on the training step's own
+    112 cost matrices (16 images x 7 levels, 128 GT slots x 300 queries)
+    and on synthetic ones of the same shape, every matrix with 1 to 128
+    valid rows: equal assignments and scan counts (the two run the same
+    fp32 operations in the same order), each matrix's optimal cost equal,
+    the columns distinct. Timed: the kernel (CUDA events) and the plain
+    version (host clock, the copy to the host included). Returns the
+    kernels line's measurements of the step's matrices, the synthetic ones
+    under ``synthetic``."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
+
+    g = torch.Generator().manual_seed(7)
+    b, m, n = training["cost"].shape
+    syn_cost = (torch.randn(b, m, n, generator=g) * 3.0).to(dev)
+    rows = torch.randint(1, m + 1, (b, 1), generator=g)
+    syn_mask = (torch.arange(m)[None] < rows).float()
+    syn_mask = syn_mask[:, torch.randperm(m, generator=g)].to(dev)  # valid rows anywhere
+    out = {}
+    for label, cost, mask in (("step", training["cost"], training["mask"]),
+                              ("synthetic", syn_cost, syn_mask)):
+        got, scans = linear_sum_assignment(cost, mask, return_scans=True)
+        t0 = time.perf_counter()
+        want, want_scans = linear_sum_assignment_plain(cost, mask, return_scans=True)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        valid = (mask > 0).cpu()
+        c = cost.float().cpu()
+        picked = torch.gather(c, 2, got.long().cpu()[..., None])[..., 0] * valid
+        best = torch.gather(c, 2, want.long().cpu()[..., None])[..., 0] * valid
+        cost_err = (picked.sum(1) - best.sum(1)).abs().max().item()
+        distinct = all(len(set(r.tolist())) == m for r in got.cpu())
+        if not (torch.equal(got.cpu(), want.cpu()) and torch.equal(scans.cpu(), want_scans)) \
+                or cost_err > LAP_TOL or not distinct:
+            raise AssertionError(f"LAP kernel disagrees with its plain version on the {label} "
+                                 f"matrices: {int((got.cpu() != want.cpu()).sum())} rows, cost "
+                                 f"{cost_err:.2e}, distinct {distinct}")
+        ms = cuda_time(lambda: linear_sum_assignment(cost, mask), iters=20)
+        bound = lap_bound(cost, mask, want_scans)
+        out[label] = {"B": b, "M": m, "N": n, "valid_rows": int(valid.sum()),
+                      "max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": None}
+        log(f"LAP on the {label} matrices ({b} of {m} x {n}, {int(valid.sum())} valid rows, "
+            f"{bound['scans']} Dijkstra scans): assignments and scans equal to plain, optimal "
+            f"cost |diff| {cost_err:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (host), "
+            f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})")
+    return {**out["step"], "synthetic": out["synthetic"]}
+
+
+def atss_card_vs_cpu(dev) -> dict:
+    """``DetectionLoss(assigner="atss")`` on one flagship train-mode forward's
+    maps (scale n, 256, batch 2, 3 classes): the card against the CPU on
+    the same maps, the total and components within 1e-4 relative and the
+    gradient on the maps within 1e-3 relative norm."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
+    from yolo_ad_refine_tpu_torch.train.step import images_to_tensor
+
+    r = np.random.default_rng(3)
+    xy = r.uniform(0, 180, (2, 8, 2))
+    boxes = np.concatenate([xy, xy + r.uniform(16, 70, (2, 8, 2))], -1).astype(np.float32)
+    mask = (np.arange(8)[None, :, None] < np.array([[[6]], [[4]]])).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (r.integers(0, 3, (2, 8, 1)).astype(np.float32),
+                                       boxes * mask, mask)]
+    model = build_detection_model(FLAGSHIP, nc=3, device=dev, seed=3, imgsz=256).train()
+    img = images_to_tensor(r.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8), dev)
+    with torch.no_grad():
+        maps = [f.float() for f in model(img)]
+    out = {}
+    for where in (dev, "cpu"):
+        leaves = [f.detach().to(where).requires_grad_() for f in maps]
+        loss = DetectionLoss(nc=3, strides=(8, 16, 32), assigner="atss")(
+            leaves, *(a.to(where) for a in t))
+        loss.total.backward()
+        out[where] = (loss.total.item(), loss.components.cpu(), [f.grad.cpu() for f in leaves])
+    (lc, cc, gc), (lp, cp, gp) = out[dev], out["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    comp = ((cc - cp).abs() / cp.abs().clamp(min=1e-12)).max().item()
+    grad = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(gc, gp))
+    log(f"ATSS loss card vs CPU on a flagship step's maps: total {lc:.6f} vs {lp:.6f} (rel "
+        f"{rel:.2e}), components rel {comp:.2e} (tol 1e-4), map gradients rel norm {grad:.2e} "
+        f"(tol 1e-3)")
+    if rel > 1e-4 or comp > 1e-4 or grad > 1e-3 or not math.isfinite(lc):
+        raise AssertionError("the ATSS loss on the card disagrees with the CPU's")
+    return {"total_rel": rel, "grad_rel": grad}
+
+
+def repairs_on_card(dev) -> dict:
+    """The repaired export path on the card: yolov10n (``task_model``'s
+    seeded priors) exported as TorchScript at batch 8 in fp32, its sidecar's
+    head kind "v10", and ``DetectionValidator(backend=)`` over 16 images
+    labelled with the model's own rows against the same validation through
+    the model (1e-3); and whether the tensorboard package imports here and
+    the trainer's TensorBoard integration writes its event file."""
+    import importlib.util
+
+    import torch
+
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+    from yolo_ad_refine_tpu_torch.engine.exporter import AutoBackend
+    from yolo_ad_refine_tpu_torch.engine.validator import DetectionValidator
+
+    model = task_model("v10", dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repairs_") as tmp:
+        root = Path(tmp) / "ds"
+        data = make_shapes_dataset(root, n_train=1, n_val=16, imgsz=TASK_IMGSZ, seed=2)
+        label_with_own_rows(model, root)
+        path = model.export(format="torchscript", imgsz=TASK_IMGSZ, batch=8, half=False,
+                            path=str(Path(tmp) / "v10"))
+        backend = AutoBackend(path, device=dev)
+        args = {"imgsz": TASK_IMGSZ, "batch": 8, "conf": 0.001, "data": data}
+        want = DetectionValidator(dict(args))(model=model.model)
+        got = DetectionValidator(dict(args))(backend=backend)
+        keys = ("metrics/mAP50(B)", "metrics/mAP50-95(B)", "metrics/precision(B)",
+                "metrics/recall(B)", "fitness")
+        log(f"v10 backend validation (TorchScript, sidecar head {backend.head!r}, "
+            f"{backend.n_scores} scores): " + ", ".join(f"{k} {got[k]:.6f} vs model {want[k]:.6f}"
+                                                        for k in keys) + " (tol 1e-3)")
+        if backend.head != "v10" or want["metrics/mAP50(B)"] <= 0.05 or any(
+                abs(got[k] - want[k]) > 1e-3 for k in keys):
+            raise AssertionError("v10 backend validation is vacuous or disagrees with the model's")
+        tb = importlib.util.find_spec("tensorboard") is not None
+        events = 0
+        if tb:  # the trainer's TensorBoard integration, fed one epoch
+            from types import SimpleNamespace
+
+            from yolo_ad_refine_tpu_torch.utils.callbacks import tensorboard_callbacks
+
+            hooks = tensorboard_callbacks(tmp)
+            trainer = SimpleNamespace(current_epoch=0, last_epoch_scalars={"train/box_loss": 1.0})
+            hooks["on_fit_epoch_end"](trainer)
+            hooks["on_train_end"](trainer)
+            events = len(list(Path(tmp).glob("events.out.tfevents.*")))
+        log(f"tensorboard: {'imports' if tb else 'absent'} on this machine; the trainer's "
+            f"integration wrote {events} event file(s)")
+        torch.cuda.synchronize()
+    return {"tensorboard": tb}
+
+
+def phase_rtdetr(dev) -> dict:
+    """rtdetr-l at 640 on the card (``rtdetr_model``): served
+    (``rtdetr_serving``), validated (``rtdetr_val``) and trained
+    (``rtdetr_training``), the LAP kernel held against its plain version
+    (``phase_lap``), the ATSS loss card vs CPU (``atss_card_vs_cpu``) and
+    the repaired export path (``repairs_on_card``). Returns {"paths":
+    {path: launches}, "lap": the LAP's measurements, ...}."""
+    model = rtdetr_model(dev)
+    serving = rtdetr_serving(model, dev)
+    val = rtdetr_val(model, dev)
+    del model
+    training = rtdetr_training(dev)
+    lap = phase_lap(training, dev)
+    atss = atss_card_vs_cpu(dev)
+    repairs = repairs_on_card(dev)
+    return {"paths": {"rtdetr_serving_run": serving["run"], "rtdetr_val_run": val["run"],
+                      "rtdetr_training_run": training["run"]},
+            "serving": serving, "val_ms_per_image": val["ms_per_image"],
+            "ms_per_step": training["ms_per_step"], "lap_ms_per_step": training["lap_ms_per_step"],
+            "lap": lap, "atss": atss, "repairs": repairs}
+
+
 CLS_CFG, CLS_IMGSZ = "yolo11n-cls.yaml", 224  # nc 1000 for the forward
 
 
@@ -1868,6 +2496,7 @@ def kernel_counters():
     from yolo_ad_refine_tpu_torch.ops import deform_mxu, deform_pallas
     from yolo_ad_refine_tpu_torch.ops.deform import dcn_backward, modulated_deform_conv2d
     from yolo_ad_refine_tpu_torch.ops.gather import gather_rows
+    from yolo_ad_refine_tpu_torch.ops.lap import linear_sum_assignment
     from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_rotated
 
     return {"dcn_forward": modulated_deform_conv2d, "dcn_backward": dcn_backward,
@@ -1875,7 +2504,8 @@ def kernel_counters():
             "dcn_separable_backward": deform_mxu.dcn_separable_backward,
             "dcn_window_forward": deform_pallas.dcn_window_forward,
             "dcn_window_backward": deform_pallas.dcn_window_backward,
-            "nms_suppress": suppress, "nms_rotated": suppress_rotated, "gather_rows": gather_rows}
+            "nms_suppress": suppress, "nms_rotated": suppress_rotated, "gather_rows": gather_rows,
+            "linear_sum_assignment": linear_sum_assignment}
 
 
 def dcn_kernels(impl: str | None) -> tuple[str, str]:
@@ -2805,7 +3435,7 @@ def phase_cli() -> dict:
     ``predict`` (8 images, ``save_txt``) on its ``best``, and ``checks``.
     Held: results.csv's row and finite losses, ``weights/best``, the val
     metrics, an image and a label file for each predicted image, and the
-    card and the four built kernels in ``checks``. Printed: each command's
+    card and the five built kernels in ``checks``. Printed: each command's
     seconds and the train epoch's seconds over its 4 steps (the results.csv
     time: the steps, their first calls at the shape, and the validation).
     Returns the numbers."""
@@ -2849,8 +3479,8 @@ def phase_cli() -> dict:
         out = run_cli("checks")
         built = [ln for ln in out.splitlines() if ln.startswith("kernel") and ": built" in ln]
         card = [ln for ln in out.splitlines() if ln.startswith("cuda:0")]
-        if len(built) != 4 or not card or "H100" not in card[0]:
-            raise AssertionError(f"CLI checks did not report the card and 4 built kernels:\n{out}")
+        if len(built) != 5 or not card or "H100" not in card[0]:
+            raise AssertionError(f"CLI checks did not report the card and 5 built kernels:\n{out}")
         log(f"cli checks: {card[0].strip()}; {len(built)} kernels built")
     return {"train_s": train_s, "epoch_s": epoch_s}
 
@@ -3102,7 +3732,7 @@ def main() -> int:
         f"Python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    report = kernels.build("deform_conv", "deform_window", "gather", "nms")
+    report = kernels.build("deform_conv", "deform_window", "gather", "lap", "nms")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (parallel nvcc): "
         + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
     for name, r in report.items():
@@ -3146,6 +3776,8 @@ def main() -> int:
         paths.update(timed(phase_v10, dev)["paths"])
         world = timed(phase_world, dev)
         paths.update(world["paths"])
+        rtdetr = timed(phase_rtdetr, dev)
+        paths.update(rtdetr["paths"])
         paths.update(phase_export(dev)["paths"])
         timed(phase_cli)
         paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
@@ -3200,6 +3832,10 @@ def main() -> int:
             "bound_by": "bytes"}, "gather_probe_run", dtype="bfloat16",
             float32={**gather["float32"]["total"], "bound_by": "bytes"},
             levels={n: gather[n]["levels"] for n in ("bfloat16", "float32")}),
+        entry("linear_sum_assignment", "lap.cu", "ops/lap.py:29", rtdetr["lap"],
+              "rtdetr_training_run", matrices=[rtdetr["lap"][k] for k in ("B", "M", "N")],
+              scans=rtdetr["lap"]["scans"], synthetic=rtdetr["lap"]["synthetic"],
+              ms_in_step=rtdetr["lap_ms_per_step"], step_ms=rtdetr["ms_per_step"]),
     ]}
     for k in kernels_line["kernels"]:
         if k["launches"] == 0:

@@ -190,3 +190,15 @@ def test_facade_hands_off_and_jax_facade_cannot(data, tmp_path):
         m.predict([img])
     assert entrypoint(["classify", "val", f"model={r['save_dir']}/weights/best",
                        f"data={data}", f"imgsz={IMGSZ}", "batch=8", "device=cpu"]) == 0
+
+
+@pytest.mark.parametrize("fmt", ["torchscript", "torch_export", "checkpoint"])
+def test_export_of_a_classifier_raises(fmt, tmp_path):
+    """ROADMAP Queue 3 item 2: the exported callable returns the first
+    output, which for a Classify head is the first image's probabilities;
+    the JAX package exports and serves no classifier, so the port's
+    Exporter raises on one, with the reason."""
+    m = YOLO("yolo11n-cls.yaml", device="cpu", imgsz=IMGSZ, nc=NC)
+    with pytest.raises(ValueError, match="serves and exports no classifier"):
+        m.export(format=fmt, imgsz=IMGSZ, batch=2, half=False, path=str(tmp_path / "cls"))
+    assert not list(tmp_path.iterdir())

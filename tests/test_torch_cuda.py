@@ -23,6 +23,7 @@ from yolo_ad_refine_tpu_torch.ops.deform_pallas import (
     dcn_window_backward, dcn_window_forward, deform_conv2d_pallas_grads_plain,
     deform_conv2d_pallas_plain, modulated_deform_conv2d_pallas)
 from yolo_ad_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from yolo_ad_refine_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
 from yolo_ad_refine_tpu_torch.ops.nms import (
     NMS_SMEM_DEFAULT, nms_launch, rotated_rounding_ties, suppress, suppress_plain,
     suppress_rotated, suppress_rotated_plain)
@@ -1014,3 +1015,40 @@ def test_v10_and_classify_run_without_k4_and_match_the_cpu(dev):
     YOLO("yolov10n.yaml", device=dev, imgsz=320).predict(
         [np.zeros((320, 320, 3), np.uint8)] * 2, conf=0.001, batch=2)
     assert suppress.launches == 0
+
+
+def _lap_cost(b, m, n, seed, ints=False):
+    g = torch.Generator().manual_seed(seed)
+    if ints:  # many exact ties
+        return torch.randint(0, 3, (b, m, n), generator=g).float()
+    return torch.randn(b, m, n, generator=g) * 5.0
+
+
+@pytest.mark.parametrize("b,m,n,ints,masked", [
+    (3, 12, 40, False, False), (7, 128, 300, False, True), (5, 10, 30, True, False),
+    (4, 16, 300, True, True), (2, 1, 1, False, False), (1, 300, 300, False, False)])
+def test_lap_kernel_equals_plain(dev, b, m, n, ints, masked):
+    """The kernel and its plain version run the same fp32 operations in the
+    same order: the assignments and the scan counts are equal exactly,
+    with ties, padded rows, one element and a square matrix."""
+    cost = _lap_cost(b, m, n, seed=m + n, ints=ints)
+    cost[0, 0, 0] = float("nan")  # non-finite costs count as 0
+    mask = None
+    if masked:
+        mask = (torch.rand(b, m, generator=torch.Generator().manual_seed(1)) < 0.5).float()
+        mask[0] = 0.0  # a matrix with no valid row
+    want, want_scans = linear_sum_assignment_plain(cost, mask, return_scans=True)
+    got, scans = linear_sum_assignment(cost.to(dev), None if mask is None else mask.to(dev),
+                                       return_scans=True)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(scans.cpu(), want_scans)
+    for i in range(b):
+        assert len(set(got[i].tolist())) == m  # distinct columns
+
+
+def test_lap_wrapper_counts_and_rejects(dev):
+    before = linear_sum_assignment.launches
+    linear_sum_assignment(torch.zeros(1, 2, 3, device=dev))
+    assert linear_sum_assignment.launches == before + 1
+    with pytest.raises(ValueError, match="M <= N"):
+        linear_sum_assignment(torch.zeros(1, 4, 3, device=dev))

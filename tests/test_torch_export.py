@@ -334,3 +334,20 @@ def test_triton_backend_serves_a_remote_model(tiny, triton_server):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="tritonclient"):
         TritonRemoteModel(f"grpc://{triton_server}/yolo")
+
+
+def test_sidecar_records_the_head_and_an_older_one_reads_as_detect(tiny, tmp_path):
+    """The sidecar records how the validator reads the output (head kind
+    and score count); one written without them is a plain detect head,
+    whose 4 + nc columns pass the backend's check."""
+    path = Exporter(tiny, imgsz=64, batch=2, half=False)("torchscript", tmp_path / "m")
+    meta = json.loads(open(f"{path}.meta.json").read())
+    assert meta["head"] == "detect" and meta["n_scores"] == meta["nc"] == 3
+    old = {k: v for k, v in meta.items() if k not in ("head", "n_scores")}
+    open(f"{path}.meta.json", "w").write(json.dumps(old))
+    backend = AutoBackend(path, device="cpu")
+    assert backend.head == "detect" and backend.n_scores == 3
+    data = make_shapes_dataset(tmp_path / "ds", n_train=1, n_val=2, imgsz=64, max_objects=2)
+    r = DetectionValidator({"imgsz": 64, "batch": 2, "conf": 0.001, "data": data})(
+        backend=backend)
+    assert 0.0 <= r["metrics/mAP50(B)"] <= 1.0

@@ -39,16 +39,17 @@ print(" ".join(names))
 
 # the train slice's, the bounded-DCN slice's, the training options', the OBB
 # training and export slice's, the CLI / tune / benchmark / data-parallel
-# slice's, and the classify / YOLOv10 / YOLO-World slice's modules, each
-# imported under the blocker above
+# slice's, the classify / YOLOv10 / YOLO-World slice's, and the RT-DETR / ATSS
+# slice's modules, each imported under the blocker above
 TRAIN_SLICE_MODULES = (
     "__main__", "cfg.cli", "cfg.config", "data.augment", "data.build", "data.dataset",
     "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.tuner",
-    "engine.validator", "nn.conv_extras", "ops.anchors", "ops.deform", "ops.deform_mxu",
-    "ops.deform_pallas", "ops.iou", "parallel", "parallel.multihost",
-    "train.classify", "train.loss", "train.obb", "train.optim", "train.step", "train.tal",
-    "train.trainer", "utils.autobatch", "utils.benchmarks", "utils.callbacks", "utils.checks",
-    "utils.metrics", "utils.plotting", "utils.settings", "utils.text", "utils.triton",
+    "engine.validator", "nn.conv_extras", "nn.transformer", "ops.anchors", "ops.deform",
+    "ops.deform_mxu", "ops.deform_pallas", "ops.iou", "ops.lap", "parallel",
+    "parallel.multihost", "train.atss", "train.classify", "train.loss", "train.obb",
+    "train.optim", "train.rtdetr", "train.step", "train.tal", "train.trainer",
+    "utils.autobatch", "utils.benchmarks", "utils.callbacks", "utils.checks", "utils.metrics",
+    "utils.plotting", "utils.settings", "utils.text", "utils.triton",
 )
 
 
@@ -75,7 +76,8 @@ def test_yolo_without_device_raises_when_cuda_is_absent(monkeypatch):
         YOLO("yolo11-701-YOLO-AD-Refine.yaml")
 
 
-@pytest.mark.parametrize("cfg", ["yolo11n-cls.yaml", "yolov10n.yaml", "yolov8s-worldv2.yaml"])
+@pytest.mark.parametrize("cfg", ["yolo11n-cls.yaml", "yolov10n.yaml", "yolov8s-worldv2.yaml",
+                                 "rtdetr-l.yaml"])
 def test_slice_models_without_device_raise_when_cuda_is_absent(monkeypatch, cfg):
     from yolo_ad_refine_tpu_torch import YOLO
 
@@ -111,8 +113,8 @@ def test_trainer_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_path
 @pytest.mark.parametrize("override,error,match", [
     # classify trains through its own trainer, which YOLO(...).train hands it to
     ({"task": "classify"}, ValueError, "train/classify.py ClassificationTrainer"),
-    # no such task: YOLO-World is 'detect'; what is left of item 12 is RT-DETR, ATSS
-    ({"task": "world"}, ValueError, "RT-DETR, then ATSS, are not ported yet"),
+    # no such task: YOLOv10, YOLO-World and RT-DETR models are 'detect'
+    ({"task": "world"}, ValueError, "YOLO-World and RT-DETR models are 'detect'"),
 ])
 def test_trainer_raises_on_options_not_ported(override, error, match, tmp_path):
     from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
@@ -153,6 +155,8 @@ def test_profile_predict_raises_when_cuda_is_absent(monkeypatch):
      "K3 dcn_window_forward"),
     ("dcn_window_backward_kernel<float>", "K3 dcn_window_backward"),
     ("nms_reduce_kernel", "K4 nms_suppress"),
+    ("void (anonymous namespace)::lap_kernel(float const*, unsigned char const*, int*)",
+     "LAP linear_sum_assignment"),
     ("void (anonymous namespace)::nms_mask_kernel(float const*, float const*, int, int, long "
      "long, float, float, unsigned long long*)", "K4 nms_suppress"),
     ("void (anonymous namespace)::nms_rotated_reduce_kernel(unsigned long long const*)",

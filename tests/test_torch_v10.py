@@ -352,3 +352,31 @@ def test_yolov10s_loads_strictly():
     n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(variables["params"]))
     assert port.num_params() == n_jax == 8_128_256
     assert [s.name for s in port.specs].count("C2fCIB") == 2
+
+
+def test_backend_validation_of_an_exported_v10_program_equals_eager(val_setup, tmp_path):
+    """ROADMAP Queue 3 item 1: the sidecar records the head kind, so an
+    exported yolov10n program's (B, 300, 6) selected rows take the
+    NMS-free branch through the backend as through the model. A sidecar
+    written without the head kind (as before it was recorded) counts as a
+    plain detect head, and the program's 6 columns then raise at the first
+    batch instead of going through K4's selection at nc."""
+    import json
+
+    from yolo_ad_refine_tpu_torch.engine.exporter import AutoBackend, Exporter
+
+    _, port, data, _ = val_setup
+    path = Exporter(port, imgsz=IMGSZ, batch=3, half=False)("torchscript", tmp_path / "v10")
+    meta = json.loads(open(f"{path}.meta.json").read())
+    assert meta["head"] == "v10" and meta["n_scores"] == 3
+    args = {"imgsz": IMGSZ, "batch": 3, "conf": 0.001, "data": data}
+    want = DetectionValidator(dict(args))(model=port)
+    got = DetectionValidator(dict(args))(backend=AutoBackend(path, device="cpu"))
+    assert want["metrics/mAP50(B)"] > 0.3
+    for k in ("metrics/mAP50(B)", "metrics/mAP50-95(B)", "metrics/precision(B)",
+              "metrics/recall(B)", "fitness"):
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+    old = {k: v for k, v in meta.items() if k not in ("head", "n_scores")}
+    open(f"{path}.meta.json", "w").write(json.dumps(old))
+    with pytest.raises(ValueError, match="export the model again"):
+        DetectionValidator(dict(args))(backend=AutoBackend(path, device="cpu"))

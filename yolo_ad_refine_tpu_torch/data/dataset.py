@@ -52,8 +52,7 @@ def check_task(task: str, classify_entry: str) -> None:
     if task not in TASKS:
         raise ValueError(
             f"unknown task {task!r}: the port's detection engine takes {', '.join(TASKS)} "
-            "(YOLOv10 and YOLO-World models are 'detect'); RT-DETR, then ATSS, are not ported "
-            "yet (ROADMAP Queue 1 item 12)")
+            "(YOLOv10, YOLO-World and RT-DETR models are 'detect')")
 
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}

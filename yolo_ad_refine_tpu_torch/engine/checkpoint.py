@@ -10,7 +10,11 @@ directory:
   its batch and step counts and the gradients summed towards its next
   step, and the EMA update count, for resume;
 - ``meta.yaml``: the JAX package's keys (model_yaml, nc,
-  dcn_offset_max, names, epoch, best_fitness, train_args, date, version).
+  dcn_offset_max, names, epoch, best_fitness, train_args, date, version);
+- ``text_feats.pt``: a YOLO-World model's text embeddings (nc, embed), its
+  vocabulary after ``set_classes``. The JAX checkpoint does not save them
+  (its ``set_classes`` keeps them on the model), so a reloaded JAX World
+  model scores its placeholder; the port's reload keeps the vocabulary.
 
 Tensors are written with ``torch.save``, in the one-process layout also
 from a data-parallel run (FSDP2's shards gathered), so a ``last`` resumes
@@ -57,6 +61,11 @@ def save_checkpoint(path: str | Path, *, model, ema=None, optimizer=None, epoch:
         return path
     path.mkdir(parents=True, exist_ok=True)
     torch.save(weights, path / "weights.pt")
+    text = getattr(model, "text_feats", None)
+    if text is not None:
+        torch.save(torch.as_tensor(text).detach().float().cpu(), path / "text_feats.pt")
+    elif (path / "text_feats.pt").exists():  # another model's, written here before
+        (path / "text_feats.pt").unlink()
     if train is not None:
         torch.save(train, path / "train.pt")
     yaml_save(path / "meta.yaml", {
@@ -167,6 +176,14 @@ def load_checkpoint(path: str | Path, device: str | torch.device = "cuda"):
     imgsz = int((meta.get("train_args") or {}).get("imgsz") or 640)
     model.probe_strides(imgsz)
     model.names = meta.get("names") or {i: f"class{i}" for i in range(model.nc)}
+    if (path / "text_feats.pt").exists():
+        model.text_feats = torch.load(path / "text_feats.pt", map_location="cpu")
+    if model.text_feats is not None and len(model.names) != model.n_scores:
+        raise ValueError(
+            f"{path}: {len(model.names)} names but {model.n_scores} text embeddings: a "
+            "YOLO-World checkpoint written without text_feats.pt (before the vocabulary was "
+            "saved) reloads the placeholder embeddings; save it again from the model after "
+            "set_classes")
     model.ckpt_meta = meta
     LOGGER.info(f"loaded checkpoint {path} (epoch {meta.get('epoch')}, "
                 f"fitness {meta.get('best_fitness', 0.0):.4f})")

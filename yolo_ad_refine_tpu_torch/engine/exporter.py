@@ -16,7 +16,12 @@ imgsz -> the decoded (B, N, 4+nc) predictions, 4+nc+1 for an OBB model (its
 angle last). The /255, the cast to the export's type and the NCHW layout
 happen inside the program; NMS stays outside, as in the JAX package. A
 ``<file>.meta.json`` sidecar records imgsz, batch, nc, names, task,
-strides, dtype, device and the DCN implementation and radius.
+strides, dtype, device, the DCN implementation and radius, and how the
+validator reads the output: the head kind (``DetectionModel.head_kind``:
+detect, v10, world or rtdetr) and the score columns (``n_scores``: a
+YOLO-World model's vocabulary). A Classify model is not exported: the JAX
+package serves no classifier (its exporter unpacks the output as (y,
+feats)), and the program's first output would be one image's row.
 
 The AYHead's DCN enters the program as the port's dispatcher op
 (``yat_ad::dcn_forward``, or ``yat_ad::dcn_separable_forward`` /
@@ -101,6 +106,13 @@ class Exporter:
     port DetectionModel) as ``fmt`` and returns the written path."""
 
     def __init__(self, model, imgsz: int = 640, batch: int = 1, half: bool = True):
+        if model.task == "classify":
+            raise ValueError(
+                "exporting a Classify model: the JAX package serves and exports no classifier "
+                "(its exporter unpacks the output as (y, feats)), and the exported callable "
+                "returns the first output, which for a Classify head is the first image's "
+                "probabilities; run the model's forward, or save it with "
+                "engine.checkpoint.save_checkpoint")
         self.model = model
         self.imgsz = imgsz
         self.batch = batch
@@ -135,7 +147,8 @@ class Exporter:
         m = self.model
         meta = {"format": fmt, "imgsz": self.imgsz, "batch": self.batch, "nc": int(m.nc),
                 "names": {int(k): v for k, v in (getattr(m, "names", None) or {}).items()},
-                "task": m.task, "strides": list(m.strides or ()),
+                "task": m.task, "head": m.head_kind, "n_scores": int(m.n_scores),
+                "strides": list(m.strides or ()),
                 "dtype": str(self.dtype).removeprefix("torch."), "device": str(device),
                 "input": "NHWC float32 RGB in 0-255", **dcn_choice(m)}
         Path(f"{path}.meta.json").write_text(json.dumps(meta, indent=1))
@@ -203,8 +216,12 @@ class AutoBackend:
 
             self.kind = "checkpoint"
             model = load_checkpoint(self.path, self.device)
+            if model.task == "classify":
+                raise ValueError(f"{self.path}: AutoBackend serves detection models; the JAX "
+                                 "package serves no classifier")
             self.meta = {"nc": model.nc, "names": model.names, "task": model.task,
-                         "strides": list(model.strides), **dcn_choice(model)}
+                         "head": model.head_kind, "n_scores": model.n_scores,
+                         "strides": list(model.strides or ()), **dcn_choice(model)}
             self.program = ExportedForward(model, next(model.parameters()).dtype).eval()
         elif self.path.suffix in (".pt2", ".torchscript"):
             self.meta = json.loads(Path(f"{self.path}.meta.json").read_text())
@@ -234,6 +251,17 @@ class AutoBackend:
     @property
     def task(self) -> str:
         return self.meta.get("task", "detect")
+
+    @property
+    def head(self) -> str:
+        """The head kind (detect, v10, world or rtdetr); a sidecar written
+        without it counts as detect."""
+        return self.meta.get("head", "detect")
+
+    @property
+    def n_scores(self) -> int | None:
+        """The score columns; a sidecar written without them counts nc."""
+        return self.meta.get("n_scores", self.nc)
 
     @property
     def batch(self) -> int | None:

@@ -16,7 +16,12 @@ pose model's carries the decoded keypoints, rescaled into
 candidates take the text rows' class count (``DetectionModel.n_scores``).
 A YOLOv10 model takes no NMS: its selected rows are cut at ``conf``
 (``nms_free_rows``, the JAX validator's branch; the JAX predictor runs its
-NMS on them and reads the class column as a score, ROADMAP Queue 3). The
+NMS on them and reads the class column as a score, ROADMAP Queue 3). An
+RT-DETR model takes no NMS either: its queries' normalised xywh are scaled
+by imgsz, each keeps its best class and those over ``conf`` are kept, in
+score order (``rtdetr_rows``, the JAX validator's branch; the JAX predictor
+runs its NMS on the normalised boxes, which come out in [0, 1], ROADMAP
+Queue 3 hazard (h)). The
 JAX package serves no classifier, and neither does the port. ``save``,
 ``save_txt`` (with ``save_conf``) and ``save_crop`` write the annotated
 images, the label files and the crops into ``<project>/predict[n]``, as the
@@ -37,8 +42,7 @@ from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
 from yolo_ad_refine_tpu_torch.engine.results import OBBoxes, Results
 from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
 from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
-from yolo_ad_refine_tpu_torch.nn.head import v10Detect
-from yolo_ad_refine_tpu_torch.ops.nms import nms_free_rows, non_max_suppression
+from yolo_ad_refine_tpu_torch.ops.nms import nms_free_rows, non_max_suppression, rtdetr_rows
 from yolo_ad_refine_tpu_torch.utils import LOGGER, increment_path
 
 
@@ -132,7 +136,7 @@ class DetectionPredictor:
                 "predictor knows no Classify head and its Results have no probs); run the "
                 "model's forward, whose eval output is the softmax, or .val(data=...)")
         rotated = task == "obb"
-        nms_free = isinstance(model.model[model.head_idx], v10Detect)
+        kind = model.head_kind
         kpt_shape = getattr(model.model[model.head_idx], "kpt_shape", None)
         model.eval()
 
@@ -148,8 +152,10 @@ class DetectionPredictor:
                 x, metas = preprocess([im for _, im, _ in chunk], imgsz, batch_size, p.device,
                                       p.dtype)
                 y, feats = model(x)
-                if nms_free:
+                if kind == "v10":
                     det, cnt, extras = nms_free_rows(y, conf)
+                elif kind == "rtdetr":
+                    det, cnt, extras = rtdetr_rows(y, conf, imgsz)
                 else:
                     det, cnt, extras = non_max_suppression(
                         y, conf_thres=conf, iou_thres=iou, max_det=max_det, agnostic=agnostic,

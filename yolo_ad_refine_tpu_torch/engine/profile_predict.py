@@ -39,6 +39,7 @@ _FAMILIES = (("K1 dcn_forward", ("dcn_fwd",)), ("K1 dcn_backward", ("dcn_bwd",))
                  ("K2", "dcn_separable_forward"), ("K2", "dcn_separable_backward"),
                  ("K3", "dcn_window_forward"), ("K3", "dcn_window_backward"))),
              ("K5 nms_rotated", ("nms_rotated",)), ("K4 nms_suppress", ("nms_",)),
+             ("LAP linear_sum_assignment", ("lap_kernel",)),
              ("normalisation", ("norm", "bn_fw")),
              ("layout change", ("nhwctonchw", "nchwtonhwc", "transpose")),
              ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),

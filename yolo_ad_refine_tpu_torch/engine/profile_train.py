@@ -1,9 +1,11 @@
 """Where one train step's time goes, on the card.
 
-    python -m yolo_ad_refine_tpu_torch.engine.profile_train [--batch 16] [--out FILE]
+    python -m yolo_ad_refine_tpu_torch.engine.profile_train [--batch 16] [--model YAML] [--out FILE]
 
 Writes the synthetic shapes set (16 batches of train images, 640 px) to a
-temporary directory and runs ``YOLO(flagship, device="cuda").train`` on it
+temporary directory and runs ``YOLO(model, device="cuda").train`` (the
+flagship by default; ``--model rtdetr-l.yaml`` trains RT-DETR with its
+denoising group and the LAP kernel) on it
 for one epoch at imgsz 640 with bf16 autocast and the default ``auto``
 optimizer, as a user would, reading the trainer through its callbacks and
 ``TrainStep.on_phase``. It prints the phases of a step (data wait, upload
@@ -78,6 +80,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", default=FLAGSHIP, help="the model yaml to train")
     ap.add_argument("--out", default=None, help="write every kernel's device time as JSON here")
     args = ap.parse_args(argv)
 
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
         n_train = (WARMUP + TIMED + PROFILED + 1) * args.batch
         data = make_shapes_dataset(Path(tmp) / "shapes", n_train=n_train, n_val=args.batch,
                                    imgsz=640, seed=args.seed)
-        model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=args.seed)
+        model = YOLO(args.model, device=dev, imgsz=640, seed=args.seed)
         for event in ("on_train_start", "on_train_batch_start", "on_train_batch_end"):
             model.add_callback(event, getattr(clock, event))
         model.train(data=data, epochs=1, batch=args.batch, imgsz=640, amp=True,

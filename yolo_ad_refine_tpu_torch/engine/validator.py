@@ -29,11 +29,20 @@ with zeros to the artifact's batch and its outputs cut back, as the JAX
 validator does; NMS and the metrics stay here. A YOLOv10 model (v10Detect)
 takes no NMS: its selected rows are cut at ``conf`` (``nms_free_rows``,
 the JAX validator's branch), and its val loss is ``E2EDetectLoss`` over the
-eval output's branch dict. A YOLO-World model runs with its text
-embeddings, and K4's candidates take its vocabulary's class count
-(``DetectionModel.n_scores``), where the JAX validator passes the yaml's nc
-(ROADMAP Queue 3). Classification validates through ``train/classify.py``
-``validate``; a backend of any task but detect is not ported.
+eval output's branch dict. An RT-DETR model takes no NMS either: its
+normalised xywh are scaled by imgsz, each query keeps its best class, and
+the rows are sorted by score and cut at ``conf`` (``rtdetr_rows``, the JAX
+validator's branch); its val loss is ``RTDETRLoss`` over the raw tuple. A
+YOLO-World model runs with its text embeddings, and K4's candidates take
+its vocabulary's class count (``DetectionModel.n_scores``), where the JAX
+validator passes the yaml's nc (ROADMAP Queue 3). A backend reads the head
+kind and the score count from the artifact's sidecar
+(``DetectionModel.head_kind``, ``n_scores``), so the same branches serve an
+exported v10, World or RT-DETR program; a sidecar without them counts as a
+plain detect head, and a program whose output width is not 4 + nc then
+raises at the first batch. Classification validates through
+``train/classify.py`` ``validate``; a backend of any task but detect is
+not ported.
 """
 
 from __future__ import annotations
@@ -50,8 +59,7 @@ from yolo_ad_refine_tpu_torch.data.build import DataLoader
 from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset, check_task
 from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes, scale_rboxes
 from yolo_ad_refine_tpu_torch.ops.masks import mask_iou_matrix
-from yolo_ad_refine_tpu_torch.nn.head import v10Detect
-from yolo_ad_refine_tpu_torch.ops.nms import nms_free_rows, non_max_suppression
+from yolo_ad_refine_tpu_torch.ops.nms import nms_free_rows, non_max_suppression, rtdetr_rows
 from yolo_ad_refine_tpu_torch.train.pose import OKS_SIGMA
 from yolo_ad_refine_tpu_torch.train.step import images_to_tensor, targets_to_device
 from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported
@@ -108,8 +116,8 @@ class DetectionValidator:
         iou = float(args.get("iou", 0.7))
         max_det = int(args.get("max_det", 300))
         max_nms = int(args.get("max_nms", 2048))
-        nc = model.n_scores if model is not None else backend.nc
-        nms_free = model is not None and isinstance(model.model[model.head_idx], v10Detect)
+        nc = model.n_scores if model is not None else backend.n_scores
+        kind = model.head_kind if model is not None else backend.head
         rotated = self.task == "obb"
         if model is not None and model.task != self.task:
             raise ValueError(f"validating task {self.task!r} with a {model.task!r} model")
@@ -143,13 +151,22 @@ class DetectionValidator:
             t1 = time.perf_counter()
             if backend is not None:
                 y = self._backend_forward(backend, batch["img"])
+                width = 6 if kind == "v10" else 4 + nc
+                if seen == 0 and y.shape[-1] != width:
+                    raise ValueError(
+                        f"{backend.path}: the program gives {y.shape[-1]} columns where its "
+                        f"sidecar's {kind!r} head with {nc} scores gives {width}; a sidecar "
+                        "without 'head' and 'n_scores' (written before they were recorded) "
+                        "counts as a plain detect head: export the model again")
             else:
                 img = images_to_tensor(batch["img"], dev)
                 with (torch.autocast(dev.type, dtype=torch.bfloat16) if amp
                       else contextlib.nullcontext()):
                     y, feats = model(img)
-            if nms_free:
+            if kind == "v10":
                 det, cnt, extras = nms_free_rows(y, conf)
+            elif kind == "rtdetr":
+                det, cnt, extras = rtdetr_rows(y, conf, imgsz)
             else:
                 det, cnt, extras = non_max_suppression(
                     y, conf_thres=conf, iou_thres=iou, max_det=max_det, max_nms=max_nms,

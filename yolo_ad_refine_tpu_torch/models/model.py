@@ -20,7 +20,8 @@ from torch import nn
 
 from yolo_ad_refine_tpu_torch.models.parser import TEXT_MODULES, load_model_cfg, parse_model_yaml
 from yolo_ad_refine_tpu_torch.nn.block import C2fAttn, ImagePoolingAttn
-from yolo_ad_refine_tpu_torch.nn.head import ModulatedDeformConv, WorldDetect
+from yolo_ad_refine_tpu_torch.nn.head import ModulatedDeformConv, WorldDetect, v10Detect
+from yolo_ad_refine_tpu_torch.nn.transformer import RTDETRDecoder
 from yolo_ad_refine_tpu_torch.utils import LOGGER, select_device
 
 # any other head: detect
@@ -53,7 +54,10 @@ class DetectionModel(nn.Module):
     ``(y, (feats, kpt))``, the decoded keypoints appended); in train mode the
     per-level maps (with the head's extra outputs for OBB, Segment, Pose).
     v10Detect returns (det, {"one2many", "one2one"}) in eval and the dict
-    in train; Classify the softmax in eval and the logits in train. A
+    in train; Classify the softmax in eval and the logits in train;
+    RTDETRDecoder (y, raw) in eval, y (B, nq, 4+nc) normalised xywh and
+    scores, and raw in train, where ``dn`` (its denoising group) reaches
+    the head. A
     YOLO-World graph (C2fAttn / ImagePoolingAttn rows) takes ``text_feats``
     (nc, embed), by default ``self.text_feats`` (the placeholder until
     ``set_classes``); WorldDetect's eval output has a class column per
@@ -88,6 +92,17 @@ class DetectionModel(nn.Module):
         return HEAD_TASKS.get(self.specs[self.head_idx].name, "detect")
 
     @property
+    def head_kind(self) -> str:
+        """How the eval output is read: "v10" (selected rows, no NMS),
+        "world" (a score column per text row), "rtdetr" (normalised xywh,
+        no NMS) or "detect" (any other head)."""
+        head = self.model[self.head_idx]
+        for kind, cls in (("rtdetr", RTDETRDecoder), ("v10", v10Detect), ("world", WorldDetect)):
+            if isinstance(head, cls):
+                return kind
+        return "detect"
+
+    @property
     def n_scores(self) -> int:
         """The class columns of the eval output: the text rows of a
         YOLO-World graph (after ``set_classes``, its vocabulary), else nc."""
@@ -98,7 +113,7 @@ class DetectionModel(nn.Module):
         """Yaml rows that are ConvTranspose2d: their weights are (I, O, kh, kw)."""
         return tuple(s.i for s in self.specs if isinstance(s.module, nn.ConvTranspose2d))
 
-    def forward(self, x, text_feats=None):
+    def forward(self, x, text_feats=None, dn: dict | None = None):
         input_h = x.shape[2]
         if text_feats is None:
             text_feats = self.text_feats
@@ -118,6 +133,8 @@ class DetectionModel(nn.Module):
                     return m(fetch(f), input_h=input_h)
                 if isinstance(m, WorldDetect):  # scores against the original embeddings
                     return m([fetch(j) for j in f], text_feats=text_feats, input_h=input_h)
+                if dn is not None:  # RT-DETR's denoising group (train/rtdetr.py)
+                    return m([fetch(j) for j in f], input_h=input_h, dn=dn)
                 return m([fetch(j) for j in f], input_h=input_h)
             inp = fetch(f) if isinstance(f, int) else [fetch(j) for j in f]
             if isinstance(m, C2fAttn):
@@ -133,8 +150,9 @@ class DetectionModel(nn.Module):
     @torch.no_grad()
     def probe_strides(self, imgsz: int = 640) -> tuple | None:
         """Per-level strides from one eval forward of a zero image; None
-        for Classify, which has no levels (the JAX package's)."""
-        if self.task == "classify":
+        for Classify and RTDETRDecoder, which decode without strides (the
+        JAX package's)."""
+        if self.task == "classify" or self.head_kind == "rtdetr":
             return None
         p = next(self.parameters())
         training = self.training
@@ -172,6 +190,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.in_proj_bias.zero_()
         elif isinstance(m, WorldDetect) and m.default_text is not None:
             m.default_text.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, RTDETRDecoder):
+            m.denoising_class_embed.normal_(0.0, 1.0, generator=generator)
     for m in model.modules():
         if hasattr(m, "bias_init"):
             m.bias_init()

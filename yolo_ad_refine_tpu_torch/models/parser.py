@@ -11,6 +11,8 @@ bookkeeping, for the modules this port has so far.
 - yaml-level variables (``head_channel``, ``fusion_mode``, ``kpt_shape``)
   resolved by name
 - Segment's proto channels ``npr`` width-scaled and capped at max_channels
+- HGBlock and RepC3 take the row's repeats as their inner ``n``; the
+  RTDETRDecoder row's extras after nc are hd, nq, ndl and d_ffn
 - C3k2 forces c3k=True at scales m/l/x
 - C2fAttn's embed channels and head count take their own width gains
   (reference tasks.py:1021-1024); ImagePoolingAttn keeps the channels of
@@ -32,14 +34,15 @@ from yolo_ad_refine_tpu_torch.nn import block as B
 from yolo_ad_refine_tpu_torch.nn import common as C
 from yolo_ad_refine_tpu_torch.nn import conv_extras as CE
 from yolo_ad_refine_tpu_torch.nn import head as H
+from yolo_ad_refine_tpu_torch.nn import transformer as TR
 from yolo_ad_refine_tpu_torch.nn import tssa as T
 from yolo_ad_refine_tpu_torch.nn.common import make_divisible
 from yolo_ad_refine_tpu_torch.utils import LOGGER, ROOT, yaml_load
 
 HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB", "Segment", "Pose", "Classify",
-                "v10Detect", "WorldDetect"}
+                "v10Detect", "WorldDetect", "RTDETRDecoder"}
 # modules whose first yaml arg is an out-channel subject to width scaling
-WIDTH_SCALED = {"Conv", "SPPF", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA", "C2PTSSA",
+WIDTH_SCALED = {"Conv", "DWConv", "SPPF", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA", "C2PTSSA",
                 "nn.Conv2d", "nn.ConvTranspose2d", "C2fAttn", "SCDown", "C2fCIB", "PSA"}
 # rows that read YOLO-World's text stream: a graph with them has text embeddings
 TEXT_MODULES = {"C2fAttn", "ImagePoolingAttn"}
@@ -148,6 +151,10 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             if name == "Conv":
                 module = C.Conv(c1, c2, _arg(rest, 0, 1), _arg(rest, 1, 1), _arg(rest, 2, None),
                                 _arg(rest, 3, 1), _arg(rest, 4, 1), _arg(rest, 5, True))
+            elif name == "DWConv":
+                # torch signature: (c2, k, s, d, act)
+                module = C.DWConv(c1, c2, _arg(rest, 0, 1), _arg(rest, 1, 1), _arg(rest, 2, 1),
+                                  _arg(rest, 3, True))
             elif name == "SPPF":
                 module = B.SPPF(c1, c2, _arg(rest, 0, 5))
             elif name in ("C2f", "C3"):
@@ -187,6 +194,19 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             # around it by index
             module = B.ImagePoolingAttn(ec=_arg(args, 0, 256), ch=tuple(ch_list[j] for j in f))
             c2 = ch_list[f[0]]
+        elif name == "HGStem":
+            c2 = args[1]
+            module = B.HGStem(c1, args[0], c2)
+        elif name == "HGBlock":
+            # yaml: [cm, c2, k, lightconv, shortcut]; the repeats become the inner n
+            c2 = args[1]
+            module = B.HGBlock(c1, args[0], c2, _arg(args, 2, 3), n, _arg(args, 3, False),
+                               _arg(args, 4, False))
+        elif name == "RepC3":
+            c2 = args[0]
+            module = B.RepC3(c1, c2, n, _arg(args, 1, 1.0))
+        elif name == "AIFI":
+            module = TR.AIFI(c1, _arg(args, 0, 2048), _arg(args, 1, 8))
         elif name == "ELA_HSFPN":
             module = B.ELAHSFPN(c1, _arg(args, 0, True))
         elif name == "Multiply":
@@ -210,6 +230,11 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             head_nc = _arg(args, 0, nc)
             if name == "v10Detect":
                 module = H.v10Detect(nc=head_nc, ch=head_ch)
+            elif name == "RTDETRDecoder":
+                # optional extras after nc (JAX models/parser.py:294-302): hd, nq,
+                # ndl, d_ffn, which tiny test configs shrink
+                extra = {k: int(v) for k, v in zip(("hd", "nq", "ndl", "d_ffn"), args[1:])}
+                module = TR.RTDETRDecoder(nc=head_nc, ch=head_ch, **extra)
             elif name == "WorldDetect":
                 # the learned default_text exists only where no row gives text
                 module = H.WorldDetect(nc=head_nc, embed=_arg(args, 1, 512),

@@ -4,7 +4,8 @@ Counterpart of ``yolo_ad_refine_tpu/nn/block.py`` (reference
 ultralytics/nn/modules/block.py: Bottleneck:341, C2f:232, C3:256, C3k:742,
 C3k2:731, SPPF:177, Attention/PSABlock/C2PSA:874-1049, ELA_HSFPN:1408,
 Multiply:1442, Add:1448, Fusion:1500, MLCA:1540, Bottleneck_MLCA:1586,
-C3k_MLCA/C3k2_MLCA:1596-1605, and YOLO-World's MaxSigmoidAttnBlock:418,
+C3k_MLCA/C3k2_MLCA:1596-1605, the PPHGNetV2 set HGStem:105, HGBlock:136
+and RepC3:283 with conv.py LightConv:83 / RepConv:173, and YOLO-World's MaxSigmoidAttnBlock:418,
 C2fAttn:453, ImagePoolingAttn:480). NCHW modules; submodule names follow the
 reference so a state_dict carries over.
 """
@@ -409,3 +410,100 @@ class ImagePoolingAttn(nn.Module):
             if self.scale is not None:
                 out = out * self.scale
             return out + text
+
+
+# PPHGNetV2 blocks and the RepConv family (RT-DETR's backbone and neck;
+# JAX nn/block.py:262-363)
+
+
+@register
+class HGStem(nn.Module):
+    """PPHGNetV2 stem (reference block.py:105): five ReLU convs and a 2x2
+    stride-1 max-pool, each 2x2 stage on a map zero-padded by one row and
+    column at the bottom and right (its inputs are ReLU outputs, >= 0)."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        relu = nn.ReLU()
+        self.stem1 = Conv(c1, cm, 3, 2, act=relu)
+        self.stem2a = Conv(cm, cm // 2, 2, 1, 0, act=relu)
+        self.stem2b = Conv(cm // 2, cm, 2, 1, 0, act=relu)
+        self.stem3 = Conv(cm * 2, cm, 3, 2, act=relu)
+        self.stem4 = Conv(cm, c2, 1, 1, act=relu)
+
+    def forward(self, x):
+        x = F.pad(self.stem1(x), (0, 1, 0, 1))
+        x2 = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
+        x1 = F.max_pool2d(x, 2, 1)
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class LightConv(nn.Module):
+    """1x1 conv without activation, then a depth-wise ReLU conv (reference
+    conv.py:83; the copy of JAX nn/block.py:283)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = Conv(c2, c2, k, g=c2, act=nn.ReLU())
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+@register
+class HGBlock(nn.Module):
+    """PPHGNetV2 block (reference block.py:136): ``n`` chained (Light)Convs,
+    their outputs and the input concatenated, squeezed by ``sc`` and
+    excited by ``ec``, with a residual where ``shortcut`` and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False):
+        super().__init__()
+        relu = nn.ReLU()
+        self.m = nn.ModuleList(
+            LightConv(c1 if i == 0 else cm, cm, k) if lightconv
+            else Conv(c1 if i == 0 else cm, cm, k, act=relu) for i in range(n))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act=relu)
+        self.ec = Conv(c2 // 2, c2, 1, 1, act=relu)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, 1)))
+        return y + x if self.add else y
+
+
+class RepConv(nn.Module):
+    """Train-form RepVGG conv (reference conv.py:173 with bn=False): a k x k
+    and a 1x1 conv, each with BN and no activation, summed, then SiLU."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, act=False)
+
+    def forward(self, x):
+        return F.silu(self.conv1(x) + self.conv2(x))
+
+
+@register
+class RepC3(nn.Module):
+    """Rep C3 (reference block.py:283): ``n`` RepConvs after ``cv1``, plus
+    the parallel ``cv2``, then ``cv3`` where e < 1."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c1, c2, 1, 1)
+        self.m = nn.ModuleList(RepConv(c2 if i == 0 else c_, c_) for i in range(n))
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else nn.Identity()
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for m in self.m:
+            a = m(a)
+        return self.cv3(a + self.cv2(x))

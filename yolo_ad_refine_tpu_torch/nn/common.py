@@ -1,7 +1,7 @@
 """Core convolution / normalization modules (NCHW, channels_last).
 
 Counterpart of ``yolo_ad_refine_tpu/nn/common.py`` (reference
-ultralytics/nn/modules/conv.py Conv/Concat, head.py:607 Conv_GN,
+ultralytics/nn/modules/conv.py Conv/DWConv/Concat, head.py:607 Conv_GN,
 block.py:63 DFL). BatchNorm uses the reference's eps=1e-3 /
 momentum=0.03 (its ``initialize_weights`` overrides every BatchNorm2d) and
 updates its running variance with the biased batch variance, as the JAX
@@ -134,6 +134,19 @@ class Conv(nn.Module):
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
+
+
+@register
+class DWConv(nn.Module):
+    """Depth-wise Conv + BN + SiLU (reference conv.py:57): one Conv ``dw``
+    with gcd(c1, c2) groups, as the JAX module names it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act=True):
+        super().__init__()
+        self.dw = Conv(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+    def forward(self, x):
+        return self.dw(x)
 
 
 class ConvGN(nn.Module):

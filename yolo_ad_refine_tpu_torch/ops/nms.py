@@ -307,3 +307,20 @@ def nms_free_rows(det, conf_thres: float):
     keep = det[..., 4] > conf_thres
     out = torch.cat([xywh2xyxy(det[..., :4]), det[..., 4:6]], -1) * keep[..., None]
     return out, keep.sum(-1).to(torch.int32), det.new_zeros((*det.shape[:2], 0))
+
+
+def rtdetr_rows(y, conf_thres: float, imgsz: int):
+    """RT-DETR's rows without suppression (the JAX validator's branch, its
+    engine/validator.py:111-126): ``y`` (B, nq, 4+nc) normalised xywh and
+    scores -> rows of xyxy in input pixels (x imgsz), the best class's score
+    and its id (the first among ties), in descending score order (a stable
+    sort, as jnp.argsort), those at or under ``conf_thres`` zeroed, their
+    counts (B,) int32 and empty extras (B, nq, 0)."""
+    boxes = xywh2xyxy(y[..., :4].float()) * imgsz
+    scores = y[..., 4:].float()
+    score, cls = scores.max(-1).values, scores.argmax(-1)
+    order = torch.sort(-score, dim=-1, stable=True).indices
+    d = torch.cat([boxes, score[..., None], cls[..., None].float()], -1)
+    d = torch.gather(d, 1, order[..., None].expand(-1, -1, 6))
+    keep = d[..., 4] > conf_thres
+    return d * keep[..., None], keep.sum(-1).to(torch.int32), d.new_zeros((*d.shape[:2], 0))

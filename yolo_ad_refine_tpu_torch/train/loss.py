@@ -4,8 +4,10 @@ dual-assignment E2EDetectLoss over two of it.
 Counterpart of ``yolo_ad_refine_tpu/train/loss.py`` (reference
 ultralytics/utils/loss.py: SlideLoss:18-42, BboxLoss:264-311 with CIoU mixed
 50/50 with NWD, DFL:238-261, v8DetectionLoss:355-520): TAL assignment
-(topk=10, alpha=0.5, beta=6.0), SlideLoss-weighted BCE with the mean
-foreground CIoU as ``auto_iou``, gains box=7.5 / cls=0.5 / dfl=1.5, and
+(topk=10, alpha=0.5, beta=6.0), or ATSS with ``assigner="atss"``
+(``train/atss.py``, JAX train/loss.py:93-108,139-148), SlideLoss-weighted
+BCE with the mean foreground CIoU as ``auto_iou``, gains box=7.5 / cls=0.5
+/ dfl=1.5, and
 total = sum(components) * batch. The loss math runs in fp32 outside any
 autocast, whatever type the model computed in (in fp64 for fp64 maps, which
 the tests use as a reference). Within a data-parallel step
@@ -26,6 +28,7 @@ from yolo_ad_refine_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anch
 from yolo_ad_refine_tpu_torch.ops.iou import bbox_iou, wasserstein_similarity
 from yolo_ad_refine_tpu_torch.parallel import all_reduce_sum, in_global_batch
 from yolo_ad_refine_tpu_torch.parallel.multihost import world_size
+from yolo_ad_refine_tpu_torch.train.atss import ATSSAssigner, generate_cell_anchors
 from yolo_ad_refine_tpu_torch.train.tal import TaskAlignedAssigner
 
 
@@ -87,7 +90,9 @@ def dfl_loss(pred_dist, target, reg_max: int = 16):
 class DetectionLoss:
     def __init__(self, nc: int, strides, reg_max: int = 16, tal_topk: int = 10,
                  box_gain: float = 7.5, cls_gain: float = 0.5, dfl_gain: float = 1.5,
-                 nwd_ratio: float = 0.5, use_slide_loss: bool = True):
+                 nwd_ratio: float = 0.5, use_slide_loss: bool = True, assigner: str = "tal"):
+        if assigner not in ("tal", "atss"):
+            raise ValueError(f"assigner must be 'tal' or 'atss', got {assigner}")
         self.nc = nc
         self.strides = tuple(strides)
         self.reg_max = reg_max
@@ -95,7 +100,9 @@ class DetectionLoss:
         self.gains = (box_gain, cls_gain, dfl_gain)
         self.nwd_ratio = nwd_ratio
         self.use_slide_loss = use_slide_loss
+        self.assigner_kind = assigner
         self.assigner = TaskAlignedAssigner(topk=tal_topk, num_classes=nc, alpha=0.5, beta=6.0)
+        self.atss = ATSSAssigner(topk=9, num_classes=nc) if assigner == "atss" else None
 
     def __call__(self, feats, gt_labels, gt_bboxes, mask_gt) -> LossOutputs:
         """feats: per-level (B, 4*reg_max + nc, H, W) maps, the head's
@@ -128,9 +135,14 @@ class DetectionLoss:
 
         gt_bboxes = gt_bboxes.to(acc)
         mask_gt = mask_gt.to(acc)
-        assign = self.assigner(pred_scores.detach().sigmoid(),
-                               pred_bboxes.detach() * stride_tensor[None],
-                               anchor_points * stride_tensor, gt_labels, gt_bboxes, mask_gt)
+        if self.atss is not None:
+            cell_anchors, counts = generate_cell_anchors(shapes, self.strides, device=dev)
+            assign = self.atss(cell_anchors.to(acc), counts, gt_labels, gt_bboxes, mask_gt,
+                               pred_bboxes.detach() * stride_tensor[None])
+        else:
+            assign = self.assigner(pred_scores.detach().sigmoid(),
+                                   pred_bboxes.detach() * stride_tensor[None],
+                                   anchor_points * stride_tensor, gt_labels, gt_bboxes, mask_gt)
         target_bboxes, target_scores, fg_mask = (assign.target_bboxes, assign.target_scores,
                                                  assign.fg_mask)
         target_bboxes_g = target_bboxes / stride_tensor[None]

@@ -13,7 +13,11 @@ params and BN stats advances on each optimizer step. ``wrapped`` (DDP or
 FSDP2, ``parallel.wrap_model``) runs the forward of a data-parallel step,
 within ``parallel.global_batch`` with the loss, so that both compute the
 global batch's statistics; DDP's all-reduce waits under ``no_sync`` for
-the batch that steps the optimizer. The JAX package's
+the batch that steps the optimizer. ``dn_fn(batch, generator)`` (RT-DETR,
+the JAX step's ``dn_fn`` hook) builds the denoising group from the batch's
+targets on the device (``cls``, ``bboxes``, ``mask``) and a
+torch.Generator on that device seeded with ``seed``, drawn anew each
+step; the forward takes it as ``dn``. The JAX package's
 train-prologue and remat options shape XLA programs on the TPU and have no
 counterpart here.
 """
@@ -56,8 +60,9 @@ class TrainStep:
 
     def __init__(self, model: nn.Module, loss_fn: DetectionLoss, optimizer: Optimizer,
                  ema: ModelEMA, amp_dtype: torch.dtype | None = None,
-                 wrapped: nn.Module | None = None):
+                 wrapped: nn.Module | None = None, dn_fn=None, seed: int = 0):
         self.model, self.loss_fn, self.optimizer, self.ema = model, loss_fn, optimizer, ema
+        self.dn_fn, self.seed, self.generator = dn_fn, seed, None
         self.amp_dtype = amp_dtype
         self.wrapped = model if wrapped is None else wrapped
         self.data_parallel = wrapped is not None
@@ -77,7 +82,12 @@ class TrainStep:
         cls, bboxes, mask = targets_to_device(batch, dev)
         extras = tuple(torch.as_tensor(batch[k]).to(dev, non_blocking=True)
                        for k in getattr(self.loss_fn, "extra_keys", ()))
-        ctx = (torch.autocast(dev.type, dtype=self.amp_dtype) if self.amp_dtype is not None
+        kw = {}
+        if self.dn_fn is not None:
+            if self.generator is None:
+                self.generator = torch.Generator(device=dev).manual_seed(self.seed)
+            kw["dn"] = self.dn_fn({"cls": cls, "bboxes": bboxes, "mask": mask}, self.generator)
+        ctx =(torch.autocast(dev.type, dtype=self.amp_dtype) if self.amp_dtype is not None
                else contextlib.nullcontext())
         # DDP all-reduces the gradients only on the batch that steps the optimizer
         local = (isinstance(self.wrapped, nn.parallel.DistributedDataParallel)
@@ -85,7 +95,7 @@ class TrainStep:
         with self.wrapped.no_sync() if local else contextlib.nullcontext(), \
                 global_batch(self.data_parallel):
             with ctx:
-                feats = self.wrapped(img)
+                feats = self.wrapped(img, **kw)
             self._end("forward")
             out = self.loss_fn(feats, cls, bboxes, mask, *extras)
             self._end("loss")

@@ -27,7 +27,11 @@ index masks; ``task="pose"`` (a Pose model) on keypoint labels with
 ``flip_idx`` reaching the train set; the val losses of both are the
 detection loss's (the JAX trainer's ``val_loss_fn = loss_fn.det``), and
 results.csv keeps its (B) columns. A YOLOv10 model (v10Detect) trains and
-validates with ``E2EDetectLoss`` over both branches' maps. A YOLO-World
+validates with ``E2EDetectLoss`` over both branches' maps. An RT-DETR
+model (RTDETRDecoder) trains and validates with ``RTDETRLoss``
+(``train/rtdetr.py``), each step with a fresh denoising group drawn from
+``seed``, as the JAX trainer's RT-DETR branch does (multi_scale is turned
+off there: the loss normalises the boxes by the static imgsz). A YOLO-World
 graph (C2fAttn / ImagePoolingAttn rows) raises, as the JAX train step does:
 it calls the graph without text embeddings. Classification trains through
 ``train/classify.py`` ``ClassificationTrainer``.
@@ -66,15 +70,17 @@ from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detectio
 from yolo_ad_refine_tpu_torch.parallel import multihost as mh
 from yolo_ad_refine_tpu_torch.parallel import wrap_model
 from yolo_ad_refine_tpu_torch.nn.head import v10Detect
+from yolo_ad_refine_tpu_torch.nn.transformer import RTDETRDecoder
 from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss
 from yolo_ad_refine_tpu_torch.train.obb import OBBLoss
 from yolo_ad_refine_tpu_torch.train.optim import ModelEMA, build_optimizer
 from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
+from yolo_ad_refine_tpu_torch.train.rtdetr import RTDETRLoss, build_dn_attn_blocked, make_cdn_group
 from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
 from yolo_ad_refine_tpu_torch.train.step import TrainStep
 from yolo_ad_refine_tpu_torch.utils import (
     LOGGER, colorstr, increment_path, select_device, yaml_save)
-from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
+from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks, integration_callbacks
 from yolo_ad_refine_tpu_torch.utils.plotting import plot_images, plot_results
 
 CSV_KEYS = ("epoch", "time", "train/box_loss", "train/cls_loss", "train/dfl_loss",
@@ -155,7 +161,8 @@ class DetectionTrainer:
     fixes the device and the starting weights; without it the model is
     built from ``overrides['model']`` on ``overrides['device']`` (the card
     by default). ``callbacks`` run at the hooks of utils/callbacks.py with
-    the trainer as their argument."""
+    the trainer as their argument, and after them the integrations that
+    the settings switch on (``integration_callbacks``)."""
 
     def __init__(self, overrides: dict | None = None, model: DetectionModel | None = None,
                  callbacks: Callbacks | None = None):
@@ -191,7 +198,13 @@ class DetectionTrainer:
         self.start_epoch = 0
         self.dcn_offset_max = 0.0
         self.dcn_offset_max_run = 0.0
-        self.callbacks = callbacks or Callbacks()
+        # the caller's callbacks, then the integrations the settings switch on
+        # (metrics.jsonl, TensorBoard, ...) on the rank that writes the run
+        self.callbacks = callbacks.copy() if callbacks is not None else Callbacks()
+        if self.main:
+            for hook, fns in integration_callbacks(self.save_dir).items():
+                for fn in fns:
+                    self.callbacks.add(hook, fn)
         self.current_epoch = 0
         self.last_epoch_scalars: dict = {}
         self.autobatch: dict | None = None  # the batch=-1 measurement, when it ran
@@ -224,6 +237,7 @@ class DetectionTrainer:
             raise ValueError(
                 "C2fAttn needs text embeddings: YOLO-World training is not supported, as the "
                 "JAX package's train step passes none (ROADMAP Queue 3)")
+        self.dn_fn = None
         gains = dict(nc=data["nc"], strides=self.model.strides, box_gain=float(args["box"]),
                      cls_gain=float(args["cls"]), dfl_gain=float(args["dfl"]))
         # the JAX trainer's task branches (its train/trainer.py:170-200): OBBLoss
@@ -236,6 +250,20 @@ class DetectionTrainer:
             self.loss_fn = PoseLoss(**gains, kpt_shape=head.kpt_shape,
                                     pose_gain=float(args.get("pose", 12.0)),
                                     kobj_gain=float(args.get("kobj", 1.0)))
+        elif isinstance(self.model.model[self.model.head_idx], RTDETRDecoder):
+            # the JAX trainer's RT-DETR branch (its train/trainer.py:202-215)
+            nq = self.model.model[self.model.head_idx].nq
+            self.loss_fn = RTDETRLoss(nc=data["nc"], nq=nq, imgsz=self.imgsz, max_boxes=max_boxes)
+            attn_blocked = torch.from_numpy(build_dn_attn_blocked(self.loss_fn.dn_cfg, nq)).to(
+                self.device)
+            nc_, imgsz_, cfg_ = data["nc"], float(self.imgsz), self.loss_fn.dn_cfg
+            self.dn_fn = lambda batch, gen: make_cdn_group(
+                batch["cls"], batch["bboxes"], batch["mask"], gen, nc=nc_, imgsz=imgsz_, cfg=cfg_,
+                attn_blocked=attn_blocked)
+            if args.get("multi_scale"):
+                LOGGER.warning("multi_scale is not supported for RT-DETR (the loss normalises "
+                               "the boxes by the static imgsz); disabling")
+                self.args["multi_scale"] = False
         elif isinstance(self.model.model[self.model.head_idx], v10Detect):
             # the JAX trainer's v10 branch (its train/trainer.py:222-227): the eval
             # output carries the branch dict too, so the val loss is the same
@@ -284,7 +312,8 @@ class DetectionTrainer:
         wrapped = (wrap_model(self.model, self.batch_size, fsdp=bool(args.get("fsdp")),
                               optimizer=self.optimizer) if self.distributed else None)
         self.train_step = TrainStep(self.model, self.loss_fn, self.optimizer, self.ema,
-                                    self.amp_dtype, wrapped=wrapped)
+                                    self.amp_dtype, wrapped=wrapped, dn_fn=self.dn_fn,
+                                    seed=int(args.get("seed", 0)))
 
         self.validator = DetectionValidator(args={
             **{k: args[k] for k in ("imgsz", "iou", "max_det", "max_boxes")},

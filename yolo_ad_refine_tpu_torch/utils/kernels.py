@@ -22,7 +22,8 @@ BUILD = CSRC / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # per-kernel extra flags: the NMS IoU must round like the reference's
 # separate fp32 ops, so nvcc may not contract a*b+c into an FMA there
-EXTRA_FLAGS = {"deform_conv": [], "deform_window": [], "gather": [], "nms": ["-fmad=false"]}
+EXTRA_FLAGS = {"deform_conv": [], "deform_window": [], "gather": [], "lap": [],
+               "nms": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
