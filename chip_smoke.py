@@ -107,6 +107,20 @@ to 0 just before it and read just after, each DCN variant under its own
   its plain version on the step's matrices and on synthetic ones; the
   ATSS loss card vs CPU; a yolov10n TorchScript program validated
   through its sidecar's head kind against the model;
+- the stock zoo (``phase_zoo``, after ``phase_rtdetr``): yolov8n,
+  yolov5n, yolov3, yolov9c, yolov8n-seg and yolov8n-pose at 640, each
+  parameter count held to the JAX model's, served as the task phases serve
+  (64 images at batch 32, fp32, conf 0.25, K4 once a batch, card vs CPU),
+  yolov8n-obb at 1024 as the OBB phase serves it (K5 once a batch),
+  yolov9c validated on 16 self-labelled images against the CPU, and
+  yolov9c and yolov3 trained 4 bf16 steps at batch 16 (yolov9c's fp32
+  step held against the CPU at 256);
+- tracking (``phase_track``): ``YOLO.track`` with the flagship at 640 over
+  a seeded 1280x720 MJPG video of 48 frames, with ``bytetrack`` and
+  ``botsort``: frames/s, the host's share of a frame, K4 once a frame (at
+  B = 1, and held against its plain version on a frame's candidates), and
+  the first 24 frames' track rows against the same track on the CPU
+  (``hold_tracks``);
 - export and serving (``phase_export``): the flagship exported at batch
   32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
   fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
@@ -872,8 +886,8 @@ def k4_bound(keep) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def obb_model(dev):
-    """yolo11n-obb at imgsz 1024 with seeded weights. Its class biases take
+def obb_model(dev, cfg: str = OBB_CFG):
+    """yolo11n-obb (or ``cfg``) at imgsz 1024 with seeded weights. Its class biases take
     the flagship head's prior, sigmoid(b) = 0.01 (AYHead.bias_init), in
     place of Detect's (sigmoid(b) of about 5e-5 at nc 15), so that
     conf=0.001 hands NMS a full candidate set, as in the serving phase."""
@@ -882,11 +896,11 @@ def obb_model(dev):
     from yolo_ad_refine_tpu_torch import YOLO
 
     t0 = time.perf_counter()
-    model = YOLO(OBB_CFG, task="obb", device=dev, imgsz=OBB_IMGSZ, seed=0)
+    model = YOLO(cfg, task="obb", device=dev, imgsz=OBB_IMGSZ, seed=0)
     with torch.no_grad():
         for seq in model.model.model[model.model.head_idx].cv3:
             seq[-1].bias.fill_(-math.log((1 - 0.01) / 0.01))
-    log(f"OBB: {OBB_CFG} built on {dev} in {time.perf_counter() - t0:.1f} s, "
+    log(f"OBB: {cfg} built on {dev} in {time.perf_counter() - t0:.1f} s, "
         f"{model.model.num_params():,} parameters, task {model.task}, strides "
         f"{model.model.strides}")
     return model
@@ -965,9 +979,10 @@ def phase_k5(dev, gen, model):
             "predict_batch": batch}
 
 
-def phase_obb_serving(model, dev):
+def phase_obb_serving(model, dev, label: str = "OBB"):
     """The OBB predict path on the card at batch 16, imgsz 1024, fp32,
-    conf 0.001, then one 2-image batch against the same model on the CPU."""
+    conf 0.001, then one 2-image batch against the same model on the CPU;
+    ``label`` heads the log lines."""
     import numpy as np
     import torch
 
@@ -990,11 +1005,11 @@ def phase_obb_serving(model, dev):
             raise AssertionError(f"K5 was not launched once a batch on the OBB predict path: "
                                  f"{launches}")
     dt = sorted(seconds)[1]
-    log(f"OBB serving: 32 images, batch 16, imgsz {OBB_IMGSZ}, fp32: {32 / dt:.1f} images/s, "
+    log(f"{label} serving: 32 images, batch 16, imgsz {OBB_IMGSZ}, fp32: {32 / dt:.1f} images/s, "
         f"{dt / 2 * 1e3:.1f} ms/batch (median of 3 runs: "
         + ", ".join(f"{32 / s:.1f}" for s in seconds)
         + " images/s; host clock, preprocess + forward + NMS + results)")
-    log(f"OBB serving: launches per run of the path: {launches}")
+    log(f"{label} serving: launches per run of the path: {launches}")
     if len(results) != 32:
         raise AssertionError(f"expected 32 results, got {len(results)}")
     for im, r in zip(imgs, results):
@@ -1002,7 +1017,7 @@ def phase_obb_serving(model, dev):
         if not (0 < len(d) <= 300 and len(r.boxes) == len(d) and np.isfinite(d).all()
                 and np.isfinite(r.boxes.data).all()):
             raise AssertionError(f"bad OBB detections for an image of shape {im.shape}: {d.shape}")
-    log(f"OBB serving: {sum(len(r) for r in results)} rotated detections, all finite")
+    log(f"{label} serving: {sum(len(r) for r in results)} rotated detections, all finite")
 
     x, _ = preprocess(imgs[:2], OBB_IMGSZ, 2, torch.device(dev), torch.float32)
     with torch.inference_mode():
@@ -1012,7 +1027,8 @@ def phase_obb_serving(model, dev):
     errs = {"box": (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item(),
             "score": (y_gpu[..., 4:4 + nc] - y_cpu[..., 4:4 + nc]).abs().max().item(),
             "angle": (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).abs().max().item()}
-    log(f"OBB serving: card vs CPU on 2 images: max |box diff| {errs['box']:.3e} px (tol 5e-2), "
+    log(f"{label} serving: card vs CPU on 2 images: max |box diff| {errs['box']:.3e} px "
+        "(tol 5e-2), "
         f"max |score diff| {errs['score']:.3e}, max |angle diff| {errs['angle']:.3e} rad "
         "(tol 1e-3)")
     n_anchors = sum((OBB_IMGSZ // s) ** 2 for s in model.model.strides)  # 21504 at 1024
@@ -1180,14 +1196,19 @@ def phase_obb_training(dev) -> dict:
 
 # the task helpers' models, full width: scale n, YOLO-World at s (its published size)
 TASK_CFGS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml", "v10": "yolov10n.yaml",
-             "world": "yolov8s-worldv2.yaml"}
+             "world": "yolov8s-worldv2.yaml",
+             # the stock zoo (phase_zoo): the task helpers take a model key too
+             **{k: f"{k}.yaml" for k in ("yolov8n", "yolov5n", "yolov3", "yolov9c",
+                                        "yolov8n-seg", "yolov8n-pose")}}
+ZOO_TASKS = {"yolov8n-seg": "segment", "yolov8n-pose": "pose"}
 TASK_IMGSZ = 640
 WORLD_NAMES = ["person", "car", "dog"]  # the vocabulary set_classes gives the World model
 
 
 def model_task(task: str) -> str:
-    """The YOLO task of a task helper's model: YOLOv10 and YOLO-World detect."""
-    return task if task in ("segment", "pose") else "detect"
+    """The YOLO task of a task helper's model: YOLOv10, YOLO-World and the
+    zoo's detectors detect."""
+    return ZOO_TASKS.get(task, task if task in ("segment", "pose") else "detect")
 
 
 def k4_per_run(task: str) -> int:
@@ -1206,9 +1227,9 @@ def task_dataset(task: str):
     set (YOLOv10, YOLO-World)."""
     from yolo_ad_refine_tpu_torch.data import synthetic
 
-    if task in ("segment", "pose"):
+    if model_task(task) in ("segment", "pose"):
         return {"segment": synthetic.make_segment_dataset,
-                "pose": synthetic.make_pose_dataset}[task]
+                "pose": synthetic.make_pose_dataset}[model_task(task)]
     return lambda root, n_train=0, **kw: synthetic.make_shapes_dataset(
         root, n_train=max(n_train, 1), **kw)
 MASK_FLIP_TOL = 2e-3  # share of mask pixels card vs CPU may flip (tests/test_torch_segment.py)
@@ -1259,6 +1280,7 @@ def task_serving(task: str, model, dev) -> dict:
     and keypoints (v10: the one-to-one decode, anchor by anchor, before the
     selection), and the masks of 32 fixed anchors from each side's
     prototypes and coefficients."""
+    kind = model_task(task)
     import numpy as np
     import torch
 
@@ -1291,24 +1313,24 @@ def task_serving(task: str, model, dev) -> dict:
     log(f"{task} serving: 64 images, batch 32, imgsz {TASK_IMGSZ}, fp32, conf 0.25: "
         f"{64 / dt:.1f} images/s, {dt / 2 * 1e3:.1f} ms/batch (median of 3 runs: "
         + ", ".join(f"{64 / s:.1f}" for s in seconds) + " images/s; host clock, preprocess + "
-        f"forward + NMS + {'masks + ' if task == 'segment' else ''}results); kept "
+        f"forward + NMS + {'masks + ' if kind == 'segment' else ''}results); kept "
         f"{np.mean(kept):.1f} an image (min {min(kept)}, max {max(kept)}); launches {launches}")
     if not all(0 < k <= 300 for k in kept):
         raise AssertionError(f"{task} serving: an image kept no detection or too many: {kept}")
     for r in results:
-        extra = {"segment": r.masks, "pose": r.keypoints}.get(task, r.boxes)
+        extra = {"segment": r.masks, "pose": r.keypoints}.get(kind, r.boxes)
         if extra is None or len(extra) != len(r) or not np.isfinite(r.boxes.data).all():
             raise AssertionError(f"{task} serving: bad results for an image of {r.orig_shape}")
         if task == "world" and not set(r.boxes.cls.tolist()) <= set(range(len(WORLD_NAMES))):
             raise AssertionError(f"world serving: classes outside the vocabulary {r.boxes.cls}")
-        if task == "segment" and r.masks.data.shape != (len(r), *r.orig_shape):
+        if kind == "segment" and r.masks.data.shape != (len(r), *r.orig_shape):
             raise AssertionError(f"segment serving: masks {r.masks.data.shape}")
-        if task == "pose" and not (r.keypoints.data.shape == (len(r), 17, 3)
+        if kind == "pose" and not (r.keypoints.data.shape == (len(r), 17, 3)
                                    and np.isfinite(r.keypoints.data).all()):
             raise AssertionError(f"pose serving: keypoints {r.keypoints.data.shape}")
     out = {"run": launches, "images_per_s": 64 / dt, "ms_per_batch": dt / 2 * 1e3,
            "kept_mean": float(np.mean(kept))}
-    if task == "segment":
+    if kind == "segment":
         cover = float(np.mean([r.masks.data.mean() for r in results if len(r)]))
         out["mask_mb_per_batch"] = sum(r.masks.data.nbytes for r in results) / 2 / 2**20
         x, metas = preprocess(imgs[:32], TASK_IMGSZ, 32, torch.device(dev), torch.float32)
@@ -1347,10 +1369,10 @@ def task_serving(task: str, model, dev) -> dict:
     nc = model.model.n_scores
     errs = {"box": (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item(),
             "score": (y_gpu[..., 4:4 + nc] - y_cpu[..., 4:4 + nc]).abs().max().item()}
-    if task == "pose":
+    if kind == "pose":
         k = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).reshape(2, -1, 17, 3).abs()
         errs["keypoint"], errs["visibility"] = k[..., :2].max().item(), k[..., 2].max().item()
-    elif task == "segment":
+    elif kind == "segment":
         errs["coefficient"] = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).abs().max().item()
         anchors = torch.arange(0, y_cpu.shape[1], y_cpu.shape[1] // 32)[:32]
         flips = []
@@ -1372,7 +1394,7 @@ def task_serving(task: str, model, dev) -> dict:
         + f" (tol boxes and keypoints 5e-2 px, scores, coefficients and visibility 1e-3, "
         f"mask pixels flipped {MASK_FLIP_TOL})")
     n_anchors = sum((TASK_IMGSZ // s) ** 2 for s in strides)
-    width = 4 + nc + {"segment": 32, "pose": 51}.get(task, 0)
+    width = 4 + nc + {"segment": 32, "pose": 51}.get(kind, 0)
     if not (y_gpu.shape == (2, n_anchors, width) and torch.isfinite(y_gpu).all()):
         raise AssertionError(f"bad decoded {task} predictions {tuple(y_gpu.shape)}")
     lim = {"box": 5e-2, "score": 1e-3, "keypoint": 5e-2, "visibility": 1e-3,
@@ -1394,20 +1416,21 @@ def task_val(task: str, model, dev) -> dict:
     mask (0.035 mAP50(M) so labelled, measured on one H100), labels the first 3
     rows' contours and validates with ``max_det=3``."""
     import cv2
+    kind = model_task(task)
     import numpy as np
     import torch
 
-    tag = {"segment": "M", "pose": "P"}.get(task, "B")
+    tag = {"segment": "M", "pose": "P"}.get(kind, "B")
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{task}_val_") as tmp:
         root = Path(tmp) / task
         data = task_dataset(task)(root, n_val=16, imgsz=TASK_IMGSZ, seed=0)
         files = sorted((root / "val" / "images").glob("*.jpg"))
         for f, r in zip(files, model.predict([cv2.imread(str(f)) for f in files], conf=0.25,
                                              batch=16)):
-            if task == "segment":
+            if kind == "segment":
                 rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in (p / TASK_IMGSZ).reshape(-1))
                         for c, p in zip(r.boxes.cls[:3], r.masks.xy[:3]) if len(p) >= 3]
-            elif task != "pose":
+            elif kind != "pose":
                 rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in b.clip(0, 1))
                         for b, c in zip(r.boxes.xywhn[:20], r.boxes.cls[:20])]
             else:
@@ -1416,7 +1439,7 @@ def task_val(task: str, model, dev) -> dict:
                         for b, k in zip(r.boxes.xywhn, r.keypoints.xyn)]
             (root / "val" / "labels" / f"{f.stem}.txt").write_text("\n".join(rows) + "\n")
         args = {"data": data, "imgsz": TASK_IMGSZ, "batch": 8, "conf": 0.001,
-                "max_det": 3 if task == "segment" else 300}
+                "max_det": 3 if kind == "segment" else 300}
         counters = kernel_counters()
         for f in counters.values():
             f.launches = 0
@@ -1435,7 +1458,7 @@ def task_val(task: str, model, dev) -> dict:
         f"metrics/mAP50({tag})", f"metrics/mAP50-95({tag})", "fitness")))
     log(f"{task} val: 16 images at batch 8 in {wall:.2f} s, {wall / 16 * 1e3:.1f} ms an image "
         f"(host clock, loader to metrics; the validator's own {metrics['speed_ms_per_image']:.1f} "
-        f"ms, of it inference + NMS{' + mask IoU' if task == 'segment' else ''} "
+        f"ms, of it inference + NMS{' + mask IoU' if kind == 'segment' else ''} "
         f"{metrics['inference_ms_per_image']:.1f} ms); launches {launches}")
     log(f"{task} val: card " + ", ".join(f"{k} {metrics[k]:.6f}" for k in keys))
     log(f"{task} val: CPU ({cpu_s:.1f} s) " + ", ".join(f"{k} {want[k]:.6f}" for k in keys)
@@ -1452,13 +1475,16 @@ def task_val(task: str, model, dev) -> dict:
     return {"run": launches, "ms_per_image": wall / 16 * 1e3}
 
 
-def task_training(task: str, dev) -> dict:
+def task_training(task: str, dev, hold_step: bool = True) -> dict:
     """``YOLO(yolo11n-seg | yolo11n-pose | yolov10n).train()`` on the card: a
     seeded set of 64 train and 16 val images of 640², 1 epoch at batch 16
     in bf16 (4 steps), the EMA validation and that of ``best`` through K4
     (v10: no K4, and E2EDetectLoss), and a reload of ``best`` as the task's
-    model. Then one fp32 step of the task's loss (deterministic algorithms)
-    against the CPU at ``phase_step_card_vs_cpu``'s limits."""
+    model. Then, with ``hold_step``, one fp32 step of the task's loss
+    (deterministic algorithms) against the CPU at ``phase_step_card_vs_cpu``'s
+    limits. ``task`` may be a zoo model's key (``TASK_CFGS``): yolov9c and
+    yolov3 train with DetectionLoss."""
+    kind = model_task(task)
     import numpy as np
     import torch
 
@@ -1466,7 +1492,7 @@ def task_training(task: str, dev) -> dict:
     from yolo_ad_refine_tpu_torch.data.build import collate
     from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset
     from yolo_ad_refine_tpu_torch.models.model import build_detection_model
-    from yolo_ad_refine_tpu_torch.train.loss import E2EDetectLoss
+    from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss
     from yolo_ad_refine_tpu_torch.train.pose import PoseLoss
     from yolo_ad_refine_tpu_torch.train.segment import SegmentationLoss
 
@@ -1525,7 +1551,7 @@ def task_training(task: str, dev) -> dict:
         row = dict(zip(csv[0].split(","), csv[1].split(",")))
         losses = [float(row[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss",
                                           "val/box_loss", "val/cls_loss", "val/dfl_loss")]
-        tag = {"segment": "M", "pose": "P"}.get(task, "B")
+        tag = {"segment": "M", "pose": "P"}.get(kind, "B")
         log(f"{task} training: results.csv train box / cls / dfl {losses[:3]}, val {losses[3:]}; "
             f"mAP50(B) {results.get('metrics/mAP50(B)', 0.0):.4f}, mAP50({tag}) "
             f"{results.get(f'metrics/mAP50({tag})', float('nan')):.4f}")
@@ -1539,7 +1565,7 @@ def task_training(task: str, dev) -> dict:
         # one collated batch of 2 at 256 for the fp32 step against the CPU
         info = check_det_dataset(data)
         kw = ({"kpt_shape": data["kpt_shape"], "flip_idx": data["flip_idx"]}
-              if task == "pose" else {})
+              if kind == "pose" else {})
         ds = YOLODataset(info["val"], imgsz=256, augment=False, nc=len(info["names"]),
                          max_boxes=16, task=model_task(task), **kw)
         batch = collate([ds.get_sample(i) for i in range(2)], 16)
@@ -1547,7 +1573,10 @@ def task_training(task: str, dev) -> dict:
     base = build_detection_model(TASK_CFGS[task], nc=nc, device="cpu", seed=3, imgsz=256)
     make_loss = {"segment": lambda: SegmentationLoss(nc=nc, strides=(8, 16, 32)),
                  "pose": lambda: PoseLoss(nc=nc, strides=(8, 16, 32)),
-                 "v10": lambda: E2EDetectLoss(nc=nc, strides=(8, 16, 32))}[task]
+                 "v10": lambda: E2EDetectLoss(nc=nc, strides=(8, 16, 32))}.get(
+        task if task == "v10" else kind, lambda: DetectionLoss(nc=nc, strides=(8, 16, 32)))
+    if not hold_step:
+        return {"run": run, "ms_per_step": ms}
     hold_step_card_vs_cpu(f"{task} card vs CPU step", dev, base,
                           {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}, make_loss)
     return {"run": run, "ms_per_step": ms}
@@ -2265,6 +2294,271 @@ def phase_rtdetr(dev) -> dict:
 
 
 CLS_CFG, CLS_IMGSZ = "yolo11n-cls.yaml", 224  # nc 1000 for the forward
+
+
+ZOO_SERVING = ("yolov8n", "yolov5n", "yolov3", "yolov9c", "yolov8n-seg", "yolov8n-pose")
+ZOO_OBB = "yolov8n-obb"
+# the JAX models' parameter counts at each yaml's nc, which tests/test_torch_zoo.py holds the
+# port's against (jax.eval_shape of the JAX package's DetectionModel)
+ZOO_PARAMS = {"yolov8n": 2_724_432, "yolov5n": 2_222_048, "yolov3": 98_539_408,
+              "yolov9c": 21_419_120, "yolov8n-seg": 2_977_200, "yolov8n-pose": 2_974_814,
+              "yolov8n-obb": 2_796_099}
+
+
+def phase_zoo(dev) -> dict:
+    """The stock model zoo on the card, seeded weights at each yaml's
+    published scale (yolov3 and yolov9c have none), each parameter count
+    held to the JAX model's (``ZOO_PARAMS``): yolov8n, yolov5n, yolov3,
+    yolov9c, yolov8n-seg and yolov8n-pose served (``task_serving``: 64
+    images at batch 32, 640, fp32, conf 0.25, class 0 at P5 at the prior
+    0.3, K4 once a batch, card vs CPU on 2 images); yolov8n-obb served as
+    the OBB phase serves (``phase_obb_serving``: 32 images at batch 16,
+    1024, K5 once a batch); yolov9c validated (``task_val``: 16
+    self-labelled images, card vs CPU at 1e-3); yolov9c and yolov3 trained
+    1 epoch (4 bf16 steps at batch 16, 640, ``task_training``), with one
+    fp32 yolov9c step held against the CPU at 256."""
+    import torch
+
+    paths, serving = {}, {}
+    for key in ZOO_SERVING:
+        model = task_model(key, dev)
+        if model.model.num_params() != ZOO_PARAMS[key]:
+            raise AssertionError(f"{key}: {model.model.num_params():,} parameters, the JAX model "
+                                 f"has {ZOO_PARAMS[key]:,}")
+        serving[key] = task_serving(key, model, dev)
+        paths[f"zoo_{key}_serving_run"] = serving[key]["run"]
+        if key == "yolov9c":
+            paths["zoo_yolov9c_val_run"] = task_val(key, model, dev)["run"]
+        del model
+        torch.cuda.empty_cache()
+    obb = obb_model(dev, f"{ZOO_OBB}.yaml")
+    if obb.model.num_params() != ZOO_PARAMS[ZOO_OBB]:
+        raise AssertionError(f"{ZOO_OBB}: {obb.model.num_params():,} parameters, the JAX model "
+                             f"has {ZOO_PARAMS[ZOO_OBB]:,}")
+    paths[f"zoo_{ZOO_OBB}_serving_run"] = phase_obb_serving(obb, dev, ZOO_OBB)
+    del obb
+    training = {}
+    for key in ("yolov9c", "yolov3"):
+        training[key] = task_training(key, dev, hold_step=key == "yolov9c")
+        paths[f"zoo_{key}_training_run"] = training[key]["run"]
+    log("zoo: " + "; ".join(f"{k} {ZOO_PARAMS[k]:,} parameters, {v['images_per_s']:.1f} images/s"
+                            for k, v in serving.items())
+        + "; steps " + ", ".join(f"{k} {v['ms_per_step']:.1f} ms" for k, v in training.items()))
+    return {"paths": paths, "serving": serving, "training": training}
+
+
+TRACK_FRAMES, TRACK_SHAPE, TRACK_CONF = 48, (720, 1280), 0.25
+TRACK_HELD = 24  # frames of the CPU's run: the trackers are causal, so the card's first 24 rows
+TRACK_PRIOR = 0.15  # class 0's prior in the flagship's shared cv3: tens of rows at conf 0.25
+TRACK_BOX_TOL = 5e-2  # px, card vs CPU track rows
+TRACKER_THRESHOLDS = (0.25, 0.1)  # bytetrack / botsort defaults: high = new-track, low
+
+
+def track_video(path: Path, frames: int | None = None) -> Path:
+    """A seeded 1280x720 MJPG video of ``frames`` frames at 30 fps: a dim
+    textured background panning one pixel a frame and eight filled shapes
+    moving on straight lines across it (a shorter video is the longer
+    one's first frames)."""
+    import cv2
+    import numpy as np
+
+    frames = frames or TRACK_FRAMES
+    rng = np.random.default_rng(3)
+    h, w = TRACK_SHAPE
+    base = cv2.resize(rng.integers(0, 90, (h // 8, w // 8, 3), dtype=np.uint8), (w, h))
+    starts = rng.uniform((40, 40), (w - 240, h - 200), (8, 2))
+    vel = rng.uniform(-9, 9, (8, 2))
+    sizes = rng.uniform(50, 170, (8, 2))
+    colors = rng.integers(90, 256, (8, 3))
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 30, (w, h))
+    for t in range(frames):
+        frame = np.roll(base, t, axis=1).copy()
+        for j in range(8):
+            x, y = (starts[j] + vel[j] * t).astype(int)
+            sw, sh = sizes[j].astype(int)
+            color = tuple(int(c) for c in colors[j])
+            if j % 2:
+                cv2.ellipse(frame, (x + sw // 2, y + sh // 2), (sw // 2, sh // 2), 0, 0, 360,
+                            color, -1)
+            else:
+                cv2.rectangle(frame, (x, y), (x + sw, y + sh), color, -1)
+        out.write(frame)
+    out.release()
+    return path
+
+
+def match_track_rows(g, w):
+    """Card rows ``g`` against CPU rows ``w`` (n, 7) of one frame, each card
+    row to the CPU row of the nearest box: (index into w for each row of g,
+    max box diff, max score diff), or None where the counts, the pairing
+    or the classes disagree."""
+    import numpy as np
+
+    if g.shape != w.shape:
+        return None
+    if not len(g):
+        return np.zeros(0, int), 0.0, 0.0
+    d = np.abs(g[:, None, :4] - w[None, :, :4]).max(-1)
+    j = d.argmin(1)
+    if len(set(j.tolist())) != len(g) or not np.array_equal(g[:, 6], w[j, 6]):
+        return None
+    return j, float(d[np.arange(len(g)), j].max()), float(np.abs(g[:, 5] - w[j, 5]).max())
+
+
+def hold_tracks(label: str, got: list, want: list, card, cpu, frames) -> dict:
+    """Card against CPU track rows, frame by frame: the same rows (each
+    card row paired with the CPU row of the nearest box) with boxes within
+    TRACK_BOX_TOL px, scores within 1e-3 and the same classes, and the same
+    ids up to one relabeling fixed over the whole video. A new track takes
+    the next id in the order of its frame's detections, and detections
+    whose scores tie within rounding (seeded weights score a flat region's
+    anchors alike) may sort apart on the card and the CPU: their tracks
+    then carry each other's numbers, which the relabeling allows and counts.
+    A frame that differs otherwise is excused, and the hold stops there,
+    only where a detection's score on either side, in that frame or an
+    earlier one (a track's state carries it on), lies within 1e-3 of a
+    threshold the NMS or the tracker reads (conf, track_high / new_track,
+    track_low): rounding may then put it on the other side."""
+    import numpy as np
+
+    from yolo_ad_refine_tpu_torch.engine.track import frame_rows
+
+    box_err = score_err = 0.0
+    ids: dict = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.boxes.data, w.boxes.data
+        m = match_track_rows(g, w)
+        if m is not None:
+            j, b, sc = m
+            box_err, score_err = max(box_err, b), max(score_err, sc)
+            pairs = dict(zip(g[:, 4].astype(int).tolist(), w[j, 4].astype(int).tolist()))
+            consistent = all(ids.get(k, v) == v for k, v in pairs.items())
+            ids.update(pairs)
+            if consistent and len(set(ids.values())) == len(ids) and \
+                    box_err <= TRACK_BOX_TOL and score_err <= 1e-3:
+                continue
+        for k in range(i, -1, -1):
+            scores = np.concatenate([frame_rows(mm, frames[k], conf=TRACK_CONF)[0][:, 4]
+                                     for mm in (card, cpu)])
+            near = [float(v) for v in scores
+                    if min(abs(v - t) for t in (TRACK_CONF, *TRACKER_THRESHOLDS)) < 1e-3]
+            if near:
+                break
+        else:
+            raise AssertionError(f"{label}: card and CPU tracks differ at frame {i + 1} with no "
+                                 f"score near a threshold up to it: rows {g.shape} vs {w.shape}, "
+                                 f"max box diff {box_err:.3e} px, score diff {score_err:.3e}")
+        log(f"{label}: card and CPU tracks part at frame {i + 1} of {len(got)}; frame {k + 1} "
+            f"has scores {near[:4]} within 1e-3 of a threshold; held frames 1-{i}")
+        return {"held_frames": i, "box_err": box_err, "score_err": score_err, "parted_at": i + 1,
+                "ids": len(ids), "ids_renumbered": sum(k != v for k, v in ids.items())}
+    return {"held_frames": len(got), "box_err": box_err, "score_err": score_err,
+            "parted_at": None, "ids": len(ids),
+            "ids_renumbered": sum(k != v for k, v in ids.items())}
+
+
+def phase_track(dev) -> dict:
+    """``YOLO.track`` with the flagship (scale n, seeded weights, class 0 at
+    the prior TRACK_PRIOR) at 640 over a 1280x720 MJPG video of 48 frames
+    (``track_video``), with ``bytetrack`` and with ``botsort``: a warm-up
+    run, then a timed run with the launch counts set to 0 (K4 once a frame,
+    at B = 1, and K1 fwd 3 times a frame), its frames/s and each frame's
+    split into host preprocess, forward + NMS (which waits for the card)
+    and the tracker; the first TRACK_HELD frames' rows held against the
+    same track on the CPU over those frames (``hold_tracks``); and K4 held
+    against its plain version on one frame's candidates (B = 1, K = 2048),
+    both timed."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import Impl, predict_candidates, time_case
+    from yolo_ad_refine_tpu_torch.ops.nms import suppress_plain
+
+    model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+    with torch.no_grad():
+        model.model.model[model.model.head_idx].cv3.bias[0] = logit(TRACK_PRIOR)
+    cpu = copy.deepcopy(model)
+    cpu.model = cpu.model.cpu()
+    counters = kernel_counters()
+    out = {"paths": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_track_") as tmp:
+        vid = str(track_video(Path(tmp) / "track.avi"))
+        head = str(track_video(Path(tmp) / "head.avi", TRACK_HELD))
+        frames = [f for _, f, _ in load_inference_source(vid)]
+        if len(frames) != TRACK_FRAMES or frames[0].shape[:2] != TRACK_SHAPE:
+            raise AssertionError(f"the video reads back as {len(frames)} frames of "
+                                 f"{frames[0].shape}")
+        for tracker in ("bytetrack", "botsort"):
+            kw = dict(tracker=tracker, imgsz=640, conf=TRACK_CONF)
+            model.track(vid, **kw)  # warm-up: cuDNN plans, allocator
+            for f in counters.values():
+                f.launches = 0
+            cv2_seed(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.track(vid, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in counters.items()}
+            if launches["nms_suppress"] != TRACK_FRAMES or \
+                    launches["dcn_forward"] != 3 * TRACK_FRAMES or \
+                    any(v for k, v in launches.items() if k not in ("nms_suppress",
+                                                                    "dcn_forward")):
+                raise AssertionError(f"{tracker}: the track path did not launch K4 once and K1 "
+                                     f"three times a frame, and nothing else: {launches}")
+            speed = {k: float(np.mean([r.speed[k] for r in got]))
+                     for k in ("preprocess", "inference", "track")}
+            frame_ms = sum(speed.values())
+            host = (speed["preprocess"] + speed["track"]) / frame_ms
+            rows = [len(r) for r in got]
+            ids = {int(i) for r in got for i in r.boxes.data[:, 4]}
+            log(f"{tracker}: {TRACK_FRAMES} frames of {TRACK_SHAPE[1]}x{TRACK_SHAPE[0]} at 640 "
+                f"in {wall:.2f} s, {TRACK_FRAMES / wall:.1f} frames/s (host clock with a "
+                f"synchronise); a frame {frame_ms:.1f} ms: preprocess {speed['preprocess']:.1f}, "
+                f"forward + NMS + the rows on the host {speed['inference']:.1f}, tracker "
+                f"{speed['track']:.1f} ms (host share, preprocess + tracker, {host * 100:.1f} %); "
+                f"tracks a frame {np.mean(rows):.1f} (min {min(rows)}, max {max(rows)}), "
+                f"{len(ids)} ids; launches {launches}")
+            if len(got) != TRACK_FRAMES or not all(r.boxes.is_track for r in got) or \
+                    not 1 < len(ids) or not all(np.isfinite(r.boxes.data).all() for r in got):
+                raise AssertionError(f"{tracker}: bad track results")
+            cv2_seed(0)
+            t1 = time.perf_counter()
+            want = cpu.track(head, **kw)
+            cpu_s = time.perf_counter() - t1
+            held = hold_tracks(tracker, got[:TRACK_HELD], want, model.model, cpu.model, frames)
+            log(f"{tracker}: card vs CPU ({cpu_s:.1f} s on the CPU): {held['held_frames']} "
+                f"of the first {TRACK_HELD} frames held, rows and classes equal, "
+                f"{held['ids']} ids of which {held['ids_renumbered']} renumbered (tied scores "
+                f"at their first frame), max |box diff| {held['box_err']:.3e} px (tol "
+                f"{TRACK_BOX_TOL}), max |score diff| {held['score_err']:.3e} (tol 1e-3)")
+            out["paths"][f"track_{tracker}_run"] = launches
+            out[tracker] = {"frames_per_s": TRACK_FRAMES / wall, "frame_ms": frame_ms,
+                            "host_share": host, **speed, **held}
+    bx, sc = predict_candidates(model, frames[:1], 640, (TRACK_CONF,))[TRACK_CONF]
+    got, want = Impl()("K4", bx, sc, TRACK_CONF), suppress_plain(bx, sc, NMS_IOU, TRACK_CONF)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 differs from plain on a tracked frame's candidates: "
+                             f"{int((got != want).sum())} entries")
+    r = time_case(Impl(), "K4", bx, sc, TRACK_CONF)
+    plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, TRACK_CONF), iters=3, warmup=1)
+    bound = k4_bound(got)
+    out["k4"] = {"B": 1, "K": int(sc.shape[1]), "ms": r["ms"], "device_ms": r["device_ms"],
+                 "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                 "bound_by": bound["bound_by"], "kept": r["kept"], "valid": r["valid"]}
+    log(f"K4 on a tracked frame's candidates (B=1, K={sc.shape[1]}): keep mask equal to plain; "
+        f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {plain_ms:.3f} ms, bound "
+        f"{bound['bound_ms']:.5f} ms, {r['kept']} kept of {r['valid']} valid")
+    return out
+
+
+def cv2_seed(seed: int) -> None:
+    """cv2's global generator, which BOT-SORT's RANSAC draws from."""
+    import cv2
+
+    cv2.setRNGSeed(seed)
 
 
 def phase_classify(dev) -> dict:
@@ -3778,6 +4072,9 @@ def main() -> int:
         paths.update(world["paths"])
         rtdetr = timed(phase_rtdetr, dev)
         paths.update(rtdetr["paths"])
+        paths.update(timed(phase_zoo, dev)["paths"])
+        track = timed(phase_track, dev)
+        paths.update(track["paths"])
         paths.update(phase_export(dev)["paths"])
         timed(phase_cli)
         paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
@@ -3823,7 +4120,7 @@ def main() -> int:
         *bounded_entries,
         entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run",
               device_ms=k4["device_ms"], parts=k4["parts"], predict_batch=k4["predict_batch"],
-              world_batches=world["k4"]),
+              world_batches=world["k4"], track_frame=track["k4"], track_frames=TRACK_FRAMES),
         entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",
               device_ms=k5["device_ms"], parts=k5["parts"], predict_batch=k5["predict_batch"],
               rounding_ties=k5["rounding_ties"]),

@@ -877,7 +877,34 @@ def test_nms_kernel_on_flagship_predict_candidates(dev, conf):
     assert torch.equal(got, suppress_plain(boxes, scores, 0.7, conf))
 
 
-@pytest.mark.parametrize("b,k", [(1, 1), (32, 2048), (2, 4096), (3, 4100), (70, 65)])
+def test_nms_kernel_on_tracked_frames(dev, tmp_path):
+    """K4 at B = 1: ``YOLO.track`` launches it once a frame, and on one
+    frame's candidates (the flagship at 640, K = 2048) it equals its plain
+    version."""
+    import cv2
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import predict_candidates
+
+    model = YOLO("yolo11-701-YOLO-AD-Refine.yaml", device=dev, imgsz=640, seed=0)
+    vid = tmp_path / "v.avi"
+    w = cv2.VideoWriter(str(vid), cv2.VideoWriter_fourcc(*"MJPG"), 10, (320, 180))
+    r = np.random.default_rng(0)
+    frames = [r.integers(0, 256, (180, 320, 3), dtype=np.uint8) for _ in range(4)]
+    for f in frames:
+        w.write(f)
+    w.release()
+    suppress.launches = 0
+    results = model.track(str(vid), imgsz=640, conf=0.001)
+    assert len(results) == 4 and suppress.launches == 4
+    for conf in (0.001, 0.25):
+        boxes, scores = predict_candidates(model, frames[:1], 640, (conf,))[conf]
+        assert scores.shape == (1, 2048)
+        got = suppress(boxes, scores, 0.7, conf)
+        assert torch.equal(got, suppress_plain(boxes, scores, 0.7, conf))
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (1, 2048), (32, 2048), (2, 4096), (3, 4100), (70, 65)])
 def test_nms_launch_plan_matches_nms_launch(dev, b, k):
     """The C side's launch arithmetic (``nms_launch_plan``) is ops/nms.py's,
     and it refuses what ``nms_launch`` refuses."""

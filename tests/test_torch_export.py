@@ -45,6 +45,16 @@ from yolo_ad_refine_tpu_torch.utils.triton import TritonRemoteModel
 IMGSZ, BATCH = 128, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this file's torch work: the suite runs six
+    workers on the host's cores, where more threads a worker only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_err(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)

@@ -39,15 +39,17 @@ print(" ".join(names))
 
 # the train slice's, the bounded-DCN slice's, the training options', the OBB
 # training and export slice's, the CLI / tune / benchmark / data-parallel
-# slice's, the classify / YOLOv10 / YOLO-World slice's, and the RT-DETR / ATSS
-# slice's modules, each imported under the blocker above
+# slice's, the classify / YOLOv10 / YOLO-World slice's, the RT-DETR / ATSS
+# slice's, and the zoo / tracking slice's modules, each imported under the
+# blocker above
 TRAIN_SLICE_MODULES = (
     "__main__", "cfg.cli", "cfg.config", "data.augment", "data.build", "data.dataset",
-    "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.tuner",
+    "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.track", "engine.tuner",
     "engine.validator", "nn.conv_extras", "nn.transformer", "ops.anchors", "ops.deform",
     "ops.deform_mxu", "ops.deform_pallas", "ops.iou", "ops.lap", "parallel",
     "parallel.multihost", "train.atss", "train.classify", "train.loss", "train.obb",
-    "train.optim", "train.rtdetr", "train.step", "train.tal", "train.trainer",
+    "train.optim", "train.rtdetr", "train.step", "train.tal", "train.trainer", "trackers",
+    "trackers.bot_sort", "trackers.byte_tracker", "trackers.gmc", "trackers.kalman",
     "utils.autobatch", "utils.benchmarks", "utils.callbacks", "utils.checks", "utils.metrics",
     "utils.plotting", "utils.settings", "utils.text", "utils.triton",
 )

@@ -183,6 +183,8 @@ def test_word_walk_matches_rotated_plain(k):
 
 @pytest.mark.parametrize("b,k,nwords,tiles,blocks,smem", [
     (1, 1, 1, 1, 1, 152),
+    (1, 2048, 32, 528, 132, 400),              # a tracked frame at 640: one image
+    (1, 84, 2, 3, 1, 160),                     # a tracked frame at 64
     (32, 2048, 32, 528, 132 * 32, 400),        # a flagship serving batch
     (16, 2048, 32, 528, 132 * 16, 400),        # an OBB batch
     (2, 4096, 64, 2080, 520 * 2, 656),         # max_nms 4096

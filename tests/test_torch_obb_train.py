@@ -55,6 +55,19 @@ OPT = dict(optimizer="SGD", lr0=0.01, lrf=0.01, momentum=0.937, weight_decay=0.0
 STRIDES = (8, 16, 32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this file's torch work: the suite runs six
+    workers on the host's cores, where more threads a worker only contend.
+    The one train step (``steps``) runs at the process's own count: its
+    gradient rule sits at the fp32 rounding of the conv weight sums, which
+    the thread count's split of those sums moves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield n
+    torch.set_num_threads(n)
+
+
 def _rel_err(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
@@ -262,9 +275,18 @@ def _recording(tx):
 
 
 @pytest.fixture(scope="module")
-def steps():
+def steps(few_threads):
     """One SGD step of yolo11n-obb (no warmup, so every group moves) on both
-    sides, and the port's step again in fp64 for the gradient rule."""
+    sides, and the port's step again in fp64 for the gradient rule, at the
+    process's own thread count."""
+    torch.set_num_threads(few_threads)
+    try:
+        return _steps()
+    finally:
+        torch.set_num_threads(min(few_threads, 2))
+
+
+def _steps():
     jm, shapes = jax_shapes(CFG, IMGSZ)
     variables = randomize(shapes, seed=13)
     batch = _batch()

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from test_torch_resume_jax import IMGSZ, NC, assert_same_tree
 from test_torch_weights import FLAGSHIP, jax_shapes, randomize
@@ -29,6 +30,16 @@ from yolo_ad_refine_tpu_torch.engine.checkpoint import read_flax_msgpack
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel
 from yolo_ad_refine_tpu_torch.train.trainer import DetectionTrainer
 from yolo_ad_refine_tpu_torch.utils.jax_weights import flatten_tree, jax_to_port, load_jax_variables
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this file's torch work: the suite runs six
+    workers on the host's cores, where more threads a worker only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -70,6 +70,16 @@ HYP = {"hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "fliplr": 0.5, "mosaic": 1.0,
        "perspective": 0.0005}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this file's torch work: the suite runs six
+    workers on the host's cores, where more threads a worker only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)

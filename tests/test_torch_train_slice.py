@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_obb_train import _recording
 from test_torch_weights import FLAGSHIP, jax_shapes, randomize
 from yolo_ad_refine_tpu.models.model import DetectionModel as JaxDetectionModel
 from yolo_ad_refine_tpu.train.loss import DetectionLoss as JaxDetectionLoss
@@ -72,21 +73,15 @@ def steps():
     variables = randomize(shapes, seed=11)
     batch = _batch()
     jloss = JaxDetectionLoss(nc=NC, strides=(8, 16, 32))
-
-    def loss_of(params, stats, img, cls, bboxes, mask):
-        feats, _ = jm.graph.apply({"params": params, "batch_stats": stats},
-                                  img.astype(jnp.float32) / 255.0, train=True,
-                                  mutable=["batch_stats", "diagnostics"])
-        return jloss(feats, cls, bboxes, mask).total
-
-    jgrads = jax.jit(jax.grad(loss_of))(variables["params"], variables["batch_stats"],
-                                        *(jnp.asarray(batch[k])
-                                          for k in ("img", "cls", "bboxes", "mask")))
+    # one compiled JAX step gives the step and, through the recording
+    # transform, the gradients it was given
     tx, _, _ = jax_build_optimizer(variables["params"], **OPT)
+    tx = _recording(tx)
     state = TrainState.create(jax.tree.map(jnp.asarray, variables), tx)
     step = jax.jit(make_train_step(jm.graph, jloss, tx))
     jstate, jmetrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                             jax.random.PRNGKey(0))
+    jgrads = jstate.opt_state[1]
 
     port = _port_like(variables)
     # the same forward and backward in fp64: the reference for fp32 noise

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from test_torch_weights import FLAGSHIP, jax_shapes, randomize
 from yolo_ad_refine_tpu.models.model import DetectionModel as JaxDetectionModel
@@ -24,6 +25,16 @@ from yolo_ad_refine_tpu_torch.train.trainer import CSV_KEYS, DetectionTrainer
 from yolo_ad_refine_tpu_torch.utils.jax_weights import flatten_tree, load_jax_variables
 
 IMGSZ, NC = 128, 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this file's torch work: the suite runs six
+    workers on the host's cores, where more threads a worker only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def _rows(path):

@@ -4,7 +4,9 @@ Counterpart of ``Boxes`` / ``Masks`` / ``Keypoints`` / ``OBBoxes`` /
 ``Results`` in ``yolo_ad_refine_tpu/engine/results.py`` (reference
 engine/results.py), with its ``plot``, ``save``, ``save_txt``,
 ``save_crop`` and ``tojson`` for boxes, instance masks, keypoints and
-oriented boxes, drawn with cv2 on the host.
+oriented boxes, drawn with cv2 on the host. ``Boxes`` also takes the
+tracker's 7-column rows (``is_track``, ``id``; ``plot`` labels them
+``id:<n>`` and ``tojson`` writes ``track_id``).
 """
 
 from __future__ import annotations
@@ -16,15 +18,17 @@ import numpy as np
 
 
 class Boxes:
-    """(n, 6) detections [x1, y1, x2, y2, conf, cls] in original-image pixels."""
+    """(n, 6) detections [x1, y1, x2, y2, conf, cls] or (n, 7) track rows
+    [x1, y1, x2, y2, track id, conf, cls] in original-image pixels."""
 
     def __init__(self, data: np.ndarray, orig_shape: tuple):
         data = np.asarray(data, dtype=np.float32)
         if data.ndim == 1:
             data = data.reshape(-1, 6)
-        if data.shape[-1] != 6:
-            raise ValueError(f"expected 6 columns, got {data.shape}")
+        if data.shape[-1] not in (6, 7):
+            raise ValueError(f"expected 6 or 7 columns, got {data.shape}")
         self.data = data
+        self.is_track = data.shape[-1] == 7
         self.orig_shape = orig_shape
 
     def __len__(self):
@@ -35,12 +39,17 @@ class Boxes:
         return self.data[:, :4]
 
     @property
+    def id(self):
+        """The track ids of track rows, else None."""
+        return self.data[:, 4] if self.is_track else None
+
+    @property
     def conf(self):
-        return self.data[:, 4]
+        return self.data[:, -2]
 
     @property
     def cls(self):
-        return self.data[:, 5]
+        return self.data[:, -1]
 
     @property
     def xywh(self):
@@ -198,12 +207,14 @@ class Results:
                 for x, y, *v in kps:
                     if not v or v[0] > 0.25:
                         cv2.circle(img, (int(x), int(y)), max(lw, 2), (0, 0, 255), -1)
-        for x1, y1, x2, y2, conf, cls in self.boxes.data:
-            c = int(cls)
+        for row in self.boxes.data:
+            x1, y1, x2, y2 = row[:4]
+            conf, c = row[-2], int(row[-1])
             color = self._color(c)
             p1, p2 = (int(x1), int(y1)), (int(x2), int(y2))
             cv2.rectangle(img, p1, p2, color, lw)
-            label = f"{self.names.get(c, c)} {conf:.2f}"
+            tid = f"id:{int(row[4])} " if self.boxes.is_track else ""
+            label = f"{tid}{self.names.get(c, c)} {conf:.2f}"
             tw, th = cv2.getTextSize(label, 0, font_scale, 1)[0]
             cv2.rectangle(img, p1, (p1[0] + tw, p1[1] - th - 3), color, -1)
             cv2.putText(img, label, (p1[0], p1[1] - 2), 0, font_scale, (255, 255, 255), 1)
@@ -272,10 +283,13 @@ class Results:
     def tojson(self) -> str:
         out = []
         for i, row in enumerate(self.boxes.data):
-            x1, y1, x2, y2, conf, cls = row.tolist()
-            entry = {"name": str(self.names.get(int(cls), int(cls))), "class": int(cls),
+            x1, y1, x2, y2 = row[:4].tolist()
+            conf, cls = float(row[-2]), int(row[-1])
+            entry = {"name": str(self.names.get(cls, cls)), "class": cls,
                      "confidence": round(conf, 5),
                      "box": {"x1": x1, "y1": y1, "x2": x2, "y2": y2}}
+            if self.boxes.is_track:
+                entry["track_id"] = int(row[4])
             if self.keypoints is not None and i < len(self.keypoints):
                 entry["keypoints"] = {"x": self.keypoints.xy[i, :, 0].round(2).tolist(),
                                       "y": self.keypoints.xy[i, :, 1].round(2).tolist()}

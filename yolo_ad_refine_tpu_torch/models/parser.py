@@ -14,6 +14,10 @@ bookkeeping, for the modules this port has so far.
 - HGBlock and RepC3 take the row's repeats as their inner ``n``; the
   RTDETRDecoder row's extras after nc are hd, nq, ndl and d_ffn
 - C3k2 forces c3k=True at scales m/l/x
+- a Bottleneck row of n > 1 repeats becomes a chain of n distinct blocks
+  (``SequentialBlocks``); RepNCSPELAN4 takes its repeats from its 4th
+  argument, max(round(n * depth), 1); the GELAN rows width-scale only c2;
+  CBAM and its two gates keep their input's channels
 - C2fAttn's embed channels and head count take their own width gains
   (reference tasks.py:1021-1024); ImagePoolingAttn keeps the channels of
   its first input, and its output replaces the text stream
@@ -42,8 +46,13 @@ from yolo_ad_refine_tpu_torch.utils import LOGGER, ROOT, yaml_load
 HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB", "Segment", "Pose", "Classify",
                 "v10Detect", "WorldDetect", "RTDETRDecoder"}
 # modules whose first yaml arg is an out-channel subject to width scaling
-WIDTH_SCALED = {"Conv", "DWConv", "SPPF", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA", "C2PTSSA",
-                "nn.Conv2d", "nn.ConvTranspose2d", "C2fAttn", "SCDown", "C2fCIB", "PSA"}
+WIDTH_SCALED = {"Conv", "DWConv", "SPPF", "SPP", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA",
+                "C2PTSSA", "nn.Conv2d", "nn.ConvTranspose2d", "C2fAttn", "SCDown", "C2fCIB",
+                "PSA", "Bottleneck", "Conv2", "LightConv", "Focus", "GhostConv", "RepConv"}
+# YOLOv9's GELAN rows: c2 width-scaled, their other channel arguments as written
+GELAN_MODULES = {"RepNCSPELAN4", "ELAN1", "ADown", "AConv", "SPPELAN"}
+# channel-keeping attention gates of nn/conv_extras.py
+GATE_MODULES = {"CBAM", "ChannelAttention", "SpatialAttention"}
 # rows that read YOLO-World's text stream: a graph with them has text embeddings
 TEXT_MODULES = {"C2fAttn", "ImagePoolingAttn"}
 CSP_MODULES = {"C2f": B.C2f, "C3": B.C3, "C3k2": B.C3k2, "C3k2_MLCA": B.C3k2MLCA}
@@ -157,6 +166,20 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
                                   _arg(rest, 3, True))
             elif name == "SPPF":
                 module = B.SPPF(c1, c2, _arg(rest, 0, 5))
+            elif name == "SPP":
+                module = B.SPP(c1, c2, tuple(_arg(rest, 0, (5, 9, 13))))
+            elif name == "Bottleneck":
+                # a YOLOv3 row of n > 1 becomes a chain of n distinct blocks
+                shortcut = _arg(rest, 0, True)
+                blocks = [B.Bottleneck(c1 if j == 0 else c2, c2, shortcut) for j in range(n)]
+                module = B.SequentialBlocks(blocks) if n > 1 else blocks[0]
+            elif name == "Conv2":
+                module = CE.Conv2(c1, c2, _arg(rest, 0, 3), _arg(rest, 1, 1))
+            elif name == "LightConv":
+                module = CE.LightConv(c1, c2, _arg(rest, 0, 1))
+            elif name in ("Focus", "GhostConv", "RepConv"):
+                module = getattr(CE, name)(c1, c2, _arg(rest, 0, 3 if name == "RepConv" else 1),
+                                           _arg(rest, 1, 1))
             elif name in ("C2f", "C3"):
                 module = CSP_MODULES[name](c1, c2, n, _arg(rest, 0, name == "C3"))
             elif name in ("C3k2", "C3k2_MLCA"):
@@ -188,6 +211,27 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             else:  # nn.ConvTranspose2d
                 module = C.plain_conv_transpose2d(c1, c2, _arg(rest, 0, 3), _arg(rest, 1, 2),
                                                   _arg(rest, 2, 1), _arg(rest, 3, 1))
+        elif name in GELAN_MODULES:
+            c2 = args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            if name == "RepNCSPELAN4":
+                # its repeats come from its own 4th argument, not the row's n
+                module = CE.RepNCSPELAN4(c1, c2, args[1], args[2],
+                                         n=max(round(_arg(args, 3, 1) * depth), 1))
+            elif name == "ELAN1":
+                module = CE.ELAN1(c1, c2, args[1], args[2])
+            elif name == "SPPELAN":
+                module = CE.SPPELAN(c1, c2, args[1], _arg(args, 2, 5))
+            else:
+                module = getattr(CE, name)(c1, c2)
+        elif name in GATE_MODULES:
+            if name == "CBAM":
+                module = CE.CBAM(c1, _arg(args, 1, 7))
+            elif name == "ChannelAttention":
+                module = CE.ChannelAttention(c1)
+            else:
+                module = CE.SpatialAttention(_arg(args, 0, 7))
         elif name == "ImagePoolingAttn":
             # the text-refinement row (reference tasks.py:1082, its ec unscaled):
             # its output replaces the text stream; the rows after it route

@@ -15,8 +15,9 @@ detection engine, which cannot read class folders) and predicts nothing,
 as the JAX package serves no classifier. ``set_classes`` sets a YOLO-World
 model's vocabulary. ``.export``
 writes the model for ``engine/exporter.py``'s ``AutoBackend``;
-``.benchmark`` times the exported formats and ``.tune`` evolves the
-training hyperparameters.
+``.benchmark`` times the exported formats, ``.tune`` evolves the
+training hyperparameters and ``.track`` follows objects through a video
+with ByteTrack or BoT-SORT.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from yolo_ad_refine_tpu_torch.engine.checkpoint import load_checkpoint
 from yolo_ad_refine_tpu_torch.models.model import DetectionModel, build_detection_model
 from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
-from yolo_ad_refine_tpu_torch.utils import LOGGER, increment_path, not_ported, select_device
+from yolo_ad_refine_tpu_torch.utils import LOGGER, increment_path, select_device
 from yolo_ad_refine_tpu_torch.utils.callbacks import Callbacks
 
 
@@ -148,8 +149,15 @@ class YOLO:
         self.model.text_feats = torch.from_numpy(t)
         return self
 
-    def track(self, source=None, **kwargs):
-        not_ported("track", "ROADMAP Queue 1 item 15, trackers")
+    def track(self, source=None, tracker: str = "bytetrack", **kwargs) -> list:
+        """Multi-object tracking over ``source`` (``engine/track.py``):
+        ``tracker`` "bytetrack" or "botsort", and imgsz, conf, iou, max_det,
+        names, persist, vid_stride, tracker_args as the JAX facade takes
+        them (imgsz 640 unless given, as in JAX); one frame a forward.
+        Returns a Results a frame with track rows."""
+        from yolo_ad_refine_tpu_torch.engine.track import track
+
+        return track(self.model, source, tracker=tracker, **kwargs)
 
     def export(self, format: str = "torch_export", imgsz: int = 640, batch: int = 1,  # noqa: A002
                half: bool = True, path: str | None = None) -> Path:

@@ -108,6 +108,40 @@ class C3k2(C2f):
 
 
 @register
+class SequentialBlocks(nn.Module):
+    """A chain of distinct blocks: the parser's form of a repeated non-CSP
+    row (reference tasks.py:1095 wraps it in ``nn.Sequential``). Its
+    ``blocks.i`` are flax's ``blocks_i``, the names it gives a tuple
+    attribute's submodules."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        for b in self.blocks:
+            x = b(x)
+        return x
+
+
+@register
+class SPP(nn.Module):
+    """Spatial pyramid pooling, parallel max-pools of sizes ``k`` (reference
+    block.py:146; the YOLOv3 zoo configs)."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y, *(max_pool_same(y, k, 1) for k in self.k)], 1))
+
+
+@register
 class SPPF(nn.Module):
     """Spatial pyramid pooling, fast: 3 chained maxpool(k) (reference block.py:177)."""
 
