@@ -121,6 +121,23 @@ to 0 just before it and read just after, each DCN variant under its own
   B = 1, and held against its plain version on a frame's candidates), and
   the first 24 frames' track rows against the same track on the CPU
   (``hold_tracks``);
+- the module library (``phase_module_library``, after ``phase_track``): the
+  flagship yaml with layer 10 swapped for the paper's ablation rows (the
+  697 model, ``C2TSSA_DYT_Mona_EDFFN``; C2SFA, C2PSA_EDFFN,
+  C2AdaptiveTSSA_Enhanced, C2ProgressiveTSSA_Fusion1) or with its
+  ``fusion_mode`` set (weight, adaptive, concat, SDI), at scale n and 640,
+  each parameter count held to the JAX model's, class 0 in AYHead's cv3
+  at the prior 0.15 (or higher, where that keeps no row at conf 0.25):
+  the 697 model served (64 images at batch 32, fp32, conf 0.25, K1 fwd 3
+  and K4 once a batch, card vs CPU on 2), validated on 16
+  self-labelled images (card vs CPU at 1e-3), trained 1 epoch (4 bf16
+  steps at batch 16, K1 fwd and bwd 3 a step) and one fp32 step held
+  against the CPU with the same dropout masks on both sides; the other
+  eight served on 32 images and held against the CPU, the SDI flagship
+  also trained 4 bf16 steps; the 28 attention rows and DSAN / DSA each
+  alone at batch 8, 64 x 80 x 80 (CascadedGroupAttention at 7 x 7) card vs
+  CPU with its ms, and each as a yaml row after row 10 served on 32 images
+  (CascadedGroupAttention, which attends only a 7 x 7 map, not at P5);
 - export and serving (``phase_export``): the flagship exported at batch
   32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
   fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
@@ -2347,6 +2364,301 @@ def phase_zoo(dev) -> dict:
     return {"paths": paths, "serving": serving, "training": training}
 
 
+# the module library (phase_module_library): the flagship yaml with layer 10
+# swapped (the reference's ablation rows), or with its fusion_mode set; each
+# parameter count is the JAX model's at scale n (tests/test_torch_tssa_ablations.py,
+# tests/test_torch_fusion_modes.py)
+LIBRARY_ABLATIONS = {"C2TSSA_DYT_Mona_EDFFN": 3_667_813, "C2SFA": 3_576_547,
+                     "C2PSA_EDFFN": 3_632_225, "C2AdaptiveTSSA_Enhanced": 4_159_519,
+                     "C2ProgressiveTSSA_Fusion1": 4_192_373}
+LIBRARY_FUSIONS = {"weight": 4_164_733, "adaptive": 4_165_765, "concat": 4_130_941,
+                   "SDI": 4_138_365}
+MODEL_697 = "C2TSSA_DYT_Mona_EDFFN"
+# the attention rows, each alone and as a yaml row after layer 10
+LIBRARY_ROWS = ("EMA", "SimAM", "TripletAttention", "LSKBlock", "SEAttention",
+                "EfficientChannelAttention", "SpatialGroupEnhance", "EffectiveSEModule", "ELA",
+                "CAA", "MPCA", "AFGCAttention", "BAMBlock", "LSKBlockSA", "LSKA",
+                "SegNext_Attention", "CPCA", "deformable_LKA", "DAttention",
+                "FocusedLinearAttention", "CascadedGroupAttention", "LocalWindowAttention",
+                "DualDomainSelectionMechanism", "EfficientAttention", "BiLevelRoutingAttention",
+                "BiLevelRoutingAttention_nchw", "DSAN", "DSA")
+ROW_SHAPE = (8, 64, 80, 80)  # scale n's P3 at 640
+ROW_TOL = 1e-4  # of max |CPU|, each row alone card vs CPU in fp32
+# class 0's priors in AYHead's shared cv3, tried in turn until 2 served images
+# keep rows at conf 0.25 (phase_track's TRACK_PRIOR first)
+LIBRARY_PRIORS = (0.15, 0.2, 0.3, 0.5, 0.7)
+
+
+def library_cfg(layer10: str | None = None, fusion: str | None = None,
+                row: str | None = None) -> dict:
+    """The flagship yaml's dict with ``layer10`` at row 10, its
+    ``fusion_mode`` set to ``fusion``, or the module ``row`` inserted after
+    row 10 (the rows after it read the new row where they read row 10, and
+    every later index moves up by one)."""
+    from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
+
+    d = copy.deepcopy(load_model_cfg(FLAGSHIP))
+    if layer10:
+        d["backbone"][10] = [-1, 2, layer10, [1024]]
+    if fusion:
+        d["fusion_mode"] = fusion
+    if row:
+        def shift(f):
+            return f + 1 if f >= 10 else f
+
+        for r in d["head"]:
+            r[0] = [shift(f) for f in r[0]] if isinstance(r[0], list) else shift(r[0])
+        d["head"].insert(0, [-1, 1, row, []])
+    return d
+
+
+def library_label(layer10: str | None = None, fusion: str | None = None) -> str:
+    return f"layer 10 {layer10}" if layer10 else f"fusion_mode {fusion}"
+
+
+def library_model(dev, cfg: dict, label: str, params: int | None):
+    """YOLO(cfg) at 640 on ``dev`` with seeded weights, its parameter count
+    held to the JAX model's, and class 0's bias in AYHead's shared cv3 at
+    the first of LIBRARY_PRIORS under which 2 served images keep rows at
+    conf 0.25 (a layer 10 or a fusion mode of its own moves the head's
+    scores)."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    model = YOLO(cfg, device=dev, imgsz=640, seed=0)
+    n = model.model.num_params()
+    if params is not None and n != params:
+        raise AssertionError(f"{label}: {n:,} parameters, the JAX model has {params:,}")
+    rng = np.random.default_rng(0)
+    probe = [rng.integers(0, 256, (*SERVING_SHAPES[i], 3), dtype=np.uint8) for i in range(2)]
+    for prior in LIBRARY_PRIORS:
+        with torch.no_grad():
+            model.model.model[model.model.head_idx].cv3.bias[0] = logit(prior)
+        if sum(len(r) for r in model.predict(probe, conf=0.25, batch=2)) > 0:
+            break
+    model.prior = prior
+    return model
+
+
+def library_serving(model, dev, label: str, n: int = 32, runs: int = 1,
+                    hold: bool = True, warm: bool = True) -> dict:
+    """``n`` images of the serving shapes at batch 32, 640, fp32, conf 0.25
+    (with ``warm`` a warm-up batch first, then ``runs`` timed runs with the
+    counts set to 0; without it the one run includes the first call's
+    cuDNN plans):
+    K1 fwd once a level and K4 once a batch, no other kernel; finite rows
+    inside their images; with ``hold``, 2 images card vs CPU at the serving
+    limits (boxes 5e-2 px, scores 1e-3)."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (*SERVING_SHAPES[i % len(SERVING_SHAPES)], 3), dtype=np.uint8)
+            for i in range(n)]
+    if warm:
+        model.predict(imgs[:32], conf=0.25, batch=32)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    seconds = []
+    batches = -(-n // 32)
+    for _ in range(runs):
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(imgs, conf=0.25, batch=32)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters.items()}
+        want = {k: 0 for k in launches}
+        want.update(dcn_forward=3 * batches, nms_suppress=batches)
+        if launches != want:
+            raise AssertionError(f"{label} serving: launches {launches}, expected K1 fwd once a "
+                                 "level and K4 once a batch, and nothing else")
+    dt = sorted(seconds)[len(seconds) // 2]
+    kept = [len(r) for r in results]
+    for im, r in zip(imgs, results):
+        d = r.boxes.data
+        h, w = im.shape[:2]
+        if not (len(d) <= 300 and np.isfinite(d).all()) or (d[:, [0, 2]] < 0).any() or \
+                (d[:, [0, 2]] > w).any() or (d[:, [1, 3]] < 0).any() or (d[:, [1, 3]] > h).any():
+            raise AssertionError(f"{label} serving: bad detections for an image of {im.shape}")
+    if sum(kept) == 0:
+        raise AssertionError(f"{label} serving: no image kept a detection at conf 0.25")
+    out = {"run": launches, "images_per_s": n / dt, "ms_per_batch": dt / batches * 1e3,
+           "kept_mean": float(np.mean(kept))}
+    msg = (f"{label} serving (class 0 at the prior {model.prior}): {n} images, batch 32, "
+           f"imgsz 640, fp32, conf 0.25: "
+           f"{n / dt:.1f} images/s, {dt / batches * 1e3:.1f} ms/batch ("
+           + ("median of " + ", ".join(f"{n / s:.1f}" for s in seconds) if runs > 1 else "one run")
+           + f" images/s; host clock, preprocess + forward + NMS + results); kept "
+           f"{np.mean(kept):.1f} an image; launches {launches}")
+    if hold:
+        x, _ = preprocess(imgs[:2], 640, 2, torch.device(dev), torch.float32)
+        with torch.inference_mode():
+            y_gpu = model.model(x)[0].float().cpu()
+            y_cpu = copy.deepcopy(model.model).cpu()(x.cpu())[0]
+        out["box_err"] = (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item()
+        out["score_err"] = (y_gpu[..., 4:] - y_cpu[..., 4:]).abs().max().item()
+        msg += (f"; card vs CPU on 2 images: max |box diff| {out['box_err']:.3e} px (tol 5e-2), "
+                f"max |score diff| {out['score_err']:.3e} (tol 1e-3)")
+        if not (y_gpu.shape == (2, 8400, 84) and torch.isfinite(y_gpu).all()) or \
+                out["box_err"] > 5e-2 or out["score_err"] > 1e-3:
+            raise AssertionError(f"{label}: card and CPU predictions disagree or are not finite")
+    log(msg)
+    return out
+
+
+def seeded_module(name: str, c: int):
+    """The registry's module ``name`` at ``c`` channels on the CPU in eval
+    mode: conv and linear weights drawn as ``init_weights`` draws them, the
+    norms' scales uniform in [0.5, 1.5] and their shifts in [-0.2, 0.2],
+    and every other parameter of a module's own (gates, layer scales,
+    position tables) uniform in [0.5, 1.5], so that none is its
+    constructor's identity or zero."""
+    import torch
+    from torch import nn
+
+    import yolo_ad_refine_tpu_torch.models.parser  # noqa: F401 (fills the registry)
+    from yolo_ad_refine_tpu_torch.models.model import init_weights
+    from yolo_ad_refine_tpu_torch.nn.registry import MODULE_REGISTRY
+
+    m = MODULE_REGISTRY[name](c)
+    gen = torch.Generator().manual_seed(0)
+    init_weights(m, gen)
+    norms = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, norms):
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.uniform_(-0.2, 0.2, generator=gen)
+            elif not isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+                for p in mod.parameters(recurse=False):
+                    p.uniform_(0.5, 1.5, generator=gen)
+    return m.eval()
+
+
+def library_rows_alone(dev) -> dict:
+    """Each attention row and DSAN / DSA alone at scale n's P3 shape (batch
+    8, 64 x 80 x 80; CascadedGroupAttention, which attends a map of its
+    ``resolution``, at 64 x 7 x 7, the JAX test's map), fp32: its ms on the
+    card (CUDA events, mean of 5 calls after 2) and the first 2 images of
+    its output card vs CPU within ROW_TOL of max |CPU| (eval: each image is
+    its own)."""
+    import torch
+
+    out = {}
+    for name in LIBRARY_ROWS:
+        shape = (8, 64, 7, 7) if name == "CascadedGroupAttention" else ROW_SHAPE
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+        m = seeded_module(name, shape[1])
+        card = copy.deepcopy(m).to(dev)
+        xd = x.to(dev).contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            ms = cuda_time(lambda: card(xd), 5)
+            got = card(xd)[:2].float().cpu()
+            want = m(x[:2].contiguous(memory_format=torch.channels_last))
+        if not want.abs().max() > 0:
+            raise AssertionError(f"{name}: the CPU's output is all zero, a vacuous hold")
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        out[name] = {"ms": ms, "rel_err": err, "shape": list(shape)}
+        log(f"module library: {name} alone at {tuple(shape)}, fp32: {ms:.3f} ms on the card; "
+            f"card vs CPU (2 images) max |diff| / max |CPU| {err:.2e} (tol {ROW_TOL})")
+        if not (torch.isfinite(got).all() and got.shape == want.shape) or err > ROW_TOL:
+            raise AssertionError(f"{name}: card and CPU disagree ({err:.2e})")
+        del card
+    return out
+
+
+def library_step_card_vs_cpu(dev) -> None:
+    """One fp32 step of the 697 model held against the CPU by
+    ``phase_step_card_vs_cpu``'s rule, its Monas dropping the same seeded
+    units on both sides (``tests/torch_dropout_masks.py``); the rate stays
+    0.1."""
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+    from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
+    from yolo_ad_refine_tpu_torch.train.step import images_to_tensor
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_dropout_masks import FixedDropout, dropout_input_shapes, seeded_masks, set_masks
+
+    batch = step_batch()
+    base = build_detection_model(library_cfg(MODEL_697), nc=3, device="cpu", seed=3, imgsz=256)
+    shapes = dropout_input_shapes(base, images_to_tensor(batch["img"], "cpu"))
+    set_masks(base, seeded_masks(shapes, 0.1, seed=4))
+    fixed = [m for m in base.modules() if isinstance(m, FixedDropout)]
+    if len(fixed) != 2 or any(m.p != 0.1 for m in fixed):
+        raise AssertionError(f"the 697 step's dropouts: {[(m.p, m.keep.shape) for m in fixed]}")
+    log(f"697 card vs CPU step: the 2 Monas' dropout (rate 0.1) on seeded masks "
+        f"{[tuple(m.keep.shape) for m in fixed]}, kept "
+        f"{[round(m.keep.float().mean().item(), 4) for m in fixed]}")
+    hold_step_card_vs_cpu("697 card vs CPU step", dev, base, batch,
+                          lambda: DetectionLoss(nc=3, strides=(8, 16, 32)))
+
+
+def phase_module_library(dev) -> dict:
+    """The rest of the module library on the card (scale n, 640, seeded
+    weights, class 0 raised (``library_model``), conf 0.25): the 697 ablation model
+    served (64 images at batch 32, three runs, card vs CPU on 2), validated
+    on 16 self-labelled images (``task_val``), trained 1 epoch (4 bf16
+    steps at batch 16, K1 fwd and bwd 3 a step, ``phase_training``) and one
+    fp32 step held against the CPU with shared dropout masks; the other
+    ablation models and the flagship under each other ``fusion_mode``
+    served on 32 images and held against the CPU, the SDI one also trained
+    4 bf16 steps; each attention row and DSAN / DSA alone, card vs CPU with
+    its ms, and as a yaml row after row 10 served on 32 images in one cold
+    run (CascadedGroupAttention, which attends only a map of its resolution
+    7, not at P5's 20 x 20: LocalWindowAttention runs it in windows). Every
+    parameter count is the JAX model's; the phase's seconds are logged."""
+    import torch
+
+    t_phase = time.perf_counter()
+    paths, serving = {}, {}
+    model = library_model(dev, library_cfg(MODEL_697), "697", LIBRARY_ABLATIONS[MODEL_697])
+    log(f"697: {model.model.num_params():,} parameters (the JAX model's), strides "
+        f"{model.model.strides}")
+    serving["697"] = library_serving(model, dev, "697", n=64, runs=3)
+    paths["library_697_serving_run"] = serving["697"]["run"]
+    paths["library_697_val_run"] = task_val("697", model, dev)["run"]
+    del model
+    run, step, _, ms_697 = phase_training(dev, None, library_cfg(MODEL_697), "697")
+    paths.update({"library_697_training_run": run, "library_697_training_step": step})
+    library_step_card_vs_cpu(dev)
+    for layer10, fusion in ([(k, None) for k in LIBRARY_ABLATIONS if k != MODEL_697]
+                            + [(None, f) for f in LIBRARY_FUSIONS]):
+        label = library_label(layer10, fusion)
+        count = LIBRARY_ABLATIONS[layer10] if layer10 else LIBRARY_FUSIONS[fusion]
+        model = library_model(dev, library_cfg(layer10, fusion), label, count)
+        serving[label] = library_serving(model, dev, label)
+        paths[f"library_{layer10 or 'fusion_' + fusion}_serving_run"] = serving[label]["run"]
+        del model
+        torch.cuda.empty_cache()
+    run, step, _, ms_sdi = phase_training(dev, None, library_cfg(fusion="SDI"), "fusion_mode SDI")
+    paths.update({"library_fusion_SDI_training_run": run,
+                  "library_fusion_SDI_training_step": step})
+    alone = library_rows_alone(dev)
+    inserted = {}
+    for name in LIBRARY_ROWS:
+        if name == "CascadedGroupAttention":
+            continue
+        model = library_model(dev, library_cfg(row=name), f"row {name}", None)
+        inserted[name] = library_serving(model, dev, f"row {name} after row 10", hold=False,
+                                         warm=False)
+        paths[f"library_row_{name}_serving_run"] = inserted[name]["run"]
+        del model
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"module library: 697 {serving['697']['images_per_s']:.1f} images/s served, "
+        f"{ms_697:.1f} ms a bf16 step at batch 16; SDI {ms_sdi:.1f} ms a step; "
+        + "; ".join(f"{k} {v['images_per_s']:.1f} images/s" for k, v in serving.items()
+                    if k != "697"))
+    return {"paths": paths, "serving": serving, "alone": alone, "inserted": inserted,
+            "ms_697": ms_697, "ms_sdi": ms_sdi, "seconds": seconds}
+
+
 TRACK_FRAMES, TRACK_SHAPE, TRACK_CONF = 48, (720, 1280), 0.25
 TRACK_HELD = 24  # frames of the CPU's run: the trackers are causal, so the card's first 24 rows
 TRACK_PRIOR = 0.15  # class 0's prior in the flagship's shared cv3: tens of rows at conf 0.25
@@ -3017,13 +3329,15 @@ def phase_folder_serving(dev):
     return launches, rate
 
 
-def phase_training(dev, impl: str | None = None, cfg: str = FLAGSHIP):
+def phase_training(dev, impl: str | None = None, cfg: str | dict = FLAGSHIP,
+                   name: str | None = None):
     """YOLO(cfg).train on the card under YAT_DCN_IMPL=impl: 1 epoch of 4
     steps at batch 16, imgsz 640, bf16, then the EMA validation, checkpoints
     and a reload of best. Each step launches the variant's forward and
     backward kernel 3 times each (one a level) and no other DCN kernel.
     ``cfg`` FLAGSHIP_X trains the flagship at scale x, whose DCN backward
-    (C = Cout = 384) runs K1 bwd's wide path.
+    (C = Cout = 384) runs K1 bwd's wide path; a model yaml's dict trains
+    that model, ``name`` heading its log lines.
     Under ``pallas`` the reload also widens the radius: best's meta.yaml
     gets dcn_offset_max 11.5, the reloaded head must clip at 13, and one
     predict batch runs K3 at that radius."""
@@ -3034,7 +3348,7 @@ def phase_training(dev, impl: str | None = None, cfg: str = FLAGSHIP):
     from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
 
     counters = kernel_counters()
-    label = (impl or "auto") + ("" if cfg == FLAGSHIP else f", {cfg}")
+    label = (impl or "auto") + ("" if cfg == FLAGSHIP else f", {name or cfg}")
 
     def counts():
         return {k: f.launches for k, f in counters.items()}
@@ -3186,22 +3500,26 @@ def phase_step_card_vs_cpu(dev, others: dict | None = None):
     the same reason. A second run of the fp32 card step gives each
     cancelling leaf's run-to-run spread; it is printed beside the leaf's
     reading and not held."""
-    import numpy as np
-    import torch
-
     from yolo_ad_refine_tpu_torch.models.model import build_detection_model
     from yolo_ad_refine_tpu_torch.train.loss import DetectionLoss
+
+    base = build_detection_model(FLAGSHIP, nc=3, device="cpu", seed=3, imgsz=256)
+    hold_step_card_vs_cpu("card vs CPU step", dev, base, step_batch(),
+                          lambda: DetectionLoss(nc=3, strides=(8, 16, 32)), others)
+
+
+def step_batch() -> dict:
+    """The card-vs-CPU step's batch: 2 seeded images of 256², 3 classes,
+    6 and 4 boxes."""
+    import numpy as np
 
     r = np.random.default_rng(2)
     xy = r.uniform(0, 180, (2, 8, 2))
     boxes = np.concatenate([xy, xy + r.uniform(16, 70, (2, 8, 2))], -1).astype(np.float32)
     mask = (np.arange(8)[None, :, None] < np.array([[[6]], [[4]]])).astype(np.float32)
-    batch = {"img": r.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
-             "cls": r.integers(0, 3, (2, 8, 1)).astype(np.float32),
-             "bboxes": boxes * mask, "mask": mask}
-    base = build_detection_model(FLAGSHIP, nc=3, device="cpu", seed=3, imgsz=256)
-    hold_step_card_vs_cpu("card vs CPU step", dev, base, batch,
-                          lambda: DetectionLoss(nc=3, strides=(8, 16, 32)), others)
+    return {"img": r.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
+            "cls": r.integers(0, 3, (2, 8, 1)).astype(np.float32),
+            "bboxes": boxes * mask, "mask": mask}
 
 
 def hold_step_card_vs_cpu(name: str, dev, base, batch: dict, make_loss,
@@ -4006,6 +4324,7 @@ def timed(phase, *args):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # cuBLAS's fixed-workspace mode, under which its results repeat from run
     # to run, as the deterministic card step (phase_step_card_vs_cpu) asks
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4075,6 +4394,7 @@ def main() -> int:
         paths.update(timed(phase_zoo, dev)["paths"])
         track = timed(phase_track, dev)
         paths.update(track["paths"])
+        paths.update(timed(phase_module_library, dev)["paths"])
         paths.update(phase_export(dev)["paths"])
         timed(phase_cli)
         paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
@@ -4137,6 +4457,7 @@ def main() -> int:
     for k in kernels_line["kernels"]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its main path {k['main_path']}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

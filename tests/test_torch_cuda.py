@@ -1079,3 +1079,69 @@ def test_lap_wrapper_counts_and_rejects(dev):
     assert linear_sum_assignment.launches == before + 1
     with pytest.raises(ValueError, match="M <= N"):
         linear_sum_assignment(torch.zeros(1, 4, 3, device=dev))
+
+
+LIBRARY_ROWS = ["EMA", "SimAM", "TripletAttention", "LSKBlock", "SEAttention",
+                "EfficientChannelAttention", "SpatialGroupEnhance", "EffectiveSEModule", "ELA",
+                "CAA", "MPCA", "AFGCAttention", "BAMBlock", "LSKBlockSA", "LSKA",
+                "SegNext_Attention", "CPCA", "deformable_LKA", "DAttention",
+                "FocusedLinearAttention", "CascadedGroupAttention", "LocalWindowAttention",
+                "DualDomainSelectionMechanism", "EfficientAttention", "BiLevelRoutingAttention",
+                "DSAN", "DSA", "C2TSSA_DYT_Mona_EDFFN", "C2SFA", "C2PSA_EDFFN",
+                "C2AdaptiveTSSA_Enhanced", "C2ProgressiveTSSA_Fusion1", "GSConv"]
+
+
+@pytest.mark.parametrize("name", LIBRARY_ROWS)
+def test_module_library_row_card_matches_cpu(dev, name):
+    """Each module of the library's rows in eval mode, fp32, on the card
+    against the same module on the CPU, within 1e-4 of max |CPU|
+    (CascadedGroupAttention on the 7 x 7 map of its resolution)."""
+    import copy
+
+    import yolo_ad_refine_tpu_torch.models.parser  # noqa: F401 (fills the registry)
+    from yolo_ad_refine_tpu_torch.nn.registry import MODULE_REGISTRY
+
+    torch.manual_seed(0)
+    side = 7 if name == "CascadedGroupAttention" else 20
+    cls = MODULE_REGISTRY[name]
+    m = (cls(64, 128, 1) if name.startswith("C2") else cls(64, 64) if name == "GSConv"
+         else cls(64)).eval()
+    x = torch.randn(2, 64, side, side)
+    with torch.no_grad():
+        want = m(x)
+        got = copy.deepcopy(m).to(dev)(x.to(dev)).cpu()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_dscn_sample_card_matches_cpu(dev):
+    from yolo_ad_refine_tpu_torch.ops.dscn import dscn_sample
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 20, 24, 16, generator=g)
+    off = torch.rand(2, 20, 24, 4 * 7, generator=g) * 8 - 4
+    outs = []
+    for d in ("cpu", dev):
+        xt, ot = x.to(d).requires_grad_(True), off.to(d).requires_grad_(True)
+        y = dscn_sample(xt, ot, 7, "y", pad=3, group=4)
+        y.square().sum().backward()
+        outs.append([t.detach().cpu() for t in (y, xt.grad, ot.grad)])
+    for want, got in zip(*outs):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_697_serving_launches_k1_and_k4(dev):
+    """The 697 model (the flagship yaml with C2TSSA_DYT_Mona_EDFFN at layer
+    10) served on the card: K1 fwd once a level and K4 once a batch."""
+    import copy
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.models.parser import load_model_cfg
+
+    cfg = copy.deepcopy(load_model_cfg("yolo11-701-YOLO-AD-Refine.yaml"))
+    cfg["backbone"][10] = [-1, 2, "C2TSSA_DYT_Mona_EDFFN", [1024]]
+    model = YOLO(cfg, device=dev, imgsz=320)
+    assert model.model.num_params() == 3_667_813
+    modulated_deform_conv2d.launches = suppress.launches = 0
+    model.predict([np.zeros((320, 320, 3), np.uint8)] * 2, conf=0.001, batch=2)
+    assert (modulated_deform_conv2d.launches, suppress.launches) == (3, 1)

@@ -32,6 +32,7 @@ import chip_smoke  # its own imports; the port's are inside its phases
 sys.path.insert(0, "tests")
 import torch_jax_checkpoint  # chip_smoke's JAX-layout writer: the card has no JAX
 import torch_parallel_worker  # chip_smoke's data-parallel ranks
+import torch_dropout_masks  # chip_smoke's shared dropout masks
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(" ".join(names))
@@ -40,13 +41,14 @@ print(" ".join(names))
 # the train slice's, the bounded-DCN slice's, the training options', the OBB
 # training and export slice's, the CLI / tune / benchmark / data-parallel
 # slice's, the classify / YOLOv10 / YOLO-World slice's, the RT-DETR / ATSS
-# slice's, and the zoo / tracking slice's modules, each imported under the
-# blocker above
+# slice's, the zoo / tracking slice's, and the module library's modules,
+# each imported under the blocker above
 TRAIN_SLICE_MODULES = (
     "__main__", "cfg.cli", "cfg.config", "data.augment", "data.build", "data.dataset",
     "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.track", "engine.tuner",
-    "engine.validator", "nn.conv_extras", "nn.transformer", "ops.anchors", "ops.deform",
-    "ops.deform_mxu", "ops.deform_pallas", "ops.iou", "ops.lap", "parallel",
+    "engine.validator", "nn.attention", "nn.attention_zoo", "nn.conv_extras", "nn.dsan",
+    "nn.transformer", "ops.anchors", "ops.deform", "ops.deform_mxu", "ops.deform_pallas",
+    "ops.dscn", "ops.iou", "ops.lap", "parallel",
     "parallel.multihost", "train.atss", "train.classify", "train.loss", "train.obb",
     "train.optim", "train.rtdetr", "train.step", "train.tal", "train.trainer", "trackers",
     "trackers.bot_sort", "trackers.byte_tracker", "trackers.gmc", "trackers.kalman",

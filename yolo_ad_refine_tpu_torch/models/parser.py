@@ -22,6 +22,9 @@ bookkeeping, for the modules this port has so far.
   (reference tasks.py:1021-1024); ImagePoolingAttn keeps the channels of
   its first input, and its output replaces the text stream
   (``models/model.py``)
+- the attention rows (``nn/attention.py``, ``nn/attention_zoo.py``,
+  ``nn/dsan.py``) keep their input's channels; a ``concat`` Fusion gives
+  the sum of its inputs' channels, any other mode its first input's
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Any
 
 from torch import nn
 
+from yolo_ad_refine_tpu_torch.nn import attention, attention_zoo, dsan  # noqa: F401 (registry)
 from yolo_ad_refine_tpu_torch.nn import block as B
 from yolo_ad_refine_tpu_torch.nn import common as C
 from yolo_ad_refine_tpu_torch.nn import conv_extras as CE
@@ -41,14 +45,17 @@ from yolo_ad_refine_tpu_torch.nn import head as H
 from yolo_ad_refine_tpu_torch.nn import transformer as TR
 from yolo_ad_refine_tpu_torch.nn import tssa as T
 from yolo_ad_refine_tpu_torch.nn.common import make_divisible
+from yolo_ad_refine_tpu_torch.nn.registry import MODULE_REGISTRY
 from yolo_ad_refine_tpu_torch.utils import LOGGER, ROOT, yaml_load
 
 HEAD_MODULES = {"Detect", "AYHead", "AYHead1", "OBB", "Segment", "Pose", "Classify",
                 "v10Detect", "WorldDetect", "RTDETRDecoder"}
 # modules whose first yaml arg is an out-channel subject to width scaling
 WIDTH_SCALED = {"Conv", "DWConv", "SPPF", "SPP", "C2f", "C3", "C3k2", "C2PSA", "C3k2_MLCA",
-                "C2PTSSA", "nn.Conv2d", "nn.ConvTranspose2d", "C2fAttn", "SCDown", "C2fCIB",
-                "PSA", "Bottleneck", "Conv2", "LightConv", "Focus", "GhostConv", "RepConv"}
+                "C2TSSA_DYT_Mona_EDFFN", "C2SFA", "C2PTSSA", "C2PSA_EDFFN",
+                "C2AdaptiveTSSA_Enhanced", "C2ProgressiveTSSA_Fusion1", "nn.Conv2d",
+                "nn.ConvTranspose2d", "C2fAttn", "GSConv", "SCDown", "C2fCIB", "PSA", "Bottleneck",
+                "Conv2", "LightConv", "Focus", "GhostConv", "RepConv"}
 # YOLOv9's GELAN rows: c2 width-scaled, their other channel arguments as written
 GELAN_MODULES = {"RepNCSPELAN4", "ELAN1", "ADown", "AConv", "SPPELAN"}
 # channel-keeping attention gates of nn/conv_extras.py
@@ -56,7 +63,19 @@ GATE_MODULES = {"CBAM", "ChannelAttention", "SpatialAttention"}
 # rows that read YOLO-World's text stream: a graph with them has text embeddings
 TEXT_MODULES = {"C2fAttn", "ImagePoolingAttn"}
 CSP_MODULES = {"C2f": B.C2f, "C3": B.C3, "C3k2": B.C3k2, "C3k2_MLCA": B.C3k2MLCA}
-PSA_MODULES = {"C2PSA": B.C2PSA, "C2PTSSA": T.C2PTSSA}
+PSA_MODULES = {"C2PSA": B.C2PSA, "C2PTSSA": T.C2PTSSA, "C2TSSA_DYT_Mona_EDFFN": T.C2TSSADyTMonaEDFFN,
+               "C2SFA": T.C2SFA, "C2PSA_EDFFN": T.C2PSAEDFFN,
+               "C2AdaptiveTSSA_Enhanced": T.C2AdaptiveTSSAEnhanced,
+               "C2ProgressiveTSSA_Fusion1": T.C2ProgressiveTSSAFusion1}
+# channel-keeping attention rows (JAX models/parser.py:341-372), built from
+# the registry with their input's channels
+ATTENTION_MODULES = {
+    "EMA", "SimAM", "TripletAttention", "LSKBlock", "SEAttention", "EfficientChannelAttention",
+    "SpatialGroupEnhance", "EffectiveSEModule", "ELA", "CAA", "MPCA", "AFGCAttention",
+    "BAMBlock", "LSKBlockSA", "LSKA", "SegNext_Attention", "CPCA", "deformable_LKA",
+    "DAttention", "FocusedLinearAttention", "CascadedGroupAttention", "LocalWindowAttention",
+    "DualDomainSelectionMechanism", "EfficientAttention", "BiLevelRoutingAttention",
+    "BiLevelRoutingAttention_nchw", "DSAN", "DSA"}
 
 
 @dataclass
@@ -195,6 +214,8 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
                                    lk=_arg(rest, 1, False))
             elif name == "PSA":
                 module = CE.PSA(c1, c2, _arg(rest, 0, 0.5))
+            elif name == "GSConv":
+                module = B.GSConv(c1, c2, _arg(rest, 0, 1), _arg(rest, 1, 1))
             elif name == "C2fAttn":
                 # reference tasks.py:1021-1024: the embed channels and the head
                 # count take their own width gains
@@ -232,6 +253,8 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
                 module = CE.ChannelAttention(c1)
             else:
                 module = CE.SpatialAttention(_arg(args, 0, 7))
+        elif name in ATTENTION_MODULES:
+            module = MODULE_REGISTRY[name](c1)
         elif name == "ImagePoolingAttn":
             # the text-refinement row (reference tasks.py:1082, its ec unscaled):
             # its output replaces the text stream; the rows after it route
@@ -259,7 +282,9 @@ def parse_model_yaml(d: dict, ch: int = 3, verbose: bool = False):
             module = B.Add()
         elif name == "Fusion":
             inc_list = tuple(ch_list[x] for x in f)
-            module = B.Fusion(inc_list, _arg(args, 0, "bifpn"))
+            mode = _arg(args, 0, "bifpn")
+            c2 = sum(inc_list) if mode == "concat" else inc_list[0]
+            module = B.Fusion(inc_list, mode)
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f)
             module = C.Concat()

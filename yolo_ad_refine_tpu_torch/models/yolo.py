@@ -1,7 +1,7 @@
 """YOLO user facade of the PyTorch port (reference engine/model.py Model).
 
 ``YOLO(model_yaml_or_checkpoint_dir, task=...)`` builds a model with seeded
-weights or loads a checkpoint directory, one the port's trainer wrote or one
+weights (also from a model yaml's dict) or loads a checkpoint directory, one the port's trainer wrote or one
 the JAX package wrote (``weights.msgpack``); ``.predict(images)``,
 ``.train(data=...)`` and ``.val(data=...)`` run on the card by default
 (``device="cuda"``) and raise where CUDA is absent; the CPU runs only when
@@ -38,15 +38,18 @@ class YOLO:
     """User-facing model facade: build from a yaml with seeded weights (or
     load a checkpoint directory), predict, train and validate."""
 
-    def __init__(self, model: str = "yolo11n.yaml", task: str | None = None,
+    def __init__(self, model: str | dict = "yolo11n.yaml", task: str | None = None,
                  device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
                  seed: int = 0, imgsz: int = 640, nc: int | None = None, verbose: bool = False):
         device = select_device(device)
-        model = str(model)
-        if model.endswith((".yaml", ".yml")):
+        if isinstance(model, dict):  # a model yaml's dict, e.g. a row swapped in a copy
+            cfg, model = model, str(model.get("yaml_file", "model.yaml"))
+        else:
+            model = str(model)
+            cfg = load_model_cfg(model) if model.endswith((".yaml", ".yml")) else None
+        if cfg is not None:
             self.model: DetectionModel = build_detection_model(
-                load_model_cfg(model), nc=nc, device=device, dtype=dtype, seed=seed,
-                imgsz=imgsz, verbose=verbose)
+                cfg, nc=nc, device=device, dtype=dtype, seed=seed, imgsz=imgsz, verbose=verbose)
         else:
             self.model = load_checkpoint(model, device).to(dtype)
         if task is not None and task != self.model.task:

@@ -336,23 +336,86 @@ class Add(nn.Module):
 
 
 @register
+class GSConv(nn.Module):
+    """Slim-neck GSConv (reference block.py:1457-1479): half the channels by
+    a dense conv, the other half by a 5x5 depthwise conv over them, then a
+    pairwise channel shuffle, out[j * c_ + i] = cat[2i + j]."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
+                 g: int = 1, d: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, p, g, d)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, d)
+
+    def forward(self, x):
+        x1 = self.cv1(x)
+        y = torch.cat([x1, self.cv2(x1)], 1)
+        b, n, h, w = y.shape
+        return y.reshape(b, n // 2, 2, h, w).transpose(1, 2).reshape(b, n, h, w)
+
+
+class SDI(nn.Module):
+    """Selective Dimension Interaction fusion (reference block.py:1481-1498,
+    from U-Net v2): each input resampled to the first input's size (adaptive
+    average pooling down, align-corners bilinear up, by width), projected by
+    a GSConv to the first input's channels, and the results multiplied."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.convs = nn.ModuleList(GSConv(c, channels[0]) for c in channels)
+
+    def forward(self, xs):
+        th, tw = xs[0].shape[2:]
+        ans = None
+        for x, conv in zip(xs, self.convs):
+            if x.shape[3] > tw:
+                x = F.adaptive_avg_pool2d(x, (th, tw))
+            elif x.shape[3] < tw:
+                x = F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=True)
+            y = conv(x)
+            ans = y if ans is None else ans * y
+        return ans
+
+
+FUSION_MODES = ("weight", "adaptive", "concat", "bifpn", "SDI")
+
+
+@register
 class Fusion(nn.Module):
-    """Multi-input fusion node (reference block.py:1500-1537), mode 'bifpn':
-    learnable ReLU-normalised weights. The other modes are not ported yet."""
+    """Multi-input fusion node (reference block.py:1500-1537). Modes:
+    'weight' (1x1 Convs, summed), 'adaptive' (1x1 Convs under a softmax gate),
+    'concat', 'bifpn' (learnable ReLU-normalised weights, the flagship's)
+    and 'SDI' (GSConv-projected products)."""
 
     def __init__(self, inc_list, fusion: str = "bifpn"):
         super().__init__()
-        if fusion != "bifpn":
-            raise NotImplementedError(
-                f"Fusion mode {fusion!r} is not ported yet (ROADMAP Queue 1 item 13, the rest "
-                "of the module library); the port has 'bifpn'")
+        if fusion not in FUSION_MODES:
+            raise ValueError(f"Fusion mode {fusion!r} is none of {FUSION_MODES}")
         self.fusion = fusion
-        self.fusion_weight = nn.Parameter(torch.ones(len(inc_list), dtype=torch.float32))
+        if fusion in ("weight", "adaptive"):
+            self.fusion_conv = nn.ModuleList(Conv(c, c, 1) for c in inc_list)
+        if fusion == "adaptive":
+            self.fusion_adaptive = Conv(sum(inc_list), len(inc_list), 1)
+        elif fusion == "bifpn":
+            self.fusion_weight = nn.Parameter(torch.ones(len(inc_list), dtype=torch.float32))
+        elif fusion == "SDI":
+            self.SDI = SDI(tuple(inc_list))
 
     def forward(self, xs):
-        w = torch.relu(self.fusion_weight)
-        w = (w / (w.sum() + 1e-4)).to(xs[0].dtype)
-        return sum(w[i] * xs[i] for i in range(len(xs)))
+        if self.fusion == "SDI":
+            return self.SDI(xs)
+        if self.fusion == "concat":
+            return torch.cat(xs, 1)
+        if self.fusion == "bifpn":
+            w = torch.relu(self.fusion_weight)
+            w = (w / (w.sum() + 1e-4)).to(xs[0].dtype)
+            return sum(w[i] * xs[i] for i in range(len(xs)))
+        xs = [conv(x) for conv, x in zip(self.fusion_conv, xs)]
+        if self.fusion == "weight":
+            return sum(xs[1:], xs[0])
+        gate = torch.softmax(self.fusion_adaptive(torch.cat(xs, 1)), dim=1)
+        return sum(gate[:, i:i + 1] * xs[i] for i in range(len(xs)))
 
 
 class MaxSigmoidAttnBlock(nn.Module):

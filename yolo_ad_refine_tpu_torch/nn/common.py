@@ -113,6 +113,23 @@ def batch_norm(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=1e-3, momentum=0.03)
 
 
+class LayerNorm2d(nn.LayerNorm):
+    """LayerNorm over the channels of an NCHW map, as flax's ``nn.LayerNorm``
+    normalises the last axis of an NHWC one. The statistics run in fp32
+    at least (fp64 kept), as flax computes them, and the output keeps the
+    input's type."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__(c, eps=eps)
+
+    def forward(self, x):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        with autocast_off(x):
+            y = F.layer_norm(x.permute(0, 2, 3, 1).to(acc), self.normalized_shape,
+                             self.weight.to(acc), self.bias.to(acc), self.eps)
+        return y.permute(0, 3, 1, 2).to(x.dtype)
+
+
 def _act(act) -> nn.Module:
     if act is True:
         return nn.SiLU()
@@ -163,15 +180,20 @@ class ConvGN(nn.Module):
         return self.act(self.gn(self.conv(x)))
 
 
+@register(name="nn.Conv2d")
 def plain_conv2d(c1: int, c2: int, k: int = 1, s: int = 1) -> nn.Conv2d:
     """Bare torch nn.Conv2d yaml row (bias=True, p=0)."""
     return nn.Conv2d(c1, c2, k, s, 0, bias=True)
 
 
+@register(name="nn.ConvTranspose2d")
 def plain_conv_transpose2d(c1: int, c2: int, k: int = 3, s: int = 2, p: int = 1,
                            op: int = 1) -> nn.ConvTranspose2d:
     """Bare torch nn.ConvTranspose2d yaml row; output size (H-1)*s - 2p + k + op."""
     return nn.ConvTranspose2d(c1, c2, k, s, p, output_padding=op, bias=True)
+
+
+register(nn.Upsample, name="nn.Upsample")
 
 
 @register

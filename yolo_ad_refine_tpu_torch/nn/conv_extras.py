@@ -1,11 +1,10 @@
-"""YOLOv10 backbone blocks.
+"""YOLOv10 backbone blocks, the conv extras and YOLOv9's GELAN blocks.
 
-Counterpart of the v10 part of ``yolo_ad_refine_tpu/nn/conv_extras.py``
+Counterpart of ``yolo_ad_refine_tpu/nn/conv_extras.py``
 (reference ultralytics/nn/modules/block.py: SCDown:1084, RepVGGDW:753,
 CIB:815, C2fCIB:854, PSA:967). NCHW modules; submodule names follow the JAX
 package's flax names (``cv1_0`` .. ``cv1_4`` as the Sequential ``cv1``,
 ``ffn_0`` / ``ffn_1`` as ``ffn``), so ``utils/jax_weights.py`` maps them.
-The other blocks of that file are not ported yet (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations

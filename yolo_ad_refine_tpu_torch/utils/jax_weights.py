@@ -14,6 +14,12 @@ are converted on the way (flax -> torch):
   out (nh, hd, D) -> out_proj.weight
 - EDFFN fft (8, 5, C) -> (C, 1, 1, 8, 5); AdaptiveDynamicTanh alphas
   (ns,) -> (1, ns, 1, 1); AYHead scale{i} -> scale.{i}.scale
+- a module's ``flax_channels_last`` parameters (1, 1, 1, C) -> (1, C, 1, 1)
+  (SpatialGroupEnhance, DualDomainSelectionMechanism); the deformable
+  LKA's depthwise weight (k, k, C) -> (C, 1, k, k)
+- flattened flax names: ProgressiveFeatureFusion ``stages.i.conv`` ->
+  ``stages_i_conv``, HierarchicalMona ``level_processors.i.norm`` ->
+  ``level_processors_i_norm``, Fusion ``fusion_conv.i`` -> ``fusion_convi``
 - DyDCNv2 weight (3, 3, C, Cout) -> DyDCNV2.conv.weight (Cout, C, 3, 3)
 - OBB, Segment and Pose heads: the reference's ``cv2`` / ``cv3`` sit under
   ``detect/`` (``detect/cv2_i_j``), the extra branch ``cv4.i.j`` at
@@ -41,8 +47,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from yolo_ad_refine_tpu_torch.nn.attention_zoo import DeformConvDW
 from yolo_ad_refine_tpu_torch.nn.head import (
-    OBB, ContrastiveHead, ModulatedDeformConv, Pose, Segment)
+    OBB, ContrastiveHead, DyDCNv2, ModulatedDeformConv, Pose, Segment)
 
 STATS = {"running_mean": "mean", "running_var": "var"}
 
@@ -84,8 +91,10 @@ def _module_path(name: str) -> list[str]:
     # reference module names whose flax counterparts are flattened
     out: list[str] = []
     for comp in path:
-        if out and re.fullmatch(r"stages_\d+", out[-1]):
+        if out and re.fullmatch(r"(stages|level_processors)_\d+", out[-1]):
             out[-1] = f"{out[-1]}_{comp}"          # PFF stages.0.conv -> stages_0_conv
+        elif re.fullmatch(r"fusion_conv_\d+", comp):
+            out.append(comp.replace("_conv_", "_conv"))  # Fusion fusion_conv.0 -> fusion_conv0
         elif re.fullmatch(r"(cls|reg)_gate_0", comp):
             out.append(comp[:-2])                  # Sequential(conv, sigmoid) -> the conv
         elif comp == "conv" and out and out[-1] == "reduction_conv":
@@ -100,17 +109,18 @@ def _module_path(name: str) -> list[str]:
 
 
 def _targets(mname: str, mod: nn.Module, pname: str, shape: tuple, nested=frozenset(),
-             heads: int | None = None):
+             heads: int | None = None, dcn_norm: bool = False):
     """[(collection, flax path, converter flax -> port, flax shape)] for one
     tensor. ``nested``: yaml rows ("modules_23") whose flax head holds its
     Detect branches one level down, under ``detect/``. ``heads``: the
-    number of heads of the attention that owns an ``out_proj``."""
+    number of heads of the attention that owns an ``out_proj``.
+    ``dcn_norm``: the tensor is a DyDCNv2's GroupNorm's."""
     path = _module_path(mname)
     if path[0] in nested and re.match(r"cv[23]_\d", path[1]):
         path.insert(1, "detect")
     if len(path) == 1 and isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
         path.append("conv")  # bare nn.Conv2d / nn.ConvTranspose2d yaml rows
-    if isinstance(mod, nn.GroupNorm) and path[-1] == "norm":
+    if dcn_norm:
         path[-1] = "gn"      # DyDCNv2's norm (mmcv build_norm_layer)
     key = "/".join(path)
     same = lambda a: a  # noqa: E731
@@ -154,6 +164,12 @@ def _targets(mname: str, mod: nn.Module, pname: str, shape: tuple, nested=frozen
     if pname == "fft":  # EDFFN (8, 5, C) -> (C, 1, 1, 8, 5)
         return [("params", f"{key}/fft", lambda a: a.transpose(2, 0, 1)[:, None, None],
                  (shape[3], shape[4], shape[0]))]
+    if pname in getattr(mod, "flax_channels_last", ()):  # (1, 1, 1, C) -> (1, C, 1, 1)
+        return [("params", f"{key}/{pname}", lambda a: a.transpose(0, 3, 1, 2),
+                 (shape[0], shape[2], shape[3], shape[1]))]
+    if isinstance(mod, DeformConvDW) and pname == "weight":  # (k, k, C) -> (C, 1, k, k)
+        return [("params", f"{key}/weight", lambda a: a.transpose(2, 0, 1)[:, None],
+                 (shape[2], shape[3], shape[0]))]
     if pname == "alphas":  # AdaptiveDynamicTanh (ns,) -> (1, ns, 1, 1)
         return [("params", f"{key}/alphas", lambda a, s=shape: a.reshape(s),
                  (int(np.prod(shape)),))]
@@ -171,6 +187,7 @@ def jax_leaf_map(model: nn.Module) -> list[tuple[str, torch.Tensor, list]]:
                        if isinstance(m, (OBB, Segment, Pose)))
     heads = {f"{n}.out_proj": m.num_heads for n, m in model.named_modules()
              if isinstance(m, nn.MultiheadAttention)}
+    dcn_norms = {f"{n}.norm" for n, m in model.named_modules() if isinstance(m, DyDCNv2)}
     out = []
     for mname, mod in model.named_modules():
         tensors = list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False))
@@ -178,7 +195,8 @@ def jax_leaf_map(model: nn.Module) -> list[tuple[str, torch.Tensor, list]]:
             if pname == "num_batches_tracked" or not mname:
                 continue
             out.append((f"{mname}.{pname}", t,
-                        _targets(mname, mod, pname, tuple(t.shape), nested, heads.get(mname))))
+                        _targets(mname, mod, pname, tuple(t.shape), nested, heads.get(mname),
+                                 mname in dcn_norms)))
     return out
 
 
