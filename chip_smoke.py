@@ -138,6 +138,22 @@ to 0 just before it and read just after, each DCN variant under its own
   alone at batch 8, 64 x 80 x 80 (CascadedGroupAttention at 7 x 7) card vs
   CPU with its ms, and each as a yaml row after row 10 served on 32 images
   (CascadedGroupAttention, which attends only a 7 x 7 map, not at P5);
+- the SAM family (``phase_sam``, after ``phase_module_library``; fp32,
+  seeded weights, each parameter count JAX's): ``SAM("sam_b")`` at 1024
+  on a 1280x720 image (a point, two points with a background one, a box;
+  ``generate(points_per_side=8)`` at the default thresholds and with
+  every candidate scored), sam_l and sam_h (a point each), mobile_sam (a
+  point, a box), ``SAM2Predictor`` for sam2_t / s / b / l (a point each),
+  ``SAM2VideoPredictor("sam2_b")`` over a 16-frame 1280x720 video
+  (frames/s), each held against the CPU (embeddings 1e-3 of max |CPU|,
+  IoU and object logits 1e-3, mask pixels flipped 2e-3; sam_h where its
+  CPU side, estimated from sam_l's, takes under 60 s); FastSAM-s and -x
+  (``yolov8s-seg`` / ``yolov8x-seg``, nc 1) at 1024 on 8 images in
+  everything mode and with bbox and point prompts, K4 once a batch and
+  held against its plain version on the batch's candidates, card vs CPU
+  on 2 images; ``nas_postprocess`` on a (32, 8400) raw layout over 80
+  classes (K4 once, rows equal to the CPU's) and ``NAS("yolo_nas_s")``
+  raising ImportError;
 - export and serving (``phase_export``): the flagship exported at batch
   32 through ``YOLO.export`` as ``torch_export`` and ``torchscript``, in
   fp32 and bf16 (``half=True``), and under ``YAT_DCN_IMPL=pallas``, each
@@ -1303,7 +1319,6 @@ def task_serving(task: str, model, dev) -> dict:
 
     from yolo_ad_refine_tpu_torch.engine.predictor import preprocess, segment_masks
     from yolo_ad_refine_tpu_torch.nn.head import decode_detections
-    from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
     from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
 
     rng = np.random.default_rng(0)
@@ -1391,20 +1406,8 @@ def task_serving(task: str, model, dev) -> dict:
         errs["keypoint"], errs["visibility"] = k[..., :2].max().item(), k[..., 2].max().item()
     elif kind == "segment":
         errs["coefficient"] = (y_gpu[..., 4 + nc:] - y_cpu[..., 4 + nc:]).abs().max().item()
-        anchors = torch.arange(0, y_cpu.shape[1], y_cpu.shape[1] // 32)[:32]
-        flips = []
-        for j, (ratio, pad) in enumerate(metas):
-            boxes = y_cpu[j, anchors, :4]
-            boxes = torch.cat([boxes[:, :2] - boxes[:, 2:] / 2,
-                               boxes[:, :2] + boxes[:, 2:] / 2], 1)
-            m = [scale_masks(process_mask(f[2][j], yy[j, anchors, 4 + nc:].to(f[2].device),
-                                          boxes.to(f[2].device), (TASK_IMGSZ, TASK_IMGSZ)),
-                             pad, ratio[0], imgs[j].shape[:2]).cpu()
-                 for f, yy in ((f_gpu, y_gpu), (f_cpu, y_cpu))]
-            flips.append((m[0] != m[1]).float().mean().item())
-            if not m[1].any():
-                raise AssertionError("segment serving: the held anchors' masks are empty")
-        errs["mask_pixels_flipped"] = max(flips)
+        errs["mask_pixels_flipped"] = anchor_mask_flips(
+            (y_gpu, f_gpu), (y_cpu, f_cpu), nc, metas, imgs, TASK_IMGSZ, "segment serving")
     log(f"{task} serving: card vs CPU on 2 images: " + ", ".join(
         f"max |{k} diff| {v:.3e}" if k != "mask_pixels_flipped" else
         f"mask pixels flipped (32 anchors an image) {v:.3e}" for k, v in errs.items())
@@ -1419,6 +1422,31 @@ def task_serving(task: str, model, dev) -> dict:
     if any(v > lim[k] for k, v in errs.items()):
         raise AssertionError(f"card and CPU {task} predictions disagree: {errs}")
     return out
+
+
+def anchor_mask_flips(card, cpu, nc: int, metas, imgs, imgsz: int, label: str) -> float:
+    """The largest share of mask pixels that differ between the card's and
+    the CPU's masks of 32 fixed anchors an image: each side's (decoded
+    predictions, features) from its own prototypes and coefficients, both
+    at the CPU's boxes, scaled to the original images."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.ops.masks import process_mask, scale_masks
+
+    y_cpu = cpu[0]
+    anchors = torch.arange(0, y_cpu.shape[1], y_cpu.shape[1] // 32)[:32]
+    flips = []
+    for j, (ratio, pad) in enumerate(metas):
+        boxes = y_cpu[j, anchors, :4]
+        boxes = torch.cat([boxes[:, :2] - boxes[:, 2:] / 2, boxes[:, :2] + boxes[:, 2:] / 2], 1)
+        m = [scale_masks(process_mask(f[2][j], yy[j, anchors, 4 + nc:].to(f[2].device),
+                                      boxes.to(f[2].device), (imgsz, imgsz)),
+                         pad, ratio[0], imgs[j].shape[:2]).cpu()
+             for yy, f in (card, cpu)]
+        flips.append((m[0] != m[1]).float().mean().item())
+        if not m[1].any():
+            raise AssertionError(f"{label}: the held anchors' masks are empty")
+    return max(flips)
 
 
 def task_val(task: str, model, dev) -> dict:
@@ -2657,6 +2685,630 @@ def phase_module_library(dev) -> dict:
                     if k != "697"))
     return {"paths": paths, "serving": serving, "alone": alone, "inserted": inserted,
             "ms_697": ms_697, "ms_sdi": ms_sdi, "seconds": seconds}
+
+
+# the SAM family (phase_sam): JAX's parameter counts (jax.eval_shape of build_sam /
+# build_sam2 at 1024; the PE gaussian, a torch buffer, counted as JAX counts it)
+SAM_COUNTS = {"sam_b": 93_735_728, "sam_l": 312_343_088, "sam_h": 641_090_864,
+              "mobile_sam": 10_130_348}
+SAM2_COUNTS = {"sam2_t": 38_946_242, "sam2_s": 46_044_098, "sam2_b": 80_833_922,
+               "sam2_l": 224_430_386}
+SAM_IMGSZ = 1024
+SAM_SHAPE = (720, 1280)       # the 1280 x 720 BGR images and video frames
+SAM_EMB_TOL = 1e-3            # card vs CPU embeddings, mask logits, memories: of max |CPU|
+SAM_IOU_TOL = 1e-3            # card vs CPU predicted IoU and object score logits
+SAM_STABILITY_TOL = 1e-3      # card vs CPU stability score of generate's candidates
+VIDEO_FRAMES, VIDEO_HELD = 16, 4  # the video's frames; frames 1..4 held against the CPU
+FASTSAMS = {"FastSAM-s": "yolov8s-seg.yaml", "FastSAM-x": "yolov8x-seg.yaml"}
+FASTSAM_BATCH, FASTSAM_CONF = 8, 0.4
+FASTSAM_SPREAD = 1.0          # class 0's logits' spread over a level (fastsam_model)
+FASTSAM_TOPS = (0.002, 0.005, 0.01, 0.02, 0.05)  # shares of a level's anchors set to pass conf
+FASTSAM_MIN_ROWS = 20         # rows the probe image keeps once the share is high enough
+NAS_SHAPE = (32, 8400, 80)    # a NAS raw output: (B, anchors at 640, classes)
+
+
+def sam_scene(seed: int, shift: int = 0):
+    """A seeded 1280 x 720 BGR image: blurred noise with a dark square, a
+    bright disc and a grey bar (``shift`` px to the right, for a video)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = cv2.GaussianBlur(rng.integers(90, 200, (*SAM_SHAPE, 3), dtype=np.uint8), (0, 0), 3)
+    cv2.rectangle(img, (420 + shift, 220), (760 + shift, 520), (20, 25, 30), -1)
+    cv2.circle(img, (1000, 200), 110, (230, 240, 250), -1)
+    cv2.rectangle(img, (100, 560), (600, 640), (128, 128, 128), -1)
+    return img
+
+
+def sam_generate_settings(low_res) -> dict:
+    """``generate``'s settings: its defaults (pred_iou 0.6, stability 0.7
+    over logits +/- 1: seeded weights may keep none), and every candidate
+    scored, with the stability offset at the median |logit| of a point's
+    low-res masks ``low_res`` (seeded logits may lie within +/- 1, where
+    every stability score would be 0)."""
+    import numpy as np
+
+    offset = round(float(np.median(np.abs(low_res))), 4)
+    return {"the defaults": {},
+            f"every candidate scored, stability offset {offset}": dict(
+                pred_iou_thresh=-10.0, stability_score_thresh=0.0, stability_offset=offset)}
+SAM_BBOX_TOL = 2  # px: a pixel flipped at a mask's edge (2e-3 of a mask may flip) moves its box
+OBJECT_LOGIT = 10.0  # SAM2's object-score head bias: the seeded model sees an object
+
+
+def see_objects(net) -> None:
+    """Seeded SAM2 weights give object-score logits of either sign, and a
+    negative one blanks the masks (NO_OBJ_SCORE): raise the object-score
+    head's bias, as the detector phases raise a class prior."""
+    import torch
+
+    with torch.no_grad():
+        net.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(OBJECT_LOGIT)
+
+
+SAM_PROMPTS = {"one point": dict(points=[[590, 370]]),
+               "two points, one background": dict(points=[[590, 370], [1000, 200]],
+                                                   labels=[1, 0]),
+               "box": dict(box=[400, 200, 780, 540], multimask_output=False)}
+
+
+def sam_count(net) -> int:
+    """Parameters plus the PE gaussian buffers (JAX counts them as params)."""
+    return sum(p.numel() for p in net.parameters()) + sum(
+        b.numel() for n, b in net.named_buffers() if n.endswith("gaussian_matrix"))
+
+
+def timed_ms(fn, runs: int = 3) -> tuple[float, list]:
+    """Median host-clock ms of ``fn()`` over ``runs`` calls, each ended by a
+    synchronise, after one warm-up call."""
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[len(ms) // 2], ms
+
+
+def hold_masks(label: str, got, want, got_iou, want_iou) -> dict:
+    import numpy as np
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: masks {got.shape} on the card, {want.shape} on the CPU")
+    out = {"iou_err": float(np.abs(got_iou - want_iou).max()),
+           "flipped": float((got != want).mean())}
+    if out["iou_err"] > SAM_IOU_TOL or out["flipped"] > MASK_FLIP_TOL:
+        raise AssertionError(f"{label}: card and CPU disagree: {out} (tol IoU {SAM_IOU_TOL}, "
+                             f"mask pixels flipped {MASK_FLIP_TOL})")
+    return out
+
+
+def hold_values(label: str, got, want) -> float:
+    """max |card - CPU| over max |CPU| of two arrays or tensors (mask
+    logits, memories, embeddings), at most ``SAM_EMB_TOL``."""
+    import numpy as np
+
+    got, want = (np.asarray(v.float().cpu() if hasattr(v, "float") else v, np.float64)
+                 for v in (got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.shape} on the card, {want.shape} on the CPU")
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    if not np.isfinite(got).all() or err > SAM_EMB_TOL:
+        raise AssertionError(f"{label}: card and CPU differ by {err:.3e} of max |CPU| (tol "
+                             f"{SAM_EMB_TOL})")
+    return err
+
+
+def generate_candidates(sam, img, **kw) -> tuple[list, list]:
+    """``sam.generate(img, points_per_side=8, **kw)``: (its candidates as
+    they reach the NMS, in the order they were made; the kept ones)."""
+    seen, nms = [], sam._nms
+    sam._nms = lambda cands, iou: (seen.extend(cands), nms(cands, iou))[1]
+    try:
+        kept = sam.generate(img, points_per_side=8, **kw)
+    finally:
+        del sam._nms
+    return seen, kept
+
+
+def hold_candidates(label: str, got: list, want: list) -> dict:
+    """Card against CPU candidates of ``generate``, in order: the same
+    count, boxes within ``SAM_BBOX_TOL`` px, predicted IoU within
+    ``SAM_IOU_TOL``, stability within ``SAM_STABILITY_TOL`` and mask pixels
+    flipped within ``MASK_FLIP_TOL``."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} candidates on the card, {len(want)} on the CPU")
+    out = {"n": len(got), "bbox": 0, "iou": 0.0, "stability": 0.0, "flipped": 0.0}
+    for g, w in zip(got, want):
+        out["bbox"] = max(out["bbox"], int(np.abs(np.subtract(g["bbox"], w["bbox"])).max()))
+        out["iou"] = max(out["iou"], abs(g["predicted_iou"] - w["predicted_iou"]))
+        out["stability"] = max(out["stability"], abs(g["stability_score"] - w["stability_score"]))
+        out["flipped"] = max(out["flipped"],
+                             float((g["segmentation"] != w["segmentation"]).mean()))
+    if (out["bbox"] > SAM_BBOX_TOL or out["iou"] > SAM_IOU_TOL
+            or out["stability"] > SAM_STABILITY_TOL or out["flipped"] > MASK_FLIP_TOL):
+        raise AssertionError(f"{label}: card and CPU candidates disagree: {out}")
+    if got:
+        out["iou_range"] = [min(c["predicted_iou"] for c in want),
+                            max(c["predicted_iou"] for c in want)]
+        out["stability_range"] = [min(c["stability_score"] for c in want),
+                                  max(c["stability_score"] for c in want)]
+    return out
+
+
+def sam_variant(variant: str, dev, generate: bool = False) -> dict:
+    """``SAM(variant)`` at 1024 on the card: its count held to JAX's,
+    set_image's and a point decode's ms, the prompts of ``SAM_PROMPTS``
+    (sam_b: all three; the others: one point, mobile_sam also the box) and,
+    with ``generate``, ``generate(points_per_side=8)``; then the same on
+    the CPU: embeddings and each prompt's low-res logits within 1e-3 of
+    max |CPU|, IoU 1e-3, mask pixels flipped 2e-3, generate's candidates
+    before the NMS (``hold_candidates``) and its kept boxes."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.models.sam import SAM
+
+    img = sam_scene(0)
+    t0 = time.perf_counter()
+    card = SAM(variant, SAM_IMGSZ, device=dev)
+    build_s = time.perf_counter() - t0
+    if sam_count(card.model) != SAM_COUNTS[variant]:
+        raise AssertionError(f"{variant}: {sam_count(card.model):,} parameters, JAX has "
+                             f"{SAM_COUNTS[variant]:,}")
+    torch.cuda.reset_peak_memory_stats()
+    set_ms, set_runs = timed_ms(lambda: card.set_image(img))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emb = card._embeddings
+    if not (emb.shape == (1, 256, SAM_IMGSZ // 16, SAM_IMGSZ // 16) and torch.isfinite(emb).all()):
+        raise AssertionError(f"{variant}: embeddings {tuple(emb.shape)}, finite "
+                             f"{bool(torch.isfinite(emb).all())}")
+    decode_ms, _ = timed_ms(lambda: card._decode(**SAM_PROMPTS["one point"]), runs=5)
+    prompts = (SAM_PROMPTS if variant == "sam_b" else
+               {k: SAM_PROMPTS[k] for k in (("one point", "box") if variant == "mobile_sam"
+                                            else ("one point",))})
+    got = {k: (*card.predict(**kw), card._last_lowres) for k, kw in prompts.items()}
+    for k, (m, iou, _) in got.items():
+        if not (m.shape[1:] == SAM_SHAPE and np.isfinite(iou).all() and (np.diff(iou) <= 0).all()):
+            raise AssertionError(f"{variant} {k}: masks {m.shape}, iou {iou}")
+    out = {"params": sam_count(card.model), "build_s": build_s, "set_image_ms": set_ms,
+           "decode_ms": decode_ms, "peak_gb": peak_gb}
+    out["mask_cover"] = {k: float(m.mean()) for k, (m, _, _) in got.items()}
+    gen_card = {}
+    settings = sam_generate_settings(got["one point"][2])
+    if generate:
+        for label, kw in settings.items():
+            t0 = time.perf_counter()
+            gen_card[label] = generate_candidates(card, img, **kw)
+            out[f"generate_s ({label})"] = time.perf_counter() - t0
+            out[f"generate_kept ({label})"] = len(gen_card[label][1])
+    msg = (f"{variant} at {SAM_IMGSZ}: {out['params']:,} parameters (JAX's), built in "
+           f"{build_s:.1f} s; set_image {set_ms:.1f} ms (median of 3: "
+           + ", ".join(f"{v:.1f}" for v in set_runs) + f"; cv2 resize on the host, encode on the "
+           f"card, host clock with a synchronise), peak {peak_gb:.2f} GB; a point's decode "
+           f"{decode_ms:.2f} ms (prompt + mask decoder, low-res logits to the host)")
+    msg += "; mask pixels set " + ", ".join(f"{k} {v * 100:.1f} %"
+                                            for k, v in out["mask_cover"].items())
+    for label, (cands, kept) in gen_card.items():
+        msg += (f"; generate(points_per_side=8, {label}) {out[f'generate_s ({label})']:.2f} s, "
+                f"{len(cands)} candidates, {len(kept)} masks kept")
+    t0 = time.perf_counter()
+    cpu = SAM(variant, SAM_IMGSZ, device="cpu")
+    cpu.set_image(img)
+    out["cpu_set_image_s"] = time.perf_counter() - t0
+    out["embedding_err"] = hold_values(f"{variant} embeddings", emb, cpu._embeddings)
+    out["prompts"] = {}
+    for k, (m, iou, low) in got.items():
+        cm, ciou = cpu.predict(**prompts[k])
+        out["prompts"][k] = hold_masks(f"{variant} {k}", m, cm, iou, ciou)
+        out["prompts"][k]["low_res_err"] = hold_values(f"{variant} {k} low-res logits", low,
+                                                       cpu._last_lowres)
+        out["prompts"][k]["iou"] = ciou.tolist()
+    out["generate"] = {}
+    for label, (cands, kept) in gen_card.items():
+        ccands, ckept = generate_candidates(cpu, img, **settings[label])
+        held = hold_candidates(f"{variant} generate ({label})", cands, ccands)
+        got_b = np.asarray([c["bbox"] for c in kept]).reshape(-1, 4)
+        want_b = np.asarray([c["bbox"] for c in ckept]).reshape(-1, 4)
+        if got_b.shape != want_b.shape or (len(got_b) and np.abs(
+                got_b - want_b).max() > SAM_BBOX_TOL):
+            raise AssertionError(f"{variant} generate ({label}): kept boxes differ: card "
+                                 f"{got_b.tolist()}, CPU {want_b.tolist()}")
+        out["generate"][label] = {**held, "kept": len(got_b),
+                                  "kept_bbox_err": int(np.abs(got_b - want_b).max())
+                                  if len(got_b) else 0}
+    msg += (f"; card vs CPU (CPU build + set_image {out['cpu_set_image_s']:.1f} s): "
+            f"embeddings {out['embedding_err']:.2e} of max |CPU| (tol {SAM_EMB_TOL}), "
+            + "; ".join(f"{k}: IoU {v['iou_err']:.2e} (CPU IoU "
+                        + ", ".join(f"{x:.4f}" for x in v["iou"])
+                        + f"), low-res logits {v['low_res_err']:.2e} of max |CPU|, pixels "
+                        f"flipped {v['flipped']:.2e}" for k, v in out["prompts"].items()))
+    for label, v in out["generate"].items():
+        msg += (f"; generate ({label}): the same {v['n']} candidates in order (boxes within "
+                f"{v['bbox']} px, IoU {v['iou']:.2e}, stability {v['stability']:.2e}, pixels "
+                f"flipped {v['flipped']:.2e}")
+        if v["n"]:
+            msg += (f"; CPU IoU {v['iou_range'][0]:.4f} to {v['iou_range'][1]:.4f}, stability "
+                    f"{v['stability_range'][0]:.4f} to {v['stability_range'][1]:.4f}")
+        msg += f"), the same {v['kept']} kept, boxes within {v['kept_bbox_err']} px"
+    del cpu
+    log(msg)
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def keep_heads(net) -> list:
+    """Wrap ``net.sam_heads`` so that each call's low-res masks (all of
+    them), IoU, high-res mask logits and object score logits land in the
+    returned list, on their device."""
+    calls, heads = [], net.sam_heads
+
+    def wrapped(*args, **kwargs):
+        out = heads(*args, **kwargs)
+        calls.append({"low_res": out[0], "iou": out[1], "high_res": out[3], "obj": out[5]})
+        return out
+
+    net.sam_heads = wrapped
+    return calls
+
+
+def sam2_variant(variant: str, dev) -> dict:
+    """``SAM2Predictor(variant)`` at 1024: its count held to JAX's,
+    set_image's ms, one point's three masks; then the same on the CPU: the
+    three low-res mask logits within 1e-3 of max |CPU|, IoU 1e-3, mask
+    pixels flipped 2e-3. The IoU head ends in a sigmoid, so the CPU's IoUs
+    are logged beside their difference (a saturated one holds nothing)."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2Predictor
+
+    img = sam_scene(1)
+    card = SAM2Predictor(variant, device=dev)
+    see_objects(card.net)
+    if sam_count(card.net) != SAM2_COUNTS[variant]:
+        raise AssertionError(f"{variant}: {sam_count(card.net):,} parameters, JAX has "
+                             f"{SAM2_COUNTS[variant]:,}")
+    set_ms, set_runs = timed_ms(lambda: card.set_image(img))
+    heads = keep_heads(card.net)
+    m, iou = card.predict([[590, 370]])
+    if not (m.shape == (3, *SAM_SHAPE) and np.isfinite(iou).all()):
+        raise AssertionError(f"{variant}: masks {m.shape}, iou {iou}")
+    out = {"params": sam_count(card.net), "set_image_ms": set_ms, "mask_cover": float(m.mean())}
+    t0 = time.perf_counter()
+    cpu = SAM2Predictor(variant, device="cpu")
+    see_objects(cpu.net)
+    cheads = keep_heads(cpu.net)
+    cm, ciou = cpu.set_image(img).predict([[590, 370]])
+    out["cpu_s"] = time.perf_counter() - t0
+    out["hold"] = hold_masks(variant, m, cm, iou, ciou)
+    out["hold"]["low_res_err"] = hold_values(f"{variant} low-res logits", heads[-1]["low_res"],
+                                             cheads[-1]["low_res"])
+    out["hold"]["iou"] = ciou.tolist()
+    out["hold"]["object_logit"] = float(cheads[-1]["obj"].reshape(-1)[0])
+    log(f"{variant} at {SAM_IMGSZ}: {out['params']:,} parameters (JAX's); set_image "
+        f"{set_ms:.1f} ms (median of 3: " + ", ".join(f"{v:.1f}" for v in set_runs) + "); "
+        f"mask pixels set {out['mask_cover'] * 100:.1f} % (object-score bias {OBJECT_LOGIT}: "
+        f"the CPU's object logit {out['hold']['object_logit']:.6f}); card vs CPU (CPU "
+        f"{out['cpu_s']:.1f} s): low-res logits {out['hold']['low_res_err']:.2e} of max |CPU| "
+        f"(tol {SAM_EMB_TOL}), IoU {out['hold']['iou_err']:.2e} (CPU IoU "
+        + ", ".join(f"{x:.7f}" for x in out["hold"]["iou"])
+        + f"), pixels flipped {out['hold']['flipped']:.2e}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def sam2_video(dev) -> dict:
+    """``SAM2VideoPredictor("sam2_b")`` at 1024 over a seeded 16-frame 1280
+    x 720 video of a moving square: ``add_points`` on frame 0, ``propagate``
+    over frames 1-15 (frames/s, host clock); frames 0-4 on the CPU too:
+    each frame's high-res mask logits and its stored memory (mem_feat,
+    mem_pos, obj_ptr) within 1e-3 of max |CPU|, mask pixels flipped 2e-3,
+    object logits within 1e-3 (forced near ``OBJECT_LOGIT`` by its bias,
+    so they hold little; their distance from it is logged)."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2VideoPredictor
+
+    frames = [sam_scene(2, shift=12 * i) for i in range(VIDEO_FRAMES)]
+    point = [[590, 370]]
+    card = SAM2VideoPredictor("sam2_b", device=dev)
+    see_objects(card.net)
+    card.add_points(frames[0], 0, point)  # warm-up: cuDNN plans, allocator
+    card.reset_state()
+    heads = keep_heads(card.net)  # keeps references only: no copy, no synchronise
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = [card.add_points(frames[0], 0, point)]
+    logits = []
+    for i in range(1, VIDEO_FRAMES):
+        m, lg = card.track(frames[i], i)
+        masks.append(m)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not (all(m.shape == (SAM_IMGSZ, SAM_IMGSZ) for m in masks) and np.isfinite(logits).all()):
+        raise AssertionError("sam2_b video: bad masks or object logits")
+    out = {"frames_per_s": VIDEO_FRAMES / dt, "ms_per_frame": dt / VIDEO_FRAMES * 1e3,
+           "mask_cover": float(np.mean([m.mean() for m in masks]))}
+    t0 = time.perf_counter()
+    cpu = SAM2VideoPredictor("sam2_b", device="cpu")
+    see_objects(cpu.net)
+    cheads = keep_heads(cpu.net)
+    cmasks = [cpu.add_points(frames[0], 0, point)]
+    clogits = [cpu.track(frames[i], i) for i in range(1, VIDEO_HELD + 1)]
+    out["cpu_s"] = time.perf_counter() - t0
+    out["logit_err"] = max(abs(a - b[1]) / max(1.0, abs(b[1]))
+                           for a, b in zip(logits, clogits))
+    out["logit_minus_bias"] = [b[1] - OBJECT_LOGIT for b in clogits]
+    out["flipped"] = max(float((a != b).mean()) for a, b in
+                         zip(masks, cmasks + [c[0] for c in clogits]))
+    out["high_res_err"] = max(hold_values(f"sam2_b video frame {i} high-res logits",
+                                          heads[i]["high_res"], cheads[i]["high_res"])
+                              for i in range(VIDEO_HELD + 1))
+    memories = [(0, card.cond_frames[0], cpu.cond_frames[0])] + [
+        (i, card.non_cond_frames[i], cpu.non_cond_frames[i]) for i in range(1, VIDEO_HELD + 1)]
+    out["memory_err"] = {k: max(hold_values(f"sam2_b video frame {i} {k}", g[k], w[k])
+                                for i, g, w in memories)
+                         for k in ("mem_feat", "mem_pos", "obj_ptr")}
+    log(f"sam2_b video at {SAM_IMGSZ}: {VIDEO_FRAMES} frames of 1280 x 720 (add_points on frame "
+        f"0, then track), {out['frames_per_s']:.2f} frames/s, {out['ms_per_frame']:.1f} ms a "
+        f"frame (host clock: cv2 resize, encode, memory attention, heads, memory encoder, mask "
+        f"to the host); mask pixels set {out['mask_cover'] * 100:.1f} %; frames 0-{VIDEO_HELD} "
+        f"card vs CPU (CPU {out['cpu_s']:.1f} s): high-res mask logits "
+        f"{out['high_res_err']:.2e} of max |CPU|, memories "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out["memory_err"].items())
+        + f" of max |CPU| (tol {SAM_EMB_TOL}); pixels flipped {out['flipped']:.2e}; object "
+        f"logits {out['logit_err']:.2e} (relative to max(1, |CPU|), tol {SAM_IOU_TOL}; the CPU's "
+        f"minus the bias {OBJECT_LOGIT}: " + ", ".join(f"{v:+.6f}" for v in
+                                                     out["logit_minus_bias"]) + ")")
+    if out["logit_err"] > SAM_IOU_TOL or out["flipped"] > MASK_FLIP_TOL:
+        raise AssertionError(f"sam2_b video: card and CPU disagree: {out}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def fastsam_model(name: str, dev):
+    """``FastSAM(<yaml>)`` at 1024, nc 1, seeded, class 0's scores spread:
+    the seeded head's features shrink to about 1e-7 by its last conv, so
+    each level scores class 0 as its bias alone, flat to float rounding,
+    and which rows pass conf and their order would be noise. On a probe
+    image each level's last conv is rescaled so that its logits before the
+    bias have a spread (standard deviation) of ``FASTSAM_SPREAD``, and its
+    bias set so that a share ``top`` of that level's anchors passes conf
+    0.4, ``top`` raised along ``FASTSAM_TOPS`` until the probe keeps
+    ``FASTSAM_MIN_ROWS`` rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_ad_refine_tpu_torch import FastSAM
+
+    model = FastSAM(FASTSAMS[name], device=dev, imgsz=SAM_IMGSZ)
+    convs = [seq[-1] for seq in model.model.model[model.model.head_idx].cv3]
+    probe = [sam_scene(3)]
+    pre = []  # each level's class-0 logits before the bias, on the probe, in float64
+    hooks = [c.register_forward_hook(lambda m, a, _: pre.append(
+        F.conv2d(a[0].double(), m.weight.double()).flatten().cpu())) for c in convs]
+    model.predict(probe, imgsz=SAM_IMGSZ, batch=1)
+    for h in hooks:
+        h.remove()
+    gains = [FASTSAM_SPREAD / x.std().item() for x in pre]
+    if not all(math.isfinite(g) for g in gains):
+        raise AssertionError(f"{name}: class 0's logits are constant over a level: {gains}")
+    with torch.no_grad():
+        for c, g in zip(convs, gains):
+            c.weight.mul_(g)
+    for top in FASTSAM_TOPS:
+        with torch.no_grad():
+            for c, x, g in zip(convs, pre, gains):
+                c.bias.fill_(logit(FASTSAM_CONF) - g * torch.quantile(x, 1 - top).item())
+        rows = len(model.predict(probe, imgsz=SAM_IMGSZ, batch=1)[0])
+        if rows >= FASTSAM_MIN_ROWS:
+            break
+    model.top, model.probe_rows = top, rows
+    return model
+
+
+def fastsam_serving(name: str, dev) -> dict:
+    """8 seeded 1280 x 720 images at batch 8, 1024, fp32, everything mode
+    (conf 0.4): K4 once a batch and nothing else, images/s over 3 runs;
+    the snap (boxes inside their image); then a bbox and a point prompt
+    (K4 once each); then 2 images card vs CPU: the decoded boxes (5e-2
+    px), scores (1e-3) and the masks of 32 fixed anchors (pixels flipped
+    2e-3). Returns the run's counts, the rate and K4 on the batch's
+    candidates against its plain version."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.engine.predictor import preprocess
+    from yolo_ad_refine_tpu_torch.engine.profile_nms import Impl, predict_candidates, time_case
+    from yolo_ad_refine_tpu_torch.ops.nms import suppress, suppress_plain
+
+    model = fastsam_model(name, dev)
+    imgs = [sam_scene(10 + i) for i in range(FASTSAM_BATCH)]
+    kw = dict(imgsz=SAM_IMGSZ, batch=FASTSAM_BATCH)
+    model.predict(imgs, **kw)  # warm-up
+    counters = kernel_counters()
+    seconds = []
+    for _ in range(3):
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = model.predict(imgs, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches != {**{k: 0 for k in launches}, "nms_suppress": 1}:
+            raise AssertionError(f"{name}: launches {launches}, expected K4 once a batch")
+    dt = sorted(seconds)[1]
+    kept = [len(r) for r in results]
+    if not sum(kept):
+        raise AssertionError(f"{name}: no image kept a row at conf {FASTSAM_CONF}")
+    for r in results:
+        d = r.boxes.xyxy
+        h, w = r.orig_shape
+        if not (np.isfinite(d).all() and (d >= 0).all() and (d[:, [0, 2]] <= w).all()
+                and (d[:, [1, 3]] <= h).all()) or (len(r) and r.masks.data.shape != (len(r), h, w)):
+            raise AssertionError(f"{name}: bad rows or masks for an image of {r.orig_shape}")
+    before = {k: f.launches for k, f in counters.items()}
+    pb = model.predict(imgs[:1], bboxes=[[400, 200, 780, 540]], **kw)
+    pp = model.predict(imgs[:1], points=[[590, 370], [1000, 200]], labels=[1, 0], **kw)
+    if counters["nms_suppress"].launches - before["nms_suppress"] != 2 or len(pb[0]) > 1:
+        raise AssertionError(f"{name} prompts: {len(pb[0])} rows for one box, K4 launches "
+                             f"{counters['nms_suppress'].launches - before['nms_suppress']}")
+    out = {"run": launches, "images_per_s": FASTSAM_BATCH / dt, "ms_per_batch": dt * 1e3,
+           "kept_mean": float(np.mean(kept)), "top": model.top, "probe_rows": model.probe_rows,
+           "kept_scores": [float(min(r.boxes.conf.min() for r in results if len(r))),
+                           float(max(r.boxes.conf.max() for r in results if len(r)))],
+           "prompt_rows": {"bbox": len(pb[0]), "points": len(pp[0])}}
+    bx, sc = predict_candidates(model, imgs, SAM_IMGSZ, (FASTSAM_CONF,))[FASTSAM_CONF]
+    if not torch.equal(suppress(bx, sc, NMS_IOU, FASTSAM_CONF),
+                       suppress_plain(bx, sc, NMS_IOU, FASTSAM_CONF)):
+        raise AssertionError(f"{name}: K4's keep mask differs from plain on the batch")
+    r = time_case(Impl(), "K4", bx, sc, FASTSAM_CONF)
+    plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, FASTSAM_CONF), iters=3, warmup=1)
+    bound = k4_bound(r["keep"])
+    out["k4"] = {"B": sc.shape[0], "K": sc.shape[1], "ms": r["ms"], "device_ms": r["device_ms"],
+                 "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                 "bound_by": bound["bound_by"], "kept": r["kept"], "valid": r["valid"]}
+    msg = (f"{name} ({FASTSAMS[name]}, nc 1, class 0 spread to {FASTSAM_SPREAD} logit and "
+           f"the top {model.top * 100:g} % of a level's anchors past conf, the probe keeping "
+           f"{model.probe_rows} rows): "
+           f"{FASTSAM_BATCH} images of 1280 x 720 at batch {FASTSAM_BATCH}, imgsz {SAM_IMGSZ}, "
+           f"fp32, everything mode at conf {FASTSAM_CONF}: {out['images_per_s']:.1f} images/s, "
+           f"{dt * 1e3:.1f} ms a batch (median of 3: "
+           + ", ".join(f"{FASTSAM_BATCH / s:.1f}" for s in seconds) + " images/s; host clock, "
+           f"preprocess + forward + NMS + masks + snap); kept {np.mean(kept):.1f} an image "
+           f"({min(kept)}-{max(kept)}, scores {out['kept_scores'][0]:.4f} to "
+           f"{out['kept_scores'][1]:.4f}); "
+           f"launches {launches}; bbox prompt {len(pb[0])} row, point prompts {len(pp[0])} rows; "
+           f"K4 on the batch's candidates (B={sc.shape[0]}, K={sc.shape[1]}): keep mask equal "
+           f"to plain, kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+           f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.5f} ms")
+    x, metas = preprocess(imgs[:2], SAM_IMGSZ, 2, torch.device(dev), torch.float32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y_gpu, f_gpu = model.model(x)
+        y_cpu, f_cpu = copy.deepcopy(model.model).cpu()(x.cpu())
+    out["cpu_s"] = time.perf_counter() - t0
+    y_gpu = y_gpu.float().cpu()
+    errs = {"box": (y_gpu[..., :4] - y_cpu[..., :4]).abs().max().item(),
+            "score": (y_gpu[..., 4:5] - y_cpu[..., 4:5]).abs().max().item()}
+    errs["mask_pixels_flipped"] = anchor_mask_flips((y_gpu, f_gpu), (y_cpu, f_cpu), 1, metas,
+                                                    imgs, SAM_IMGSZ, name)
+    out["hold"] = errs
+    msg += (f"; card vs CPU on 2 images (CPU {out['cpu_s']:.1f} s): max |box diff| "
+            f"{errs['box']:.3e} px (tol 5e-2), max |score diff| {errs['score']:.3e} (tol "
+            f"1e-3), mask pixels flipped (32 anchors an image) "
+            f"{errs['mask_pixels_flipped']:.3e} (tol {MASK_FLIP_TOL})")
+    if errs["box"] > 5e-2 or errs["score"] > 1e-3 or errs["mask_pixels_flipped"] > MASK_FLIP_TOL:
+        raise AssertionError(f"{name}: card and CPU predictions disagree: {errs}")
+    log(msg)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def nas_run(dev) -> dict:
+    """``nas_postprocess`` on a seeded raw NAS layout (32, 8400, 4) xyxy and
+    (32, 8400, 80) scores: K4 once a call, its rows equal to the CPU's
+    within 1e-4 px and its counts equal; the call's ms; ``NAS("yolo_nas_s")``
+    raises ImportError without super_gradients, as in JAX."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import NAS
+    from yolo_ad_refine_tpu_torch.models.nas import nas_postprocess
+    from yolo_ad_refine_tpu_torch.ops.nms import suppress
+
+    b, n, nc = NAS_SHAPE
+    rng = np.random.default_rng(4)
+    xy = rng.uniform(0, 600, (b, n, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 120, (b, n, 2)).astype(np.float32)], -1)
+    # background everywhere, and 3 % of the anchors an object of one class
+    scores = rng.uniform(0, 0.2, (b, n, nc)).astype(np.float32)
+    obj = rng.uniform(size=(b, n)) < 0.03
+    scores[obj, rng.integers(0, nc, int(obj.sum()))] = rng.uniform(0.3, 1.0, int(obj.sum()))
+    bt, st = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    nas_postprocess(bt, st)  # warm-up
+    suppress.launches = 0
+    det, cnt = nas_postprocess(bt, st)
+    run = {k: f.launches for k, f in kernel_counters().items()}
+    if run["nms_suppress"] != 1:
+        raise AssertionError(f"nas_postprocess: launches {run}, expected K4 once")
+    ms = cuda_time(lambda: nas_postprocess(bt, st), iters=5)
+    cdet, ccnt = nas_postprocess(boxes, scores, device="cpu")
+    err = float(np.abs(det - cdet).max())
+    if not np.array_equal(cnt, ccnt) or err > 1e-4:
+        raise AssertionError(f"nas_postprocess: card and CPU rows differ ({err:.3e}, counts "
+                             f"{cnt} / {ccnt})")
+    try:
+        NAS("yolo_nas_s")
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("NAS('yolo_nas_s') built without super_gradients")
+    log(f"NAS postprocess on a raw ({b}, {n}, 4) xyxy + ({b}, {n}, {nc}) layout: {ms:.3f} ms a "
+        f"call (CUDA events: xywh, candidate selection, K4, rows to the host), "
+        f"{float(np.mean(cnt)):.1f} rows an image, equal to the CPU's (max |diff| {err:.1e}); "
+        f"K4 launches {run['nms_suppress']}; NAS('yolo_nas_s') raises ImportError")
+    return {"run": run, "ms": ms, "rows_mean": float(np.mean(cnt))}
+
+
+def phase_sam(dev) -> dict:
+    """The SAM family on the card (fp32, TF32 off, seeded weights, JAX's
+    parameter counts): sam_b at 1024 on a 1280 x 720 image (a point, two
+    points with a background one, a box; ``generate(points_per_side=8)``),
+    sam_l and sam_h (a point each), mobile_sam (a point, a box),
+    SAM2Predictor for sam2_t / s / b / l (a point each),
+    SAM2VideoPredictor("sam2_b") over 16 frames, FastSAM-s and -x at 1024
+    on 8 images in everything mode with bbox and point prompts (K4 once a
+    batch), and nas_postprocess (K4 once). Every model is held against the
+    CPU at ``SAM_EMB_TOL``, ``SAM_IOU_TOL``, ``SAM_STABILITY_TOL`` and
+    ``MASK_FLIP_TOL``; the phase's seconds are logged."""
+    t_phase = time.perf_counter()
+    out = {"sam": {}, "sam2": {}, "fastsam": {}}
+    paths = {}
+    counters = kernel_counters()
+
+    def path(name, fn, *args):
+        for f in counters.values():
+            f.launches = 0
+        r = fn(*args)
+        paths[name] = {k: f.launches for k, f in counters.items()}
+        return r
+
+    out["sam"]["sam_b"] = path("sam_b_run", sam_variant, "sam_b", dev, True)
+    for v in ("sam_l", "sam_h", "mobile_sam"):
+        out["sam"][v] = sam_variant(v, dev)
+    for v in SAM2_COUNTS:
+        out["sam2"][v] = sam2_variant(v, dev)
+    out["video"] = path("sam2_video_run", sam2_video, dev)
+    for name in FASTSAMS:
+        r = fastsam_serving(name, dev)
+        out["fastsam"][name] = r
+        paths[f"{name.lower().replace('-', '_')}_serving_run"] = r["run"]
+    nas = nas_run(dev)
+    paths["nas_postprocess_run"] = nas["run"]
+    out["nas"] = nas
+    out["paths"] = paths
+    out["k4"] = {**{f"{k} batch": v["k4"] for k, v in out["fastsam"].items()},
+                 "nas call ms": nas["ms"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"SAM family: {out['seconds']:.1f} s")
+    return out
 
 
 TRACK_FRAMES, TRACK_SHAPE, TRACK_CONF = 48, (720, 1280), 0.25
@@ -4395,6 +5047,8 @@ def main() -> int:
         track = timed(phase_track, dev)
         paths.update(track["paths"])
         paths.update(timed(phase_module_library, dev)["paths"])
+        sam = timed(phase_sam, dev)
+        paths.update(sam["paths"])
         paths.update(phase_export(dev)["paths"])
         timed(phase_cli)
         paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
@@ -4440,7 +5094,8 @@ def main() -> int:
         *bounded_entries,
         entry("nms_suppress", "nms.cu", "ops/nms_pallas.py:32", k4, "training_run",
               device_ms=k4["device_ms"], parts=k4["parts"], predict_batch=k4["predict_batch"],
-              world_batches=world["k4"], track_frame=track["k4"], track_frames=TRACK_FRAMES),
+              world_batches=world["k4"], track_frame=track["k4"], track_frames=TRACK_FRAMES,
+              sam_family=sam["k4"]),
         entry("nms_rotated", "nms.cu", "ops/nms_pallas.py:81", k5, "obb_serving_run",
               device_ms=k5["device_ms"], parts=k5["parts"], predict_batch=k5["predict_batch"],
               rounding_ties=k5["rounding_ties"]),

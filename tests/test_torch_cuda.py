@@ -1145,3 +1145,80 @@ def test_697_serving_launches_k1_and_k4(dev):
     modulated_deform_conv2d.launches = suppress.launches = 0
     model.predict([np.zeros((320, 320, 3), np.uint8)] * 2, conf=0.001, batch=2)
     assert (modulated_deform_conv2d.launches, suppress.launches) == (3, 1)
+
+
+def _sam_scene(h=120, w=160):
+    rng = np.random.default_rng(0)
+    img = rng.integers(150, 240, (h, w, 3), dtype=np.uint8)
+    img[30:90, 30:90] = 10
+    return img
+
+
+@pytest.mark.parametrize("variant", ["sam_test", "mobile_sam"])
+def test_sam_card_matches_cpu(dev, variant):
+    """SAM at 128 px, the same seeded weights on both sides: embeddings
+    within 1e-3 of max |CPU|, IoU within 1e-3, masks flipped on at most
+    2e-3 of the pixels, for a point and a box."""
+    from yolo_ad_refine_tpu_torch.models.sam import SAM
+
+    cpu, card = SAM(variant, 128, device="cpu"), SAM(variant, 128, device=dev)
+    img = _sam_scene()
+    cpu.set_image(img)
+    card.set_image(img)
+    e, ce = card._embeddings.cpu(), cpu._embeddings
+    assert (e - ce).abs().max() <= 1e-3 * ce.abs().max()
+    for kw in (dict(points=[[60, 60]]), dict(box=[30, 30, 90, 90], multimask_output=False)):
+        gm, gi = card.predict(**kw)
+        wm, wi = cpu.predict(**kw)
+        assert np.abs(gi - wi).max() <= 1e-3
+        assert (gm != wm).mean() <= 2e-3
+
+
+def test_sam2_card_matches_cpu(dev):
+    """SAM2Predictor and 3 frames of SAM2VideoPredictor (sam2_test, 128)
+    card vs CPU: IoU and object logits within 1e-3, masks flipped on at
+    most 2e-3 of the pixels."""
+    from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2Predictor, SAM2VideoPredictor
+
+    img = _sam_scene(96, 120)
+    out = [SAM2Predictor("sam2_test", device=d).set_image(img).predict([[60, 48]])
+           for d in ("cpu", dev)]
+    assert np.abs(out[0][1] - out[1][1]).max() <= 1e-3
+    assert (out[0][0] != out[1][0]).mean() <= 2e-3
+    frames = [np.roll(_sam_scene(128, 128), 6 * i, axis=1) for i in range(3)]
+    runs = []
+    for d in ("cpu", dev):
+        vp = SAM2VideoPredictor("sam2_test", device=d)
+        masks = [vp.add_points(frames[0], 0, [[60, 60]])]
+        logits = []
+        for i in (1, 2):
+            m, lg = vp.track(frames[i], i)
+            masks.append(m)
+            logits.append(lg)
+        runs.append((masks, logits))
+    (cm, cl), (gm, gl) = runs
+    assert np.abs(np.asarray(cl) - np.asarray(gl)).max() <= 1e-3 * max(1.0, np.abs(cl).max())
+    for a, b in zip(cm, gm):
+        assert (a != b).mean() <= 2e-3
+
+
+def test_fastsam_and_nas_launch_k4(dev):
+    """FastSAM's everything mode launches K4 once a batch; nas_postprocess
+    once a call, with the CPU's counts and rows."""
+    from yolo_ad_refine_tpu_torch import FastSAM
+    from yolo_ad_refine_tpu_torch.models.nas import nas_postprocess
+
+    fs = FastSAM("yolov8-seg.yaml", device=dev, imgsz=320)
+    suppress.launches = 0
+    fs.predict([_sam_scene()] * 3, batch=2)
+    assert suppress.launches == 2
+    r = np.random.default_rng(3)
+    xy = r.uniform(0, 600, (4, 2000, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + r.uniform(5, 80, (4, 2000, 2)).astype(np.float32)], -1)
+    scores = r.uniform(0, 0.6, (4, 2000, 9)).astype(np.float32)
+    suppress.launches = 0
+    got = nas_postprocess(boxes, scores, device=dev)
+    assert suppress.launches == 1
+    want = nas_postprocess(boxes, scores, device="cpu")
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=0)

@@ -41,12 +41,14 @@ print(" ".join(names))
 # the train slice's, the bounded-DCN slice's, the training options', the OBB
 # training and export slice's, the CLI / tune / benchmark / data-parallel
 # slice's, the classify / YOLOv10 / YOLO-World slice's, the RT-DETR / ATSS
-# slice's, the zoo / tracking slice's, and the module library's modules,
-# each imported under the blocker above
+# slice's, the zoo / tracking slice's, the module library's and the SAM
+# family's modules, each imported under the blocker above
 TRAIN_SLICE_MODULES = (
     "__main__", "cfg.cli", "cfg.config", "data.augment", "data.build", "data.dataset",
     "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.track", "engine.tuner",
-    "engine.validator", "nn.attention", "nn.attention_zoo", "nn.conv_extras", "nn.dsan",
+    "engine.validator", "models.fastsam", "models.nas", "models.sam", "models.sam.model",
+    "models.sam.modules", "models.sam.sam2", "models.sam.sam2_modules",
+    "models.sam.tiny_encoder", "nn.attention", "nn.attention_zoo", "nn.conv_extras", "nn.dsan",
     "nn.transformer", "ops.anchors", "ops.deform", "ops.deform_mxu", "ops.deform_pallas",
     "ops.dscn", "ops.iou", "ops.lap", "parallel",
     "parallel.multihost", "train.atss", "train.classify", "train.loss", "train.obb",
@@ -88,6 +90,21 @@ def test_slice_models_without_device_raise_when_cuda_is_absent(monkeypatch, cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         YOLO(cfg)
+
+
+@pytest.mark.parametrize("entry", ["SAM", "SAM2Predictor", "SAM2VideoPredictor", "FastSAM"])
+def test_sam_family_without_device_raises_when_cuda_is_absent(monkeypatch, entry):
+    from yolo_ad_refine_tpu_torch import FastSAM
+    from yolo_ad_refine_tpu_torch.models.sam import SAM
+    from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2Predictor, SAM2VideoPredictor
+
+    build = {"SAM": lambda: SAM("sam_test", img_size=128),
+             "SAM2Predictor": lambda: SAM2Predictor("sam2_test"),
+             "SAM2VideoPredictor": lambda: SAM2VideoPredictor("sam2_test"),
+             "FastSAM": lambda: FastSAM("yolov8-seg.yaml")}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
 
 
 def test_classification_trainer_without_device_raises_when_cuda_is_absent(monkeypatch):

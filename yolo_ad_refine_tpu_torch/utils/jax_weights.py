@@ -30,6 +30,10 @@ are converted on the way (flax -> torch):
   ``default_text`` and v10Detect's ``cv2_one2one_i_j`` / ``cv3_one2one_*``
   follow from their names
 
+The SAM family (``models/sam``) is not built from yaml rows: its carry is
+``load_sam_variables`` over ``sam_leaf_map``, which maps the reference
+torch names to the JAX package's module paths (the same layout changes).
+
 ``load_jax_variables`` takes the flax trees flattened to
 ``{"modules_8/m0/m1/cv1/conv/kernel": array}``; ``jax_to_port`` gives the
 converted arrays by port tensor name without filling a model, which is how
@@ -201,16 +205,19 @@ def jax_leaf_map(model: nn.Module) -> list[tuple[str, torch.Tensor, list]]:
 
 
 def jax_to_port(model: nn.Module, params: dict, batch_stats: dict | None = None,
-                strict: bool = True, collections=("params", "batch_stats")) -> dict:
+                strict: bool = True, collections=("params", "batch_stats"),
+                leaf_map=None) -> dict:
     """{port name: array in the port's layout} from flattened JAX trees, for
     every tensor whose flax leaves sit in ``collections``. With ``strict``,
     raises KeyError on any flax leaf left unused, on any such port tensor
-    left without its leaf, and on any shape mismatch."""
+    left without its leaf, and on any shape mismatch. ``leaf_map``: the
+    model's (name, tensor, targets), ``jax_leaf_map`` unless given (SAM:
+    ``sam_leaf_map``)."""
     sources = {"params": dict(params), "batch_stats": dict(batch_stats or {})}
     used: set = set()
     errors: list[str] = []
     values = {}
-    for name, t, targets in jax_leaf_map(model):
+    for name, t, targets in (leaf_map or jax_leaf_map(model)):
         if targets[0][0] not in collections:
             continue
         parts = []
@@ -244,6 +251,119 @@ def load_jax_variables(model: nn.Module, params: dict, batch_stats: dict | None 
     on any shape mismatch.
     """
     values = jax_to_port(model, params, batch_stats, strict)
-    for name, t, _ in jax_leaf_map(model):
+    _fill(jax_leaf_map(model), values)
+
+
+def _fill(leaf_map, values: dict) -> None:
+    for name, t, _ in leaf_map:
         if name in values:
             t.copy_(torch.from_numpy(values[name]).to(t.dtype))
+
+
+# -- the SAM family (models/sam): flax trees of build_sam / build_sam2 -----------------------
+
+# module-path rewrites, reference torch name -> JAX name, applied in order
+_SAM_RENAMES = (
+    (r"^image_encoder\.(trunk|neck\.convs)", r"\1"),          # SAM2Net keeps them on the net
+    (r"^sam_mask_decoder\.(conv_s[01])$", r"\1"),             # ... and conv_s0 / conv_s1 too
+    (r"convs\.(\d+)\.conv$", r"convs_\1"),
+    (r"patch_embed\.proj$", "patch_embed"),
+    (r"patch_embed\.seq\.0", "patch_embed_0"),                # TinyViT
+    (r"patch_embed\.seq\.2", "patch_embed_1"),
+    (r"mask_downscaling\.(\d)$", lambda m: f"mask_down_{'01_23_4'[int(m[1])]}"),
+    (r"output_upscaling\.(\d)$", lambda m: f"upscale_{'01_2'[int(m[1])]}"),
+    (r"output_hypernetworks_mlps\.", "hyper."),
+    (r"fuser\.layers\.", "fuser."),
+    (r"layers\.(\d+)\.blocks\.(\d+)", r"layer\1_block\2"),    # TinyViT stages
+    (r"layers\.(\d+)\.downsample", r"layer\1_downsample"),
+    (r"mlp\.(norm|fc1|fc2)$", r"mlp_\1"),
+    (r"mlp\.layers\.([01])$", lambda m: f"mlp.lin{int(m[1]) + 1}"),  # Hiera's MLP
+    (r"\.(\d+)", r"_\1"),
+)
+
+
+def _sam_module_key(mname: str, mod: nn.Module) -> str:
+    for pattern, repl in _SAM_RENAMES:
+        mname = re.sub(pattern, repl, mname)
+    m = re.search(r"(?:^|\.)encoder_(\d+)$", mname)
+    if m:  # MaskDownSampler: [conv, norm, GELU] a stride, then the 1x1 out_conv
+        k = int(m[1])
+        name = ("out_conv" if isinstance(mod, nn.Conv2d) and mod.kernel_size == (1, 1)
+                else f"{'encoder' if k % 3 == 0 else 'norm'}_{k // 3}")
+        mname = mname[: m.start(1) - len("encoder_")] + name
+    return mname.replace(".", "/")
+
+
+def _sam_targets(mname: str, mod: nn.Module, pname: str, shape: tuple):
+    key = _sam_module_key(mname, mod)
+    same = lambda a: a  # noqa: E731
+    if key.endswith("norm_head") or key == "head" or key.endswith("/head"):
+        # TinyViT's classifier head: flat leaves beside its neck
+        base = key.rsplit("/", 1)[0] + "/" if "/" in key else ""
+        leaf = key.rsplit("/", 1)[-1]
+        if isinstance(mod, nn.Linear):
+            return [("params", f"{base}head_{'kernel' if pname == 'weight' else 'bias'}",
+                     (lambda a: a.T) if pname == "weight" else same,
+                     shape[::-1] if pname == "weight" else shape)]
+        return [("params", f"{base}{leaf}_{'scale' if pname == 'weight' else 'bias'}", same,
+                 shape)]
+    if isinstance(mod, nn.Embedding):  # flax keeps the table as a param of the module's name
+        return [("params", key, same, shape)]
+    if pname in STATS:
+        return [("batch_stats", f"{key}/{STATS[pname]}", same, shape)]
+    if isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+        return [("params", f"{key}/{'scale' if pname == 'weight' else 'bias'}", same, shape)]
+    if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if pname == "bias":
+            return [("params", f"{key}/bias", same, shape)]
+        s = shape
+        if isinstance(mod, nn.ConvTranspose2d):
+            return [("params", f"{key}/kernel", lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+                     s[2:] + s[:2])]
+        if isinstance(mod, nn.Conv2d):
+            return [("params", f"{key}/kernel", lambda a: a.transpose(3, 2, 0, 1),
+                     (s[2], s[3], s[1], s[0]))]
+        return [("params", f"{key}/kernel", lambda a: a.T, s[::-1])]
+    if type(mod).__name__ == "Hiera" and pname in ("pos_embed", "pos_embed_window"):
+        # flax (1, h, w, C), the reference (1, C, h, w)
+        return [("params", f"{key}/{pname}" if key else pname,
+                 lambda a: a.transpose(0, 3, 1, 2), (shape[0], *shape[2:], shape[1]))]
+    # the module's own tensors (LayerNorm2d's weight / bias, pos_embed, rel_pos_*,
+    # attention_biases, gamma, the PE gaussian, the net's embeddings)
+    return [("params", f"{key}/{pname}" if key else pname, same, shape)]
+
+
+def sam_leaf_map(model: nn.Module) -> list[tuple[str, torch.Tensor, list]]:
+    """(port name, tensor, targets) for every persistent tensor of a SAM
+    family module (``models/sam``: a SAMModel, a SAM2Net or any of their
+    modules alone), as ``jax_leaf_map`` gives them for a yaml model. The
+    reference names map to the JAX package's: ``blocks.0`` -> ``blocks_0``,
+    ``mask_downscaling.{0,1,3,4,6}`` -> ``mask_down_{0..4}``,
+    ``output_upscaling.{0,1,3}`` -> ``upscale_{0,1,2}``,
+    ``output_hypernetworks_mlps.i`` -> ``hyper_i``, TinyViT's
+    ``layers.i.blocks.j`` -> ``layeri_blockj``, Hiera's
+    ``mlp.layers.{0,1}`` -> ``mlp/lin{1,2}``, the reference's
+    ``sam_mask_decoder.conv_s0`` -> the net's ``conv_s0``, and so on; an
+    Embedding's table is the flax param of its name; BatchNorm statistics
+    go to ``batch_stats`` (mobile_sam)."""
+    out = []
+    for mname, mod in model.named_modules():
+        tensors = list(mod.named_parameters(recurse=False)) + [
+            (n, b) for n, b in mod.named_buffers(recurse=False)
+            if n not in mod._non_persistent_buffers_set]
+        for pname, t in tensors:
+            if pname == "num_batches_tracked":
+                continue
+            out.append((f"{mname}.{pname}" if mname else pname, t,
+                        _sam_targets(mname, mod, pname, tuple(t.shape))))
+    return out
+
+
+@torch.no_grad()
+def load_sam_variables(model: nn.Module, params: dict, batch_stats: dict | None = None,
+                       strict: bool = True) -> None:
+    """Fill a SAM family module from flattened JAX variables (``build_sam``
+    / ``build_sam2`` trees, or a module's own), strictly as
+    ``load_jax_variables`` does."""
+    leaf_map = sam_leaf_map(model)
+    _fill(leaf_map, jax_to_port(model, params, batch_stats, strict, leaf_map=leaf_map))
