@@ -23,7 +23,20 @@ the wrapper rounds dx and dweight to bf16). The gather probe's path is
 run at bench_dcn.py's probe shapes. Then it drives
 the paths through the user's entry points, each with the launch counts set
 to 0 just before it and read just after, each DCN variant under its own
-``YAT_DCN_IMPL`` (set for the phase and restored after it):
+``YAT_DCN_IMPL`` (set for the phase and restored after it).
+
+The kernels' own phases (the builds, K1-K5 and the probe) have the card to
+themselves. The paths then run in two halves side by side, each in its own
+process with its own launch counts: this one (serving, training, the OBB
+and task phases, World, the zoo, RT-DETR, tracking, the periphery, the
+SAM family, benchmark) and ``second_half``'s (the module library, export,
+the command line, tune, the training options, the two ranks and the card
+vs CPU step), which this process starts, feeds and waits for; a kernel
+timed on a path of this half (``quiet_card``) stops the second half while
+it is timed. The CPU sides of tracking's and the SAM family's holds run in
+a third process at nice 19 beside the paths (``start_cpu_references``).
+Host-clock rates of the paths are taken beside the other half's work. The
+paths:
 
 - serving: 64 synthetic images through ``YOLO(...).predict`` with the
   flagship YOLO-AD-Refine at imgsz 640, checked against the same model on
@@ -121,6 +134,24 @@ to 0 just before it and read just after, each DCN variant under its own
   B = 1, and held against its plain version on a frame's candidates), and
   the first 24 frames' track rows against the same track on the CPU
   (``hold_tracks``);
+- the periphery (``phase_periphery``, after ``phase_track``): the folder
+  serving phase's 64 JPEGs through ``LoadImagesNative`` (the C++ loader,
+  libjpeg or, where the machine has none, nvJPEG; batch 32, 640, 8
+  threads), each batch through the flagship's forward and the port's NMS
+  (K1 fwd 3 and K4 1 a batch), every image against ``cv2.imread`` and the
+  letterbox (mean < 2, p99 <= 12 grey levels; meta within 1e-6), with the
+  images/s of this path beside ``predict(folder)`` and arrays; the
+  solution apps (ObjectCounter, Heatmap, SpeedEstimator, QueueManager,
+  DistanceCalculator, Analytics' counts) over ``phase_track``'s ByteTrack
+  rows, ms a frame, and their counts over the frames held alike against
+  the same apps fed the CPU's rows; ``Explorer`` embeddings of 40 images
+  with the flagship at 256 (batch 16, the last padded) card vs CPU (1e-4
+  of max |CPU|, ``get_similar`` order, SQL rows); ``auto_annotate`` of 16
+  images with the flagship (box rows) and yolo11n-seg (polygon rows), K4
+  once an image, every row against its results within 1e-3; and a 4000 x
+  3000 DOTA scene split by ``split_images_and_labels`` (crop 1024, gap
+  200) into 20 tiles served by yolo11n-obb at 1024, batch 16 (K5 once a
+  batch), each kept label's iof >= 0.7;
 - the module library (``phase_module_library``, after ``phase_track``): the
   flagship yaml with layer 10 swapped for the paper's ablation rows (the
   697 model, ``C2TSSA_DYT_Mona_EDFFN``; C2SFA, C2PSA_EDFFN,
@@ -146,8 +177,9 @@ to 0 just before it and read just after, each DCN variant under its own
   point, a box), ``SAM2Predictor`` for sam2_t / s / b / l (a point each),
   ``SAM2VideoPredictor("sam2_b")`` over a 16-frame 1280x720 video
   (frames/s), each held against the CPU (embeddings 1e-3 of max |CPU|,
-  IoU and object logits 1e-3, mask pixels flipped 2e-3; sam_h where its
-  CPU side, estimated from sam_l's, takes under 60 s); FastSAM-s and -x
+  IoU and object logits 1e-3, mask pixels flipped 2e-3; the CPU sides
+  run in the CPU-reference worker, ``start_cpu_references``, beside the
+  earlier phases); FastSAM-s and -x
   (``yolov8s-seg`` / ``yolov8x-seg``, nc 1) at 1024 on 8 images in
   everything mode and with bbox and point prompts, K4 once a batch and
   held against its plain version on the batch's candidates, card vs CPU
@@ -212,17 +244,21 @@ Where one predict batch's time goes is the job of
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
 import os
+import pickle
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 FLAGSHIP = "yolo11-701-YOLO-AD-Refine.yaml"
@@ -244,8 +280,175 @@ GRADS = ("dx", "doffset", "dmask", "dweight")
 LEAF_TOL = 1e-3  # card vs CPU train step, relative norm of each gradient leaf
 
 
+T0 = float(os.environ.get("CHIP_SMOKE_T0") or time.time())  # the script's start, both halves
+PART = os.environ.get("CHIP_SMOKE_PART", "")  # "B" in the second half's process
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on standard output, after the script's elapsed seconds and,
+    in the second half's process, its mark."""
+    print(f"[{time.time() - T0:7.1f} s{' ' + PART if PART else ''}] {msg}", flush=True)
+
+
+CPU_REF_THREADS = 3  # torch threads of the CPU-reference worker, which runs at nice 19
+CPU_REFS: dict = {}  # the worker's "proc", "dir" and "jobs" [(function name, args)], while it runs
+
+
+def start_cpu_references() -> None:
+    """Start the CPU sides of the tracking phase's and the SAM family's
+    holds (``track_cpu_side``, ``sam_cpu_side``, ``sam2_cpu_side``,
+    ``video_cpu_side``), in the order the phases ask for them, in a worker
+    process at nice 19 (``cpu_references``) while the paths run: they take
+    most of the script's host CPU seconds and need nothing from the card.
+    ``cpu_reference`` collects each; ``stop_cpu_references`` ends the
+    worker."""
+    folder = tempfile.TemporaryDirectory(prefix="chip_smoke_cpu_refs_")
+    jobs = ([("track_cpu_side", (t,)) for t in ("bytetrack", "botsort")]
+            + [("sam_cpu_side", (v,)) for v in SAM_COUNTS]
+            + [("sam2_cpu_side", (v,)) for v in SAM2_COUNTS] + [("video_cpu_side", ())])
+    (Path(folder.name) / "jobs.pkl").write_bytes(pickle.dumps(jobs))
+    # what the worker prints goes to standard error: standard output is this script's record
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-references",
+                             folder.name], stdin=subprocess.DEVNULL, stdout=sys.stderr.fileno())
+    CPU_REFS.update(proc=proc, dir=folder, jobs=jobs)
+
+
+def cpu_references(folder: str) -> int:
+    """The CPU-reference worker: each job of ``folder``'s jobs.pkl in turn,
+    its result pickled to ``<index>.pkl`` there, at nice 19 on
+    ``CPU_REF_THREADS`` threads."""
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(CPU_REF_THREADS)
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    folder = Path(folder)
+    for i, (name, args) in enumerate(pickle.loads((folder / "jobs.pkl").read_bytes())):
+        part = folder / f"{i}.part"
+        part.write_bytes(pickle.dumps(globals()[name](*args)))
+        os.replace(part, folder / f"{i}.pkl")
+    return 0
+
+
+def stop_cpu_references() -> None:
+    """End the CPU-reference worker, whatever it is doing."""
+    proc = CPU_REFS.pop("proc", None)
+    if proc is not None:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    if "dir" in CPU_REFS:
+        CPU_REFS.pop("dir").cleanup()
+    CPU_REFS.clear()
+
+
+def cpu_reference(fn, *args) -> dict:
+    """``fn(*args)``: the CPU side of a hold, from the CPU-reference worker
+    where ``start_cpu_references`` gave it that job (the seconds waited for
+    it under "waited_s"), else run here."""
+    key = (fn.__name__, args)
+    if "proc" not in CPU_REFS or key not in CPU_REFS["jobs"]:
+        return fn(*args)
+    path = Path(CPU_REFS["dir"].name) / f"{CPU_REFS['jobs'].index(key)}.pkl"
+    t0 = time.perf_counter()
+    while not path.exists():
+        if CPU_REFS["proc"].poll() is not None and not path.exists():
+            raise AssertionError(f"the CPU-reference worker exited {CPU_REFS['proc'].returncode} "
+                                 f"before {fn.__name__}{args}: its log is on standard error")
+        time.sleep(0.1)
+    out = pickle.loads(path.read_bytes())
+    path.unlink()
+    out["waited_s"] = time.perf_counter() - t0
+    return out
+
+
+def cpu_wait_note(ref: dict) -> str:
+    """Where the CPU side ran, for a hold's log line."""
+    if "waited_s" not in ref:
+        return ", in this process"
+    return f", in the CPU-reference worker, waited for {ref['waited_s']:.1f} s"
+
+
+def as_numpy(v):
+    """A tensor on any device, or an array, as a numpy array."""
+    import numpy as np
+
+    return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+
+SECOND: dict = {}  # the second half's "proc", "result" file and "tmp" dir, while it runs
+QUIET_DRAIN_S = 0.5  # s for what the stopped second half queued on the card to drain
+
+
+def start_second_half() -> None:
+    """Start ``second_half`` in a process of its own, in a session of its
+    own so that ``quiet_card`` and ``stop_second_half`` reach the processes
+    it starts too. It sets up, then waits for ``tell_second_half("go")``."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_second_")
+    result = Path(tmp.name) / "second_half.pkl"
+    env = {**os.environ, "CHIP_SMOKE_T0": repr(T0), "CHIP_SMOKE_PART": "B"}
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--second-half",
+                             str(result)], stdin=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    SECOND.update(proc=proc, result=result, tmp=tmp)
+
+
+def tell_second_half(line: str) -> None:
+    """A line on the second half's standard input."""
+    SECOND["proc"].stdin.write(line + "\n")
+    SECOND["proc"].stdin.flush()
+
+
+def check_second_half() -> None:
+    """Raise where the second half has exited with a failure."""
+    proc = SECOND.get("proc")
+    if proc is not None and proc.poll() not in (None, 0):
+        raise AssertionError(f"the second half's phases failed (exit {proc.returncode}): its log "
+                             "is above, marked B")
+
+
+def join_second_half() -> dict:
+    """Wait for the second half; raise where it failed, else return its
+    result ({"paths": {path: launches}})."""
+    proc = SECOND["proc"]
+    t0 = time.perf_counter()
+    proc.stdin.close()
+    proc.wait()
+    check_second_half()
+    with open(SECOND["result"], "rb") as f:
+        out = pickle.load(f)
+    log(f"the second half ended; waited for it {time.perf_counter() - t0:.1f} s")
+    SECOND.pop("tmp").cleanup()
+    SECOND.clear()
+    return out
+
+
+def stop_second_half() -> None:
+    """End the second half and every process it started, whatever they do."""
+    proc = SECOND.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    if "tmp" in SECOND:
+        SECOND.pop("tmp").cleanup()
+    SECOND.clear()
+
+
+@contextlib.contextmanager
+def quiet_card():
+    """Hold the second half and its processes stopped while a kernel's time
+    is taken here, so that the card runs this process's work alone."""
+    proc = SECOND.get("proc")
+    live = proc is not None and proc.poll() is None
+    if live:
+        os.killpg(proc.pid, signal.SIGSTOP)
+        time.sleep(QUIET_DRAIN_S)
+    try:
+        yield
+    finally:
+        if live:
+            os.killpg(proc.pid, signal.SIGCONT)
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -1683,8 +1886,10 @@ def k4_on_world(model, dev) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"K4 keep mask differs from plain on the World {label} batch: "
                                  f"{int((got != want).sum())} entries")
-        r = time_case(Impl(), "K4", bx, sc, conf)
-        plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, conf), iters=3, warmup=1)
+        with quiet_card():
+            r = time_case(Impl(), "K4", bx, sc, conf)
+            plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, conf), iters=3,
+                                 warmup=1)
         b, k = sc.shape
         bound = k4_bound(got)
         out[label] = {"B": b, "K": k, "ms": r["ms"], "device_ms": r["device_ms"],
@@ -2211,7 +2416,8 @@ def phase_lap(training: dict, dev) -> dict:
             raise AssertionError(f"LAP kernel disagrees with its plain version on the {label} "
                                  f"matrices: {int((got.cpu() != want.cpu()).sum())} rows, cost "
                                  f"{cost_err:.2e}, distinct {distinct}")
-        ms = cuda_time(lambda: linear_sum_assignment(cost, mask), iters=20)
+        with quiet_card():
+            ms = cuda_time(lambda: linear_sum_assignment(cost, mask), iters=20)
         bound = lap_bound(cost, mask, want_scans)
         out[label] = {"B": b, "M": m, "N": n, "valid_rows": int(valid.sum()),
                       "max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound,
@@ -2843,14 +3049,60 @@ def hold_candidates(label: str, got: list, want: list) -> dict:
     return out
 
 
+def sam_prompts(variant: str) -> dict:
+    """The prompts of ``SAM_PROMPTS`` that ``variant`` answers: sam_b all
+    three, mobile_sam one point and the box, the others one point."""
+    keys = (tuple(SAM_PROMPTS) if variant == "sam_b" else
+            ("one point", "box") if variant == "mobile_sam" else ("one point",))
+    return {k: SAM_PROMPTS[k] for k in keys}
+
+
+def sam_cpu_side(variant: str) -> dict:
+    """The CPU side of ``sam_variant``'s hold: ``SAM(variant)`` at 1024 on
+    the CPU, its embeddings of ``sam_scene(0)``, each prompt's (masks, IoU,
+    low-res logits), ``generate``'s settings from its one-point low-res
+    logits (the card runs the same settings) and, for sam_b, each
+    setting's candidates (masks bit-packed) and kept boxes."""
+    import numpy as np
+
+    from yolo_ad_refine_tpu_torch.models.sam import SAM
+
+    img = sam_scene(0)
+    t0 = time.perf_counter()
+    cpu = SAM(variant, SAM_IMGSZ, device="cpu")
+    cpu.set_image(img)
+    out = {"set_image_s": time.perf_counter() - t0, "embeddings": as_numpy(cpu._embeddings),
+           "prompts": {}, "generate": {}}
+    for k, kw in sam_prompts(variant).items():
+        out["prompts"][k] = (*cpu.predict(**kw), as_numpy(cpu._last_lowres))
+    out["settings"] = sam_generate_settings(out["prompts"]["one point"][2])
+    if variant == "sam_b":
+        for label, kw in out["settings"].items():
+            cands, kept = generate_candidates(cpu, img, **kw)
+            out["generate"][label] = (
+                [{**c, "segmentation": np.packbits(c["segmentation"]),
+                  "shape": c["segmentation"].shape} for c in cands],
+                np.asarray([c["bbox"] for c in kept]).reshape(-1, 4))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def unpack_candidates(cands: list) -> list:
+    """``sam_cpu_side``'s candidates with their masks unpacked."""
+    import numpy as np
+
+    return [{**c, "segmentation": np.unpackbits(c["segmentation"], count=math.prod(
+        c["shape"])).reshape(c["shape"]).astype(bool)} for c in cands]
+
+
 def sam_variant(variant: str, dev, generate: bool = False) -> dict:
     """``SAM(variant)`` at 1024 on the card: its count held to JAX's,
-    set_image's and a point decode's ms, the prompts of ``SAM_PROMPTS``
-    (sam_b: all three; the others: one point, mobile_sam also the box) and,
-    with ``generate``, ``generate(points_per_side=8)``; then the same on
-    the CPU: embeddings and each prompt's low-res logits within 1e-3 of
-    max |CPU|, IoU 1e-3, mask pixels flipped 2e-3, generate's candidates
-    before the NMS (``hold_candidates``) and its kept boxes."""
+    set_image's and a point decode's ms, the prompts of ``sam_prompts``
+    and, with ``generate``, ``generate(points_per_side=8)``; held against
+    ``sam_cpu_side``'s CPU run (from the CPU-reference worker): embeddings
+    and each prompt's low-res logits within 1e-3 of max |CPU|, IoU 1e-3,
+    mask pixels flipped 2e-3, generate's candidates before the NMS
+    (``hold_candidates``) and its kept boxes."""
     import numpy as np
     import torch
 
@@ -2871,9 +3123,7 @@ def sam_variant(variant: str, dev, generate: bool = False) -> dict:
         raise AssertionError(f"{variant}: embeddings {tuple(emb.shape)}, finite "
                              f"{bool(torch.isfinite(emb).all())}")
     decode_ms, _ = timed_ms(lambda: card._decode(**SAM_PROMPTS["one point"]), runs=5)
-    prompts = (SAM_PROMPTS if variant == "sam_b" else
-               {k: SAM_PROMPTS[k] for k in (("one point", "box") if variant == "mobile_sam"
-                                            else ("one point",))})
+    prompts = sam_prompts(variant)
     got = {k: (*card.predict(**kw), card._last_lowres) for k, kw in prompts.items()}
     for k, (m, iou, _) in got.items():
         if not (m.shape[1:] == SAM_SHAPE and np.isfinite(iou).all() and (np.diff(iou) <= 0).all()):
@@ -2881,10 +3131,10 @@ def sam_variant(variant: str, dev, generate: bool = False) -> dict:
     out = {"params": sam_count(card.model), "build_s": build_s, "set_image_ms": set_ms,
            "decode_ms": decode_ms, "peak_gb": peak_gb}
     out["mask_cover"] = {k: float(m.mean()) for k, (m, _, _) in got.items()}
+    ref = cpu_reference(sam_cpu_side, variant)
     gen_card = {}
-    settings = sam_generate_settings(got["one point"][2])
     if generate:
-        for label, kw in settings.items():
+        for label, kw in ref["settings"].items():
             t0 = time.perf_counter()
             gen_card[label] = generate_candidates(card, img, **kw)
             out[f"generate_s ({label})"] = time.perf_counter() - t0
@@ -2899,24 +3149,20 @@ def sam_variant(variant: str, dev, generate: bool = False) -> dict:
     for label, (cands, kept) in gen_card.items():
         msg += (f"; generate(points_per_side=8, {label}) {out[f'generate_s ({label})']:.2f} s, "
                 f"{len(cands)} candidates, {len(kept)} masks kept")
-    t0 = time.perf_counter()
-    cpu = SAM(variant, SAM_IMGSZ, device="cpu")
-    cpu.set_image(img)
-    out["cpu_set_image_s"] = time.perf_counter() - t0
-    out["embedding_err"] = hold_values(f"{variant} embeddings", emb, cpu._embeddings)
+    out["cpu_set_image_s"] = ref["set_image_s"]
+    out["cpu_s"] = ref["seconds"]
+    out["embedding_err"] = hold_values(f"{variant} embeddings", emb, ref["embeddings"])
     out["prompts"] = {}
     for k, (m, iou, low) in got.items():
-        cm, ciou = cpu.predict(**prompts[k])
+        cm, ciou, clow = ref["prompts"][k]
         out["prompts"][k] = hold_masks(f"{variant} {k}", m, cm, iou, ciou)
-        out["prompts"][k]["low_res_err"] = hold_values(f"{variant} {k} low-res logits", low,
-                                                       cpu._last_lowres)
+        out["prompts"][k]["low_res_err"] = hold_values(f"{variant} {k} low-res logits", low, clow)
         out["prompts"][k]["iou"] = ciou.tolist()
     out["generate"] = {}
     for label, (cands, kept) in gen_card.items():
-        ccands, ckept = generate_candidates(cpu, img, **settings[label])
-        held = hold_candidates(f"{variant} generate ({label})", cands, ccands)
+        ccands, want_b = ref["generate"][label]
+        held = hold_candidates(f"{variant} generate ({label})", cands, unpack_candidates(ccands))
         got_b = np.asarray([c["bbox"] for c in kept]).reshape(-1, 4)
-        want_b = np.asarray([c["bbox"] for c in ckept]).reshape(-1, 4)
         if got_b.shape != want_b.shape or (len(got_b) and np.abs(
                 got_b - want_b).max() > SAM_BBOX_TOL):
             raise AssertionError(f"{variant} generate ({label}): kept boxes differ: card "
@@ -2924,7 +3170,8 @@ def sam_variant(variant: str, dev, generate: bool = False) -> dict:
         out["generate"][label] = {**held, "kept": len(got_b),
                                   "kept_bbox_err": int(np.abs(got_b - want_b).max())
                                   if len(got_b) else 0}
-    msg += (f"; card vs CPU (CPU build + set_image {out['cpu_set_image_s']:.1f} s): "
+    msg += (f"; card vs CPU (CPU build + set_image {out['cpu_set_image_s']:.1f} s, the CPU side "
+            f"{out['cpu_s']:.1f} s{cpu_wait_note(ref)}): "
             f"embeddings {out['embedding_err']:.2e} of max |CPU| (tol {SAM_EMB_TOL}), "
             + "; ".join(f"{k}: IoU {v['iou_err']:.2e} (CPU IoU "
                         + ", ".join(f"{x:.4f}" for x in v["iou"])
@@ -2938,7 +3185,6 @@ def sam_variant(variant: str, dev, generate: bool = False) -> dict:
             msg += (f"; CPU IoU {v['iou_range'][0]:.4f} to {v['iou_range'][1]:.4f}, stability "
                     f"{v['stability_range'][0]:.4f} to {v['stability_range'][1]:.4f}")
         msg += f"), the same {v['kept']} kept, boxes within {v['kept_bbox_err']} px"
-    del cpu
     log(msg)
     del card
     torch.cuda.empty_cache()
@@ -2962,7 +3208,8 @@ def keep_heads(net) -> list:
 
 def sam2_variant(variant: str, dev) -> dict:
     """``SAM2Predictor(variant)`` at 1024: its count held to JAX's,
-    set_image's ms, one point's three masks; then the same on the CPU: the
+    set_image's ms, one point's three masks; held against
+    ``sam2_cpu_side``'s CPU run (from the CPU-reference worker): the
     three low-res mask logits within 1e-3 of max |CPU|, IoU 1e-3, mask
     pixels flipped 2e-3. The IoU head ends in a sigmoid, so the CPU's IoUs
     are logged beside their difference (a saturated one holds nothing)."""
@@ -2983,35 +3230,82 @@ def sam2_variant(variant: str, dev) -> dict:
     if not (m.shape == (3, *SAM_SHAPE) and np.isfinite(iou).all()):
         raise AssertionError(f"{variant}: masks {m.shape}, iou {iou}")
     out = {"params": sam_count(card.net), "set_image_ms": set_ms, "mask_cover": float(m.mean())}
-    t0 = time.perf_counter()
-    cpu = SAM2Predictor(variant, device="cpu")
-    see_objects(cpu.net)
-    cheads = keep_heads(cpu.net)
-    cm, ciou = cpu.set_image(img).predict([[590, 370]])
-    out["cpu_s"] = time.perf_counter() - t0
-    out["hold"] = hold_masks(variant, m, cm, iou, ciou)
+    ref = cpu_reference(sam2_cpu_side, variant)
+    out["cpu_s"] = ref["seconds"]
+    out["hold"] = hold_masks(variant, m, ref["masks"], iou, ref["iou"])
     out["hold"]["low_res_err"] = hold_values(f"{variant} low-res logits", heads[-1]["low_res"],
-                                             cheads[-1]["low_res"])
-    out["hold"]["iou"] = ciou.tolist()
-    out["hold"]["object_logit"] = float(cheads[-1]["obj"].reshape(-1)[0])
+                                             ref["low_res"])
+    out["hold"]["iou"] = ref["iou"].tolist()
+    out["hold"]["object_logit"] = ref["object_logit"]
     log(f"{variant} at {SAM_IMGSZ}: {out['params']:,} parameters (JAX's); set_image "
         f"{set_ms:.1f} ms (median of 3: " + ", ".join(f"{v:.1f}" for v in set_runs) + "); "
         f"mask pixels set {out['mask_cover'] * 100:.1f} % (object-score bias {OBJECT_LOGIT}: "
         f"the CPU's object logit {out['hold']['object_logit']:.6f}); card vs CPU (CPU "
-        f"{out['cpu_s']:.1f} s): low-res logits {out['hold']['low_res_err']:.2e} of max |CPU| "
-        f"(tol {SAM_EMB_TOL}), IoU {out['hold']['iou_err']:.2e} (CPU IoU "
+        f"{out['cpu_s']:.1f} s{cpu_wait_note(ref)}): low-res logits "
+        f"{out['hold']['low_res_err']:.2e} of max |CPU| (tol {SAM_EMB_TOL}), IoU "
+        f"{out['hold']['iou_err']:.2e} (CPU IoU "
         + ", ".join(f"{x:.7f}" for x in out["hold"]["iou"])
         + f"), pixels flipped {out['hold']['flipped']:.2e}")
-    del card, cpu
+    del card
     torch.cuda.empty_cache()
     return out
+
+
+def sam2_cpu_side(variant: str) -> dict:
+    """The CPU side of ``sam2_variant``'s hold: ``SAM2Predictor(variant)``
+    on the CPU, one point on ``sam_scene(1)``: its masks, IoU, low-res
+    logits and object logit."""
+    from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2Predictor
+
+    t0 = time.perf_counter()
+    cpu = SAM2Predictor(variant, device="cpu")
+    see_objects(cpu.net)
+    cheads = keep_heads(cpu.net)
+    cm, ciou = cpu.set_image(sam_scene(1)).predict([[590, 370]])
+    return {"masks": cm, "iou": ciou, "low_res": as_numpy(cheads[-1]["low_res"]),
+            "object_logit": float(cheads[-1]["obj"].reshape(-1)[0]),
+            "seconds": time.perf_counter() - t0}
+
+
+def video_frames(n: int) -> list:
+    """The sam2_b video's first ``n`` frames: a square moving 12 px a frame."""
+    return [sam_scene(2, shift=12 * i) for i in range(n)]
+
+
+VIDEO_POINT = [[590, 370]]
+
+
+def video_cpu_side() -> dict:
+    """The CPU side of ``sam2_video``'s hold: ``SAM2VideoPredictor("sam2_b")``
+    on the CPU over frames 0..VIDEO_HELD (``add_points`` on frame 0, then
+    ``track``): each frame's mask, object logit (frames 1..), high-res
+    mask logits and stored memory."""
+    from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2VideoPredictor
+
+    frames = video_frames(VIDEO_HELD + 1)
+    t0 = time.perf_counter()
+    cpu = SAM2VideoPredictor("sam2_b", device="cpu")
+    see_objects(cpu.net)
+    cheads = keep_heads(cpu.net)
+    masks = [cpu.add_points(frames[0], 0, VIDEO_POINT)]
+    logits = []
+    for i in range(1, VIDEO_HELD + 1):
+        m, lg = cpu.track(frames[i], i)
+        masks.append(m)
+        logits.append(lg)
+    memories = [cpu.cond_frames[0]] + [cpu.non_cond_frames[i] for i in range(1, VIDEO_HELD + 1)]
+    return {"masks": masks, "logits": logits,
+            "high_res": [as_numpy(cheads[i]["high_res"]) for i in range(VIDEO_HELD + 1)],
+            "memories": [{k: as_numpy(v) for k, v in m.items()} for m in memories],
+            "seconds": time.perf_counter() - t0}
 
 
 def sam2_video(dev) -> dict:
     """``SAM2VideoPredictor("sam2_b")`` at 1024 over a seeded 16-frame 1280
     x 720 video of a moving square: ``add_points`` on frame 0, ``propagate``
-    over frames 1-15 (frames/s, host clock); frames 0-4 on the CPU too:
-    each frame's high-res mask logits and its stored memory (mem_feat,
+    over frames 1-15 (frames/s, host clock); frames 0-4 held against
+    ``video_cpu_side``'s CPU run (from the CPU-reference worker): each
+    frame's high-res mask logits and its stored memory (mem_feat,
     mem_pos, obj_ptr) within 1e-3 of max |CPU|, mask pixels flipped 2e-3,
     object logits within 1e-3 (forced near ``OBJECT_LOGIT`` by its bias,
     so they hold little; their distance from it is logged)."""
@@ -3020,8 +3314,8 @@ def sam2_video(dev) -> dict:
 
     from yolo_ad_refine_tpu_torch.models.sam.sam2 import SAM2VideoPredictor
 
-    frames = [sam_scene(2, shift=12 * i) for i in range(VIDEO_FRAMES)]
-    point = [[590, 370]]
+    frames = video_frames(VIDEO_FRAMES)
+    point = VIDEO_POINT
     card = SAM2VideoPredictor("sam2_b", device=dev)
     see_objects(card.net)
     card.add_points(frames[0], 0, point)  # warm-up: cuDNN plans, allocator
@@ -3041,23 +3335,16 @@ def sam2_video(dev) -> dict:
         raise AssertionError("sam2_b video: bad masks or object logits")
     out = {"frames_per_s": VIDEO_FRAMES / dt, "ms_per_frame": dt / VIDEO_FRAMES * 1e3,
            "mask_cover": float(np.mean([m.mean() for m in masks]))}
-    t0 = time.perf_counter()
-    cpu = SAM2VideoPredictor("sam2_b", device="cpu")
-    see_objects(cpu.net)
-    cheads = keep_heads(cpu.net)
-    cmasks = [cpu.add_points(frames[0], 0, point)]
-    clogits = [cpu.track(frames[i], i) for i in range(1, VIDEO_HELD + 1)]
-    out["cpu_s"] = time.perf_counter() - t0
-    out["logit_err"] = max(abs(a - b[1]) / max(1.0, abs(b[1]))
-                           for a, b in zip(logits, clogits))
-    out["logit_minus_bias"] = [b[1] - OBJECT_LOGIT for b in clogits]
-    out["flipped"] = max(float((a != b).mean()) for a, b in
-                         zip(masks, cmasks + [c[0] for c in clogits]))
+    ref = cpu_reference(video_cpu_side)
+    out["cpu_s"] = ref["seconds"]
+    out["logit_err"] = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(logits, ref["logits"]))
+    out["logit_minus_bias"] = [b - OBJECT_LOGIT for b in ref["logits"]]
+    out["flipped"] = max(float((a != b).mean()) for a, b in zip(masks, ref["masks"]))
     out["high_res_err"] = max(hold_values(f"sam2_b video frame {i} high-res logits",
-                                          heads[i]["high_res"], cheads[i]["high_res"])
+                                          heads[i]["high_res"], ref["high_res"][i])
                               for i in range(VIDEO_HELD + 1))
-    memories = [(0, card.cond_frames[0], cpu.cond_frames[0])] + [
-        (i, card.non_cond_frames[i], cpu.non_cond_frames[i]) for i in range(1, VIDEO_HELD + 1)]
+    memories = [(0, card.cond_frames[0], ref["memories"][0])] + [
+        (i, card.non_cond_frames[i], ref["memories"][i]) for i in range(1, VIDEO_HELD + 1)]
     out["memory_err"] = {k: max(hold_values(f"sam2_b video frame {i} {k}", g[k], w[k])
                                 for i, g, w in memories)
                          for k in ("mem_feat", "mem_pos", "obj_ptr")}
@@ -3065,7 +3352,7 @@ def sam2_video(dev) -> dict:
         f"0, then track), {out['frames_per_s']:.2f} frames/s, {out['ms_per_frame']:.1f} ms a "
         f"frame (host clock: cv2 resize, encode, memory attention, heads, memory encoder, mask "
         f"to the host); mask pixels set {out['mask_cover'] * 100:.1f} %; frames 0-{VIDEO_HELD} "
-        f"card vs CPU (CPU {out['cpu_s']:.1f} s): high-res mask logits "
+        f"card vs CPU (CPU {out['cpu_s']:.1f} s{cpu_wait_note(ref)}): high-res mask logits "
         f"{out['high_res_err']:.2e} of max |CPU|, memories "
         + ", ".join(f"{k} {v:.2e}" for k, v in out["memory_err"].items())
         + f" of max |CPU| (tol {SAM_EMB_TOL}); pixels flipped {out['flipped']:.2e}; object "
@@ -3074,7 +3361,7 @@ def sam2_video(dev) -> dict:
                                                      out["logit_minus_bias"]) + ")")
     if out["logit_err"] > SAM_IOU_TOL or out["flipped"] > MASK_FLIP_TOL:
         raise AssertionError(f"sam2_b video: card and CPU disagree: {out}")
-    del card, cpu
+    del card
     torch.cuda.empty_cache()
     return out
 
@@ -3177,8 +3464,10 @@ def fastsam_serving(name: str, dev) -> dict:
     if not torch.equal(suppress(bx, sc, NMS_IOU, FASTSAM_CONF),
                        suppress_plain(bx, sc, NMS_IOU, FASTSAM_CONF)):
         raise AssertionError(f"{name}: K4's keep mask differs from plain on the batch")
-    r = time_case(Impl(), "K4", bx, sc, FASTSAM_CONF)
-    plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, FASTSAM_CONF), iters=3, warmup=1)
+    with quiet_card():
+        r = time_case(Impl(), "K4", bx, sc, FASTSAM_CONF)
+        plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, FASTSAM_CONF), iters=3,
+                             warmup=1)
     bound = k4_bound(r["keep"])
     out["k4"] = {"B": sc.shape[0], "K": sc.shape[1], "ms": r["ms"], "device_ms": r["device_ms"],
                  "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
@@ -3248,7 +3537,8 @@ def nas_run(dev) -> dict:
     run = {k: f.launches for k, f in kernel_counters().items()}
     if run["nms_suppress"] != 1:
         raise AssertionError(f"nas_postprocess: launches {run}, expected K4 once")
-    ms = cuda_time(lambda: nas_postprocess(bt, st), iters=5)
+    with quiet_card():
+        ms = cuda_time(lambda: nas_postprocess(bt, st), iters=5)
     cdet, ccnt = nas_postprocess(boxes, scores, device="cpu")
     err = float(np.abs(det - cdet).max())
     if not np.array_equal(cnt, ccnt) or err > 1e-4:
@@ -3421,6 +3711,32 @@ def hold_tracks(label: str, got: list, want: list, card, cpu, frames) -> dict:
             "ids_renumbered": sum(k != v for k, v in ids.items())}
 
 
+def track_model(dev):
+    """The tracking phase's flagship (scale n, seed 0, 640) with class 0 at
+    the prior TRACK_PRIOR."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+    with torch.no_grad():
+        model.model.model[model.model.head_idx].cv3.bias[0] = logit(TRACK_PRIOR)
+    return model
+
+
+def track_cpu_side(tracker: str) -> dict:
+    """The CPU side of ``phase_track``'s hold: ``track_model`` on the CPU
+    over the video's first TRACK_HELD frames with ``tracker`` (cv2's
+    generator seeded as on the card). Returns {"results", "seconds"}."""
+    model = track_model("cpu")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_track_cpu_") as tmp:
+        head = str(track_video(Path(tmp) / "head.avi", TRACK_HELD))
+        cv2_seed(0)
+        t0 = time.perf_counter()
+        results = model.track(head, tracker=tracker, imgsz=640, conf=TRACK_CONF)
+    return {"results": results, "seconds": time.perf_counter() - t0}
+
+
 def phase_track(dev) -> dict:
     """``YOLO.track`` with the flagship (scale n, seeded weights, class 0 at
     the prior TRACK_PRIOR) at 640 over a 1280x720 MJPG video of 48 frames
@@ -3431,25 +3747,22 @@ def phase_track(dev) -> dict:
     and the tracker; the first TRACK_HELD frames' rows held against the
     same track on the CPU over those frames (``hold_tracks``); and K4 held
     against its plain version on one frame's candidates (B = 1, K = 2048),
-    both timed."""
+    both timed. ``results`` keeps each tracker's (card results, CPU results,
+    frames held) for ``phase_periphery``'s solutions."""
     import numpy as np
     import torch
 
-    from yolo_ad_refine_tpu_torch import YOLO
     from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
     from yolo_ad_refine_tpu_torch.engine.profile_nms import Impl, predict_candidates, time_case
     from yolo_ad_refine_tpu_torch.ops.nms import suppress_plain
 
-    model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
-    with torch.no_grad():
-        model.model.model[model.model.head_idx].cv3.bias[0] = logit(TRACK_PRIOR)
-    cpu = copy.deepcopy(model)
+    model = track_model(dev)
+    cpu = copy.deepcopy(model)  # for hold_tracks' look at the scores of a frame that parts
     cpu.model = cpu.model.cpu()
     counters = kernel_counters()
-    out = {"paths": {}}
+    out = {"paths": {}, "results": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_track_") as tmp:
         vid = str(track_video(Path(tmp) / "track.avi"))
-        head = str(track_video(Path(tmp) / "head.avi", TRACK_HELD))
         frames = [f for _, f, _ in load_inference_source(vid)]
         if len(frames) != TRACK_FRAMES or frames[0].shape[:2] != TRACK_SHAPE:
             raise AssertionError(f"the video reads back as {len(frames)} frames of "
@@ -3488,12 +3801,11 @@ def phase_track(dev) -> dict:
             if len(got) != TRACK_FRAMES or not all(r.boxes.is_track for r in got) or \
                     not 1 < len(ids) or not all(np.isfinite(r.boxes.data).all() for r in got):
                 raise AssertionError(f"{tracker}: bad track results")
-            cv2_seed(0)
-            t1 = time.perf_counter()
-            want = cpu.track(head, **kw)
-            cpu_s = time.perf_counter() - t1
+            ref = cpu_reference(track_cpu_side, tracker)
+            want = ref["results"]
             held = hold_tracks(tracker, got[:TRACK_HELD], want, model.model, cpu.model, frames)
-            log(f"{tracker}: card vs CPU ({cpu_s:.1f} s on the CPU): {held['held_frames']} "
+            log(f"{tracker}: card vs CPU ({ref['seconds']:.1f} s on the CPU"
+                f"{cpu_wait_note(ref)}): {held['held_frames']} "
                 f"of the first {TRACK_HELD} frames held, rows and classes equal, "
                 f"{held['ids']} ids of which {held['ids_renumbered']} renumbered (tied scores "
                 f"at their first frame), max |box diff| {held['box_err']:.3e} px (tol "
@@ -3501,13 +3813,16 @@ def phase_track(dev) -> dict:
             out["paths"][f"track_{tracker}_run"] = launches
             out[tracker] = {"frames_per_s": TRACK_FRAMES / wall, "frame_ms": frame_ms,
                             "host_share": host, **speed, **held}
+            out["results"][tracker] = (got, want, held["held_frames"])
     bx, sc = predict_candidates(model, frames[:1], 640, (TRACK_CONF,))[TRACK_CONF]
     got, want = Impl()("K4", bx, sc, TRACK_CONF), suppress_plain(bx, sc, NMS_IOU, TRACK_CONF)
     if not torch.equal(got, want):
         raise AssertionError(f"K4 differs from plain on a tracked frame's candidates: "
                              f"{int((got != want).sum())} entries")
-    r = time_case(Impl(), "K4", bx, sc, TRACK_CONF)
-    plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, TRACK_CONF), iters=3, warmup=1)
+    with quiet_card():
+        r = time_case(Impl(), "K4", bx, sc, TRACK_CONF)
+        plain_ms = cuda_time(lambda: suppress_plain(bx, sc, NMS_IOU, TRACK_CONF), iters=3,
+                             warmup=1)
     bound = k4_bound(got)
     out["k4"] = {"B": 1, "K": int(sc.shape[1]), "ms": r["ms"], "device_ms": r["device_ms"],
                  "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
@@ -3523,6 +3838,520 @@ def cv2_seed(seed: int) -> None:
     import cv2
 
     cv2.setRNGSeed(seed)
+
+
+NATIVE_PIXEL_TOL = (2.0, 12)  # mean and p99 |native - cv2| grey levels (tests/test_native.py:91-92)
+EXPLORER_IMAGES, EXPLORER_IMGSZ, EXPLORER_BATCH = 40, 256, 16
+ANNOTATE_IMAGES = 16
+DOTA_SCENE, DOTA_LABELS, DOTA_CROP, DOTA_GAP = (3000, 4000), 20, 1024, 200
+
+
+def native_batch(model, imgs, dev):
+    """The flagship's forward and the port's NMS (conf 0.001, max_det 20) on
+    one native batch of BGR uint8 letterboxed images, as the predictor
+    feeds it: RGB, [0, 1], channels_last. Returns (det, cnt) on the host."""
+    import torch
+
+    from yolo_ad_refine_tpu_torch.ops.nms import non_max_suppression
+
+    x = torch.from_numpy(imgs).to(dev).flip(-1).permute(0, 3, 1, 2).float() / 255.0
+    with torch.inference_mode():
+        det, cnt, _ = non_max_suppression(model.model(x)[0], conf_thres=0.001, iou_thres=0.7,
+                                          max_det=20, nc=model.model.n_scores)
+    return det.cpu().numpy(), cnt.cpu().numpy()
+
+
+def native_serving(dev) -> dict:
+    """``LoadImagesNative(batch=32, imgsz=640, threads=8)`` over the folder
+    serving phase's 64 seeded JPEGs, each batch through the flagship's
+    forward and the port's NMS on the card, boxes mapped back through the
+    loader's meta. Held: K1 fwd 3 and K4 1 a batch; each image's pixels
+    against ``cv2.imread`` and the port's letterbox (mean and p99 within
+    NATIVE_PIXEL_TOL); each meta's ratio and pads against that letterbox's
+    within 1e-6; boxes finite and inside their images. Printed: images/s of
+    this path, of ``YOLO.predict(source=<folder>)`` and of the same images
+    as arrays, from one run each after a warm-up, and the decoder."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.augment import letterbox_np
+    from yolo_ad_refine_tpu_torch.data.loaders import LoadImagesNative
+    from yolo_ad_refine_tpu_torch.ops import native
+    from yolo_ad_refine_tpu_torch.ops.boxes import scale_boxes
+
+    t0 = time.perf_counter()
+    decoder = native.loader_decoder()
+    build_s = time.perf_counter() - t0
+    model = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        folder = serving_jpegs(Path(tmp) / "images")
+
+        def serve():
+            out = []
+            for paths, imgs, meta in LoadImagesNative(folder, imgsz=640, batch=32, threads=8):
+                det, cnt = native_batch(model, imgs, dev)
+                for j, path in enumerate(paths):
+                    h0, w0, r, dw, dh = (float(v) for v in meta[j])
+                    d = det[j, :cnt[j]].copy()
+                    d[:, :4] = scale_boxes((640, 640), torch.from_numpy(d[:, :4]),
+                                           (int(h0), int(w0)), ratio_pad=((r, r), (dw, dh))).numpy()
+                    out.append((path, imgs[j], meta[j], d))
+            return out
+
+        serve()  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        served = serve()
+        torch.cuda.synchronize()
+        rate = {"native loader": len(served) / (time.perf_counter() - t0)}
+        launches = {k: f.launches for k, f in counters.items()}
+        if len(served) != 64 or launches["dcn_forward"] != 6 or launches["nms_suppress"] != 2 or \
+                any(v for k, v in launches.items() if k not in ("dcn_forward", "nms_suppress")):
+            raise AssertionError(f"native serving: {len(served)} images, launches {launches}")
+        decoded = [cv2.imread(str(f)) for f in sorted(folder.glob("*.jpg"))]
+        worst = [0.0, 0.0, 0.0]  # mean, p99, meta
+        for (path, img, meta, d), ref in zip(served, decoded):
+            want, (r, _), (dw, dh) = letterbox_np(ref, (640, 640))
+            diff = np.abs(img.astype(int) - want.astype(int))
+            meta_err = max(abs(meta[2] - r), abs(meta[3] - dw), abs(meta[4] - dh))
+            worst = [max(worst[0], diff.mean()), max(worst[1], np.percentile(diff, 99)),
+                     max(worst[2], meta_err)]
+            h, w = ref.shape[:2]
+            if tuple(meta[:2]) != (h, w) or not (0 < len(d) <= 20 and np.isfinite(d).all()) or \
+                    (d[:, [0, 2]] < 0).any() or (d[:, [0, 2]] > w).any() or \
+                    (d[:, [1, 3]] < 0).any() or (d[:, [1, 3]] > h).any():
+                raise AssertionError(f"native serving: {path}: meta {meta}, {len(d)} boxes")
+        if worst[0] >= NATIVE_PIXEL_TOL[0] or worst[1] > NATIVE_PIXEL_TOL[1] or worst[2] > 1e-6:
+            raise AssertionError(f"native serving ({decoder}): pixels against cv2 mean "
+                                 f"{worst[0]:.3f} / p99 {worst[1]} (limits {NATIVE_PIXEL_TOL}), "
+                                 f"meta {worst[2]:.2e}")
+        opts = dict(batch=32, imgsz=640, conf=0.001, max_det=20)
+        model.predict(decoded[:32], **opts)  # warm-up of the predictor's path
+        for label, src in (("YOLO.predict(folder)", str(folder)), ("numpy arrays", decoded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.predict(source=src, **opts)
+            torch.cuda.synchronize()
+            rate[label] = 64 / (time.perf_counter() - t0)
+    log(f"native serving ({decoder} decode, loader built or loaded in {build_s:.1f} s): 64 JPEGs "
+        f"(8 shapes) at batch 32, 640, fp32: pixels against cv2.imread + letterbox worst mean "
+        f"{worst[0]:.3f} and p99 {worst[1]:.0f} grey levels (limits < {NATIVE_PIXEL_TOL[0]}, "
+        f"<= {NATIVE_PIXEL_TOL[1]}), meta {worst[2]:.2e} (tol 1e-6); launches {launches}")
+    log("native serving: images/s (host clock, one run each after a warm-up): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rate.items()))
+    return {"launches": launches, "rate": rate, "decoder": decoder, "pixels": worst}
+
+
+def track_region(results) -> list:
+    """A rectangle over the upper half of where the first frame's track
+    centres lie (their x span, from their top to their median y), so that
+    region counts and queue lengths are neither 0 nor all by placement."""
+    import numpy as np
+
+    d = results[0].boxes.data
+    cx, cy = (d[:, 0] + d[:, 2]) / 2, (d[:, 1] + d[:, 3]) / 2
+    x0, x1 = float(cx.min()) - 10, float(cx.max()) + 10
+    y0, y1 = float(cy.min()) - 10, float(np.median(cy))
+    return [(x0, y0), (x1, y0), (x1, y1), (x0, y1)]
+
+
+def solution_apps(names: dict, region: list) -> dict:
+    """The six apps over 1280x720 frames, and ObjectCounter twice: a
+    counting line down the middle and ``region``, which QueueManager
+    watches too."""
+    from yolo_ad_refine_tpu_torch import solutions
+
+    h, w = TRACK_SHAPE
+    return {"ObjectCounter": solutions.ObjectCounter([(w // 2, 0), (w // 2, h)], names=names),
+            "RegionCounter": solutions.ObjectCounter(region, names=names),
+            "Heatmap": solutions.Heatmap((h, w), decay=1.0),
+            "SpeedEstimator": solutions.SpeedEstimator(fps=30, pixels_per_meter=10),
+            "QueueManager": solutions.QueueManager(region, names=names),
+            "DistanceCalculator": solutions.DistanceCalculator(10.0),
+            "Analytics": solutions.Analytics("line", names=names)}
+
+
+def feed_apps(apps: dict, results: list) -> dict:
+    """Each frame's Results to each app; returns each app's ms a frame.
+    ``Analytics`` records its counts (``record``: the card's machine has no
+    matplotlib to render them); the distance of every pair is kept."""
+    names = list(apps)
+    ms = dict.fromkeys(names, 0.0)
+    apps["distances"] = []
+    for i, r in enumerate(results):
+        for name in names:
+            t0 = time.perf_counter()
+            if name == "Analytics":
+                apps[name].record(i, r)
+            elif name == "DistanceCalculator":
+                apps["distances"].append(apps[name].update(r))
+            else:
+                apps[name].update(r)
+            ms[name] += (time.perf_counter() - t0) * 1e3
+    return {k: v / max(len(results), 1) for k, v in ms.items()}
+
+
+def solutions_on_tracks(track: dict) -> dict:
+    """``phase_track``'s ByteTrack results on the card (48 frames of
+    1280x720) through ObjectCounter (a line, and a region over half the
+    tracks: ``track_region``), Heatmap, SpeedEstimator, QueueManager (the
+    region), DistanceCalculator and Analytics, each app's ms a frame
+    printed; then the frames the card and the CPU tracks held alike
+    (``hold_tracks``) through fresh apps on each side. Held equal: the
+    in / out totals and the per-class counts (they do not depend on track
+    numbering), the queue's count a frame, Analytics' totals and per-class
+    history; within the boxes' tolerance (TRACK_BOX_TOL px): the heat's sum
+    and mass (a box edge across an integer moves a row of pixels), the
+    sorted speeds and distances (ids may be renumbered). The seeded
+    detector's boxes sit at fixed anchors, so its tracks do not move (the
+    largest step is printed): the line counts nothing and the speeds are
+    0; the region counts, queue, heat and distances are what the hold
+    reads."""
+    import numpy as np
+
+    got, want, held = track["results"]["bytetrack"]
+    names = {0: "class0"}
+    region = track_region(got)
+    apps = solution_apps(names, region)
+    ms = feed_apps(apps, got)
+    card, cpu = solution_apps(names, region), solution_apps(names, region)
+    feed_apps(card, got[:held])
+    feed_apps(cpu, want[:held])
+    counts = {k: (card[k].summary(), cpu[k].summary()) for k in ("ObjectCounter", "RegionCounter")}
+    equal = {**{k: a == b for k, (a, b) in counts.items()},
+             "QueueManager": card["QueueManager"].history == cpu["QueueManager"].history,
+             "Analytics": (card["Analytics"].totals, card["Analytics"].classwise)
+             == (cpu["Analytics"].totals, cpu["Analytics"].classwise)}
+    heat, heat_cpu = card["Heatmap"].heat, cpu["Heatmap"].heat
+    heat_err = abs(float(heat.sum()) - float(heat_cpu.sum())) / max(float(heat_cpu.sum()), 1.0)
+    heat_px = float((heat != heat_cpu).mean())
+    sp, sp_cpu = (sorted(a["SpeedEstimator"].speeds.values()) for a in (card, cpu))
+    # a box within TRACK_BOX_TOL moves a centre's step by up to twice that
+    speed_tol = 2 * TRACK_BOX_TOL * 30 / 10 * 3.6
+    dist = sorted(d["pixels"] for d in card["distances"][-1].values()) if held else []
+    dist_cpu = sorted(d["pixels"] for d in cpu["distances"][-1].values()) if held else []
+    close = (len(sp) == len(sp_cpu) and np.allclose(sp, sp_cpu, atol=speed_tol, rtol=0)
+             and len(dist) == len(dist_cpu)
+             and np.allclose(dist, dist_cpu, atol=2 * TRACK_BOX_TOL, rtol=0))
+    centres = {}
+    for r in got:
+        for row in r.boxes.data:
+            centres.setdefault(int(row[4]), []).append(((row[0] + row[2]) / 2, (row[1] + row[3]) / 2))
+    step = max((float(np.abs(np.diff(np.asarray(c), axis=0)).max()) for c in centres.values()
+                if len(c) > 1), default=0.0)
+    region_counts = apps["RegionCounter"].summary()
+    log(f"solutions over {len(got)} ByteTrack frames of {TRACK_SHAPE[1]}x{TRACK_SHAPE[0]} "
+        f"({len(centres)} tracks, largest centre step {step:.3f} px): ms a frame "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; line in "
+        f"{apps['ObjectCounter'].in_count} out {apps['ObjectCounter'].out_count}, region in "
+        f"{region_counts['in']} out {region_counts['out']}, queue mean "
+        f"{np.mean(apps['QueueManager'].history):.2f}, {len(apps['SpeedEstimator'].speeds)} "
+        f"speeds (max {max(apps['SpeedEstimator'].speeds.values(), default=0.0):.3f} km/h), "
+        f"heat sum {float(apps['Heatmap'].heat.sum()):.0f}")
+    log(f"solutions card vs CPU over the {held} frames held alike: line {counts['ObjectCounter']}, "
+        f"region {counts['RegionCounter']}; queue / analytics equal {equal['QueueManager']} / "
+        f"{equal['Analytics']}; heat sum {heat_err:.2e} relative, {heat_px:.2e} of the pixels "
+        f"differ; {len(sp)} speeds, {len(dist)} distances within {speed_tol:.2f} km/h / "
+        f"{2 * TRACK_BOX_TOL} px: {close}")
+    if not held or not all(equal.values()) or not close or heat_err > 1e-2 or heat_px > 1e-2 \
+            or not region_counts["in"] + region_counts["out"]:
+        raise AssertionError(f"solutions: card and CPU apps disagree over {held} frames: "
+                             f"{equal}, speeds / distances {close}, heat {heat_err}, {heat_px}, "
+                             f"region {region_counts}")
+    return {"ms": ms, "held_frames": held, "counts": counts, "largest_step": step}
+
+
+def calibrate_for_embeddings(model, imgs) -> None:
+    """Make a seeded model's embeddings follow its images: BatchNorm's
+    running statistics from one train-mode forward over ``imgs`` (momentum
+    1, as a trained model's are calibrated to its data), then AYHead's
+    output biases zeroed. Seeded, the features shrink layer by layer under
+    uncalibrated statistics and the head's biases (box 1.0, class prior)
+    are the embedding: every similarity of the explorer's 40 images is 1 -
+    1.2e-7 (measured on the CPU), so an order would be rounding's."""
+    import torch
+
+    p = next(model.parameters())
+    x = torch.from_numpy(imgs).to(p.device).flip(-1).permute(0, 3, 1, 2).float() / 255.0
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(x.contiguous(memory_format=torch.channels_last))
+        head = model.model[model.head_idx]
+        head.cv2.bias.zero_()
+        head.cv3.bias.zero_()
+    model.eval()
+    for m, mom in zip(norms, momenta):
+        m.momentum = mom
+
+
+def explorer_embeddings(dev) -> dict:
+    """``Explorer.create_embeddings_table`` with the flagship at 256 over 40
+    seeded labelled images (the shapes set) at batch 16, so the last batch
+    is 8 images and 8 zero images, card against CPU, the model calibrated
+    by ``calibrate_for_embeddings`` on the card and copied to the CPU:
+    embeddings within 1e-4 of max |CPU|, ``get_similar(0)`` in the same
+    order (swaps allowed only between similarities within 1e-6 of each
+    other on the CPU), ``sql_query("WHERE labels LIKE '%0%'")`` with the
+    same rows; K1 fwd 3 a batch on the card."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data import check_det_dataset
+    from yolo_ad_refine_tpu_torch.data.explorer import Explorer
+    from yolo_ad_refine_tpu_torch.data.synthetic import make_shapes_dataset
+
+    model = YOLO(FLAGSHIP, device=dev, imgsz=EXPLORER_IMGSZ, seed=0).model
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_explorer_") as tmp:
+        data = check_det_dataset(make_shapes_dataset(Path(tmp) / "ds", n_train=EXPLORER_IMAGES,
+                                                     n_val=1, imgsz=EXPLORER_IMGSZ, seed=11))
+        kw = dict(img_path=data["train"], imgsz=EXPLORER_IMGSZ, batch=EXPLORER_BATCH)
+        card = Explorer(model=model, **kw)
+        calibrate_for_embeddings(model, np.stack([card.dataset.get_sample(j)["img"][..., ::-1]
+                                                  for j in range(EXPLORER_IMAGES)]))
+        cpu_model = copy.deepcopy(model).cpu()
+        card.create_embeddings_table()  # warm-up
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        emb = card.create_embeddings_table(force=True)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        cpu = Explorer(model=cpu_model, **kw)
+        t0 = time.perf_counter()
+        want = cpu.create_embeddings_table()
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(emb - want).max() / np.abs(want).max())
+        sims, sims_cpu = card.get_similar(0, limit=EXPLORER_IMAGES), \
+            cpu.get_similar(0, limit=EXPLORER_IMAGES)
+        ws = {r["idx"]: r["similarity"] for r in sims_cpu}
+        order_ok = all(ws[a["idx"]] >= ws[b["idx"]] - 1e-6 for a, b in zip(sims, sims[1:]))
+        swaps = sum(a["idx"] != b["idx"] for a, b in zip(sims, sims_cpu))
+        rows, rows_cpu = (e.sql_query("WHERE labels LIKE '%0%'") for e in (card, cpu))
+    batches = -(-EXPLORER_IMAGES // EXPLORER_BATCH)
+    spread = 1.0 - min(ws.values())
+    log(f"explorer: the flagship at {EXPLORER_IMGSZ}, {EXPLORER_IMAGES} images at batch "
+        f"{EXPLORER_BATCH} ({emb.shape[1]}-d): card {card_s * 1e3 / EXPLORER_IMAGES:.2f} ms an "
+        f"image, CPU {cpu_s * 1e3 / EXPLORER_IMAGES:.1f}; embeddings {err:.2e} of max |CPU| (tol "
+        f"1e-4); get_similar(0) order held ({swaps} places swapped between ties within 1e-6; "
+        f"similarities span 1 - {spread:.2e}); sql rows {len(rows)} equal "
+        f"{rows == rows_cpu}; launches {launches}")
+    if err > 1e-4 or not order_ok or rows != rows_cpu or not rows or \
+            launches["dcn_forward"] != 3 * batches or any(
+                v for k, v in launches.items() if k != "dcn_forward"):
+        raise AssertionError(f"explorer: card vs CPU {err}, order {order_ok}, sql "
+                             f"{len(rows)} / {len(rows_cpu)}, launches {launches}")
+    return {"launches": launches, "err": err, "ms_per_image": card_s * 1e3 / EXPLORER_IMAGES}
+
+
+def annotate_rows(model, folder: Path, out: Path, conf: float, counters) -> dict:
+    """``auto_annotate`` of ``folder`` with ``model`` into ``out``, then each
+    label file against ``model.predict`` of its image: box rows against the
+    boxes' (cls, xywhn), polygon rows against each mask's polygon over the
+    image's width and height, within 1e-3, in any order among rows that
+    match (seeded scores tie). Returns its launches, rows and the rows
+    found at another place."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.data.annotator import auto_annotate
+
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    auto_annotate(folder, model, out, conf=conf, imgsz=640)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    rows = moved = 0
+    for img in sorted(folder.glob("*.jpg")):
+        h, w = cv2.imread(str(img)).shape[:2]
+        r = model.predict(str(img), conf=conf, imgsz=640)[0]
+        if r.masks is not None:
+            want = [np.concatenate([[c], (np.asarray(p, np.float64) / [w, h]).ravel()])
+                    for c, p in zip(r.boxes.cls, r.masks.xy) if len(p) >= 3]
+        else:
+            want = list(np.concatenate([r.boxes.cls[:, None], r.boxes.xywhn], 1))
+        got = [np.asarray(line.split(), np.float64)
+               for line in (out / f"{img.stem}.txt").read_text().splitlines() if line.strip()]
+        free = list(range(len(want)))
+        for i, g in enumerate(got):  # rows whose scores tie may come in another order
+            j = next((j for j in free if len(want[j]) == len(g) and g[0] == want[j][0]
+                      and np.abs(g - want[j]).max() <= 1e-3), None)
+            if j is None:
+                near = min((np.abs(g - x).max() for x in want if len(x) == len(g)), default=None)
+                raise AssertionError(f"auto_annotate: {img.name} row {i} ({len(g)} values) "
+                                     f"matches none of its {len(want)} results within 1e-3 "
+                                     f"(nearest {near})")
+            free.remove(j)
+            moved += j != i
+        if len(got) != len(want):
+            raise AssertionError(f"auto_annotate: {img.name}: {len(got)} rows for {len(want)}")
+        rows += len(got)
+    return {"launches": launches, "rows": rows, "moved": moved, "seconds": seconds}
+
+
+def auto_annotate_phase(dev) -> dict:
+    """``auto_annotate`` over 16 seeded JPEGs of the serving shapes with the
+    flagship (box rows; class 0 in its cv3 at TRACK_PRIOR, conf 0.25) and
+    with yolo11n-seg (polygon rows; ``task_model``: class 0 at P5 at 0.3,
+    conf 0.25): each file's rows against its image's results within 1e-3
+    (normalised), K4 once an image, K1 fwd 3 an image for the flagship."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    flagship = YOLO(FLAGSHIP, device=dev, imgsz=640, seed=0)
+    with torch.no_grad():
+        flagship.model.model[flagship.model.head_idx].cv3.bias[0] = logit(TRACK_PRIOR)
+    seg = task_model("segment", dev)
+    counters = kernel_counters()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_annotate_") as tmp:
+        folder = serving_jpegs(Path(tmp) / "images", np.random.default_rng(13), ANNOTATE_IMAGES)
+        for label, model in (("flagship", flagship), ("seg", seg)):
+            model.predict(str(folder / "im00.jpg"), conf=0.25, imgsz=640)  # warm-up
+            res = annotate_rows(model, folder, Path(tmp) / label, 0.25, counters)
+            k1 = 3 * ANNOTATE_IMAGES if label == "flagship" else 0
+            if res["launches"]["nms_suppress"] != ANNOTATE_IMAGES or \
+                    res["launches"]["dcn_forward"] != k1 or not res["rows"]:
+                raise AssertionError(f"auto_annotate ({label}): {res}")
+            log(f"auto_annotate ({label}): {ANNOTATE_IMAGES} images in {res['seconds']:.2f} s, "
+                f"{res['rows']} {'polygon' if label == 'seg' else 'box'} rows equal to the "
+                f"results within 1e-3 ({res['moved']} at another place); launches "
+                f"{res['launches']}")
+            out[label] = res
+    return out
+
+
+def dota_scene(root: Path) -> None:
+    """One seeded 4000 x 3000 scene in the DOTA layout (images/train,
+    labels/train) with DOTA_LABELS rotated boxes of 20-150 px, normalised
+    corners, classes of DOTA's 15."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    h, w = DOTA_SCENE
+    (root / "images" / "train").mkdir(parents=True)
+    (root / "labels" / "train").mkdir(parents=True)
+    base = cv2.resize(rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8), (w, h))
+    rows = []
+    for _ in range(DOTA_LABELS):
+        cx, cy = rng.uniform(100, w - 100), rng.uniform(100, h - 100)
+        bw, bh, a = rng.uniform(20, 150), rng.uniform(20, 100), rng.uniform(0, np.pi)
+        c, s = np.cos(a), np.sin(a)
+        pts = np.array([[-bw, -bh], [bw, -bh], [bw, bh], [-bw, bh]]) / 2 @ [[c, s], [-s, c]]
+        pts += [cx, cy]
+        cv2.fillPoly(base, [pts.astype(np.int32)], tuple(int(v) for v in rng.integers(0, 256, 3)))
+        rows.append(f"{int(rng.integers(0, 15))} "
+                    + " ".join(f"{v:.6g}" for v in (pts / [w, h]).ravel()))
+    cv2.imwrite(str(root / "images" / "train" / "scene.jpg"), base)
+    (root / "labels" / "train" / "scene.txt").write_text("\n".join(rows) + "\n")
+
+
+def dota_tiles(dev) -> dict:
+    """``split_images_and_labels`` of one seeded 4000 x 3000 scene with 20
+    rotated labels at crop 1024, gap 200 (20 windows), then the tiles
+    served by yolo11n-obb at 1024, batch 16. Held: every kept label's
+    intersection over foreground with its window (recomputed from the
+    tile's file) at least the split's 0.7, and every label that lies wholly
+    inside a window written into that tile; K5 once a batch; the rotated
+    detections finite."""
+    import numpy as np
+    import torch
+
+    from yolo_ad_refine_tpu_torch.data import split_dota
+
+    model = obb_model(dev)
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dota_") as tmp:
+        root = Path(tmp)
+        dota_scene(root / "dota")
+        t0 = time.perf_counter()
+        split_dota.split_images_and_labels(root / "dota", root / "tiles", "train",
+                                           crop_sizes=(DOTA_CROP,), gaps=(DOTA_GAP,))
+        split_s = time.perf_counter() - t0
+        h, w = DOTA_SCENE
+        windows = split_dota.get_windows((h, w), (DOTA_CROP,), (DOTA_GAP,))
+        labels = np.loadtxt(root / "dota" / "labels" / "train" / "scene.txt", ndmin=2)
+        corners = labels[:, 1:].reshape(-1, 4, 2) * [w, h]
+        tiles = sorted((root / "tiles" / "images" / "train").glob("*.jpg"))
+        kept = inside = 0
+        for x0, y0, x1, y1 in windows:
+            stem = f"scene__{DOTA_CROP}__{x0}___{y0}"
+            text = (root / "tiles" / "labels" / "train" / f"{stem}.txt").read_text()
+            rows = np.array([r.split() for r in text.splitlines() if r.strip()],
+                            np.float64).reshape(-1, 9)
+            kept += len(rows)
+            if len(rows):
+                iof = split_dota.bbox_iof(rows[:, 1:] * DOTA_CROP,
+                                          np.array([[0, 0, DOTA_CROP, DOTA_CROP]], np.float64))
+                if (iof < 0.7).any():
+                    raise AssertionError(f"dota tiles: {stem} keeps a label at iof {iof.min()}")
+            for i, c in enumerate(corners):
+                if (c >= [x0, y0]).all() and (c <= [x1, y1]).all():
+                    inside += 1
+                    tile = (c - [x0, y0]) / DOTA_CROP
+                    if not any(r[0] == labels[i, 0] and np.abs(r[1:] - tile.ravel()).max() < 1e-4
+                               for r in rows):
+                        raise AssertionError(f"dota tiles: label {i} inside {stem} is missing")
+        if len(tiles) != len(windows) or not inside:
+            raise AssertionError(f"dota tiles: {len(tiles)} tiles for {len(windows)} windows")
+        model.predict([np.zeros((DOTA_CROP, DOTA_CROP, 3), np.uint8)] * 16, batch=16,
+                      imgsz=OBB_IMGSZ, conf=0.001)  # warm-up
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        results = model.predict(source=str(tiles[0].parent), batch=16, imgsz=OBB_IMGSZ,
+                                conf=0.001)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+    batches = -(-len(tiles) // 16)
+    if len(results) != len(tiles) or launches["nms_rotated"] != batches or \
+            any(v for k, v in launches.items() if k != "nms_rotated") or \
+            not all(len(r.obb) and np.isfinite(r.obb.data).all() for r in results):
+        raise AssertionError(f"dota tiles: {len(results)} results, launches {launches}")
+    log(f"dota tiles: {w}x{h} scene, {DOTA_LABELS} labels, split at crop {DOTA_CROP} gap "
+        f"{DOTA_GAP} into {len(tiles)} tiles in {split_s:.2f} s, {kept} labels kept (each iof >= "
+        f"0.7, every one of {inside} wholly inside a window written there); served at batch 16, "
+        f"{OBB_IMGSZ}: {len(tiles) / serve_s:.1f} tiles/s, "
+        f"{np.mean([len(r.obb) for r in results]):.1f} rotated rows a tile; launches {launches}")
+    return {"launches": launches, "tiles": len(tiles), "kept": kept}
+
+
+def phase_periphery(dev, track: dict) -> dict:
+    """The periphery's paths on the card (after ``phase_track``, whose
+    ByteTrack rows the solutions read): native-loader serving, the solution
+    apps, the explorer's embeddings, ``auto_annotate`` and the DOTA tiles.
+    Returns {"paths": {path: launches}, ...}."""
+    native = native_serving(dev)
+    apps = solutions_on_tracks(track)
+    explorer = explorer_embeddings(dev)
+    annotate = auto_annotate_phase(dev)
+    dota = dota_tiles(dev)
+    return {"paths": {"native_serving_run": native["launches"],
+                      "explorer_run": explorer["launches"],
+                      "auto_annotate_flagship_run": annotate["flagship"]["launches"],
+                      "auto_annotate_seg_run": annotate["seg"]["launches"],
+                      "dota_tiles_run": dota["launches"]},
+            "native": native, "solutions": apps}
 
 
 def phase_classify(dev) -> dict:
@@ -3886,6 +4715,21 @@ def phase_serving_variant(dev, impl: str):
     return launches
 
 
+def serving_jpegs(folder: Path, rng=None, n: int = 64) -> Path:
+    """n seeded JPEGs of the serving shapes (seeded noise, cv2's quality 95)
+    in ``folder``, drawn from ``rng`` (default: the folder-serving phase's
+    generator, seed 7)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(7) if rng is None else rng
+    folder.mkdir(parents=True)
+    for i in range(n):
+        h, w = SERVING_SHAPES[i % len(SERVING_SHAPES)]
+        cv2.imwrite(str(folder / f"im{i:02d}.jpg"), rng.integers(0, 256, (h, w, 3), np.uint8))
+    return folder
+
+
 def phase_folder_serving(dev):
     """The flagship served from a directory and a video file, the way its
     users serve image folders and camera recordings: 64 seeded JPEGs of the
@@ -3909,11 +4753,7 @@ def phase_folder_serving(dev):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_folder_") as tmp:
         root = Path(tmp)
         rng = np.random.default_rng(7)
-        folder = root / "images"
-        folder.mkdir()
-        for i in range(64):
-            h, w = SERVING_SHAPES[i % len(SERVING_SHAPES)]
-            cv2.imwrite(str(folder / f"im{i:02d}.jpg"), rng.integers(0, 256, (h, w, 3), np.uint8))
+        folder = serving_jpegs(root / "images", rng)
         video = root / "clip.avi"
         vw = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"MJPG"), 24, (1280, 720))
         for _ in range(24):
@@ -4695,8 +5535,9 @@ def phase_cli() -> dict:
     """The ``yat-torch`` command line in subprocesses (``python -m
     yolo_ad_refine_tpu_torch``), on the card by default: ``detect train``
     of the flagship at scale n, imgsz 640, batch 16 for 1 epoch (4 steps
-    and the EMA validation) on the training phase's shapes set, ``val`` and
-    ``predict`` (8 images, ``save_txt``) on its ``best``, and ``checks``.
+    and the EMA validation) on the training phase's shapes set, then side
+    by side ``val`` and ``predict`` (8 images, ``save_txt``) on its
+    ``best``, and ``checks``.
     Held: results.csv's row and finite losses, ``weights/best``, the val
     metrics, an image and a label file for each predicted image, and the
     card and the five built kernels in ``checks``. Printed: each command's
@@ -4725,26 +5566,33 @@ def phase_cli() -> dict:
         log(f"cli train: 1 epoch of 4 steps at batch 16, imgsz 640, with its validation in "
             f"{epoch_s:.2f} s (results.csv), {epoch_s / 4 * 1e3:.0f} ms per step over that "
             f"epoch; losses box {losses[0]:.4f} cls {losses[1]:.4f} dfl {losses[2]:.4f}")
-        out = run_cli("detect", "val", f"model={best}", f"data={data}", "imgsz=640", "batch=16")
-        if "'metrics/mAP50(B)'" not in out:
-            raise AssertionError(f"CLI val printed no metrics:\n{out[-2000:]}")
         src = tmp / "images"
         src.mkdir()
         rng = np.random.default_rng(5)
         for i, (h, w) in enumerate(SERVING_SHAPES[:8]):
             cv2.imwrite(str(src / f"im{i}.jpg"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
-        run_cli("detect", "predict", f"model={best}", f"source={src}", "imgsz=640", "conf=0.001",
-                "save_txt=True", f"project={tmp / 'pred'}")
+        # val, predict and checks are light on the card: they run side by side
+        with ThreadPoolExecutor(3) as pool:
+            val = pool.submit(run_cli, "detect", "val", f"model={best}", f"data={data}",
+                              "imgsz=640", "batch=16")
+            predict = pool.submit(run_cli, "detect", "predict", f"model={best}", f"source={src}",
+                                  "imgsz=640", "conf=0.001", "save_txt=True",
+                                  f"project={tmp / 'pred'}")
+            checks = pool.submit(run_cli, "checks")
+            out, _, checks_out = val.result(), predict.result(), checks.result()
+        if "'metrics/mAP50(B)'" not in out:
+            raise AssertionError(f"CLI val printed no metrics:\n{out[-2000:]}")
         pred = tmp / "pred" / "predict"
         saved = sorted(p.name for p in pred.glob("*.jpg"))
         labels = sorted(p.stem for p in (pred / "labels").glob("*.txt"))
         if saved != [f"im{i}.jpg" for i in range(8)] or labels != [f"im{i}" for i in range(8)]:
             raise AssertionError(f"CLI predict saved {saved} and labels {labels}")
-        out = run_cli("checks")
-        built = [ln for ln in out.splitlines() if ln.startswith("kernel") and ": built" in ln]
-        card = [ln for ln in out.splitlines() if ln.startswith("cuda:0")]
+        built = [ln for ln in checks_out.splitlines()
+                 if ln.startswith("kernel") and ": built" in ln]
+        card = [ln for ln in checks_out.splitlines() if ln.startswith("cuda:0")]
         if len(built) != 5 or not card or "H100" not in card[0]:
-            raise AssertionError(f"CLI checks did not report the card and 5 built kernels:\n{out}")
+            raise AssertionError(f"CLI checks did not report the card and 5 built kernels:\n"
+                                 f"{checks_out}")
         log(f"cli checks: {card[0].strip()}; {len(built)} kernels built")
     return {"train_s": train_s, "epoch_s": epoch_s}
 
@@ -4967,11 +5815,28 @@ def phase_parallel(dev, one_process_ms: float) -> dict:
     return {"paths": paths, "steps": steps, "ms": ms, "seconds": seconds}
 
 
-def timed(phase, *args):
-    """``phase(*args)``, its seconds logged."""
-    t0 = time.perf_counter()
-    out = phase(*args)
-    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+def log_ptxas(report: dict) -> None:
+    """The register and spill lines of each kernel build's ptxas report."""
+    for name, r in report.items():
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def timed(phase, *args, **kw):
+    """``phase(*args, **kw)``, its seconds logged beside the host CPU seconds
+    that it and its child processes took (a phase that needs many CPU
+    seconds a second slows most where the card's host is shared); then the
+    allocator's cache emptied, and a failed second half raised."""
+    import torch
+
+    t0, c0 = time.perf_counter(), os.times()
+    out = phase(*args, **kw)
+    c1 = os.times()
+    cpu = sum(b - a for a, b in zip(c0[:4], c1[:4]))
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s (host CPU {cpu:.1f} s)")
+    torch.cuda.empty_cache()  # the two halves share the card's memory
+    check_second_half()
     return out
 
 
@@ -4995,45 +5860,58 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"Python {sys.version.split()[0]}")
+    start_second_half()
 
+    # deform_window.cu takes nvcc the longest: it builds on beside the K1 phases, which
+    # need only the others
     t0 = time.perf_counter()
-    report = kernels.build("deform_conv", "deform_window", "gather", "lap", "nms")
+    builder = ThreadPoolExecutor(1)
+    window = builder.submit(kernels.build, "deform_window")
+    report = kernels.build("deform_conv", "gather", "lap", "nms")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (parallel nvcc): "
-        + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
-    for name, r in report.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items())
+        + "; deform_window builds on beside phase_k1 and phase_k1_bwd")
+    log_ptxas(report)
 
     gen = torch.Generator().manual_seed(0)
     with dcn_env(None):  # each phase sets the DCN variant it drives
-        k1 = phase_k1(dev, gen)
-        k1b = phase_k1_bwd(dev, gen)
-        k1_wide = phase_k1_wide(dev, gen)
-        k4 = phase_k4(dev, gen)
-        bounded = {impl: phase_bounded(dev, gen, impl) for impl in BOUNDED}
-        gather, gather_run = phase_gather(dev)
-        paths = {"gather_probe_run": gather_run, "serving_run": phase_serving(dev)}
-        paths["folder_serving_run"], folder_rates = phase_folder_serving(dev)
+        # the kernels' own phases, with the card to themselves
+        k1 = timed(phase_k1, dev, gen)
+        k1b = timed(phase_k1_bwd, dev, gen)
+        t1 = time.perf_counter()
+        window_report = window.result()
+        builder.shutdown()
+        log(f"deform_window built {time.perf_counter() - t0:.1f} s after the build began "
+            + (f"(nvcc {window_report['deform_window']['seconds']:.1f} s), "
+               if window_report else "(already built), ")
+            + f"waited for {time.perf_counter() - t1:.1f} s")
+        log_ptxas(window_report)
+        k1_wide = timed(phase_k1_wide, dev, gen)
+        k4 = timed(phase_k4, dev, gen)
+        bounded = {impl: timed(phase_bounded, dev, gen, impl) for impl in BOUNDED}
+        gather, gather_run = timed(phase_gather, dev)
+        obb = timed(obb_model, dev)
+        k5 = timed(phase_k5, dev, gen, obb)
+        # then the paths, in two halves side by side: this process's, and second_half's;
+        # the CPU-reference worker starts only now, so the kernels' times above are
+        # taken with the host's cores to themselves
+        start_cpu_references()
+        tell_second_half("go")
+        paths = {"gather_probe_run": gather_run, "serving_run": timed(phase_serving, dev)}
+        paths["folder_serving_run"], folder_rates = timed(phase_folder_serving, dev)
         for impl in ("mxu", "pallas", "mxu2"):
-            paths[f"serving_{impl}_run"] = phase_serving_variant(dev, impl)
+            paths[f"serving_{impl}_run"] = timed(phase_serving_variant, dev, impl)
         for impl in (None, "mxu", "pallas"):
             tag = "" if impl is None else f"_{impl}"
-            run, step, extra, ms = phase_training(dev, impl)
+            run, step, extra, ms = timed(phase_training, dev, impl)
             paths.update({f"training{tag}_run": run, f"training{tag}_step": step, **extra})
             if impl is None:
-                one_process_ms = ms
-        run, step, _, _ = phase_training(dev, None, FLAGSHIP_X)
+                tell_second_half(repr(ms))  # phase_parallel's one-process step
+        run, step, _, _ = timed(phase_training, dev, None, FLAGSHIP_X)
         paths.update({"training_x_run": run, "training_x_step": step})
-        parallel = timed(phase_parallel, dev, one_process_ms)
-        paths.update(parallel["paths"])
-        phase_step_card_vs_cpu(dev, parallel["steps"])
-        paths.update(phase_training_options(dev)["paths"])
-        obb = obb_model(dev)
-        k5 = phase_k5(dev, gen, obb)
-        paths["obb_serving_run"] = phase_obb_serving(obb, dev)
-        paths["obb_val_run"] = phase_obb_val(obb, dev)
-        obb_training = phase_obb_training(dev)
+        paths["obb_serving_run"] = timed(phase_obb_serving, obb, dev)
+        paths["obb_val_run"] = timed(phase_obb_val, obb, dev)
+        obb_training = timed(phase_obb_training, dev)
         paths["obb_training_run"] = obb_training["obb_training_run"]
         paths.update(timed(phase_segment, dev)["paths"])
         paths.update(timed(phase_pose, dev)["paths"])
@@ -5041,18 +5919,16 @@ def main() -> int:
         paths.update(timed(phase_v10, dev)["paths"])
         world = timed(phase_world, dev)
         paths.update(world["paths"])
+        paths.update(timed(phase_zoo, dev)["paths"])
         rtdetr = timed(phase_rtdetr, dev)
         paths.update(rtdetr["paths"])
-        paths.update(timed(phase_zoo, dev)["paths"])
         track = timed(phase_track, dev)
         paths.update(track["paths"])
-        paths.update(timed(phase_module_library, dev)["paths"])
+        paths.update(timed(phase_periphery, dev, track)["paths"])
         sam = timed(phase_sam, dev)
         paths.update(sam["paths"])
-        paths.update(phase_export(dev)["paths"])
-        timed(phase_cli)
-        paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
         timed(phase_benchmark, dev)
+        paths.update(join_second_half()["paths"])
 
     def entry(name, source, replaces, measured, main_path, **extra):
         # launches: the count of the kernel's own main path, each path's beside it
@@ -5121,5 +5997,46 @@ def main() -> int:
     return 0
 
 
+def second_half(result: str) -> int:
+    """The phases that run beside the first half's, in a process of their own
+    (``start_second_half``): the module library, export, the command line,
+    tune, the training options, the two ranks and the card vs CPU step.
+    It sets up, waits for ``go`` on its standard input, later reads there
+    the one-process step's ms for ``phase_parallel``, and writes {"paths":
+    {path: launches}} to ``result``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    torch.zeros(1, device=dev)  # the context, while the first half builds the kernels
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    paths = {}
+    with dcn_env(None):
+        paths.update(timed(phase_module_library, dev)["paths"])
+        paths.update(timed(phase_export, dev)["paths"])
+        timed(phase_cli)
+        paths["tune_run"] = timed(phase_tune, dev)["tune_run"]
+        paths.update(timed(phase_training_options, dev)["paths"])
+        parallel = timed(phase_parallel, dev, float(sys.stdin.readline()))
+        paths.update(parallel["paths"])
+        timed(phase_step_card_vs_cpu, dev, parallel["steps"])
+    with open(result, "wb") as f:
+        pickle.dump({"paths": paths}, f)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--second-half"]:
+        sys.exit(second_half(sys.argv[2]))
+    if sys.argv[1:2] == ["--cpu-references"]:
+        sys.exit(cpu_references(sys.argv[2]))
+    try:
+        code = main()
+    finally:
+        stop_second_half()
+        stop_cpu_references()
+    sys.exit(code)

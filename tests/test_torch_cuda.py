@@ -1222,3 +1222,76 @@ def test_fastsam_and_nas_launch_k4(dev):
     want = nas_postprocess(boxes, scores, device="cpu")
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=0)
+
+
+def _jpegs(root, shapes=((97, 143), (200, 100), (64, 64), (720, 1280))):
+    import cv2
+
+    r = np.random.default_rng(0)
+    paths = []
+    for i, (h, w) in enumerate(shapes):
+        img = cv2.GaussianBlur(r.integers(0, 255, (h, w, 3), np.uint8), (7, 7), 3)
+        paths.append(root / f"im{i}.jpg")
+        cv2.imwrite(str(paths[-1]), img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    return paths
+
+
+def test_native_loader_on_the_card_machine_matches_cv2(dev, tmp_path):
+    """The native loader as this machine builds it (libjpeg, or nvJPEG
+    where libjpeg is missing) against cv2.imread and the port's letterbox:
+    mean |diff| < 2 and p99 <= 12 grey levels, ratio and pads within 1e-6
+    (the JAX test's limits); an unreadable file is skipped."""
+    import cv2
+
+    from yolo_ad_refine_tpu_torch.data.augment import letterbox_np
+    from yolo_ad_refine_tpu_torch.ops import native
+
+    paths = _jpegs(tmp_path)
+    (tmp_path / "bad.jpg").write_bytes(b"broken")
+    files = [paths[0], tmp_path / "bad.jpg", *paths[1:]]
+    loader = native.NativeBatchLoader(files, imgsz=96, batch=3, threads=3)
+    batches = list(loader)
+    loader.close()
+    imgs = np.concatenate([b[0] for b in batches])
+    meta = np.concatenate([b[1] for b in batches])
+    assert len(imgs) == len(paths) and native.loader_decoder() in ("libjpeg", "nvJPEG")
+    for p, img, m in zip(paths, imgs, meta):
+        ref = cv2.imread(str(p))
+        want, (r, _), (dw, dh) = letterbox_np(ref, (96, 96))
+        assert m[:2].tolist() == list(ref.shape[:2])
+        assert abs(m[2] - r) < 1e-6 and abs(m[3] - dw) < 1e-6 and abs(m[4] - dh) < 1e-6
+        diff = np.abs(img.astype(int) - want.astype(int))
+        assert diff.mean() < 2.0 and np.percentile(diff, 99) <= 12, (p.name, diff.mean())
+
+
+def test_explorer_card_matches_cpu(dev, tmp_path):
+    """Explorer embeddings of 6 images at batch 4 (the last batch padded)
+    from a model with a C3k2_MLCA row, card vs CPU: within 1e-4 of max |CPU|,
+    and the same get_similar order (up to swaps of similarities within 1e-5)."""
+    import copy
+
+    from yolo_ad_refine_tpu_torch.data.explorer import Explorer
+    from yolo_ad_refine_tpu_torch.models.model import build_detection_model
+
+    tiny = {"nc": 2, "backbone": [[-1, 1, "Conv", [8, 3, 2]], [-1, 1, "Conv", [16, 3, 2]],
+                                  [-1, 1, "C3k2_MLCA", [16, False]], [-1, 1, "Conv", [32, 3, 2]],
+                                  [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "Conv", [32, 3, 2]]],
+            "head": [[[3, 4, 5], 1, "Detect", ["nc"]]]}
+    (tmp_path / "images").mkdir()
+    _jpegs(tmp_path / "images", [(64, 64), (80, 60), (64, 96), (50, 70), (64, 64), (90, 40)])
+    cpu = build_detection_model(tiny, device="cpu", imgsz=64)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # weights that tell the images apart: N(0, 1/fan_in), biases N(0, 0.2)
+        for p in cpu.parameters():
+            std = 1 / math.sqrt(p[0].numel()) if p.ndim > 1 else 0.2
+            p.copy_(torch.randn(p.shape, generator=g) * std)
+    card = copy.deepcopy(cpu).to(dev)
+    embs, sims = [], []
+    for m in (cpu, card):
+        ex = Explorer(img_path=tmp_path / "images", model=m, imgsz=64, batch=4)
+        embs.append(ex.create_embeddings_table())
+        sims.append(ex.get_similar(0, limit=6))
+    assert np.abs(embs[1] - embs[0]).max() <= 1e-4 * np.abs(embs[0]).max()
+    want = {r["idx"]: r["similarity"] for r in sims[0]}
+    assert [r["idx"] for r in sims[1]] == [r["idx"] for r in sims[0]] or all(
+        want[a["idx"]] >= want[b["idx"]] - 1e-5 for a, b in zip(sims[1], sims[1][1:]))

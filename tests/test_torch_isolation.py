@@ -41,8 +41,8 @@ print(" ".join(names))
 # the train slice's, the bounded-DCN slice's, the training options', the OBB
 # training and export slice's, the CLI / tune / benchmark / data-parallel
 # slice's, the classify / YOLOv10 / YOLO-World slice's, the RT-DETR / ATSS
-# slice's, the zoo / tracking slice's, the module library's and the SAM
-# family's modules, each imported under the blocker above
+# slice's, the zoo / tracking slice's, the module library's, the SAM
+# family's and the periphery's modules, each imported under the blocker above
 TRAIN_SLICE_MODULES = (
     "__main__", "cfg.cli", "cfg.config", "data.augment", "data.build", "data.dataset",
     "data.synthetic", "engine.checkpoint", "engine.exporter", "engine.track", "engine.tuner",
@@ -56,6 +56,11 @@ TRAIN_SLICE_MODULES = (
     "trackers.bot_sort", "trackers.byte_tracker", "trackers.gmc", "trackers.kalman",
     "utils.autobatch", "utils.benchmarks", "utils.callbacks", "utils.checks", "utils.metrics",
     "utils.plotting", "utils.settings", "utils.text", "utils.triton",
+    "data.annotator", "data.converter", "data.explorer", "data.loaders", "data.split_dota",
+    "hub", "ops.native", "solutions", "solutions.ai_gym", "solutions.analytics",
+    "solutions.base", "solutions.distance_calculator", "solutions.heatmap",
+    "solutions.inference_app", "solutions.object_counter", "solutions.parking_manager",
+    "solutions.queue_manager", "solutions.speed_estimator",
 )
 
 
@@ -67,6 +72,23 @@ def test_port_imports_nothing_of_jax():
     assert len(names) >= 40  # every module was imported
     missing = [m for m in TRAIN_SLICE_MODULES if f"yolo_ad_refine_tpu_torch.{m}" not in names]
     assert not missing, missing
+
+
+def test_importing_native_builds_nothing():
+    """``ops/native.py`` compiles at first use, never at import: importing
+    it, the loaders that use it and the CLI starts no compiler and loads no
+    library."""
+    code = ("import subprocess, torch\n"
+            "def refuse(*a, **k):\n    raise AssertionError(f'a process at import: {a}')\n"
+            "subprocess.run = subprocess.Popen = refuse\n"
+            "import yolo_ad_refine_tpu_torch.ops.native as native\n"
+            "import yolo_ad_refine_tpu_torch.data.loaders, yolo_ad_refine_tpu_torch.cfg.cli\n"
+            "import yolo_ad_refine_tpu_torch.ops, yolo_ad_refine_tpu_torch.solutions\n"
+            "print(len(native._libs))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0"]
 
 
 def test_default_cfg_is_a_byte_identical_copy():

@@ -12,8 +12,8 @@
   (the two frameworks sum the convolutions in other orders; the images are
   at imgsz, so both letterboxes copy them unchanged).
 - The port's own surface: a video's frames saved one file a frame, a mixed
-  list of sources, ``vid_stride`` passed to the loader, a stream read to
-  its end, and ``LoadImagesNative`` raising.
+  list of sources, ``vid_stride`` passed to the loader, and a stream read
+  to its end (``LoadImagesNative`` is held in ``test_torch_native.py``).
 
 Everything is written under pytest's tmp_path.
 """
@@ -246,11 +246,6 @@ def test_stream_sources_dispatch(monkeypatch):
     for s in ("0", "rtsp://cam/1", "http://cam/2.mjpg"):
         assert list(iter_sources(s, 2)) == []
     assert opened == [("0", 2), ("rtsp://cam/1", 2), ("http://cam/2.mjpg", 2)]
-
-
-def test_native_loader_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        loaders.LoadImagesNative("x", 64)
 
 
 def test_predict_without_save_writes_nothing(tiny, media, tmp_path):

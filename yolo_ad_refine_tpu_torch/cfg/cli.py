@@ -51,7 +51,8 @@ def parse_kv(args: list[str]) -> dict:
 
 def checks() -> None:
     """The environment report: Python, torch, CUDA, the card's name and
-    power limit, nvcc, and the build state of the hand-written kernels."""
+    power limit, nvcc, the build state of the hand-written kernels, and
+    whether the native host ops and JPEG loader build (g++, libjpeg)."""
     import platform
     import subprocess
 
@@ -82,6 +83,17 @@ def checks() -> None:
     for name in kernels.EXTRA_FLAGS:
         lib = kernels.library_path(name)
         print(f"kernel   {name}: {'built' if lib.exists() else 'not built'} ({lib})")
+    from yolo_ad_refine_tpu_torch.ops import native
+
+    try:
+        native.get_lib()
+        print("native ops    ok")
+    except RuntimeError as e:  # the build's cause and the compiler's log
+        print(f"native ops    unavailable: {e}")
+    try:
+        print(f"native loader ok ({native.loader_decoder()})")
+    except RuntimeError as e:
+        print(f"native loader unavailable: {e}")
 
 
 def entrypoint(argv: list[str] | None = None) -> int:

@@ -164,3 +164,10 @@ class DataLoader:
                     q.get_nowait()
                 except queue.Empty:
                     t.join(timeout=0.05)
+
+
+def build_dataloader(dataset, batch_size: int = 16, shuffle: bool = True, seed: int = 0,
+                     workers: int | None = None, max_boxes: int | None = None) -> DataLoader:
+    """A ``DataLoader`` over ``dataset`` (reference data/build.py:127)."""
+    return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle, seed=seed,
+                      workers=workers, max_boxes=max_boxes)

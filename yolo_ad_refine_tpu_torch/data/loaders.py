@@ -3,8 +3,8 @@
 Counterpart of ``yolo_ad_refine_tpu/data/loaders.py:20-117`` (reference
 data/loaders.py:33-523 and build.py:148): every loader yields (path, BGR
 frame, metadata) on the host, with metadata {"frame": n, "video": bool}.
-``LoadImagesNative``, the JAX package's threaded C++ JPEG loader, is not
-ported: it raises.
+``LoadImagesNative`` (JAX ``data/loaders.py:120``) yields letterboxed
+batches decoded by the threaded C++ JPEG loader (``ops/native.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import cv2
 import numpy as np
 
 from yolo_ad_refine_tpu_torch.data.dataset import IMG_FORMATS
-from yolo_ad_refine_tpu_torch.utils import LOGGER, not_ported
+from yolo_ad_refine_tpu_torch.utils import LOGGER
 
 VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}
 STREAM_PREFIXES = ("rtsp://", "rtmp://", "http://", "https://", "tcp://")
@@ -132,10 +132,30 @@ def load_inference_source(source, vid_stride: int = 1):
 
 
 class LoadImagesNative:
-    """The JAX package's threaded C++ JPEG decode and letterbox
-    (``csrc/yat_loader.cpp``), not ported: it needs libjpeg on the card's
-    machine."""
+    """GIL-free threaded JPEG decode + letterbox batches
+    (``csrc/yat_loader.cpp`` through ``ops/native.py``).
 
-    def __init__(self, *args, **kwargs):
-        not_ported("LoadImagesNative (the C++ JPEG loader, csrc/yat_loader.cpp)",
-                   "ROADMAP Queue 1 item 15")
+    The high-throughput path for directory-scale inference where the
+    original frames are not needed pixel by pixel (benchmarks, validation-
+    style sweeps): yields (paths, imgs (b, s, s, 3) BGR uint8, meta (b, 5)
+    [h0, w0, ratio, dw, dh]), from which boxes map back to the original
+    pixels. ``source`` is a directory (its .jpg / .jpeg files, sorted) or
+    one file. A file libjpeg cannot decode is skipped, and each batch's
+    paths name its decoded files (the JAX loader's shift by one after a
+    skipped file). Building the loader raises when it cannot be built.
+    """
+
+    def __init__(self, source, imgsz: int, batch: int = 16, threads: int = 4):
+        from yolo_ad_refine_tpu_torch.ops.native import NativeBatchLoader
+
+        p = Path(source)
+        if p.is_dir():
+            self.paths = sorted(q for q in p.iterdir() if q.suffix.lower() in (".jpg", ".jpeg"))
+        else:
+            self.paths = [p]
+        self._inner = NativeBatchLoader(self.paths, imgsz, batch, threads)
+
+    def __iter__(self):
+        for imgs, meta in self._inner:
+            yield [self.paths[i] for i in self._inner.indices], imgs, meta
+        self._inner.close()

@@ -13,6 +13,7 @@ WorldDetect scores against the original embeddings.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -113,38 +114,54 @@ class DetectionModel(nn.Module):
         """Yaml rows that are ConvTranspose2d: their weights are (I, O, kh, kw)."""
         return tuple(s.i for s in self.specs if isinstance(s.module, nn.ConvTranspose2d))
 
-    def forward(self, x, text_feats=None, dn: dict | None = None):
-        input_h = x.shape[2]
+    def _text_stream(self, x, text_feats):
+        """(the text embeddings on ``x``'s device, the running text stream
+        batched (B, nc, embed)), both None for a graph without text."""
         if text_feats is None:
             text_feats = self.text_feats
-        txt = None  # the running text stream, batched (B, nc, embed)
-        if text_feats is not None:
-            text_feats = torch.as_tensor(text_feats, dtype=torch.float32).to(x.device)
-            txt = text_feats.expand(x.shape[0], *text_feats.shape)
+        if text_feats is None:
+            return None, None
+        text_feats = torch.as_tensor(text_feats, dtype=torch.float32).to(x.device)
+        return text_feats, text_feats.expand(x.shape[0], *text_feats.shape)
+
+    def _row_input(self, i: int, out, ys: list):
+        def fetch(j):
+            return out if j == -1 else ys[j % i]
+
+        f = self.froms[i]
+        return fetch(f) if isinstance(f, int) else [fetch(j) for j in f]
+
+    def _call_row(self, i: int, inp, txt, text_feats, input_h: int, dn: dict | None = None):
+        m = self.model[i]
+        if i == self.head_idx:
+            if isinstance(m, WorldDetect):  # scores against the original embeddings
+                return m(inp, text_feats=text_feats, input_h=input_h)
+            if dn is not None and not isinstance(self.froms[i], int):
+                return m(inp, input_h=input_h, dn=dn)  # RT-DETR's denoising group
+            return m(inp, input_h=input_h)
+        if isinstance(m, (C2fAttn, ImagePoolingAttn)):
+            return m(inp, _require_text(txt, m))
+        return m(inp)
+
+    def _after_row(self, i: int, inp, y, txt, ys: list):
+        """(the running output, the text stream) after row i; its output is
+        kept in ``ys`` where a later row reads it."""
+        if isinstance(self.model[i], ImagePoolingAttn):
+            txt, y = y, inp[0]  # the rows after it route around it by index
+        ys.append(y if i in self.save else None)
+        return y, txt
+
+    def forward(self, x, text_feats=None, dn: dict | None = None):
+        input_h = x.shape[2]
+        text_feats, txt = self._text_stream(x, text_feats)
         ys: list = []
         out = x
-        for i, (m, f) in enumerate(zip(self.model, self.froms)):
-
-            def fetch(j, i=i):
-                return out if j == -1 else ys[j % i]
-
+        for i in range(len(self.model)):
+            inp = self._row_input(i, out, ys)
+            y = self._call_row(i, inp, txt, text_feats, input_h, dn)
             if i == self.head_idx:
-                if isinstance(f, int):  # a single-input head (Classify)
-                    return m(fetch(f), input_h=input_h)
-                if isinstance(m, WorldDetect):  # scores against the original embeddings
-                    return m([fetch(j) for j in f], text_feats=text_feats, input_h=input_h)
-                if dn is not None:  # RT-DETR's denoising group (train/rtdetr.py)
-                    return m([fetch(j) for j in f], input_h=input_h, dn=dn)
-                return m([fetch(j) for j in f], input_h=input_h)
-            inp = fetch(f) if isinstance(f, int) else [fetch(j) for j in f]
-            if isinstance(m, C2fAttn):
-                out = m(inp, _require_text(txt, m))
-            elif isinstance(m, ImagePoolingAttn):
-                txt = m(inp, _require_text(txt, m))
-                out = inp[0]  # the rows after it route around it by index
-            else:
-                out = m(inp)
-            ys.append(out if i in self.save else None)
+                return y
+            out, txt = self._after_row(i, inp, y, txt, ys)
         return out
 
     @torch.no_grad()
@@ -170,6 +187,55 @@ class DetectionModel(nn.Module):
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def info(self) -> dict:
+        """Log and return the row count, parameter count and strides."""
+        n = self.num_params()
+        LOGGER.info(f"model: {len(self.specs)} layers, {n:,} parameters, strides {self.strides}")
+        return {"layers": len(self.specs), "parameters": n, "strides": self.strides}
+
+    @torch.no_grad()
+    def profile(self, x=None, imgsz: int = 640, batch: int = 1, iters: int = 10,
+                verbose: bool = True) -> list:
+        """Per-row timing in eval mode (reference BaseModel._profile_one_layer,
+        tasks.py:178): each yaml row runs ``iters`` times on its real input,
+        on the model's device and in its dtype, after one warm-up call; on
+        the card ``torch.cuda.synchronize()`` closes the warm-up and the
+        timed calls. ``x`` defaults to a zero (batch, 3, imgsz, imgsz)
+        image. Returns [(i, name, ms, params)] sorted by cost."""
+        p = next(self.parameters())
+        if x is None:
+            x = torch.zeros(batch, 3, imgsz, imgsz, dtype=p.dtype, device=p.device)
+        x = x.contiguous(memory_format=torch.channels_last)
+        training = self.training
+        self.eval()
+        cuda = x.device.type == "cuda"
+        text_feats, txt = self._text_stream(x, None)
+        rows, ys, out = [], [], x
+        for i, spec in enumerate(self.specs):
+            inp = self._row_input(i, out, ys)
+            y = self._call_row(i, inp, txt, text_feats, x.shape[2])
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self._call_row(i, inp, txt, text_feats, x.shape[2])
+            if cuda:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / iters * 1e3
+            rows.append((i, spec.name, ms, sum(q.numel() for q in self.model[i].parameters())))
+            if i == self.head_idx:
+                break
+            out, txt = self._after_row(i, inp, y, txt, ys)
+        self.train(training)
+        rows.sort(key=lambda r: -r[2])
+        if verbose:
+            total = sum(r[2] for r in rows)
+            for i, name, ms, n in rows:
+                LOGGER.info(f"{i:>3} {name:<28} {ms:8.3f} ms ({ms / total * 100:5.1f}%) "
+                            f"{n:>10,} params")
+            LOGGER.info(f"total {total:.2f} ms/batch (bs={x.shape[0]})")
+        return rows
 
 
 @torch.no_grad()

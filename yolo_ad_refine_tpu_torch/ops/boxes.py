@@ -1,32 +1,85 @@
-"""Box format conversions and rescaling on torch tensors, and the rescaling
-of rotated boxes on host-side numpy.
+"""Box format conversions and rescaling, and the rescaling of rotated
+boxes on host-side numpy.
 
 Counterpart of ``yolo_ad_refine_tpu/ops/boxes.py`` (reference
 ultralytics/utils/ops.py:88 scale_boxes, :337 clip_boxes, :392-599) and of
 the JAX validator's ``_scale_rboxes`` (reference models/yolo/obb/val.py).
+The conversions and ``clip_boxes`` take torch tensors or numpy arrays, as
+the JAX ones take either array kind, and return the kind they were given.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
-def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+def _cat(parts: list, like):
+    return torch.cat(parts, dim=-1) if isinstance(like, torch.Tensor) else np.concatenate(parts, -1)
+
+
+def _scale(x, values):
+    """``values`` as a float vector of ``x``'s kind and of float32 or wider."""
+    if isinstance(x, torch.Tensor):
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        return torch.tensor(values, dtype=dtype, device=x.device)
+    return np.asarray(values, np.result_type(x, np.float32))
+
+
+def xywh2xyxy(x):
     """(cx, cy, w, h) -> (x1, y1, x2, y2)."""
     xy, wh = x[..., :2], x[..., 2:4]
     half = wh * 0.5
-    return torch.cat([xy - half, xy + half], dim=-1)
+    return _cat([xy - half, xy + half], x)
 
 
-def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+def xyxy2xywh(x):
     """(x1, y1, x2, y2) -> (cx, cy, w, h)."""
     p1, p2 = x[..., :2], x[..., 2:4]
-    return torch.cat([(p1 + p2) * 0.5, p2 - p1], dim=-1)
+    return _cat([(p1 + p2) * 0.5, p2 - p1], x)
 
 
-def clip_boxes(boxes: torch.Tensor, shape) -> torch.Tensor:
+def xywhn2xyxy(x, w: float = 640.0, h: float = 640.0, padw: float = 0.0, padh: float = 0.0):
+    """Normalized (cx, cy, w, h) -> pixel (x1, y1, x2, y2) with optional pad offset."""
+    return xywh2xyxy(x * _scale(x, [w, h, w, h])) + _scale(x, [padw, padh, padw, padh])
+
+
+def xyxy2xywhn(x, w: float = 640.0, h: float = 640.0, clip: bool = False, eps: float = 0.0):
+    """Pixel (x1, y1, x2, y2) -> normalized (cx, cy, w, h)."""
+    if clip:
+        x = clip_boxes(x, (h - eps, w - eps))
+    return xyxy2xywh(x) / _scale(x, [w, h, w, h])
+
+
+def xywh2ltwh(x):
+    """(cx, cy, w, h) -> (x1, y1, w, h)."""
+    xy, wh = x[..., :2], x[..., 2:4]
+    return _cat([xy - wh * 0.5, wh], x)
+
+
+def xyxy2ltwh(x):
+    """(x1, y1, x2, y2) -> (x1, y1, w, h)."""
+    p1, p2 = x[..., :2], x[..., 2:4]
+    return _cat([p1, p2 - p1], x)
+
+
+def ltwh2xywh(x):
+    """(x1, y1, w, h) -> (cx, cy, w, h)."""
+    xy, wh = x[..., :2], x[..., 2:4]
+    return _cat([xy + wh * 0.5, wh], x)
+
+
+def ltwh2xyxy(x):
+    """(x1, y1, w, h) -> (x1, y1, x2, y2)."""
+    xy, wh = x[..., :2], x[..., 2:4]
+    return _cat([xy, xy + wh], x)
+
+
+def clip_boxes(boxes, shape):
     """Clip (..., 4) xyxy boxes to image shape (h, w)."""
     h, w = shape[0], shape[1]
+    if not isinstance(boxes, torch.Tensor):
+        return np.clip(boxes, 0, np.asarray([w, h, w, h], np.result_type(boxes, np.float32)))
     return torch.stack([boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
                         boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)], dim=-1)
 

@@ -4,13 +4,14 @@ probabilistic IoU of oriented boxes.
 Counterpart of ``yolo_ad_refine_tpu/ops/iou.py`` (reference
 ultralytics/utils/metrics.py:74 bbox_iou, :539 wasserstein_loss, :804
 probiou). All broadcast over leading dimensions of (..., 4) xyxy / xywh or
-(..., 5) xywhr box tensors.
+(..., 5) xywhr box tensors; ``box_iou`` gives the pairwise matrix.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -114,3 +115,17 @@ def batch_probiou(obb1, obb2, eps: float = 1e-7):
     """Pairwise probiou (N, 5) x (M, 5) -> (N, M) (reference metrics.py
     batch_probiou)."""
     return probiou(obb1[:, None, :], obb2[None, :, :], eps=eps)
+
+
+def box_iou(box1, box2, eps: float = 1e-7):
+    """Pairwise IoU matrix between (N, 4) and (M, 4) xyxy boxes -> (N, M),
+    on torch tensors or numpy arrays (the kind given)."""
+    xp = torch if isinstance(box1, torch.Tensor) else np
+    a1, a2 = box1[:, None, :2], box1[:, None, 2:4]
+    b1, b2 = box2[None, :, :2], box2[None, :, 2:4]
+    inter_wh = xp.clip(xp.minimum(a2, b2) - xp.maximum(a1, b1), 0, None)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    wh1, wh2 = box1[:, 2:4] - box1[:, :2], box2[:, 2:4] - box2[:, :2]
+    area1 = (wh1[:, 0] * wh1[:, 1])[:, None]
+    area2 = (wh2[:, 0] * wh2[:, 1])[None, :]
+    return inter / (area1 + area2 - inter + eps)

@@ -60,7 +60,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_ad_refine_tpu_torch.cfg.config import get_cfg
+from yolo_ad_refine_tpu_torch.cfg import config
 from yolo_ad_refine_tpu_torch.data.build import DataLoader
 from yolo_ad_refine_tpu_torch.data.dataset import YOLODataset, check_det_dataset, check_task
 from yolo_ad_refine_tpu_torch.engine.checkpoint import (
@@ -87,6 +87,13 @@ CSV_KEYS = ("epoch", "time", "train/box_loss", "train/cls_loss", "train/dfl_loss
             "metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
             "metrics/mAP50-95(B)", "val/box_loss", "val/cls_loss", "val/dfl_loss",
             "lr/pg0", "lr/pg1", "lr/pg2", "train/dcn_offset_max")
+
+def get_cfg(overrides: dict | None = None) -> dict:
+    """default.yaml merged with ``overrides``, with the unknown-key
+    suggestions and type checks of ``cfg/config.py`` (reference
+    cfg/__init__.py:225)."""
+    return config.get_cfg(overrides)
+
 
 def multi_scale_batch(batch: dict, imgsz: int, rng: np.random.Generator) -> dict:
     """The JAX package's multi_scale (its train/trainer.py multi_scale_batch,

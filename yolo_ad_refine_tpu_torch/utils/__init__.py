@@ -1,9 +1,8 @@
 """Runtime utilities of the PyTorch port: logging, yaml IO, run paths,
-device selection, and ``TryExcept``.
+device selection, timers, and ``TryExcept``.
 
-Counterpart of ``yolo_ad_refine_tpu/utils/__init__.py``, kept to what the
-predict and train paths need. PyYAML reads and writes the yamls, as in the
-JAX package.
+Counterpart of ``yolo_ad_refine_tpu/utils/__init__.py``. PyYAML reads and
+writes the yamls, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,7 +10,9 @@ from __future__ import annotations
 import logging
 import os
 import sys
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -61,6 +62,53 @@ def yaml_save(file: str | Path, data: dict | None = None) -> None:
         clean[k] = v
     with open(file, "w", errors="ignore", encoding="utf-8") as f:
         yaml.safe_dump(clean, f, sort_keys=False, allow_unicode=True)
+
+
+def yaml_print(data: dict | str | Path) -> None:
+    """Log a yaml dict, or the yaml file at ``data``."""
+    d = yaml_load(data) if isinstance(data, (str, Path)) else data
+    LOGGER.info(yaml.dump(d, sort_keys=False, allow_unicode=True))
+
+
+def emojis(string: str = "") -> str:
+    """``string`` made safe for the platform's console (unchanged on Linux)."""
+    return string
+
+
+class IterableSimpleNamespace(SimpleNamespace):
+    """A SimpleNamespace that iterates over its (key, value) pairs and has
+    ``get`` (a cfg object)."""
+
+    def __iter__(self):
+        return iter(vars(self).items())
+
+    def __str__(self):
+        return "\n".join(f"{k}={v}" for k, v in vars(self).items())
+
+    def get(self, key, default=None):
+        return getattr(self, key, default)
+
+
+class Profile:
+    """Timing context manager (reference utils/ops.py:17): ``dt`` is the
+    last block's seconds, ``t`` their sum. Like the JAX package's it does
+    not synchronise a device: the caller ends the block's device work
+    (``torch.cuda.synchronize()``) inside it."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+        self.dt = 0.0
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.dt = time.perf_counter() - self.start
+        self.t += self.dt
+
+    def __str__(self):
+        return f"Elapsed time is {self.t} s"
 
 
 def colorstr(*args) -> str:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+from collections import defaultdict
 from pathlib import Path
 
 from yolo_ad_refine_tpu_torch.utils import LOGGER
@@ -31,20 +32,31 @@ from yolo_ad_refine_tpu_torch.utils import LOGGER
 PROJECT = "yolo_ad_refine_tpu_torch"
 
 HOOKS = (
+    # trainer
     "on_pretrain_routine_start", "on_pretrain_routine_end",
     "on_train_start", "on_train_epoch_start", "on_train_batch_start",
     "optimizer_step", "on_before_zero_grad", "on_train_batch_end",
     "on_train_epoch_end", "on_fit_epoch_end", "on_model_save",
     "on_train_end", "on_params_update", "teardown",
+    # validator
     "on_val_start", "on_val_batch_start", "on_val_batch_end", "on_val_end",
+    # predictor and exporter: registered as in the JAX package, which runs none of them
+    "on_predict_start", "on_predict_batch_start", "on_predict_batch_end",
+    "on_predict_postprocess_end", "on_predict_end",
+    "on_export_start", "on_export_end",
 )
+
+
+def get_default_callbacks() -> dict:
+    """An empty callback list for each hook."""
+    return defaultdict(list, {h: [] for h in HOOKS})
 
 
 class Callbacks:
     """Per-object callback registry; a failing callback is logged, not raised."""
 
     def __init__(self):
-        self._callbacks: dict[str, list] = {h: [] for h in HOOKS}
+        self._callbacks: dict[str, list] = get_default_callbacks()
 
     def add(self, event: str, callback):
         if event not in self._callbacks:
