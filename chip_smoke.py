@@ -295,15 +295,17 @@ CPU_REFS: dict = {}  # the worker's "proc", "dir" and "jobs" [(function name, ar
 
 
 def start_cpu_references() -> None:
-    """Start the CPU sides of the tracking phase's and the SAM family's
-    holds (``track_cpu_side``, ``sam_cpu_side``, ``sam2_cpu_side``,
-    ``video_cpu_side``), in the order the phases ask for them, in a worker
+    """Start the CPU sides of the tracking phase's, the example scripts' and
+    the SAM family's holds (``track_cpu_side``, ``examples_cpu_side``,
+    ``sam_cpu_side``, ``sam2_cpu_side``, ``video_cpu_side``), in the order
+    the phases ask for them, in a worker
     process at nice 19 (``cpu_references``) while the paths run: they take
     most of the script's host CPU seconds and need nothing from the card.
     ``cpu_reference`` collects each; ``stop_cpu_references`` ends the
     worker."""
     folder = tempfile.TemporaryDirectory(prefix="chip_smoke_cpu_refs_")
     jobs = ([("track_cpu_side", (t,)) for t in ("bytetrack", "botsort")]
+            + [("examples_cpu_side", ())]
             + [("sam_cpu_side", (v,)) for v in SAM_COUNTS]
             + [("sam2_cpu_side", (v,)) for v in SAM2_COUNTS] + [("video_cpu_side", ())])
     (Path(folder.name) / "jobs.pkl").write_bytes(pickle.dumps(jobs))
@@ -496,7 +498,7 @@ def phase_k1(dev, gen):
             for s in LEVELS:
                 x, off, mask, w = dcn_inputs(8, s, dtype, gen, dev)
                 got = modulated_deform_conv2d(nchw(x), nchw(off), nchw(mask),
-                                              w.permute(3, 2, 0, 1), radius)
+                                              w.permute(3, 2, 0, 1), radius=radius)
                 want = deform_conv2d_plain(x, off, mask, w, radius)
                 torch.cuda.synchronize()
                 got = got.permute(0, 2, 3, 1).float()
@@ -883,7 +885,7 @@ def phase_k1_wide(dev, gen):
                     x, off, mask, w = dcn_inputs(16, s, dtype, gen, dev, c)
                     g = torch.randn(16, s, s, c, generator=gen).to(dev, dtype)
                     args = (nchw(x), nchw(off), nchw(mask), w.permute(3, 2, 0, 1))
-                    got = modulated_deform_conv2d(*args, radius).permute(0, 2, 3, 1).float()
+                    got = modulated_deform_conv2d(*args, radius=radius).permute(0, 2, 3, 1).float()
                     want = deform_conv2d_plain(x, off, mask, w, radius).float()
                     torch.cuda.synchronize()
                     e_fwd = (got - want).abs().max().item()
@@ -4354,6 +4356,267 @@ def phase_periphery(dev, track: dict) -> dict:
             "native": native, "solutions": apps}
 
 
+EXAMPLE_FRAMES = 16  # the tracking video's first frames: region_counter, action_recognition
+EXAMPLE_JPEGS = 8    # the folder phase's first JPEGs: detect
+EXAMPLE_TILE, EXAMPLE_OVERLAP = 640, 0.2  # sahi: 6 tiles of a 1280x720 frame
+EXAMPLE_BOX_TOL, EXAMPLE_SCORE_TOL = 5e-2, 1e-3  # card vs CPU rows: the serving phases' limits
+EXAMPLE_TIE = 1e-4  # scores this close are tied (a seeded head scores a region's anchors alike)
+EXAMPLE_SCRIPTS = ("sahi_tiled_inference", "region_counter", "action_recognition")
+EXAMPLE_SPREAD, EXAMPLE_TOP = 1.0, 0.005  # class 0's logit spread, the share above conf
+
+
+def examples_model(dev, probe):
+    """The tracking phase's flagship (``track_model``: scale n, seed 0) with
+    its box and class-0 logits spread, as ``fastsam_model`` spreads
+    FastSAM's: the seeded head's features shrink to about 1e-7 by its last
+    convs, so every anchor of a level has the same box size (the DFL bins'
+    biases alone: IoUs of neighbours then fall exactly on a NMS threshold,
+    0.5 at 5 anchors apart) and a flat region's anchors the same score, and
+    which rows a NMS keeps would follow the card's and the CPU's last bits.
+    On the ``probe`` frame the shared cv2 (the box's DFL logits) and cv3's
+    class-0 row are rescaled so that their outputs before the bias have a
+    spread (standard deviation) of EXAMPLE_SPREAD, and cv3's class-0 bias
+    set so that the conf threshold lies in the middle of the widest gap
+    between the probe's class-0 logits ranked from half to twice the top
+    EXAMPLE_TOP share (anchors of a flat region share one logit: the
+    threshold keeps clear of them)."""
+    import torch
+    import torch.nn.functional as F
+
+    model = track_model(dev)
+    head = model.model.model[model.model.head_idx]
+    pre = {"cv2": [], "cv3": []}  # each level's outputs before the bias, in float64
+    hooks = [conv.register_forward_hook(lambda m, a, _, key=key, rows=rows: pre[key].append(
+        F.conv2d(a[0].double(), m.weight[rows].double()).flatten().cpu()))
+        for key, conv, rows in (("cv2", head.cv2, slice(None)), ("cv3", head.cv3, slice(0, 1)))]
+    model.predict([probe], imgsz=640, batch=1)
+    for h in hooks:
+        h.remove()
+    box, cls = torch.cat(pre["cv2"]), torch.cat(pre["cv3"])
+    gains = [EXAMPLE_SPREAD / x.std().item() for x in (box, cls)]
+    if not all(math.isfinite(g) for g in gains):
+        raise AssertionError(f"examples: the head's logits are constant on the probe: {gains}")
+    top = torch.sort(cls, descending=True).values
+    k = math.ceil(EXAMPLE_TOP * len(cls))
+    gap = top[k // 2 - 1:2 * k - 1] - top[k // 2:2 * k]  # the widest gap from k / 2 to 2k
+    j = k // 2 + int(gap.argmax())
+    with torch.no_grad():
+        head.cv2.weight.mul_(gains[0])
+        head.cv3.weight[0].mul_(gains[1])
+        head.cv3.bias[0] = logit(TRACK_CONF) - gains[1] * (top[j - 1] + top[j]).item() / 2
+    return model
+
+
+def example_inputs(root: Path, dev) -> dict:
+    """What the example scripts read, written under ``root``: the tracking
+    video's first EXAMPLE_FRAMES frames, its first frame as a PNG, and
+    ``examples_model`` (probed on that frame) as a checkpoint."""
+    import cv2
+
+    from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
+    from yolo_ad_refine_tpu_torch.engine.checkpoint import save_checkpoint
+
+    video = track_video(root / "clip.avi", EXAMPLE_FRAMES)
+    frame = next(iter(load_inference_source(str(video))))[1]
+    cv2.imwrite(str(root / "frame.png"), frame)
+    weights = save_checkpoint(root / "flagship", model=examples_model(dev, frame).model,
+                              train_args={"imgsz": 640})
+    return {"weights": str(weights), "video": str(video), "image": str(root / "frame.png")}
+
+
+def example_argv(name: str, inputs: dict, dev: str) -> list[str]:
+    """The command line ``phase_examples`` gives a script of EXAMPLE_SCRIPTS."""
+    return {"sahi_tiled_inference": [inputs["image"], inputs["weights"], "--tile",
+                                     str(EXAMPLE_TILE), "--overlap", str(EXAMPLE_OVERLAP)],
+            "region_counter": [inputs["video"], inputs["weights"], "--imgsz", "640"],
+            "action_recognition": [inputs["video"], "--det-model", inputs["weights"],
+                                   "--cls-model", "yolo11n-cls.yaml", "--imgsz", "640"],
+            }[name] + ["--device", dev]
+
+
+def examples_cpu_side() -> dict:
+    """The CPU side of ``phase_examples``' holds: EXAMPLE_SCRIPTS' mains on
+    the CPU over the same inputs. Returns {"results": {script: what its
+    main returned}, "seconds"}."""
+    import importlib
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_cpu_") as tmp:
+        inputs = example_inputs(Path(tmp), "cpu")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # standard output is the card run's record
+            results = {name: importlib.import_module(f"examples_torch.{name}").main(
+                example_argv(name, inputs, "cpu")) for name in EXAMPLE_SCRIPTS}
+    return {"results": results, "seconds": time.perf_counter() - t0}
+
+
+def hold_example_rows(label: str, g, w) -> dict:
+    """Card rows ``g`` against CPU rows ``w`` ((n, 6) xyxy, score, class):
+    each card row paired with a CPU row of its class, the nearest box within
+    EXAMPLE_BOX_TOL px and the score within EXAMPLE_SCORE_TOL, one to one.
+    A row of either side left unpaired is excused only where it is another
+    member of a tied group the other side kept from: a row there of its
+    class whose score ties with it within EXAMPLE_TIE, whose box overlaps
+    its box and has its width and height within EXAMPLE_BOX_TOL (the rows
+    excused are counted in "tied", as ``hold_tracks`` counts the ids that
+    ties renumbered). The seeded head scores
+    a region's anchors alike and gives them one box size (each tile and
+    frame of the examples passes conf at the same 29 anchors, in such
+    groups), and which members of a tied, overlapping group a NMS keeps
+    follows the card's and the CPU's last bits. Returns {"rows",
+    "box_err", "score_err", "tied"}."""
+    import numpy as np
+
+    used = np.zeros(len(w), bool)
+    box_err = score_err = 0.0
+    left = []
+    for r in g:
+        d = np.abs(w[:, :4] - r[:4]).max(1) if len(w) else np.zeros(0)
+        ok = ~used & (w[:, 5] == r[5]) & (d <= EXAMPLE_BOX_TOL) & \
+            (np.abs(w[:, 4] - r[4]) <= EXAMPLE_SCORE_TOL)
+        if not ok.any():
+            left.append(("card", r, w))
+            continue
+        j = np.flatnonzero(ok)[d[ok].argmin()]
+        used[j] = True
+        box_err, score_err = max(box_err, float(d[j])), max(score_err, abs(float(w[j, 4] - r[4])))
+    left += [("CPU", r, g) for r in w[~used]]
+    for side, r, other in left:
+        wh = r[2:4] - r[:2]
+        overlap = (np.minimum(other[:, 2:4], r[2:4]) > np.maximum(other[:, :2], r[:2])).all(1)
+        tied = (other[:, 5] == r[5]) & (np.abs(other[:, 4] - r[4]) <= EXAMPLE_TIE) & overlap & \
+            (np.abs(other[:, 2:4] - other[:, :2] - wh) <= EXAMPLE_BOX_TOL).all(1)
+        if not tied.any():
+            raise AssertionError(f"{label}: the {side}'s row {np.round(r, 3).tolist()} pairs with "
+                                 "no row of the other side and is no member of a tied group there")
+    return {"rows": (len(g), len(w)), "box_err": box_err, "score_err": score_err,
+            "tied": len(left)}
+
+
+def hold_example_frames(weights: str, video: str, dev) -> dict:
+    """Where the region counts or the tracks' labels and votes part between
+    card and CPU: each of the video's frames through ``engine/track.py
+    frame_rows`` with the examples' checkpoint on the card and on the CPU,
+    its detection rows (what the tracker reads) held by
+    ``hold_example_rows``. Returns the frames' largest errors and the tied
+    rows excused."""
+    from yolo_ad_refine_tpu_torch import YOLO
+    from yolo_ad_refine_tpu_torch.data.loaders import load_inference_source
+    from yolo_ad_refine_tpu_torch.engine.track import frame_rows
+
+    card, cpu = (YOLO(weights, device=d).model for d in (dev, "cpu"))
+    out = {"box_err": 0.0, "score_err": 0.0, "tied": 0}
+    for i, (_, frame, _) in enumerate(load_inference_source(video)):
+        held = hold_example_rows(f"examples: frame {i + 1}", *(
+            frame_rows(m, frame, 640, TRACK_CONF)[0] for m in (card, cpu)))
+        out = {k: max(out[k], held[k]) if k != "tied" else out[k] + held[k] for k in out}
+    return out
+
+
+def phase_examples(dev, best: Path) -> dict:
+    """The example scripts (``examples_torch/``) on the card, each through
+    its ``main`` as a user runs it, with the launch counts set to 0 before
+    it and read after it, over the tracking phase's flagship with its box
+    and class-0 logits spread (``examples_model``), written as a checkpoint
+    (``example_inputs``): ``detect`` over the folder phase's
+    first EXAMPLE_JPEGS JPEGs (one batch: K1 fwd 3 and K4 once, beside the
+    3 of the load's stride probe); ``sahi_tiled_inference`` on the tracking
+    video's first frame (1280x720, 6 tiles of 640, one batched forward, K4
+    on the tiles and on their union); ``region_counter`` and
+    ``action_recognition`` (yolo11n-cls, seeded, on each person's 224 px
+    crops) over the video's first EXAMPLE_FRAMES frames at 640 (K1 3 and K4
+    once a frame); ``check_ckpt`` on ``best``, the checkpoint
+    ``phase_training`` wrote (its total is the model's parameter count).
+    sahi's merged rows (``hold_example_rows``), the regions' counts, the
+    tracks' labels and vote totals are held against the same scripts on
+    the CPU (``examples_cpu_side``, in the CPU-reference worker); where the
+    counts or the tracks part, each frame's detections are held instead
+    (``hold_example_frames``), as ``hold_tracks`` holds the tracking
+    phase's. Returns
+    {"paths": {path: launches}, "seconds": {script: s}, ...}."""
+    import importlib
+
+    import numpy as np
+
+    from yolo_ad_refine_tpu_torch import YOLO
+
+    counters = kernel_counters()
+    scripts = {name: importlib.import_module(f"examples_torch.{name}")
+               for name in ("detect", *EXAMPLE_SCRIPTS, "check_ckpt")}
+    out = {"paths": {}, "seconds": {}, "results": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        t0 = time.perf_counter()
+        inputs = example_inputs(Path(tmp), dev)
+        jpegs = serving_jpegs(Path(tmp) / "jpegs", n=EXAMPLE_JPEGS)
+        log(f"examples: inputs written in {time.perf_counter() - t0:.1f} s")
+        argv = {"detect": ["--weights", inputs["weights"], "--source", str(jpegs), "--imgsz",
+                           "640", "--project", str(Path(tmp) / "runs"), "--device", dev],
+                **{name: example_argv(name, inputs, dev) for name in EXAMPLE_SCRIPTS},
+                "check_ckpt": [str(best), "--device", dev]}
+        # each script's load probes the strides with one forward: K1 fwd 3 more
+        want_launches = {"detect": (6, 1), "sahi_tiled_inference": (6, 2),
+                         "region_counter": (3 + 3 * EXAMPLE_FRAMES, EXAMPLE_FRAMES),
+                         "action_recognition": (3 + 3 * EXAMPLE_FRAMES, EXAMPLE_FRAMES),
+                         "check_ckpt": (3, 0)}
+        for name, module in scripts.items():
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):  # what a script prints, on standard error
+                res = module.main(argv[name])
+            out["seconds"][name] = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in counters.items()}
+            got = (launches["dcn_forward"], launches["nms_suppress"])
+            if got != want_launches[name] or any(v for k, v in launches.items()
+                                                 if k not in ("dcn_forward", "nms_suppress")):
+                raise AssertionError(f"examples: {name} launched K1 fwd / K4 {got}, expected "
+                                     f"{want_launches[name]}, and nothing else: {launches}")
+            out["paths"][f"examples_{name}_run"] = launches
+            out["results"][name] = res
+            log(f"examples: {name} {out['seconds'][name]:.2f} s on the card; K1 fwd {got[0]}, "
+                f"K4 {got[1]} launches")
+        detect, sahi, region, action, ckpt = (out["results"][n] for n in scripts)
+        if len(detect) != EXAMPLE_JPEGS or not all(p.endswith(".jpg") for p, _ in detect):
+            raise AssertionError(f"examples: detect printed {len(detect)} results")
+        n_params = YOLO(str(best), device=dev).model.num_params()
+        if ckpt["total"] != n_params or not ckpt["leaves"]:
+            raise AssertionError(f"examples: check_ckpt's total {ckpt['total']:,} is not the "
+                                 f"model's {n_params:,} parameters")
+        if sahi["tiles"] != 6 or not len(sahi["boxes"]) or region["frames"] != EXAMPLE_FRAMES:
+            raise AssertionError(f"examples: sahi {len(sahi['boxes'])} rows over "
+                                 f"{sahi['tiles']} tiles, region_counter {region['frames']} frames")
+        ref = cpu_reference(examples_cpu_side)
+        want = ref["results"]
+        cpu_sahi = want["sahi_tiled_inference"]
+        if sahi["tiles"] != cpu_sahi["tiles"]:
+            raise AssertionError(f"examples: sahi over {sahi['tiles']} tiles on the card, "
+                                 f"{cpu_sahi['tiles']} on the CPU")
+        held = hold_example_rows("examples: sahi", *(
+            np.concatenate([r["boxes"], r["scores"][:, None], r["classes"][:, None]], 1)
+            for r in (sahi, cpu_sahi)))
+        cpu_action = want["action_recognition"]
+        tally, cpu_tally = (sorted(zip(a["labels"].values(), a["votes"].values()))
+                            for a in (action, cpu_action))
+        if action["frames"] != cpu_action["frames"] or not tally:
+            raise AssertionError(f"examples: action recognition {action} on the card")
+        tracks = "equal" + ("" if action == cpu_action else " up to the tracks' numbering")
+        if region != want["region_counter"] or tally != cpu_tally:
+            frames = hold_example_frames(inputs["weights"], inputs["video"], dev)
+            tracks = (f"parted (card {region['regions']}, {len(tally)} tracks; CPU "
+                      f"{want['region_counter']['regions']}, {len(cpu_tally)} tracks) where each "
+                      f"frame's detections pair but {frames['tied']} tied rows, max |box diff| "
+                      f"{frames['box_err']:.3e} px, |score diff| {frames['score_err']:.3e}")
+        log(f"examples: card vs CPU ({ref['seconds']:.1f} s on the CPU{cpu_wait_note(ref)}): "
+            f"sahi {held['rows']} merged rows (card, CPU) paired but {held['tied']} tied, max "
+            f"|box diff| {held['box_err']:.3e} px (tol {EXAMPLE_BOX_TOL}), max |score diff| "
+            f"{held['score_err']:.3e} (tol {EXAMPLE_SCORE_TOL}); regions {region['regions']} "
+            f"and {len(tally)} tracks' labels and votes {tracks}")
+    log(f"examples: {sum(out['seconds'].values()):.1f} s of scripts on the card: "
+        + ", ".join(f"{n} {s:.2f}" for n, s in out["seconds"].items()) + f"; check_ckpt total "
+        f"{ckpt['total']:,} parameters = the model's")
+    out.update(sahi=held, cpu_seconds=ref["seconds"], tracks=tracks)
+    return out
+
+
 def phase_classify(dev) -> dict:
     """yolo11n-cls on the card: the forward (softmax) of 64 images at 224
     in fp32, timed, against the CPU's (probabilities within 1e-4, the same
@@ -4822,7 +5085,7 @@ def phase_folder_serving(dev):
 
 
 def phase_training(dev, impl: str | None = None, cfg: str | dict = FLAGSHIP,
-                   name: str | None = None):
+                   name: str | None = None, keep_best: Path | None = None):
     """YOLO(cfg).train on the card under YAT_DCN_IMPL=impl: 1 epoch of 4
     steps at batch 16, imgsz 640, bf16, then the EMA validation, checkpoints
     and a reload of best. Each step launches the variant's forward and
@@ -4832,7 +5095,8 @@ def phase_training(dev, impl: str | None = None, cfg: str | dict = FLAGSHIP,
     that model, ``name`` heading its log lines.
     Under ``pallas`` the reload also widens the radius: best's meta.yaml
     gets dcn_offset_max 11.5, the reloaded head must clip at 13, and one
-    predict batch runs K3 at that radius."""
+    predict batch runs K3 at that radius. ``keep_best``: where best is
+    copied to for a later phase (``phase_examples``)."""
     import numpy as np
     import torch
 
@@ -4934,6 +5198,8 @@ def phase_training(dev, impl: str | None = None, cfg: str | dict = FLAGSHIP,
         log(f"training ({label}): {best.name} reloaded ({reloaded.model.num_params():,} parameters) and "
             f"predicted {len(res[0])} boxes")
         extra = {} if impl != "pallas" else {"reload_r13_run": reload_widened(best, dev)}
+        if keep_best is not None:
+            shutil.copytree(best, keep_best)
     return launches, per_step, extra, ms
 
 
@@ -5901,9 +6167,11 @@ def main() -> int:
         paths["folder_serving_run"], folder_rates = timed(phase_folder_serving, dev)
         for impl in ("mxu", "pallas", "mxu2"):
             paths[f"serving_{impl}_run"] = timed(phase_serving_variant, dev, impl)
+        kept = tempfile.TemporaryDirectory(prefix="chip_smoke_best_")  # for phase_examples
         for impl in (None, "mxu", "pallas"):
             tag = "" if impl is None else f"_{impl}"
-            run, step, extra, ms = timed(phase_training, dev, impl)
+            run, step, extra, ms = timed(phase_training, dev, impl, keep_best=None if impl else
+                                         Path(kept.name) / "best")
             paths.update({f"training{tag}_run": run, f"training{tag}_step": step, **extra})
             if impl is None:
                 tell_second_half(repr(ms))  # phase_parallel's one-process step
@@ -5925,6 +6193,9 @@ def main() -> int:
         track = timed(phase_track, dev)
         paths.update(track["paths"])
         paths.update(timed(phase_periphery, dev, track)["paths"])
+        examples = timed(phase_examples, dev, Path(kept.name) / "best")
+        paths.update(examples["paths"])
+        kept.cleanup()
         sam = timed(phase_sam, dev)
         paths.update(sam["paths"])
         timed(phase_benchmark, dev)

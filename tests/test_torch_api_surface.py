@@ -7,6 +7,17 @@ name a package ``__init__`` re-exports from the package itself must exist
 in the port, unless ``EXCEPTIONS`` names it with the reason. A module the
 port leaves out on purpose is named in ``NOT_PORTED`` and in ROADMAP's "Not
 ported on purpose". ``hub`` raises as the JAX one does.
+
+The signatures are walked too: for each public function, and each public
+method or ``__init__`` of a public class, that both modules define, a call
+written for the JAX function must bind the same in the port's. JAX's
+positional parameters lead the port's with the same names, in the same
+order, with the same defaults (``jnp.`` read as ``torch.``; a port default
+where JAX has none breaks no JAX call); a parameter the port adds comes
+after them with a default, or is keyword-only; JAX's keyword-only
+parameters are the port's with the same defaults; ``*args`` / ``**kwargs``
+where JAX takes them. A kept difference is named in
+``SIGNATURE_EXCEPTIONS`` with its reason.
 """
 
 import ast
@@ -108,6 +119,62 @@ EXCEPTIONS = {
                                               "autobatch measures the card's peaks of real steps",
 }
 
+_DTYPE = ("flax's compute dtype: a torch module computes in its parameters' dtype "
+          "(.to(dtype), autocast), and the port's builders take the device in its place")
+_RNG = "flax's rng key: the port draws from a seed or a torch.Generator"
+_FACTORY = ("flax's factory of the i-th inner block for the compact __call__; the torch block "
+            "builds its blocks in __init__ and needs no index")
+_STATE = "flax's TrainState: the port keeps the model, its ModelEMA and the torch optimizer"
+_FORMATS = ("the port's format names: it exports checkpoint, torch_export and torchscript "
+            "(ROADMAP catalogue item 11), so no JAX format is its default")
+
+# "module path:qualified name": why its parameters part from JAX's
+SIGNATURE_EXCEPTIONS = {
+    "engine/checkpoint.py:load_checkpoint": _DTYPE,
+    "engine/checkpoint.py:load_train_state": _STATE,
+    "engine/checkpoint.py:save_checkpoint": _STATE,
+    "models/model.py:DetectionModel.__init__": _DTYPE,
+    "models/parser.py:parse_model_yaml": _DTYPE,
+    "models/sam/model.py:SAM.__init__": _DTYPE,
+    "models/sam/model.py:build_sam": _DTYPE,
+    "models/sam/sam2.py:SAM2Predictor.__init__": _DTYPE,
+    "models/sam/sam2.py:SAM2VideoPredictor.__init__": _DTYPE,
+    "models/sam/sam2.py:build_sam2": f"{_DTYPE}; {_RNG}",
+    "models/yolo.py:YOLO.__init__": "task=None takes the task from the head (a given task is "
+                                    "checked against it), where JAX defaults to 'detect'",
+    "models/yolo.py:YOLO.export": _FORMATS,
+    "nn/block.py:C2PSA.inner_block": _FACTORY,
+    "nn/block.py:C2f.inner_block": _FACTORY,
+    "nn/block.py:C3.inner_block": _FACTORY,
+    "nn/block.py:C3k2.inner_block": _FACTORY,
+    "nn/block.py:C3k2MLCA.inner_block": _FACTORY,
+    "nn/block.py:C3kMLCA.inner_block": _FACTORY,
+    "nn/conv_extras.py:C2fCIB.inner_block": _FACTORY,
+    "nn/tssa.py:C2AdaptiveTSSAEnhanced.inner_block": _FACTORY,
+    "nn/tssa.py:C2PSAEDFFN.inner_block": _FACTORY,
+    "nn/tssa.py:C2PTSSA.inner_block": _FACTORY,
+    "nn/tssa.py:C2ProgressiveTSSAFusion1.inner_block": _FACTORY,
+    "nn/tssa.py:C2SFA.inner_block": _FACTORY,
+    "nn/tssa.py:C2TSSADyTMonaEDFFN.inner_block": _FACTORY,
+    "nn/head.py:decode_detections": "a renamed layout: JAX's feats_nhwc are the port's NCHW "
+                                    "feats",
+    "ops/nms.py:non_max_suppression": "use_pallas, JAX's switch between its Pallas kernel and "
+                                      "plain JAX: the port takes its kernel on the card and its "
+                                      "plain version on the CPU, by the tensor's device",
+    "train/optim.py:build_optimizer": "a renamed layout: JAX's params pytree is the port's "
+                                      "named_params, (name, parameter) pairs",
+    "train/optim.py:param_group_label": "a renamed layout: JAX's (flax path, leaf) is the "
+                                        "port's (dotted name, parameter)",
+    "train/rtdetr.py:RTDETRLoss.match": "the port's matcher takes each decoder level's "
+                                        "(boxes, scores) at once and solves all of them in one "
+                                        "LAP launch (csrc/lap.cu)",
+    "train/rtdetr.py:make_cdn_group": _RNG,
+    "utils/autobatch.py:autobatch": "the port measures the card's peak memory of a real step "
+                                    "(step, on device), where JAX reads compiled programs' "
+                                    "memory analysis; ROADMAP intended differences, Tools",
+    "utils/benchmarks.py:benchmark": _FORMATS,
+}
+
 MODULES = sorted(p.relative_to(JAX).as_posix() for p in JAX.rglob("*.py"))
 
 
@@ -132,6 +199,77 @@ def public_names(path: Path, package: str) -> set[str]:
     return names
 
 
+def signatures(path: Path) -> dict:
+    """{qualified name: signature} of the public functions of the module at
+    ``path`` and the public methods and ``__init__`` of its public classes;
+    a signature is (positional [(name, default source or None)], keyword-only
+    {name: default source or None}, takes *args, takes **kwargs)."""
+
+    def sig(fn):
+        a = fn.args
+        pos = [x.arg for x in a.posonlyargs + a.args if x.arg not in ("self", "cls")]
+        given = [ast.unparse(d) for d in a.defaults][-len(pos):] if pos else []
+        defaults = [None] * (len(pos) - len(given)) + given
+        kw = {x.arg: None if d is None else ast.unparse(d)
+              for x, d in zip(a.kwonlyargs, a.kw_defaults)}
+        return list(zip(pos, defaults)), kw, a.vararg is not None, a.kwarg is not None
+
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and \
+                not node.name.startswith("_"):
+            out[node.name] = sig(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out.update((f"{node.name}.{m.name}", sig(m)) for m in node.body
+                       if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                       and (m.name == "__init__" or not m.name.startswith("_")))
+    return out
+
+
+def _default(src):
+    return None if src is None else src.replace("jnp.", "torch.")
+
+
+def binding_faults(jax_sig, port_sig) -> list[str]:
+    """Where a call written for the JAX signature would bind otherwise in
+    the port's (the rule of the module docstring); empty where none."""
+    (jpos, jkw, jvar, jkwargs), (ppos, pkw, pvar, pkwargs) = jax_sig, port_sig
+    faults = []
+    for i, (name, default) in enumerate(jpos):
+        if i >= len(ppos):
+            faults.append(f"no positional parameter {i} ({name})")
+            continue
+        pname, pdefault = ppos[i]
+        if pname != name:
+            faults.append(f"positional parameter {i} is {pname}, JAX's {name}")
+        elif default is not None and _default(default) != _default(pdefault):
+            faults.append(f"{name}={pdefault}, JAX's {name}={default}")
+    faults += [f"{name} has no default" for name, d in ppos[len(jpos):] if d is None]
+    for name, default in jkw.items():
+        if name not in pkw and name not in dict(ppos):
+            faults.append(f"no keyword {name}")
+        elif _default(default) != _default(pkw.get(name, dict(ppos).get(name))):
+            faults.append(f"{name}={pkw.get(name)}, JAX's {name}={default}")
+    faults += [f"keyword-only {n} has no default" for n, d in pkw.items()
+               if d is None and n not in jkw]
+    faults += ["no *args"] * (jvar and not pvar) + ["no **kwargs"] * (jkwargs and not pkwargs)
+    return faults
+
+
+def test_binding_faults_catch_what_misbinds():
+    jax_sig = ([("x", None), ("bias", "None"), ("k", "3")], {}, False, False)
+    assert binding_faults(jax_sig, ([("x", None), ("bias", "None"), ("k", "3")],
+                                    {"radius": "None"}, False, False)) == []
+    assert binding_faults(jax_sig, ([("x", None), ("radius", "None")], {}, False, False)) == [
+        "positional parameter 1 is radius, JAX's bias", "no positional parameter 2 (k)"]
+    assert binding_faults(jax_sig, ([("x", None), ("bias", "None"), ("k", "5")], {}, False,
+                                    False)) == ["k=5, JAX's k=3"]
+    assert binding_faults(([("a", "jnp.float32")], {}, True, False),
+                          ([("a", "torch.float32"), ("device", None)], {"r": None}, False,
+                           False)) == ["device has no default", "keyword-only r has no default",
+                                       "no *args"]
+
+
 def test_every_jax_module_is_walked():
     assert len(MODULES) > 90
     assert "ops/boxes.py" in MODULES and "hub/__init__.py" in MODULES
@@ -150,6 +288,28 @@ def test_port_module_has_the_jax_public_names(rel):
     have = public_names(PORT / rel, "yolo_ad_refine_tpu_torch")
     missing = sorted(n for n in want - have if f"{rel}:{n}" not in EXCEPTIONS)
     assert not missing, f"{rel}: the port lacks {missing}"
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_port_signatures_bind_jax_calls(rel):
+    if rel in NOT_PORTED:
+        return
+    want = signatures(JAX / rel)
+    have = signatures(PORT / rel)
+    faults = {name: f for name in sorted(set(want) & set(have))
+              if f"{rel}:{name}" not in SIGNATURE_EXCEPTIONS
+              and (f := binding_faults(want[name], have[name]))}
+    assert not faults, f"{rel}: a JAX-style call binds otherwise in the port: {faults}"
+
+
+@pytest.mark.parametrize("key", sorted(SIGNATURE_EXCEPTIONS))
+def test_each_signature_exception_has_a_reason_and_is_still_needed(key):
+    rel, name = key.split(":")
+    assert SIGNATURE_EXCEPTIONS[key].strip()
+    want, have = signatures(JAX / rel), signatures(PORT / rel)
+    assert name in want and name in have, f"{key} is not in both packages"
+    assert binding_faults(want[name], have[name]), \
+        f"{key} binds as JAX's now: take it out of SIGNATURE_EXCEPTIONS"
 
 
 @pytest.mark.parametrize("key", sorted(EXCEPTIONS))

@@ -64,7 +64,8 @@ def test_dcn_kernel_matches_plain(dev, dtype, tol, radius, shape):
     x, off, mask, wt = _dcn(dev, dt, b, h, w, c, cout)
     launches = modulated_deform_conv2d.launches
     got = modulated_deform_conv2d(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
-                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), radius)
+                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1),
+                                  radius=radius)
     torch.cuda.synchronize()
     assert modulated_deform_conv2d.launches == launches + 1
     assert got.dtype == dt and got.shape == (b, cout, h, w)
@@ -115,7 +116,7 @@ def test_dcn_at_the_multi_scale_extremes(dev, dtype, tol, hw, imgsz):
     g = torch.randn(2, hw, hw, 64, generator=torch.Generator().manual_seed(hw)).to(dev, dt)
     nchw = [t.permute(0, 3, 1, 2) for t in (x, off, mask)]
     fwd, bwd = modulated_deform_conv2d.launches, dcn_backward.launches
-    got = modulated_deform_conv2d(*nchw, wt.permute(3, 2, 0, 1), None)
+    got = modulated_deform_conv2d(*nchw, wt.permute(3, 2, 0, 1), radius=None)
     grads = dcn_backward(*nchw, wt.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2), None)
     torch.cuda.synchronize()
     assert (modulated_deform_conv2d.launches, dcn_backward.launches) == (fwd + 1, bwd + 1)
@@ -152,7 +153,8 @@ def test_dcn_kernel_shapes(dev, dtype, tol, radius, shape, far):
     the map (radius None; at radius 3 the clip keeps some inside)."""
     x, off, mask, wt = _k1_case(dev, dtype, shape, far)
     got = modulated_deform_conv2d(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
-                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), radius)
+                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1),
+                                  radius=radius)
     torch.cuda.synchronize()
     want = deform_conv2d_plain(x, off, mask, wt, radius).float()
     if far and radius is None:
@@ -683,6 +685,43 @@ def test_bounded_dcn_backward_at_radius_200(dev):
     _assert_grads_close([got[0].permute(0, 2, 3, 1), got[1].permute(0, 2, 3, 1),
                          got[2].permute(0, 2, 3, 1), got[3].permute(2, 3, 1, 0)],
                         deform_conv2d_pallas_grads_plain(x, off, mask, wt, g, 200), 1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_dcn_bias_on_the_card_runs_k1(dev, dtype, tol):
+    """The JAX signature's bias on a CUDA tensor: K1 fwd launches once and
+    the sum is the plain version's, which adds the bias in fp32 before its
+    cast (K1's bf16 output is rounded before the bias: within its limit)."""
+    dt = getattr(torch, dtype)
+    x, off, mask, wt = _dcn(dev, dt, 2, 24, 20, 64, 48, seed=11)
+    bias = torch.randn(48, generator=torch.Generator().manual_seed(12)).to(dev)
+    launches = modulated_deform_conv2d.launches
+    got = modulated_deform_conv2d(x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2),
+                                  mask.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), bias)
+    torch.cuda.synchronize()
+    assert modulated_deform_conv2d.launches == launches + 1
+    assert got.dtype == dt and got.is_contiguous(memory_format=torch.channels_last)
+    want = deform_conv2d_plain(x, off, mask, wt, None, bias).float()
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(), want, atol=tol, rtol=tol)
+
+
+def test_dcn_k5_on_the_card_runs_the_plain_path(dev):
+    """k = 5 has no kernel (the JAX function is plain JAX): on the card it
+    runs the plain version, launching no K1, and equals the same call on
+    the CPU, which tests/test_torch_signatures.py holds to JAX's."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 9, 11, 16, generator=g)
+    off = torch.randn(2, 9, 11, 50, generator=g) * 1.5
+    mask = torch.rand(2, 9, 11, 25, generator=g)
+    wt = torch.randn(48, 16, 5, 5, generator=g) * 0.05
+    bias = torch.randn(48, generator=g)
+    args = [t.permute(0, 3, 1, 2) for t in (x, off, mask)] + [wt, bias, 5]
+    want = modulated_deform_conv2d(*args)
+    launches = modulated_deform_conv2d.launches
+    got = modulated_deform_conv2d(*[a.to(dev) if torch.is_tensor(a) else a for a in args])
+    torch.cuda.synchronize()
+    assert modulated_deform_conv2d.launches == launches
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
 
 
 def test_dcn_on_cuda_has_grad_fn_and_launches_backward(dev):

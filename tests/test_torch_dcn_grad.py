@@ -77,7 +77,7 @@ def test_function_on_cpu_equals_plain_version(radius):
     x, off, mask, wt, g = _inputs(4.0, seed=21)
     nchw = [torch.from_numpy(a).permute(0, 3, 1, 2).requires_grad_() for a in (x, off, mask)]
     weight = torch.from_numpy(wt).permute(3, 2, 0, 1).detach().requires_grad_()
-    y = modulated_deform_conv2d(*nchw, weight, radius)
+    y = modulated_deform_conv2d(*nchw, weight, radius=radius)
     assert y.grad_fn is not None
     want_y = deform_conv2d_plain(*(torch.from_numpy(a) for a in (x, off, mask, wt)), radius)
     torch.testing.assert_close(y.permute(0, 2, 3, 1), want_y, rtol=0, atol=0)

@@ -33,10 +33,17 @@ sys.path.insert(0, "tests")
 import torch_jax_checkpoint  # chip_smoke's JAX-layout writer: the card has no JAX
 import torch_parallel_worker  # chip_smoke's data-parallel ranks
 import torch_dropout_masks  # chip_smoke's shared dropout masks
+import examples_torch
+examples = [m.name for m in pkgutil.iter_modules(examples_torch.__path__, "examples_torch.")]
+for n in examples:
+    importlib.import_module(n)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+print(" ".join(examples))
 print(" ".join(names))
 """
+EXAMPLES = ("action_recognition", "check_ckpt", "detect", "region_counter",
+            "sahi_tiled_inference", "train11", "val")
 
 # the train slice's, the bounded-DCN slice's, the training options', the OBB
 # training and export slice's, the CLI / tune / benchmark / data-parallel
@@ -72,6 +79,24 @@ def test_port_imports_nothing_of_jax():
     assert len(names) >= 40  # every module was imported
     missing = [m for m in TRAIN_SLICE_MODULES if f"yolo_ad_refine_tpu_torch.{m}" not in names]
     assert not missing, missing
+    examples = set(out.stdout.strip().splitlines()[-2].split())
+    assert examples == {f"examples_torch.{m}" for m in EXAMPLES}
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_script_imports_nothing_of_jax(name):
+    """Every import of an example script, those inside its functions too
+    (which run only when its main runs), is of neither JAX, flax, optax nor
+    the JAX package."""
+    import ast
+
+    tree = ast.parse((REPO / "examples_torch" / f"{name}.py").read_text())
+    roots = {a.name.split(".")[0] for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names}
+    roots |= {(node.module or "").split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom)}
+    assert "yolo_ad_refine_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "yolo_ad_refine_tpu"}, roots
 
 
 def test_importing_native_builds_nothing():

@@ -72,7 +72,10 @@ def ablation_cfg(name: str) -> dict:
 def capture_dropout(store: dict):
     """A flax interceptor that runs each train-mode ``nn.Dropout`` exactly
     as flax does (the same rng, the same mask, the same select) and puts its
-    keep mask into ``store`` under the module's scope path."""
+    keep mask into ``store`` under the module's scope path. The masks arrive
+    through ``jax.debug.callback``, which may run after the jitted call has
+    returned: a caller waits with ``jax.effects_barrier()`` before reading
+    ``store``."""
 
     def interceptor(next_fun, args, kwargs, context):
         mod = context.module
@@ -197,6 +200,10 @@ def test_tssa_module_train_mode_matches_jax(name):
             v, a, train=True, mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(5)}))(
             {"params": variables["params"], "batch_stats": variables.get("batch_stats", {})},
             jnp.asarray(x))
+        # the masks reach ``store`` through debug callbacks, which may still be
+        # running when the call returns: wait for them before reading it
+        jax.block_until_ready((want, updated))
+        jax.effects_barrier()
     wrapped = torch.nn.Module()
     wrapped.model = torch.nn.ModuleList([pmod])
     if dropout_modules(pmod):

@@ -86,6 +86,7 @@ def steps(few_threads):
         jstate, jmetrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                                 jax.random.PRNGKey(0))
         jax.block_until_ready(jstate)
+        jax.effects_barrier()  # the dropout masks' callbacks have run
     jgrads = jstate.opt_state[1]
 
     port = _port_like(cfg, variables)

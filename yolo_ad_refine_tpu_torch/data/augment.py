@@ -29,11 +29,17 @@ import torch
 import torch.nn.functional as F
 
 
-def letterbox(img, new_shape=(640, 640), color: int = 114, auto: bool = False,
-              scaleup: bool = True, center: bool = True, stride: int = 32):
+def letterbox(img, new_shape=(640, 640), color=(114, 114, 114), auto: bool = False,
+              scale_fill: bool = False, scaleup: bool = True, center: bool = True,
+              stride: int = 32):
     """Resize an (H, W, C) uint8 image (numpy or tensor) into ``new_shape``
-    keeping its aspect, then pad with ``color``. Returns (img (h, w, C) uint8
-    tensor, (r, r), (dw, dh)); the pad is split round(d -+ 0.1)."""
+    keeping its aspect, then pad with ``color`` (one value a channel, or an
+    int for every channel). Returns (img (h, w, C) uint8 tensor, (rw, rh),
+    (dw, dh)); the pad is split round(d -+ 0.1). ``scale_fill`` stretches
+    the image to ``new_shape`` with no pad, each axis at its own ratio, as
+    the reference's LetterBox(scaleFill=True) does. ROADMAP hazard (w): the
+    JAX letterbox ignores ``scale_fill`` and pads an int colour as
+    (v, 0, 0), cv2's reading of a scalar."""
     if isinstance(img, np.ndarray):
         img = torch.from_numpy(np.ascontiguousarray(img))
     shape = img.shape[:2]  # h, w
@@ -42,10 +48,15 @@ def letterbox(img, new_shape=(640, 640), color: int = 114, auto: bool = False,
     r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
     if not scaleup:
         r = min(r, 1.0)
+    ratio = (r, r)
     new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))  # w, h
     dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
     if auto:
         dw, dh = dw % stride, dh % stride
+    elif scale_fill:
+        dw, dh = 0.0, 0.0
+        new_unpad = (new_shape[1], new_shape[0])
+        ratio = (new_shape[1] / shape[1], new_shape[0] / shape[0])
     if center:
         dw /= 2
         dh /= 2
@@ -56,10 +67,11 @@ def letterbox(img, new_shape=(640, 640), color: int = 114, auto: bool = False,
         img = x[0].round_().clamp_(0, 255).to(torch.uint8).permute(1, 2, 0)
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
-    out = torch.full((new_unpad[1] + top + bottom, new_unpad[0] + left + right, img.shape[2]),
-                     color, dtype=torch.uint8, device=img.device)
+    out = torch.empty((new_unpad[1] + top + bottom, new_unpad[0] + left + right, img.shape[2]),
+                      dtype=torch.uint8, device=img.device)
+    out[:] = torch.as_tensor(color, dtype=torch.uint8, device=img.device)
     out[top:top + new_unpad[1], left:left + new_unpad[0]] = img
-    return out, (r, r), (dw, dh)
+    return out, ratio, (dw, dh)
 
 
 def letterbox_np(img, new_shape=(640, 640), color=(114, 114, 114), auto: bool = False,

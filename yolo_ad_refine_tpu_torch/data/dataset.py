@@ -109,12 +109,19 @@ def img2label_path(img_path: str) -> str:
 
 
 class YOLODataset:
-    """Detection dataset over an image dir, list file or single image."""
+    """Detection dataset over an image dir, list file or single image.
+
+    The parameters are the JAX package's, in its order. ``cache`` is its
+    label-cache switch (a ``.yat_labels_<hash>.npz`` beside the images);
+    the port keeps no label cache and parses the label files at each
+    construction, whatever ``cache`` says. ``cache_images`` is the image
+    cache ("ram" or "disk")."""
 
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = False,
                  hyp: dict | None = None, max_boxes: int = 128, nc: int = 80,
-                 fraction: float = 1.0, task: str = "detect", cache_images: str | bool = False,
-                 kpt_shape: tuple | None = None, flip_idx: list | None = None):
+                 fraction: float = 1.0, cache: bool = True, task: str = "detect",
+                 kpt_shape: tuple | None = None, flip_idx: list | None = None,
+                 cache_images: str | bool = False):
         check_task(task, "ClassificationDataset")
         self.imgsz = imgsz
         # pose: the (K, ndim) keypoint layout, inferred from the label rows when

@@ -263,9 +263,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.bias_init()
 
 
-def build_detection_model(cfg, nc: int | None = None, device: str | torch.device = "cuda",
-                          dtype=torch.float32, seed: int = 0, imgsz: int = 640,
-                          verbose: bool = False) -> DetectionModel:
+def build_detection_model(cfg, nc: int | None = None, dtype=torch.float32, seed: int = 0,
+                          imgsz: int = 640, verbose: bool = False,
+                          device: str | torch.device = "cuda") -> DetectionModel:
     """Build a model from a yaml, draw its weights from ``seed``, move it to
     ``device`` / ``dtype`` and probe its strides. Inputs are channels_last,
     which the convolutions follow. ``device`` defaults to the card and raises

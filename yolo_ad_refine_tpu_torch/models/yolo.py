@@ -39,8 +39,8 @@ class YOLO:
     load a checkpoint directory), predict, train and validate."""
 
     def __init__(self, model: str | dict = "yolo11n.yaml", task: str | None = None,
-                 device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
-                 seed: int = 0, imgsz: int = 640, nc: int | None = None, verbose: bool = False):
+                 nc: int | None = None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 imgsz: int = 640, verbose: bool = False, device: str | torch.device = "cuda"):
         device = select_device(device)
         if isinstance(model, dict):  # a model yaml's dict, e.g. a row swapped in a copy
             cfg, model = model, str(model.get("yaml_file", "model.yaml"))

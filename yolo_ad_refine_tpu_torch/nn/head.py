@@ -449,7 +449,7 @@ class ModulatedDeformConv(nn.Module):
         if torch.is_autocast_enabled(x.device.type):  # a conv: runs in the autocast type
             x = x.to(torch.get_autocast_dtype(x.device.type)).contiguous(
                 memory_format=torch.channels_last)
-        return dcn(x, offset, mask, self.weight, radius)
+        return dcn(x, offset, mask, self.weight, radius=radius)
 
 
 class DyDCNv2(nn.Module):

@@ -159,18 +159,22 @@ def _bilinear_sample(x_flat, coords_y, coords_x, h: int, w: int, hat: bool = Fal
     return torch.einsum("bnyx,bnyxc->bnc", weights, blocks)
 
 
-def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None):
-    """DCNv2 forward in plain PyTorch. x (B,H,W,C), offset (B,H,W,18),
-    mask (B,H,W,9), weight (3,3,C,Cout) HWIO. Returns (B,H,W,Cout) in
-    x.dtype, accumulated in fp32 (fp64 for fp64 inputs, for gradcheck).
+def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None, bias=None):
+    """DCNv2 forward in plain PyTorch. x (B,H,W,C), offset (B,H,W,2k²),
+    mask (B,H,W,k²), weight (k,k,C,Cout) HWIO, k odd (3 for K1), stride 1,
+    padding k // 2; ``bias`` (Cout,) is added to the sums before the cast,
+    as the JAX function adds it. Returns (B,H,W,Cout) in x.dtype,
+    accumulated in fp32 (fp64 for fp64 inputs, for gradcheck).
 
     With an integer ``radius`` the offsets are clipped to +-radius and pass
     gradient only where |offset| < radius, as the TPU kernel's VJP does
     (``deform_mxu2.py:483``), and the derivative along an axis is 0 where
     the sample coordinate is integral (its ``_dhat``)."""
     b, h, w, c = x.shape
+    k = weight.shape[0]
+    kk = k * k
     cout = weight.shape[-1]
-    pad = K // 2
+    pad = k // 2
     dev = x.device
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     x_flat = x.reshape(b, h * w, c)
@@ -179,21 +183,23 @@ def deform_conv2d_plain(x, offset, mask, weight, radius: int | None = None):
     gx = torch.arange(w, dtype=acc, device=dev)[None, :]
     base_y = torch.broadcast_to(gy, (h, w)).reshape(1, h * w, 1)
     base_x = torch.broadcast_to(gx, (h, w)).reshape(1, h * w, 1)
-    tap_dy = torch.tensor([t // K - pad for t in range(KK)], dtype=acc, device=dev)
-    tap_dx = torch.tensor([t % K - pad for t in range(KK)], dtype=acc, device=dev)
+    tap_dy = torch.tensor([t // k - pad for t in range(kk)], dtype=acc, device=dev)
+    tap_dx = torch.tensor([t % k - pad for t in range(kk)], dtype=acc, device=dev)
 
-    offset = offset.to(acc).reshape(b, h * w, KK, 2)
+    offset = offset.to(acc).reshape(b, h * w, kk, 2)
     if radius is not None:
         r = float(radius)
         offset = torch.where(offset.abs() < r, offset, offset.clamp(-r, r).detach())
-    cy = (base_y + tap_dy[None, None, :] + offset[..., 0]).reshape(b, h * w * KK)
-    cx = (base_x + tap_dx[None, None, :] + offset[..., 1]).reshape(b, h * w * KK)
+    cy = (base_y + tap_dy[None, None, :] + offset[..., 0]).reshape(b, h * w * kk)
+    cx = (base_x + tap_dx[None, None, :] + offset[..., 1]).reshape(b, h * w * kk)
 
-    sampled = _bilinear_sample(x_flat, cy, cx, h, w, hat=radius is not None)  # (B, HW*KK, C)
-    sampled = sampled * mask.reshape(b, h * w * KK, 1).to(sampled.dtype)
-    sampled = sampled.reshape(b, h * w, KK * c)
-    w_mat = weight.reshape(KK * c, cout)
+    sampled = _bilinear_sample(x_flat, cy, cx, h, w, hat=radius is not None)  # (B, HW*kk, C)
+    sampled = sampled * mask.reshape(b, h * w * kk, 1).to(sampled.dtype)
+    sampled = sampled.reshape(b, h * w, kk * c)
+    w_mat = weight.reshape(kk * c, cout)
     out = torch.matmul(sampled.to(acc), w_mat.to(acc))
+    if bias is not None:
+        out = out + bias.to(acc)
     return out.reshape(b, h, w, cout).to(x.dtype)
 
 
@@ -408,21 +414,43 @@ dcn_forward_op, dcn_backward_op = register_dcn_ops(
     radius_type="float?")
 
 
-def modulated_deform_conv2d(x, offset, mask, weight, radius: int | None = None):
-    """DCNv2 on channels_last NCHW tensors: x (B,C,H,W), offset
-    (B,18,H,W) fp32, mask (B,9,H,W) fp32, weight (Cout,C,3,3), cast to
-    x.dtype here as the JAX DyDCNv2 does (its gradient flows back through
-    the cast). Returns (B,Cout,H,W) channels_last in x.dtype,
-    differentiable in all four inputs.
+def modulated_deform_conv2d(x, offset, mask, weight, bias=None, k: int = 3, *,
+                            radius: int | None = None):
+    """DCNv2 on channels_last NCHW tensors, with the JAX function's
+    parameters (``ops/deform.py:133``): x (B,C,H,W), offset (B,2k²,H,W)
+    fp32, mask (B,k²,H,W) fp32, weight (Cout,C,k,k), cast to x.dtype here
+    as the JAX DyDCNv2 does (its gradient flows back through the cast),
+    ``bias`` (Cout,) or None, stride 1 and padding k // 2. Returns
+    (B,Cout,H,W) channels_last in x.dtype, differentiable in every input.
 
-    It calls the dispatcher op ``yat_ad::dcn_forward`` (its backward
-    ``yat_ad::dcn_backward``): a CPU tensor runs ``deform_conv2d_plain``
-    (and the autograd of it); a CUDA tensor launches the kernels of
-    ``csrc/deform_conv.cu`` (K1 fwd, and K1 bwd in the backward) or raises."""
+    ``k`` picks the route, never a failure: k = 3 calls the dispatcher op
+    ``yat_ad::dcn_forward`` (its backward ``yat_ad::dcn_backward``), whose
+    CPU implementation runs ``deform_conv2d_plain`` (and the autograd of
+    it) and whose CUDA one launches the kernels of ``csrc/deform_conv.cu``
+    (K1 fwd, and K1 bwd in the backward) or raises. Any other odd k runs
+    ``deform_conv2d_plain`` on the tensor's device, CPU or card: the JAX
+    function is plain JAX there, with no Pallas kernel behind it. An even
+    k raises. The bias is added in fp32 and the sum cast to x.dtype, as in
+    JAX; for k = 3 it is added to K1's output, which in bf16 has been
+    rounded once already. ``radius`` (keyword only, the port's): clip the
+    offsets at +-radius and take the hat derivative (module docstring)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulated_deform_conv2d: unsupported device {x.device}")
-    return dcn_forward_op(x, offset, mask, weight.to(x.dtype),
-                          None if radius is None else float(radius))
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"modulated_deform_conv2d: k={k}; the kernel size must be odd")
+    if tuple(weight.shape[-2:]) != (k, k):
+        raise ValueError(f"modulated_deform_conv2d: weight {tuple(weight.shape)} is not "
+                         f"(Cout, C, {k}, {k}) for k={k}")
+    weight = weight.to(x.dtype)
+    if k != K:
+        y = deform_conv2d_plain(x.permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
+                                mask.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0), radius,
+                                bias)
+        return y.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    y = dcn_forward_op(x, offset, mask, weight, None if radius is None else float(radius))
+    if bias is None:
+        return y
+    return (y.float() + bias.float()[:, None, None]).to(x.dtype)
 
 
 modulated_deform_conv2d.launches = 0

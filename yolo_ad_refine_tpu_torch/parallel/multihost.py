@@ -36,7 +36,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from yolo_ad_refine_tpu_torch.utils import LOGGER
+from yolo_ad_refine_tpu_torch.utils import LOGGER, select_device
 
 
 def launcher_env() -> dict | None:
@@ -69,15 +69,18 @@ def backend_for(device: torch.device, local_world_size: int) -> tuple[str, str]:
     return "nccl", f"one card a rank ({local_world_size} ranks, {n} cards)"
 
 
-def maybe_initialize_distributed(device: torch.device,
+def maybe_initialize_distributed(device: torch.device | str | None = None,
                                  timeout: timedelta = timedelta(minutes=30)) -> bool:
     """Create the default process group when a launcher asked for one and
-    it does not exist yet. Returns True when running in a process group."""
+    it does not exist yet. Returns True when running in a process group.
+    ``device`` is the rank's device (None: its card, ``select_device``),
+    which picks the backend."""
     if dist.is_initialized():
         return True
     env = launcher_env()
     if env is None:
         return False
+    device = select_device("cuda") if device is None else torch.device(device)
     if (env["launcher"] == "YAT" and "LOCAL_RANK" not in os.environ
             and device.type == "cuda" and torch.cuda.device_count() > 1):
         raise RuntimeError(
@@ -165,8 +168,11 @@ def broadcast_object(obj, root: int = 0):
     return box[0]
 
 
-def sync_hosts() -> None:
-    """Barrier (reference torch_distributed_zero_first)."""
+def sync_hosts(tag: str = "barrier") -> None:
+    """Barrier (reference torch_distributed_zero_first). ``tag`` is the
+    name the JAX package gives its barrier (``sync_global_devices``);
+    torch's barrier takes no name, so every rank must reach the same
+    sequence of calls whatever their tags."""
     if world_size() > 1:
         dist.barrier(device_ids=[torch.cuda.current_device()]
                      if dist.get_backend() == "nccl" else None)

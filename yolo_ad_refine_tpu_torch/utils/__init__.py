@@ -49,8 +49,9 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> dict:
     return data
 
 
-def yaml_save(file: str | Path, data: dict | None = None) -> None:
-    """Save a dict to yaml, converting paths and numpy scalars to builtins."""
+def yaml_save(file: str | Path, data: dict | None = None, header: str = "") -> None:
+    """Save a dict to yaml, converting paths and numpy scalars to builtins;
+    ``header`` (a comment, say) is written first, as it stands."""
     file = Path(file)
     file.parent.mkdir(parents=True, exist_ok=True)
     clean = {}
@@ -61,6 +62,8 @@ def yaml_save(file: str | Path, data: dict | None = None) -> None:
             v = v.item()
         clean[k] = v
     with open(file, "w", errors="ignore", encoding="utf-8") as f:
+        if header:
+            f.write(header)
         yaml.safe_dump(clean, f, sort_keys=False, allow_unicode=True)
 
 
@@ -119,13 +122,18 @@ def colorstr(*args) -> str:
     return "".join(codes[s] for s in styles) + f"{string}" + codes["end"]
 
 
-def increment_path(path: str | Path, exist_ok: bool = False, mkdir: bool = False) -> Path:
-    """runs/train -> runs/train2, runs/train3, ... unless ``exist_ok``."""
+def increment_path(path: str | Path, exist_ok: bool = False, sep: str = "",
+                   mkdir: bool = False) -> Path:
+    """runs/train -> runs/train{sep}2, runs/train{sep}3, ... unless
+    ``exist_ok``; an existing file is numbered before its suffix
+    (results.csv -> results{sep}2.csv)."""
     path = Path(path)
     if path.exists() and not exist_ok:
+        path, suffix = (path.with_suffix(""), path.suffix) if path.is_file() else (path, "")
         for n in range(2, 9999):
-            if not Path(f"{path}{n}").exists():
-                path = Path(f"{path}{n}")
+            p = Path(f"{path}{sep}{n}{suffix}")
+            if not p.exists():
+                path = p
                 break
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)

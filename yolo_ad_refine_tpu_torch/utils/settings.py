@@ -23,9 +23,9 @@ SETTINGS_FILE = Path.home() / ".config" / "yolo_ad_refine_tpu_torch" / "settings
 class SettingsManager(dict):
     """JSON-persisted settings dict (reference SettingsManager semantics)."""
 
-    def __init__(self, file: str | Path | None = None, version: str = "0.0.6"):
+    def __init__(self, file: str | Path = SETTINGS_FILE, version: str = "0.0.6"):
         super().__init__()
-        self.file = Path(file or SETTINGS_FILE)
+        self.file = Path(file)
         self.version = version
         self.lock = threading.Lock()
         root = Path.cwd()
